@@ -1,0 +1,89 @@
+"""Carry weights from the JAX package's parameter trees into the port.
+
+`state_dict_from_jax` maps a JAX parameter tree, nested or flat with `/`
+keys as in `docs/checkpoints/*.npz`, onto the port's `state_dict`:
+
+  * a node's path becomes its key (`stack_0_0/conv_dilated` ->
+    `stack_0_0.conv_dilated`), the port's modules being named alike;
+  * weight norm is fused in float32, as the JAX package's
+    `train/checkpoint.py::fuse_weight_norm` does: `g` scales each output
+    channel over (K, Cin), `gt` (transposed convs) each input channel over
+    (K, Cout).  Trees already fused are taken as they are;
+  * kernels (K, Cin, Cout) become torch weights: (Cout, Cin, K) for a
+    convolution, (Cin, Cout, K) for a transposed one.  A transposed conv is
+    a node with `gt`, or, in a fused tree, an upsampler node `up_<i>`.
+
+`load_release_npz` reads a committed release checkpoint.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+from typing import Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+Tree = Mapping[str, Union[np.ndarray, "Tree"]]
+
+_UPSAMPLER = re.compile(r"up_\d+")
+
+
+def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    nodes: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in _flatten(params).items():
+        node, _, leaf = key.rpartition("/")
+        nodes.setdefault(node, {})[leaf] = value.astype(np.float32)
+
+    out: Dict[str, torch.Tensor] = {}
+    for node, leaves in nodes.items():
+        name = node.replace("/", ".")
+        unknown = set(leaves) - {"kernel", "g", "gt", "bias", "basis"}
+        if unknown:
+            raise ValueError(f"{node}: unexpected parameters {sorted(unknown)}")
+        if "kernel" in leaves:
+            k = leaves["kernel"]
+            if "g" in leaves:
+                norm = np.sqrt(np.sum(k**2, axis=(0, 1), keepdims=True))
+                k = k * (leaves["g"] / norm)
+            elif "gt" in leaves:
+                norm = np.sqrt(np.sum(k**2, axis=(0, 2), keepdims=True))
+                k = k * (leaves["gt"][None, :, None] / norm)
+            transposed = "gt" in leaves or bool(_UPSAMPLER.fullmatch(node.split("/")[-1]))
+            k = k.transpose(1, 2, 0) if transposed else k.transpose(2, 1, 0)
+            out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
+        if "bias" in leaves:
+            out[f"{name}.bias"] = torch.from_numpy(leaves["bias"])
+        if "basis" in leaves:
+            out[f"{name}.basis"] = torch.from_numpy(leaves["basis"])
+    return out
+
+
+def load_release_npz(path: str) -> dict:
+    """A release checkpoint (`tools/export_release_checkpoint.py` format:
+    f16 `param:<path>` arrays, a `pattern`, JSON `meta`) ->
+    {model_name, config, state_dict, pattern}.  Arrays are cast to
+    float32; `pattern` (the zero-mel response, 3,000 frames in the
+    committed files) is None when empty."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z["meta"]))
+        flat = {k[len("param:"):]: z[k] for k in z.files if k.startswith("param:")}
+        pattern = z["pattern"].astype(np.float32)
+    return {
+        "model_name": meta["model_name"],
+        "config": meta["config"],
+        "state_dict": state_dict_from_jax(flat),
+        "pattern": pattern if pattern.size else None,
+    }

@@ -1,0 +1,126 @@
+"""Fused Basis-MelGAN decode: weights @ basis + 50 %-overlap-add in one op.
+
+Counterpart of `fastvocoder_tpu/ops/basis_decode.py`.  With hop = L / 2
+every output sample is the sum of exactly two frame samples, so the decode
+is a shift-matmul:
+
+    out[f*hop : (f+1)*hop] = W[f] @ basis[:hop].T + W[f-1] @ basis[hop:].T
+
+for f in [0, F], rows -1 and F being zero.  Output length (F + 1) * hop.
+
+`basis_decode` routes by device: CUDA tensors go to the hand-written kernel
+(`csrc/basis_decode.cu`), CPU tensors to `basis_decode_plain`.  The kernel
+is forward only; its gradient is the plain version's VJP
+(`basis_decode_vjp`), as the JAX package pairs its Pallas forward with the
+XLA VJP.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from fastvocoder_tpu_torch.ops import _build
+
+NAME = "basis_decode"
+
+
+def _halves(basis: torch.Tensor, dtype: torch.dtype):
+    L = basis.shape[0]
+    if L % 2:
+        raise ValueError(f"basis length L={L} must be even (hop = L / 2)")
+    hop = L // 2
+    return basis[:hop].t().to(dtype), basis[hop:].t().to(dtype), hop
+
+
+def basis_decode_plain(weight: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """weight (B, F, C), basis (L, C) -> wav (B, (F + 1) * L/2)."""
+    b1, b2, hop = _halves(basis, weight.dtype)
+    a = F.pad(weight, (0, 0, 0, 1))  # a[f] = W[f], zero at f = F
+    b = F.pad(weight, (0, 0, 1, 0))  # b[f] = W[f-1], zero at f = 0
+    out = a @ b1 + b @ b2  # (B, F+1, hop)
+    return out.reshape(weight.shape[0], -1)
+
+
+def basis_decode_vjp(weight: torch.Tensor, basis: torch.Tensor, g: torch.Tensor):
+    """Cotangents (d weight, d basis) of `basis_decode_plain` for output
+    cotangent g (B, (F + 1) * hop)."""
+    b1, b2, hop = _halves(basis, weight.dtype)
+    B, Fr, C = weight.shape
+    g = g.reshape(B, Fr + 1, hop)
+    da = g @ b1.t()  # (B, F+1, C)
+    db = g @ b2.t()
+    dweight = da[:, :Fr] + db[:, 1:]
+    a = F.pad(weight, (0, 0, 0, 1))
+    b = F.pad(weight, (0, 0, 1, 0))
+    dbasis = torch.cat(
+        [torch.einsum("bfc,bfh->hc", a, g), torch.einsum("bfc,bfh->hc", b, g)]
+    ).to(basis.dtype)
+    return dweight, dbasis
+
+
+def basis_decode_cuda(weight: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel; weight (B, F, C) and basis (L, C) float32,
+    contiguous, on one CUDA device."""
+    for name, t in (("weight", weight), ("basis", basis)):
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"{NAME}: {name} must be a contiguous float32 CUDA tensor, got "
+                f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+    if weight.device != basis.device:
+        raise ValueError(f"{NAME}: weight on {weight.device}, basis on {basis.device}")
+    if weight.dim() != 3 or basis.dim() != 2 or weight.shape[2] != basis.shape[1]:
+        raise ValueError(
+            f"{NAME}: want weight (B, F, C) and basis (L, C), got "
+            f"{tuple(weight.shape)} and {tuple(basis.shape)}"
+        )
+    B, Fr, C = weight.shape
+    L = basis.shape[0]
+    if L % 2 or Fr < 1 or C % 4:
+        raise ValueError(
+            f"{NAME}: want even L, F >= 1 and C a multiple of 4, got L={L}, F={Fr}, C={C}"
+        )
+    if weight.data_ptr() % 16 or basis.data_ptr() % 16:
+        raise ValueError(f"{NAME}: weight and basis must be 16-byte aligned")
+    hop = L // 2
+    out = torch.empty((B, (Fr + 1) * hop), dtype=torch.float32, device=weight.device)
+    if B == 0:
+        return out
+    lib = _build.library(NAME)
+    fn = lib.fvt_basis_decode
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(weight.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(weight.data_ptr(), basis.data_ptr(), out.data_ptr(), B, Fr, C, L, stream)
+    _build.check_launch(NAME, err)
+    return out
+
+
+class _BasisDecode(torch.autograd.Function):
+    """Kernel forward, plain-version VJP backward."""
+
+    @staticmethod
+    def forward(ctx, weight, basis):
+        ctx.save_for_backward(weight, basis)
+        return basis_decode_cuda(weight, basis)
+
+    @staticmethod
+    def backward(ctx, g):
+        weight, basis = ctx.saved_tensors
+        dweight, dbasis = basis_decode_vjp(weight, basis, g)
+        return (
+            dweight if ctx.needs_input_grad[0] else None,
+            dbasis if ctx.needs_input_grad[1] else None,
+        )
+
+
+def basis_decode(weight: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """weight (B, F, C), basis (L, C) -> wav (B, (F + 1) * L/2).  The
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if weight.is_cuda:
+        return _BasisDecode.apply(weight, basis)
+    return basis_decode_plain(weight, basis)
