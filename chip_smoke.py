@@ -4,13 +4,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `fastvocoder_tpu_torch/csrc/` with
-`nvcc`, holds each against its plain PyTorch version at the main path's
-shapes and times both, then drives the main path (Basis-MelGAN light on the
-release checkpoint `docs/checkpoints/basis_melgan_clean2.npz`, full width)
-through the entry points a user calls: `Synthesizer`, the RTF protocol of
-`bin/test.py`, and the HTTP server of `bin/serve.py`.  Launch counts are
-zeroed before each of those three paths and read right after it; the run
-fails if a kernel of the path was not launched.
+`nvcc`, holds each against its plain PyTorch version at its paths' shapes
+and times both, then drives each ported model at full width on its release
+checkpoint (`docs/checkpoints/`) through the entry points a user calls:
+
+  * Basis-MelGAN light: `Synthesizer`, the RTF protocol of `bin/test.py`,
+    the HTTP server of `bin/serve.py` (kernels: basis_decode,
+    fused_resstack);
+  * HiFiGAN light: the same three (kernels: fused_mrf, fused_tail);
+  * MultiBand-HiFiGAN light: `Synthesizer` and the RTF protocol (kernel:
+    fused_mrf).
+
+Launch counts are zeroed before each path and read right after it; the run
+fails if a kernel of the path was not launched.  A profile of one batch-1
+inference of each of the first two models closes the run.
 
 Output: the card's name and power limit, a log per phase, then one JSON line
 with the kernels (launches, error, times, bound) and, last, one JSON line
@@ -36,7 +43,12 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "docs", "checkpoints", "basis_melgan_clean2.npz")
 CONF = os.path.join(ROOT, "conf", "basis-melgan", "light.yaml")
+HIFI_CKPT = os.path.join(ROOT, "docs", "checkpoints", "hifigan_light_clean2.npz")
+HIFI_CONF = os.path.join(ROOT, "conf", "hifigan", "light.yaml")
+MB_CKPT = os.path.join(ROOT, "docs", "checkpoints", "mb_hifigan_light_clean.npz")
+MB_CONF = os.path.join(ROOT, "conf", "multiband-hifigan", "light.yaml")
 MEL_FRAMES = 585  # the RTF protocol's utterance (bench.py's eval set)
+HOP = 240
 
 # H100 SXM published peaks at the full 700 W (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
@@ -46,8 +58,12 @@ PEAK_F32_FLOP_PER_S = 67e12  # float32 on the CUDA cores, no tensor cores
 # decode: twice the worst-case rounding of its 2C-term dot products;
 # chain: 3e-4 of the output's magnitude (isolated rows near the leaky-relu
 # kink may flip branch, as in tests/test_fused_resstack.py), and 90 % of
-# rows within 3e-6 of it; whole model GPU vs CPU: 1e-4 of the peak.
+# rows within 3e-6 of it; MRF stage: the chain's maximum, rows within 1e-5
+# (chains of 6 convs of up to 11 C taps, 2816 products a row at C = 256);
+# tail (after tanh): 1e-4, rows within 1e-5; whole model GPU vs CPU: 1e-4
+# of the peak.  tests/test_torch_kernels_cuda.py holds the same bounds.
 CHAIN_TOL, CHAIN_ROW_TOL, MODEL_TOL = 3e-4, 3e-6, 1e-4
+MRF_TOL, MRF_ROW_TOL, TAIL_TOL, TAIL_ROW_TOL = 3e-4, 1e-5, 1e-4, 1e-5
 
 
 def log(msg: str) -> None:
@@ -184,14 +200,169 @@ def check_fused_resstack(torch, gen, T_main):
     }
 
 
+def rows_close(got, want, tol: float, row_tol: float):
+    """(max abs error, its bound, share of rows within row_tol, ok): max abs
+    within tol and 90 % of rows within row_tol, both scaled by the output's
+    magnitude."""
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs()
+    rows_ok = (err.amax(dim=(0, 2)) <= row_tol * scale).float().mean().item()
+    worst = err.max().item()
+    return worst, tol * scale, rows_ok, worst <= tol * scale and rows_ok > 0.9
+
+
+def mrf_work(B: int, T: int, blocks) -> tuple:
+    """(bytes, FLOP) of one MRF stage: x read and y written once, every
+    weight read once; 2 FLOP per multiply-add of every conv."""
+    C = blocks[0][0][0].shape[1]
+    taps = sum(k1.shape[0] + k2.shape[0] for pairs in blocks for k1, _, _, k2, _ in pairs)
+    weights = sum(k1.numel() + b1.numel() + k2.numel() + b2.numel()
+                  for pairs in blocks for k1, b1, _, k2, b2 in pairs)
+    return 4 * (2 * B * T * C + weights), 2 * B * T * taps * C * C
+
+
+def seeded_resblocks(torch, C: int, dev, seed: int, kernels=(3, 7, 11), dilations=(1, 3, 5)):
+    """ResBlock1 branches with torch's default conv init, from a seed."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, fan_in):
+        return ((torch.rand(shape, generator=g) * 2 - 1) / np.sqrt(fan_in)).to(dev)
+
+    return [[(u(K, C, C, fan_in=C * K), u(C, fan_in=C * K), d, u(K, C, C, fan_in=C * K),
+              u(C, fan_in=C * K)) for d in dilations] for K in kernels]
+
+
+def check_fused_mrf(torch, gen, frames: int):
+    """Kernel 4 against its plain version: the release weights of HiFiGAN
+    light's three MRF stages at one utterance's shapes, at batch 4 and at
+    lengths whose tiles touch both sequence edges, and C = 256 (HiFiGAN
+    large's widest stage) with seeded weights; times at the utterance's
+    shapes.  -> entry for the kernels line."""
+    from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage_cuda, fused_mrf_stage_plain
+
+    dev = next(gen.parameters()).device
+    g = torch.Generator().manual_seed(4)
+    stages = [[b.mrf_operands() for b in blocks] for blocks in gen.mrfs[:-1]]
+    rates = gen.cfg.upsample_rates
+    lengths = [frames * int(np.prod(rates[: i + 1])) for i in range(len(stages))]
+    cases = [(blocks, B, T) for blocks, T0 in zip(stages, lengths)
+             for B, T in ((1, T0), (4, T0), (1, 1), (2, 7), (1, 50))]
+    cases.append((seeded_resblocks(torch, 256, dev, 5), 1, frames * rates[0]))
+    worst = 0.0
+    for blocks, B, T in cases:
+        C = blocks[0][0][0].shape[1]
+        x = (0.3 * torch.randn(B, T, C, generator=g)).to(dev)
+        got = fused_mrf_stage_cuda(x, blocks)
+        want = fused_mrf_stage_plain(x, blocks)
+        torch.cuda.synchronize()
+        err, tol, rows_ok, ok = rows_close(got, want, MRF_TOL, MRF_ROW_TOL)
+        log(f"  fused_mrf ({B}, {T}, {C}): max abs {err:.3e} (tol {tol:.3e}), "
+            f"rows within {MRF_ROW_TOL:.0e} of the peak: {rows_ok:.4f}")
+        if not ok:
+            raise AssertionError(f"fused_mrf disagrees with its plain version at ({B}, {T}, {C})")
+        worst = max(worst, err)
+
+    per_stage, total = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    for blocks, T in zip(stages + [seeded_resblocks(torch, 256, dev, 5)],
+                         lengths + [frames * rates[0]]):
+        C = blocks[0][0][0].shape[1]
+        x = (0.3 * torch.randn(1, T, C, generator=g)).to(dev)
+        ms = cuda_ms(lambda: fused_mrf_stage_cuda(x, blocks), iters=20, warmup=3)
+        plain = cuda_ms(lambda: fused_mrf_stage_plain(x, blocks), iters=20, warmup=3)
+        nbytes, flops = mrf_work(1, T, blocks)
+        bms, by = bound_ms(nbytes, flops)
+        log(f"  fused_mrf (1, {T}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP)")
+        per_stage.append({"shape": [1, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms})
+        if C != 256:  # the main path's stages
+            for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
+                total[k] += v
+    bms, by = bound_ms(total["bytes"], total["flops"])
+    return {
+        "name": "fused_mrf", "route": "cuda",
+        "source": "fastvocoder_tpu_torch/csrc/fused_mrf.cu",
+        "replaces": "fastvocoder_tpu/ops/fused_mrf.py:112",
+        "shape": "HiFiGAN light's 3 MRF stages of a 585-frame utterance, summed: "
+                 + ", ".join(str(tuple(s["shape"])) for s in per_stage[:-1]),
+        "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": bms, "bound_by": by, "library_ms": None, "stages": per_stage,
+    }
+
+
+def check_fused_tail(torch, gen, frames: int):
+    """Kernel 6 against its plain version: HiFiGAN light's release tail at
+    one utterance's shape, at batch 2 with a short input and at T_in = 1,
+    and HiFiGAN large's 64 -> 32 tail with seeded weights; times at the
+    utterance's shape.  -> entry for the kernels line."""
+    from fastvocoder_tpu_torch.ops.fused_tail import (
+        fused_hifigan_tail_cuda,
+        fused_hifigan_tail_plain,
+    )
+
+    dev = next(gen.parameters()).device
+    g = torch.Generator().manual_seed(6)
+    light = gen.tail_operands()
+    T_main = frames * int(np.prod(gen.cfg.upsample_rates[:-1]))
+    gl = torch.Generator().manual_seed(7)
+
+    def u(*shape, fan_in):
+        return ((torch.rand(shape, generator=gl) * 2 - 1) / np.sqrt(fan_in)).to(dev)
+
+    large = (u(4, 64, 32, fan_in=128), u(32, fan_in=128), 2, 1,
+             seeded_resblocks(torch, 32, dev, 8), u(7, 32, 1, fan_in=224), u(1, fan_in=224))
+    worst = 0.0
+    for ops, B, T_in in ((light, 1, T_main), (light, 2, 35), (light, 1, 1), (large, 1, T_main)):
+        cin = ops[0].shape[1]
+        x = (0.3 * torch.randn(B, T_in, cin, generator=g)).to(dev)
+        got = fused_hifigan_tail_cuda(x, *ops)
+        want = fused_hifigan_tail_plain(x, *ops)
+        torch.cuda.synchronize()
+        err, tol, rows_ok, ok = rows_close(got, want, TAIL_TOL, TAIL_ROW_TOL)
+        log(f"  fused_tail ({B}, {T_in}, {cin}) -> {tuple(got.shape)}: max abs {err:.3e} "
+            f"(tol {tol:.3e}), rows within {TAIL_ROW_TOL:.0e}: {rows_ok:.4f}")
+        if got.shape != (B, 2 * T_in, 1) or not ok:
+            raise AssertionError(
+                f"fused_tail disagrees with its plain version at ({B}, {T_in}, {cin})")
+        worst = max(worst, err)
+
+    x = (0.3 * torch.randn(1, T_main, 32, generator=g)).to(dev)
+    ms = cuda_ms(lambda: fused_hifigan_tail_cuda(x, *light), iters=20, warmup=3)
+    plain = cuda_ms(lambda: fused_hifigan_tail_plain(x, *light), iters=20, warmup=3)
+    k_up, b_up, stride, _, blocks, k_post, b_post = light
+    T = stride * T_main
+    C = k_up.shape[2]
+    mrf_bytes, mrf_flops = mrf_work(1, T, blocks)
+    # read x and every weight once, write the waveform once
+    nbytes = mrf_bytes - 4 * 2 * T * C + 4 * (x.numel() + k_up.numel() + b_up.numel()
+                                             + k_post.numel() + b_post.numel() + T)
+    flops = (mrf_flops + 2 * T * (k_up.shape[0] // stride) * k_up.shape[1] * C
+             + 2 * T * k_post.shape[0] * C * k_post.shape[2])
+    bms, by = bound_ms(nbytes, flops)
+    log(f"  fused_tail (1, {T_main}, 32) -> (1, {T}, 1): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP)")
+    return {
+        "name": "fused_tail", "route": "cuda",
+        "source": "fastvocoder_tpu_torch/csrc/fused_tail.cu",
+        "replaces": "fastvocoder_tpu/ops/fused_tail.py:80",
+        "shape": f"x (1, {T_main}, 32) -> (1, {T}, 1), HiFiGAN light's last stage and head",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "library_ms": None,
+    }
+
+
 def kernel_class(name: str) -> str:
-    if "fused_resstacks_kernel" in name:
-        return "fused_resstack kernel"
-    if "basis_decode_kernel" in name:
-        return "basis_decode kernel"
+    for key, label in (("fused_resstacks_kernel", "fused_resstack kernel"),
+                       ("basis_decode_kernel", "basis_decode kernel"),
+                       ("mrf_pair_kernel", "fused_mrf kernel"),
+                       ("mrf_mean_kernel", "fused_mrf kernel"),
+                       ("tail_upsample_kernel", "fused_tail kernel"),
+                       ("tail_pair_kernel", "fused_tail kernel"),
+                       ("tail_head_kernel", "fused_tail kernel")):
+        if key in name:
+            return label
     low = name.lower()
     if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "implicit", "winograd", "fft")):
-        return "library convs (conv_pre, up_0, up_1)"
+        return "library convs (conv_pre, up_<i> outside the kernels)"
     return "elementwise, pads, copies"
 
 
@@ -245,6 +416,98 @@ def post(url: str, mel: np.ndarray):
         return r.status, np.load(io.BytesIO(r.read()))
 
 
+def synthesizer_phase(torch, count_path, Synthesizer, model: str, ckpt: str, conf: str,
+                      kernels, expect: tuple):
+    """Synthesizer on the card (bias + utterance) against the CPU plain
+    path; -> the card's Synthesizer and the mel."""
+    log(f"[{model}: Synthesizer]")
+    synth = Synthesizer(ckpt, conf, model)
+    mel = mel_like_bench(MEL_FRAMES, 0)
+    t0 = time.perf_counter()
+    est, est_remove, bias = count_path(f"{model} Synthesizer", lambda: synth.synthesize(mel),
+                                       kernels)
+    log(f"  synthesize (585 frames, bias + utterance): {time.perf_counter() - t0:.3f} s "
+        f"(first call), wav {est.shape}")
+    ref = Synthesizer(ckpt, conf, model, device="cpu").synthesize(mel)
+    for name, got, want in zip(("est", "est-bias", "bias"), (est, est_remove, bias), ref):
+        err = float(np.abs(got - want).max())
+        tol = MODEL_TOL * max(1.0, float(np.abs(want).max()))
+        finite = bool(np.isfinite(got).all())
+        log(f"  {name}: shape {got.shape}, peak {np.abs(want).max():.3f}, GPU vs CPU plain path "
+            f"max abs {err:.3e} (tol {tol:.3e}), finite {finite}")
+        if got.shape != want.shape or not finite or err > tol:
+            raise AssertionError(f"{model} Synthesizer {name} disagrees with the CPU plain path")
+    if est.shape != expect:
+        raise AssertionError(f"{model} waveform shape {est.shape}, want {expect}")
+    return synth, mel
+
+
+def rtf_phase(count_path, run_test, model: str, ckpt: str, conf: str, kernels) -> float:
+    """The RTF protocol of bin/test.py over 4 utterances; it writes
+    pattern-subtracted wavs for Basis-MelGAN only."""
+    log(f"[{model}: RTF protocol (bin/test.py)]")
+    with tempfile.TemporaryDirectory() as d:
+        for i, frames in enumerate((585, 585, 320, 700)):
+            np.save(os.path.join(d, f"utt{i}.npy"), mel_like_bench(frames, 10 + i).T)
+        rtf = count_path(f"{model} RTF", lambda: run_test([
+            "--checkpoint_path", ckpt, "--file_path", d, "--config", conf, "--model_name", model,
+        ]), kernels)
+        wavs = sorted(f for f in os.listdir(d) if f.endswith(".wav"))
+    log(f"  rtf {rtf!r} over 4 utterances ({len(wavs)} wavs written)")
+    if not (np.isfinite(rtf) and rtf > 0 and len(wavs) == (4 if model == "basis-melgan" else 0)):
+        raise AssertionError(f"{model} RTF protocol failed")
+    return rtf
+
+
+def serving_phase(count_path, run_serve, ServingModel, model: str, ckpt: str, conf: str,
+                  kernels) -> None:
+    """4 concurrent HTTP requests, twice, against a direct ServingModel call."""
+    log(f"[{model}: HTTP serving (bin/serve.py)]")
+    lengths = (60, 130, 300, 585)
+    req_mels = [mel_like_bench(n, 20 + i) for i, n in enumerate(lengths)]
+    results = [None] * len(req_mels)
+
+    def serve_all():
+        httpd, batcher = run_serve(
+            ["--checkpoint_path", ckpt, "--config", conf, "--model_name", model, "--port", "0"],
+            block=False,
+        )
+        try:
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+            def one(i):
+                results[i] = post(url + "/synthesize", req_mels[i])
+
+            for rnd in ("cold", "warm"):  # the cold round meets every shape first
+                threads = [threading.Thread(target=one, args=(i,)) for i in range(len(req_mels))]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+                log(f"  {rnd} round: 4 concurrent requests answered in "
+                    f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                return json.loads(r.read())
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.close()
+
+    health = count_path(f"{model} HTTP serving", serve_all, kernels)
+    log(f"  healthz {health}")
+    direct = ServingModel(ckpt, conf, model)(req_mels)
+    for i, n in enumerate(lengths):
+        if results[i] is None:
+            raise AssertionError(f"request {i} got no answer")
+        status, wav = results[i]
+        err = float(np.abs(wav - direct[i]).max())
+        tol = MODEL_TOL * max(1.0, float(np.abs(direct[i]).max()))
+        log(f"  request T={n}: status {status}, wav {wav.shape}, vs ServingModel max abs {err:.3e} (tol {tol:.3e})")
+        if status != 200 or wav.shape != (n * HOP,) or not np.isfinite(wav).all() or err > tol:
+            raise AssertionError(f"served request {i} is wrong")
+
+
 def main() -> int:
     import torch
 
@@ -278,104 +541,53 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     log("[kernels against their plain versions]")
-    synth = Synthesizer(CKPT, CONF, "basis-melgan")
-    gen = synth.generator
+    basis_gen = Synthesizer(CKPT, CONF, "basis-melgan").generator
+    hifi_gen = Synthesizer(HIFI_CKPT, HIFI_CONF, "hifigan").generator
     F_main = MEL_FRAMES * 16
     with torch.inference_mode():
-        entries = [check_basis_decode(torch, F_main, gen.basis_signal.basis),
-                   check_fused_resstack(torch, gen, F_main)]
-
+        entries = [check_basis_decode(torch, F_main, basis_gen.basis_signal.basis),
+                   check_fused_resstack(torch, basis_gen, F_main),
+                   check_fused_mrf(torch, hifi_gen, MEL_FRAMES),
+                   check_fused_tail(torch, hifi_gen, MEL_FRAMES)]
     launches = {e["name"]: 0 for e in entries}
 
-    def count_path(name, fn):
+    def count_path(name, fn, kernels):
+        """Run one path with every count zeroed; fail if it launched none
+        of `kernels`."""
         _build.launch_counts.clear()
         out = fn()
         torch.cuda.synchronize()
         counts = {k: _build.launch_counts[k] for k in launches}
         log(f"  launches on the {name} path: {counts}")
-        missing = [k for k, v in counts.items() if v == 0]
+        missing = [k for k in kernels if counts[k] == 0]
         if missing:
             raise AssertionError(f"{name} path never launched {missing}")
         for k, v in counts.items():
             launches[k] += v
         return out
 
-    log("[main path: Synthesizer]")
-    mel = mel_like_bench(MEL_FRAMES, 0)
-    t0 = time.perf_counter()
-    est, est_remove, bias = count_path("Synthesizer", lambda: synth.synthesize(mel))
-    log(f"  synthesize (585 frames, bias + utterance): {time.perf_counter() - t0:.3f} s "
-        f"(first call), wav {est.shape}")
-    ref = Synthesizer(CKPT, CONF, "basis-melgan", device="cpu").synthesize(mel)
-    for name, got, want in zip(("est", "est-bias", "bias"), (est, est_remove, bias), ref):
-        err = float(np.abs(got - want).max())
-        tol = MODEL_TOL * max(1.0, float(np.abs(want).max()))
-        finite = bool(np.isfinite(got).all())
-        log(f"  {name}: shape {got.shape}, GPU vs CPU plain path max abs {err:.3e} (tol {tol:.3e}), finite {finite}")
-        if got.shape != want.shape or not finite or err > tol:
-            raise AssertionError(f"Synthesizer {name} disagrees with the CPU plain path")
-    expect = ((MEL_FRAMES * 16 - 1) * 15 + 30,)
-    if est.shape != expect:
-        raise AssertionError(f"waveform shape {est.shape}, want {expect}")
+    basis = ("basis_decode", "fused_resstack")
+    hifi = ("fused_mrf", "fused_tail")
+    wav_len = (MEL_FRAMES * HOP,)
+    basis_synth, mel = synthesizer_phase(torch, count_path, Synthesizer, "basis-melgan", CKPT,
+                                         CONF, basis, ((MEL_FRAMES * 16 - 1) * 15 + 30,))
+    rtfs = {"basis-melgan": rtf_phase(count_path, run_test, "basis-melgan", CKPT, CONF, basis)}
+    serving_phase(count_path, run_serve, ServingModel, "basis-melgan", CKPT, CONF, basis)
 
-    log("[main path: RTF protocol (bin/test.py)]")
-    with tempfile.TemporaryDirectory() as d:
-        for i, frames in enumerate((585, 585, 320, 700)):
-            np.save(os.path.join(d, f"utt{i}.npy"), mel_like_bench(frames, 10 + i).T)
-        rtf = count_path("RTF", lambda: run_test([
-            "--checkpoint_path", CKPT, "--file_path", d, "--config", CONF,
-        ]))
-        wavs = sorted(f for f in os.listdir(d) if f.endswith(".wav"))
-    log(f"  rtf {rtf!r} over 4 utterances ({len(wavs)} wavs written)")
-    if not (np.isfinite(rtf) and rtf > 0 and len(wavs) == 4):
-        raise AssertionError("RTF protocol failed")
+    hifi_synth, _ = synthesizer_phase(torch, count_path, Synthesizer, "hifigan", HIFI_CKPT,
+                                      HIFI_CONF, hifi, wav_len)
+    rtfs["hifigan"] = rtf_phase(count_path, run_test, "hifigan", HIFI_CKPT, HIFI_CONF, hifi)
+    serving_phase(count_path, run_serve, ServingModel, "hifigan", HIFI_CKPT, HIFI_CONF, hifi)
 
-    log("[main path: HTTP serving (bin/serve.py)]")
-    lengths = (60, 130, 300, 585)
-    req_mels = [mel_like_bench(n, 20 + i) for i, n in enumerate(lengths)]
-    results = [None] * len(req_mels)
+    synthesizer_phase(torch, count_path, Synthesizer, "multiband-hifigan", MB_CKPT, MB_CONF,
+                      ("fused_mrf",), wav_len)
+    rtfs["multiband-hifigan"] = rtf_phase(count_path, run_test, "multiband-hifigan", MB_CKPT,
+                                          MB_CONF, ("fused_mrf",))
+    log(f"  rtf by model: {rtfs}")
 
-    def serve_all():
-        httpd, batcher = run_serve(
-            ["--checkpoint_path", CKPT, "--config", CONF, "--port", "0"], block=False
-        )
-        try:
-            url = f"http://127.0.0.1:{httpd.server_address[1]}"
-
-            def one(i):
-                results[i] = post(url + "/synthesize", req_mels[i])
-
-            for rnd in ("cold", "warm"):  # the cold round meets every shape first
-                threads = [threading.Thread(target=one, args=(i,)) for i in range(len(req_mels))]
-                t0 = time.perf_counter()
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join(timeout=300)
-                log(f"  {rnd} round: 4 concurrent requests answered in "
-                    f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
-            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
-                return json.loads(r.read())
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-            batcher.close()
-
-    health = count_path("HTTP serving", serve_all)
-    log(f"  healthz {health}")
-    direct = ServingModel(CKPT, CONF, "basis-melgan")(req_mels)
-    for i, n in enumerate(lengths):
-        if results[i] is None:
-            raise AssertionError(f"request {i} got no answer")
-        status, wav = results[i]
-        err = float(np.abs(wav - direct[i]).max())
-        tol = MODEL_TOL * max(1.0, float(np.abs(direct[i]).max()))
-        log(f"  request T={n}: status {status}, wav {wav.shape}, vs ServingModel max abs {err:.3e} (tol {tol:.3e})")
-        if status != 200 or wav.shape != (n * 240,) or not np.isfinite(wav).all() or err > tol:
-            raise AssertionError(f"served request {i} is wrong")
-
-    log("[profile: batch-1 inference on the device]")
-    profile_inference(torch, synth, mel)
+    for model, synth in (("basis-melgan", basis_synth), ("hifigan", hifi_synth)):
+        log(f"[profile: {model} batch-1 inference on the device]")
+        profile_inference(torch, synth, mel)
 
     for e in entries:
         e["launches"] = launches[e["name"]]

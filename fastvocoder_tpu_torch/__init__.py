@@ -1,14 +1,16 @@
 """fastvocoder_tpu_torch — the PyTorch / CUDA port of fastvocoder_tpu.
 
-Runs Basis-MelGAN inference and serving on an NVIDIA H100.  The JAX package
-`fastvocoder_tpu` beside it is the reference; this package imports nothing
-of it.  Public functions keep its layout: mel (B, T, 80), basis weights
-(B, F, C), waveform (B, N).
+Runs Basis-MelGAN, HiFiGAN and MultiBand-HiFiGAN inference and serving on
+an NVIDIA H100.  The JAX package `fastvocoder_tpu` beside it is the
+reference; this package imports nothing of it.  Public functions keep its
+layout: mel (B, T, 80), basis weights (B, F, C), waveform (B, N).
 
-  * ops/     — conv primitives and the two hand-written CUDA kernels
-               (`csrc/`): the basis decode and the fused residual-stack
-               chain, each beside its plain PyTorch version.
-  * models/  — the Basis-MelGAN generator, batched synthesis.
+  * ops/     — conv primitives, PQMF, and the four hand-written CUDA kernels
+               (`csrc/`): the basis decode, the fused residual-stack chain,
+               the HiFiGAN MRF stage and the HiFiGAN tail, each beside its
+               plain PyTorch version.
+  * models/  — the Basis-MelGAN, HiFiGAN and MultiBand-HiFiGAN generators,
+               batched synthesis.
   * serving/ — request batching and the HTTP frontend.
   * bin/     — synthesize / test (RTF) / serve entry points.
 

@@ -1,10 +1,14 @@
 """Synthesis entry point (counterpart of `fastvocoder_tpu/bin/synthesize.py`,
-reference bin/synthesize.py:17-104), Basis-MelGAN only.
+reference bin/synthesize.py:17-104), for Basis-MelGAN, HiFiGAN and
+MultiBand-HiFiGAN.
 
 `Synthesizer` loads a release checkpoint into the fused generator and
-synthesizes with zero-mel bias removal (reference bin/synthesize.py:74-80).
-With `bucket_frames > 0` the mel is zero-padded up to a multiple of it and
-the waveform trimmed back to the unpadded length; samples within the
+synthesizes with zero-mel bias removal (reference bin/synthesize.py:74-80),
+through the generator's `inference` (the method the JAX package serves the
+family with, `models/factory.py`).  With `bucket_frames > 0` the mel is
+zero-padded up to a multiple of it and the waveform trimmed back to the
+unpadded length: Basis-MelGAN's raw decode length, `T * hop` for the other
+families, as the JAX package's entry point trims.  Samples within the
 generator's receptive field of the pad boundary then differ from an
 exact-length run by edge effects only.
 """
@@ -38,7 +42,7 @@ class Synthesizer:
         self.cfg = load_model_config(model_name, config_path)
         self.model_name = model_name
         self.bucket_frames = bucket_frames
-        self.L = self.cfg.arch.L
+        self.L = getattr(self.cfg.arch, "L", None)  # Basis-MelGAN's frame length
         self.generator, self.pattern = load_generator(
             checkpoint_path, self.cfg, self.device
         )
@@ -64,7 +68,11 @@ class Synthesizer:
         T = mel.shape[0]
         wav = self._run_device(mel)[0].cpu().numpy()
         if self._pad_frames(T) != T:
-            wav = wav[: (T * self._weight_steps() - 1) * (self.L // 2) + self.L]
+            if self.model_name == "basis-melgan":
+                keep = (T * self._weight_steps() - 1) * (self.L // 2) + self.L
+            else:
+                keep = T * self.hp.hop_size
+            wav = wav[:keep]
         return wav
 
     def _weight_steps(self) -> int:
@@ -92,7 +100,8 @@ def run_synthesizer(argv=None):
                         help="release checkpoint (.npz, docs/checkpoints/)")
     parser.add_argument("--mel_path", type=str, required=True, help="(80, T) .npy")
     parser.add_argument("--wav_path", type=str, required=True)
-    parser.add_argument("--model_name", type=str, default="basis-melgan")
+    parser.add_argument("--model_name", type=str, default="basis-melgan",
+                        help="basis-melgan, hifigan or multiband-hifigan")
     parser.add_argument("--config", type=str, required=True,
                         help="path to model configuration file")
     parser.add_argument("--device", type=str, default="cuda")

@@ -1,11 +1,13 @@
 """RTF benchmark / published-checkpoint test entry point (counterpart of
 `fastvocoder_tpu/bin/test.py`, reference bin/test.py).
 
-Synthesizes every mel in a directory with the published pattern bias
-subtracted (reference bin/test.py:82-91), then measures RTF with the
-reference protocol: 10 inference passes over every mel,
-rtf = elapsed / (10 * total audio seconds) (reference bin/test.py:123-132),
-best of 2 windows.  Each window ends with `torch.cuda.synchronize()`.
+For Basis-MelGAN, synthesizes every mel in a directory with the published
+pattern bias subtracted and writes `<mel>.npy.wav` beside it (reference
+bin/test.py:82-91; the JAX package writes these for Basis-MelGAN only).  For
+every family it then measures RTF with the reference protocol: 10
+inference passes over every mel, rtf = elapsed / (10 * total audio
+seconds) (reference bin/test.py:123-132), best of 2 windows.  Each window
+ends with `torch.cuda.synchronize()`.
 """
 
 from __future__ import annotations
@@ -25,8 +27,12 @@ class Synthesizer(_BaseSynthesizer):
     """Published-checkpoint synthesizer with pattern-bias subtraction."""
 
     def synthesize(self, mel: np.ndarray) -> np.ndarray:  # type: ignore[override]
-        """Raw inference, trim the L/2 tail, subtract the pattern (or a
-        recomputed zero-mel bias) (reference bin/test.py:83-91)."""
+        """Basis-MelGAN only (reference bin/test.py:83): raw inference, trim
+        the L/2 tail, subtract the pattern (or a recomputed zero-mel bias)
+        (reference bin/test.py:83-91)."""
+        if self.model_name != "basis-melgan":
+            raise ValueError(
+                f"pattern-subtracted synthesis is Basis-MelGAN's, not {self.model_name!r}")
         mel = np.asarray(mel, dtype=np.float32)
         est = self._run(mel)[: -(self.L // 2)]
         if self.pattern is not None:
@@ -41,7 +47,8 @@ def run_test(argv=None):
     parser.add_argument("--checkpoint_path", type=str, required=True)
     parser.add_argument("--file_path", type=str, required=True,
                         help="directory of mel .npy files")
-    parser.add_argument("--model_name", type=str, default="basis-melgan")
+    parser.add_argument("--model_name", type=str, default="basis-melgan",
+                        help="basis-melgan, hifigan or multiband-hifigan")
     parser.add_argument("--config", type=str, required=True,
                         help="path to model configuration file")
     parser.add_argument("--device", type=str, default="cuda")
@@ -65,12 +72,13 @@ def run_test(argv=None):
         duration += (mel.shape[0] * hp.hop_size) / hp.sample_rate
     print(f"duration is {duration}s.")
 
-    for mel, filename in zip(mels, list_files):
-        audio.save_wav(
-            synthesizer.synthesize(mel),
-            os.path.join(args.file_path, f"{filename}.wav"),
-            sample_rate=hp.sample_rate,
-        )
+    if args.model_name == "basis-melgan":
+        for mel, filename in zip(mels, list_files):
+            audio.save_wav(
+                synthesizer.synthesize(mel),
+                os.path.join(args.file_path, f"{filename}.wav"),
+                sample_rate=hp.sample_rate,
+            )
 
     def sync():
         if synthesizer.device.type == "cuda":

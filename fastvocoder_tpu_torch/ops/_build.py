@@ -3,9 +3,10 @@
 Every `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with `ctypes`.  Libraries go to
 `build/fastvocoder_tpu_torch/` beside the package and are named by a hash of
-their source and flags, so an edited source rebuilds and an unchanged one
-is reused.  The first call to `library()` compiles every stale source at
-once, one `nvcc` process per file, all started together.
+their source, the local headers it includes (`#include "..."`, followed
+recursively) and the flags, so an edited source or header rebuilds and an
+unchanged one is reused.  The first call to `library()` compiles every stale
+source at once, one `nvcc` process per file, all started together.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine that has no `nvcc`.
@@ -16,12 +17,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, List
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
@@ -52,8 +56,29 @@ def _nvcc() -> str:
     )
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(src: Path) -> List[Path]:
+    """The headers `src` includes with quotes, directly or through another
+    such header, resolved beside the including file; sorted."""
+    seen: Dict[Path, None] = {}
+    todo = [src]
+    while todo:
+        including = todo.pop()
+        for name in _LOCAL_INCLUDE.findall(including.read_bytes()):
+            path = (including.parent / name.decode()).resolve()
+            if path not in seen and path.exists():
+                seen[path] = None
+                todo.append(path)
+    return sorted(seen)
+
+
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for header in local_includes(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -104,6 +129,29 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(src)))
             _libs[name] = lib
         return lib
+
+
+def check_operand(op: str, name: str, t: torch.Tensor, device: torch.device) -> None:
+    """Raise unless `t` is a contiguous, 16-byte aligned float32 tensor on
+    `device`: what every kernel's C entry point assumes of its pointers."""
+    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(
+            f"{op}: {name} must be a contiguous float32 tensor on {device}, "
+            f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    if t.data_ptr() % 16:
+        raise ValueError(f"{op}: {name} must be 16-byte aligned")
+
+
+def refuse_autograd(op: str, tensors: Iterable[torch.Tensor]) -> None:
+    """Raise if autograd would have to differentiate through a forward-only
+    kernel: grad mode is on and one of `tensors` requires a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{op}: the CUDA kernel is forward only; its backward is still to "
+            "be ported (ROADMAP queue B): run inference under "
+            "torch.inference_mode() or torch.no_grad()"
+        )
 
 
 def check_launch(name: str, err: int) -> None:

@@ -61,35 +61,19 @@ def fused_residual_stacks_plain(x: torch.Tensor, stacks: Sequence[Stack]) -> tor
     return h
 
 
-def _check_cuda_f32(name: str, t: torch.Tensor, device: torch.device) -> None:
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(
-            f"{NAME}: {name} must be a contiguous float32 tensor on {device}, "
-            f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-        )
-    if t.data_ptr() % 16:
-        raise ValueError(f"{NAME}: {name} must be 16-byte aligned")
-
-
 def fused_residual_stacks_cuda(x: torch.Tensor, stacks: Sequence[Stack]) -> torch.Tensor:
     """Launch the CUDA kernel on x (B, T, C) float32, contiguous, on a CUDA
     device, C in `KERNEL_WIDTHS`."""
     if not x.is_cuda:
         raise ValueError(f"{NAME}: x must be a CUDA tensor, got {x.device}")
-    if torch.is_grad_enabled() and (
-        x.requires_grad
-        or any(isinstance(w, torch.Tensor) and w.requires_grad for s in stacks for w in s)
-    ):
-        raise NotImplementedError(
-            f"{NAME}: the CUDA kernel is forward only; its backward is still "
-            "to be ported (ROADMAP queue B)"
-        )
+    _build.refuse_autograd(
+        NAME, [x] + [w for s in stacks for w in s if isinstance(w, torch.Tensor)])
     if x.dim() != 3:
         raise ValueError(f"{NAME}: want x (B, T, C), got {tuple(x.shape)}")
     B, T, C = x.shape
     if C not in KERNEL_WIDTHS:
         raise ValueError(f"{NAME}: C={C} not in {KERNEL_WIDTHS}")
-    _check_cuda_f32("x", x, x.device)
+    _build.check_operand(NAME, "x", x, x.device)
     lib = _build.library(NAME)
     max_stacks = lib.fvt_fused_resstacks_max_stacks()
     if not 1 <= len(stacks) <= max_stacks:
@@ -105,7 +89,7 @@ def fused_residual_stacks_cuda(x: torch.Tensor, stacks: Sequence[Stack]) -> torc
                 raise ValueError(
                     f"{NAME}: stack {i} {name} has shape {tuple(w.shape)}, want {shape}"
                 )
-            _check_cuda_f32(f"stack {i} {name}", w, x.device)
+            _build.check_operand(NAME, f"stack {i} {name}", w, x.device)
         ptrs += [kd.data_ptr(), bd.data_ptr(), k1.data_ptr(), b1.data_ptr(),
                  ks.data_ptr(), bs.data_ptr()]
         dils.append(int(d))

@@ -1,10 +1,15 @@
 """Checkpoint -> batched serving callable (counterpart of
-`fastvocoder_tpu/serving/model.py`, Basis-MelGAN only).
+`fastvocoder_tpu/serving/model.py`), for Basis-MelGAN, HiFiGAN and
+MultiBand-HiFiGAN.
 
 Loads a release checkpoint into the fused generator, batches requests by
-length bucket (`models/batched.py`) and subtracts Basis-MelGAN's published
-`pattern` (the zero-mel response) from each utterance after the `T * hop`
-trim, as the reference's test harness does (reference bin/test.py:85-88).
+length bucket (`models/batched.py`) through the generator's `inference`,
+the method the JAX package serves the family with (Basis-MelGAN's
+`inference`, HiFiGAN's plain call, MultiBand-HiFiGAN's `synthesize`;
+`models/factory.py`), and subtracts a published `pattern` (Basis-MelGAN's
+zero-mel response) from each utterance after the `T * hop` trim, as the
+reference's test harness does (reference bin/test.py:85-88).  The other
+families' checkpoints carry no pattern and are served as they come.
 """
 
 from __future__ import annotations
