@@ -15,6 +15,19 @@ checkpoint (`docs/checkpoints/`) through the entry points a user calls:
   * MultiBand-HiFiGAN light: `Synthesizer` and the RTF protocol (kernel:
     fused_mrf).
 
+Then it trains, at full width and the reference's batch (32 crops of 140
+frames, float32, TF32 off), on a corpus it writes from a seed in the format
+the data pipeline reads:
+
+  * HiFiGAN light: `bin/train.py::run_train` for 6 steps, 2 pre-adversarial
+    and 4 GAN steps with the full-size discriminator, a validation pass and
+    a checkpoint (kernels: fused_mrf, fused_mrf_bwd); then one GAN step on
+    the card against the same step on the CPU through the plain versions;
+  * Basis-MelGAN light: `run_train` for 4 pre-adversarial steps with the
+    weight L1 (kernels: fused_resstack, fused_resstack_bwd, basis_decode);
+    the same one-step comparison;
+  * ms a step of the three step kinds, and a profile of one GAN step.
+
 Launch counts are zeroed before each path and read right after it; the run
 fails if a kernel of the path was not launched.  A profile of one batch-1
 inference of each of the first two models closes the run.
@@ -64,6 +77,24 @@ PEAK_F32_FLOP_PER_S = 67e12  # float32 on the CUDA cores, no tensor cores
 # of the peak.  tests/test_torch_kernels_cuda.py holds the same bounds.
 CHAIN_TOL, CHAIN_ROW_TOL, MODEL_TOL = 3e-4, 3e-6, 1e-4
 MRF_TOL, MRF_ROW_TOL, TAIL_TOL, TAIL_ROW_TOL = 3e-4, 1e-5, 1e-4, 1e-5
+# backward kernels against their plain VJPs, each gradient relative to its
+# own peak.  Where a pre-activation lies within rounding distance of the
+# leaky-relu kink, kernel and cuDNN may take different slopes (about one
+# element in 1e5 against cuDNN's float32 convs): dx then differs over the
+# rows the later adjoint convs spread that element to (27 in the chain) by a
+# share of a weight's size, and dW and db by one row's term of their sums.
+# So: every row of dx within BWD_DX_TOL, 90 % of the rows within
+# BWD_DX_ROW_TOL, every dW and db within BWD_W_TOL.
+BWD_DX_TOL, BWD_DX_ROW_TOL, BWD_W_TOL = 5e-2, 1e-4, 3e-2
+# one training step on the card against the same step on the CPU through the
+# plain versions: every logged value within STEP_LOSS_RTOL; every gradient within
+# STEP_GRAD_TOL of its peak (a gain's or bias's of its conv's weight
+# gradient's peak, if larger): kink flips as above, and the log-magnitude
+# STFT loss, which divides by magnitudes down to its clamp, is
+# ill-conditioned in float32 (1e-3 between two float32 runs of the same
+# step on the CPU, tests/test_torch_trainer.py)
+STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-2
+TRAIN_BATCH, TRAIN_FRAMES = 32, 140  # the reference's batch (hparams.py:50,72)
 
 
 def log(msg: str) -> None:
@@ -350,6 +381,123 @@ def check_fused_tail(torch, gen, frames: int):
     }
 
 
+def grads_close(dx, dx_ref, grads, grads_ref):
+    """(worst abs error of dx, worst error of dx relative to its peak, share
+    of dx's B T rows within BWD_DX_ROW_TOL, worst dW or db error relative to
+    its own peak, ok)."""
+    peak = dx_ref.abs().max().item()
+    err = (dx - dx_ref).abs()
+    rows_ok = (err.amax(dim=2) <= BWD_DX_ROW_TOL * peak).float().mean().item()
+    w_rel = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(grads, grads_ref))
+    dx_rel = err.max().item() / peak
+    ok = dx_rel <= BWD_DX_TOL and rows_ok >= 0.9 and w_rel <= BWD_W_TOL
+    return err.max().item(), dx_rel, rows_ok, w_rel, ok
+
+
+def check_backward(torch, name, vjp_cuda, vjp_plain, forward_cuda, forward_plain, stages,
+                   fwd_work, replaces, what):
+    """A backward kernel against its plain VJP at the training path's
+    shapes (`stages`: (operands, C, T) per stage; batch TRAIN_BATCH and 1),
+    its time, the plain VJP's and the bound, summed over the stages at the
+    training batch; also the forward kernel's time at that batch.  -> (entry
+    for the kernels line, the forward's per-stage times)."""
+    g = torch.Generator().manual_seed(len(name))
+    dev = torch.device("cuda")
+    flat = lambda grads: [t for group in grads for t in (
+        group if isinstance(group[0], torch.Tensor) else [u for p in group for u in p])]
+    worst, per_stage, fwd_stages = 0.0, [], []
+    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    for ops, C, T in stages:
+        for B in (TRAIN_BATCH, 1):
+            x = (0.3 * torch.randn(B, T, C, generator=g)).to(dev)
+            cot = torch.randn(B, T, C, generator=g).to(dev)
+            dx, grads = vjp_cuda(x, ops, cot)
+            dx_ref, grads_ref = vjp_plain(x, ops, cot)
+            torch.cuda.synchronize()
+            err, dx_rel, rows_ok, w_rel, ok = grads_close(dx, dx_ref, flat(grads), flat(grads_ref))
+            log(f"  {name} ({B}, {T}, {C}): dx max abs {err:.3e} ({dx_rel:.3e} of its peak, tol "
+                f"{BWD_DX_TOL:.0e}), rows within {BWD_DX_ROW_TOL:.0e}: {rows_ok:.4f}, worst dW/db "
+                f"{w_rel:.3e} of its peak (tol {BWD_W_TOL:.0e})")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain VJP at ({B}, {T}, {C})")
+            worst = max(worst, err)
+            if B != TRAIN_BATCH:
+                continue
+            ms = cuda_ms(lambda: vjp_cuda(x, ops, cot), iters=5, warmup=2)
+            plain = cuda_ms(lambda: vjp_plain(x, ops, cot), iters=5, warmup=2)
+            fbytes, fflops = fwd_work(B, T, ops)
+            weights = fbytes - 4 * 2 * B * T * C
+            # x and g read, dx written, every weight read and its gradient
+            # written; the forward again plus twice its operations
+            nbytes, flops = 4 * 3 * B * T * C + 2 * weights, 3 * fflops
+            bms, by = bound_ms(nbytes, flops)
+            log(f"  {name} ({B}, {T}, {C}): kernel {ms:.3f} ms, plain VJP {plain:.3f} ms, bound "
+                f"{bms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP)")
+            per_stage.append({"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms})
+            for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
+                total[k] += v
+            with torch.inference_mode():
+                fms = cuda_ms(lambda: forward_cuda(x, ops), iters=5, warmup=2)
+                fplain = cuda_ms(lambda: forward_plain(x, ops), iters=5, warmup=2)
+            fb, _ = bound_ms(fbytes, fflops)
+            log(f"  forward at ({B}, {T}, {C}): kernel {fms:.3f} ms, plain {fplain:.3f} ms, bound "
+                f"{fb:.3f} ms")
+            fwd_stages.append({"shape": [B, T, C], "ms": fms, "plain_ms": fplain, "bound_ms": fb})
+            del x, cot, dx, grads, dx_ref, grads_ref
+            torch.cuda.empty_cache()
+    bms, by = bound_ms(total["bytes"], total["flops"])
+    return {
+        "name": name, "route": "cuda",
+        "source": f"fastvocoder_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+        "shape": what + ", summed: " + ", ".join(str(tuple(s["shape"])) for s in per_stage),
+        "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": bms, "bound_by": by, "library_ms": None, "stages": per_stage,
+    }, fwd_stages
+
+
+def chain_work(B: int, T: int, stacks) -> tuple:
+    """(bytes, FLOP) of one residual-stack chain's forward."""
+    C = stacks[0][0].shape[1]
+    weights = sum(w.numel() for s in stacks for w in s if not isinstance(w, int))
+    taps = sum(s[0].shape[0] + 2 for s in stacks)
+    return 4 * (2 * B * T * C + weights), 2 * B * T * taps * C * C
+
+
+def check_fused_mrf_bwd(torch, gen):
+    """Kernel 5 with the release weights of HiFiGAN light's four MRF stages
+    at the training crop's lengths."""
+    from fastvocoder_tpu_torch.ops import fused_mrf as m
+
+    rates = gen.cfg.upsample_rates
+    stages = []
+    for i, blocks in enumerate(gen.mrfs):
+        ops = [b.mrf_operands() for b in blocks]
+        stages.append((ops, ops[0][0][0].shape[1], TRAIN_FRAMES * int(np.prod(rates[: i + 1]))))
+    return check_backward(
+        torch, "fused_mrf_bwd", m.fused_mrf_stage_vjp_cuda, m.fused_mrf_stage_vjp_plain,
+        m.fused_mrf_stage_cuda, m.fused_mrf_stage_plain, stages, mrf_work,
+        "fastvocoder_tpu/ops/fused_mrf.py:227",
+        f"HiFiGAN light's 4 MRF stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames")
+
+
+def check_fused_resstack_bwd(torch, gen):
+    """Kernel 3 with the release weights of Basis-MelGAN light's two stages
+    at the training crop's lengths."""
+    from fastvocoder_tpu_torch.ops import fused_resstack as r
+
+    stages = []
+    for i, group in enumerate(gen.stacks):
+        ops = [s.chain_operands() for s in group]
+        stages.append((ops, ops[0][0].shape[1],
+                       TRAIN_FRAMES * int(np.prod(gen.cfg.upsample_scales[: i + 1]))))
+    return check_backward(
+        torch, "fused_resstack_bwd", r.fused_residual_stacks_vjp_cuda,
+        r.fused_residual_stacks_vjp_plain, r.fused_residual_stacks_cuda,
+        r.fused_residual_stacks_plain, stages, chain_work,
+        "fastvocoder_tpu/ops/fused_resstack.py:241",
+        f"Basis-MelGAN light's 2 stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames")
+
+
 def kernel_class(name: str) -> str:
     for key, label in (("fused_resstacks_kernel", "fused_resstack kernel"),
                        ("basis_decode_kernel", "basis_decode kernel"),
@@ -357,31 +505,37 @@ def kernel_class(name: str) -> str:
                        ("mrf_mean_kernel", "fused_mrf kernel"),
                        ("tail_upsample_kernel", "fused_tail kernel"),
                        ("tail_pair_kernel", "fused_tail kernel"),
-                       ("tail_head_kernel", "fused_tail kernel")):
+                       ("tail_head_kernel", "fused_tail kernel"),
+                       ("fvt_bwd", "backward kernels (fused_mrf_bwd, fused_resstack_bwd)")):
         if key in name:
             return label
     low = name.lower()
-    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "implicit", "winograd", "fft")):
-        return "library convs (conv_pre, up_<i> outside the kernels)"
+    if "wgrad" in low:
+        return "cuDNN wgrad"
+    if "dgrad" in low:
+        return "cuDNN dgrad (also the forward of a transposed conv)"
+    if "fft" in low:
+        return "FFT"
+    if "adam" in low or "multi_tensor_apply" in low:
+        return "optimiser"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "gemm", "implicit", "winograd", "cutlass")):
+        return "cuDNN forward and other library products"
     return "elementwise, pads, copies"
 
 
-def profile_inference(torch, synth, mel: np.ndarray, n: int = 10) -> None:
-    """Device time by kernel over n batch-1 inferences, and the device's idle
+def profile_device(torch, fn, n: int, unit: str) -> None:
+    """Device time by kernel class over n calls of fn, and the device's idle
     share of the window, from torch.profiler's CUDA (CUPTI) events."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        synth.test_rtf(mel)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            synth.test_rtf(mel)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    log(f"  {n} inferences of {mel.shape[0]} frames: host wall {wall_ms / n:.4f} ms each")
+    log(f"  {n} x {unit}: host wall {wall_ms / n:.4f} ms each")
     if not kernels:
         log("  torch.profiler shows no device events: device time not measured")
         return
@@ -400,12 +554,21 @@ def profile_inference(torch, synth, mel: np.ndarray, n: int = 10) -> None:
         d = e.time_range.end - e.time_range.start
         by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0.0) + d
         by_name[e.name] = by_name.get(e.name, 0.0) + d
-    log(f"  device busy {busy / 1e3 / n:.4f} ms per inference, {len(kernels) / n:.1f} device "
-        f"ops per inference; idle share of the device window {1 - busy / window:.4f}")
+    summed = sum(by_class.values())
+    log(f"  device busy {busy / 1e3 / n:.4f} ms per {unit}, {len(kernels) / n:.1f} device "
+        f"ops per {unit}; idle share of the device window {1 - busy / window:.4f}; device ops' "
+        f"durations sum to {summed / 1e3 / n:.4f} ms (more than busy where ops overlap)")
     for k, v in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        log(f"  {k}: {v / 1e3 / n:.4f} ms per inference ({v / busy:.3f} of busy)")
+        log(f"  {k}: {v / 1e3 / n:.4f} ms per {unit} ({v / summed:.3f} of the summed durations)")
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {v / 1e3 / n:.4f} ms  {k[:110]}")
+
+
+def profile_inference(torch, synth, mel: np.ndarray, n: int = 10) -> None:
+    for _ in range(3):
+        synth.test_rtf(mel)
+    torch.cuda.synchronize()
+    profile_device(torch, lambda: synth.test_rtf(mel), n, f"inference of {mel.shape[0]} frames")
 
 
 def post(url: str, mel: np.ndarray):
@@ -508,6 +671,181 @@ def serving_phase(count_path, run_serve, ServingModel, model: str, ckpt: str, co
             raise AssertionError(f"served request {i} is wrong")
 
 
+def write_corpus(root: str, n: int = 64, seed: int = 0, weight_channels: int = 0):
+    """A seeded corpus in the format `data/dataset.py` reads: per utterance
+    `<i>.wav.npy` (sines plus noise, 160-220 frames of 240 samples) and
+    `<i>.mel.npy` (80, T), two index files, and with `weight_channels` a
+    `weight/<i>.wav.npy` (C, 16 T) target each.  -> (audio index, mel index)."""
+    rng = np.random.default_rng(seed)
+    audio, mel = [], []
+    if weight_channels:
+        os.makedirs(os.path.join(root, "weight"), exist_ok=True)
+    for i in range(n):
+        frames = int(rng.integers(160, 221))
+        t = np.arange(frames * HOP, dtype=np.float32) / 24000.0
+        wav = sum(a * np.sin(2 * np.pi * f * t + p) for a, f, p in zip(
+            rng.uniform(0.05, 0.2, 3), rng.uniform(100, 3000, 3), rng.uniform(0, 6.28, 3)))
+        wav = (wav + 0.01 * rng.standard_normal(t.shape)).astype(np.float32)
+        audio.append(os.path.join(root, f"{i}.wav.npy"))
+        mel.append(os.path.join(root, f"{i}.mel.npy"))
+        np.save(audio[-1], wav)
+        np.save(mel[-1], rng.random((80, frames), dtype=np.float32))
+        if weight_channels:
+            np.save(os.path.join(root, "weight", f"{i}.wav.npy"),
+                    rng.random((weight_channels, frames * 16), dtype=np.float32))
+    paths = []
+    for name, lines in (("audio_index.txt", audio), ("mel_index.txt", mel)):
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return tuple(paths)
+
+
+def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, steps: int,
+                start_steps: int, kernels, basis_dir: str = ""):
+    """`run_train` as a user calls it, at full width on the card; checks the
+    losses, that the weights moved, and that the checkpoint loads back."""
+    from fastvocoder_tpu_torch.bin.train import run_train
+    from fastvocoder_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+    from fastvocoder_tpu_torch.hparams import load_model_config
+
+    log(f"[{model}: training (bin/train.py), {steps} steps of {TRAIN_BATCH} x {TRAIN_FRAMES} frames]")
+    run_dir = os.path.join(corpus, f"run_{model}")
+    argv = ["--audio_index_path", index[0], "--mel_index_path", index[1],
+            "--audio_index_valid_path", index[0], "--mel_index_valid_path", index[1],
+            "--model_name", model, "--config", conf, "--run_dir", run_dir, "--seed", "0",
+            "--batch_size", str(TRAIN_BATCH), "--batch_expand_size", "1",
+            "--fixed_length", str(TRAIN_FRAMES), "--max_steps", str(steps),
+            "--save_step", str(steps), "--valid_step", str(steps), "--valid_num", "3",
+            "--discriminator_train_start_steps", str(start_steps)]
+    if basis_dir:
+        argv += ["--basis_dataset_path", basis_dir]
+    t0 = time.perf_counter()
+    state = count_path(f"{model} training", lambda: run_train(argv), kernels)
+    log(f"  {steps} steps, a validation pass and a checkpoint in {time.perf_counter() - t0:.2f} s")
+    for step, metrics in state.history:
+        log(f"  step {step}: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(metrics.items())))
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{model} training: a loss of step {step} is not finite")
+    if [s_ for s_, _ in state.history] != list(range(1, steps + 1)):
+        raise AssertionError(f"{model} training logged steps {[s_ for s_, _ in state.history]}")
+    gan = [m for s_, m in state.history if s_ > start_steps]
+    if any("discriminator_loss" not in m for m in gan) or any(
+            "discriminator_loss" in m for s_, m in state.history if s_ <= start_steps):
+        raise AssertionError(f"{model} training: the steps' kinds do not follow the boundary")
+
+    cfg = load_model_config(model, conf)
+    basis = state.generator.basis_signal.basis.detach().cpu().numpy() if basis_dir else None
+    trainer = make_trainer(cfg, basis_signal_weight=basis)
+    fresh = trainer.init_state(0)  # the run's own initial weights (seed 0)
+
+    def moved(a, b):
+        return max((v - w).abs().max().item()
+                   for (k, v), w in zip(a.state_dict().items(), b.state_dict().values())
+                   if not k.startswith("basis_signal."))
+
+    g_moved = moved(state.generator, fresh.generator)
+    d_moved = moved(state.discriminator, fresh.discriminator)
+    log(f"  weights moved: generator by up to {g_moved:.3e}, discriminator by up to {d_moved:.3e}")
+    if not g_moved > 0 or (bool(gan) and not d_moved > 0):
+        raise AssertionError(f"{model} training did not move the weights")
+    ckpt = latest_checkpoint(run_dir)
+    if ckpt is None or not ckpt.endswith(f"checkpoint_{steps}.pth.tar"):
+        raise AssertionError(f"{model} training left no checkpoint of step {steps}: {ckpt}")
+    load_checkpoint(ckpt, fresh, model)
+    back = max(moved(state.generator, fresh.generator),
+               moved(state.discriminator, fresh.discriminator))
+    log(f"  {os.path.basename(ckpt)} loads back: step {fresh.step}, max difference {back:.1e}")
+    if fresh.step != steps or back != 0.0:
+        raise AssertionError(f"{model}: the checkpoint does not hold the trained state")
+    return cfg, basis
+
+
+def fixed_batch(cfg, index, basis_dir: str = ""):
+    """One seeded training batch of the corpus, as numpy."""
+    from fastvocoder_tpu_torch.data import dataset as d
+    from fastvocoder_tpu_torch.hparams import HP
+
+    hp = HP.replace(batch_size=TRAIN_BATCH, batch_expand_size=1, fixed_length=TRAIN_FRAMES)
+    if basis_dir:
+        ds = d.WeightDataset.from_index_files(index[0], index[1], cfg.arch.L,
+                                              os.path.join(basis_dir, "weight"), hp=hp)
+        return next(d.batch_iterator(ds, hp, seed=1, L=cfg.arch.L))
+    ds = d.BufferDataset(d.load_data_to_buffer(index[0], index[1], log=lambda m: None), hp)
+    return next(d.batch_iterator(ds, hp, seed=1))
+
+
+def step_against_cpu(torch, cfg, basis, step: str, batch) -> None:
+    """One step from the same initial weights on the same batch, on the card
+    (through the kernels) and on the CPU (through the plain versions)."""
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    log(f"[{cfg.model_name}: one {step} on the card against the CPU plain path]")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        trainer = make_trainer(cfg, basis_signal_weight=basis, device=dev, keep_grads=True)
+        state = trainer.init_state(0)
+        args = [torch.from_numpy(batch[k]).to(dev) if k in batch else None
+                for k in ("mel", "wav", "weight")]
+        t0 = time.perf_counter()
+        _, metrics = getattr(trainer, step)(state, *args)
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {who: {n: g_.cpu() for n, g_ in grads.items()}
+                     for who, grads in trainer.last_grads.items()})
+        log(f"  on {dev}: {time.perf_counter() - t0:.2f} s")
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = out["cuda"], out["cpu"]
+    for k, want in m_cpu.items():
+        # relative to the CPU's value, or to 1e-2 where that is smaller
+        # (`weight_average_value` is a mean that cancels to about 1e-6)
+        rel = abs(m_gpu[k] - want) / max(abs(want), 1e-2)
+        log(f"  {k}: card {m_gpu[k]:.6f}, CPU {want:.6f} (relative {rel:.2e}, tol {STEP_LOSS_RTOL:.0e})")
+        if not (np.isfinite(m_gpu[k]) and rel <= STEP_LOSS_RTOL):
+            raise AssertionError(f"{cfg.model_name} {step}: {k} disagrees with the CPU")
+    for who, want in g_cpu.items():
+        worst, worst_name = 0.0, ""
+        for name, w in want.items():
+            peak = w.abs().max().item()
+            sibling = name.rsplit(".", 1)[0] + ".weight"
+            if sibling in want:
+                peak = max(peak, want[sibling].abs().max().item())
+            rel = (g_gpu[who][name] - w).abs().max().item() / max(peak, 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, name
+        log(f"  {who} gradients ({len(want)} tensors): worst {worst:.2e} of its peak "
+            f"({worst_name}), tol {STEP_GRAD_TOL:.0e}")
+        if not worst <= STEP_GRAD_TOL:
+            raise AssertionError(f"{cfg.model_name} {step}: {who} gradients disagree with the CPU")
+
+
+def time_steps(torch, cfg, basis, step: str, batch, n: int = 5, profile: bool = False) -> float:
+    """Median ms of steps 2..n of `step` on the card on one batch, each
+    window closed by torch.cuda.synchronize(); with `profile`, one more step
+    under torch.profiler."""
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    trainer = make_trainer(cfg, basis_signal_weight=basis)
+    state = trainer.init_state(0)
+    args = [torch.from_numpy(batch[k]).cuda() if k in batch else None
+            for k in ("mel", "wav", "weight")]
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(trainer, step)(state, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times[1:]))
+    log(f"  {cfg.model_name} {step}: {ms:.2f} ms a step (median of steps 2..{n}: "
+        f"{', '.join(f'{t:.1f}' for t in times[1:])}; first {times[0]:.1f}), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        log(f"[profile: one {cfg.model_name} {step} on the device]")
+        profile_device(torch, lambda: getattr(trainer, step)(state, *args), 1, step)
+    return ms
+
+
 def main() -> int:
     import torch
 
@@ -549,6 +887,11 @@ def main() -> int:
                    check_fused_resstack(torch, basis_gen, F_main),
                    check_fused_mrf(torch, hifi_gen, MEL_FRAMES),
                    check_fused_tail(torch, hifi_gen, MEL_FRAMES)]
+    log("[backward kernels against their plain VJPs]")
+    chain_bwd, entries[1]["batch32"] = check_fused_resstack_bwd(torch, basis_gen)
+    mrf_bwd, entries[2]["batch32"] = check_fused_mrf_bwd(torch, hifi_gen)
+    entries[2:2] = [chain_bwd]   # kernels 1, 2, 3, 4, 5, 6
+    entries[4:4] = [mrf_bwd]
     launches = {e["name"]: 0 for e in entries}
 
     def count_path(name, fn, kernels):
@@ -584,6 +927,44 @@ def main() -> int:
     rtfs["multiband-hifigan"] = rtf_phase(count_path, run_test, "multiband-hifigan", MB_CKPT,
                                           MB_CONF, ("fused_mrf",))
     log(f"  rtf by model: {rtfs}")
+
+    torch.cuda.empty_cache()
+    step_ms = {}
+    with tempfile.TemporaryDirectory() as corpus:
+        t0 = time.perf_counter()
+        index = write_corpus(corpus, weight_channels=256)
+        np.save(os.path.join(corpus, "basis_signal_weight.npy"),
+                np.load(os.path.join(ROOT, "dataset", "clean_basis", "basis_signal_weight.npy")))
+        log(f"[corpus: 64 seeded utterances of 160-220 frames written in "
+            f"{time.perf_counter() - t0:.2f} s]")
+        hifi_cfg, _ = train_phase(torch, count_path, "hifigan", HIFI_CONF, corpus, index, steps=6,
+                                  start_steps=2, kernels=("fused_mrf", "fused_mrf_bwd"))
+        # 2 + 2 * 4 generator passes of 4 MRF stages (the validation's come
+        # on top), one backward of each stage a step
+        if launches["fused_mrf_bwd"] != 4 * 6:
+            raise AssertionError(f"6 HiFiGAN steps launched fused_mrf_bwd "
+                                 f"{launches['fused_mrf_bwd']} times, want 24")
+        batch = fixed_batch(hifi_cfg, index)
+        step_against_cpu(torch, hifi_cfg, None, "gan_step", batch)
+        log("[ms a step on the card]")
+        step_ms["hifigan gan_step"] = time_steps(torch, hifi_cfg, None, "gan_step", batch,
+                                                 profile=True)
+        step_ms["hifigan pre_adv_step"] = time_steps(torch, hifi_cfg, None, "pre_adv_step", batch)
+        torch.cuda.empty_cache()
+
+        seen = dict(launches)
+        basis_cfg, basis = train_phase(
+            torch, count_path, "basis-melgan", CONF, corpus, index, steps=4, start_steps=4,
+            kernels=("fused_resstack", "fused_resstack_bwd", "basis_decode"), basis_dir=corpus)
+        # the trunk runs twice a step (the mel and the zero mel), 2 stages each
+        if launches["fused_resstack_bwd"] - seen["fused_resstack_bwd"] != 4 * 4:
+            raise AssertionError("4 Basis-MelGAN steps did not launch fused_resstack_bwd 16 times")
+        batch = fixed_batch(basis_cfg, index, basis_dir=corpus)
+        step_against_cpu(torch, basis_cfg, basis, "pre_adv_step", batch)
+        log("[ms a step on the card]")
+        step_ms["basis-melgan pre_adv_step"] = time_steps(torch, basis_cfg, basis, "pre_adv_step",
+                                                          batch)
+    log(f"  ms a step: {step_ms}")
 
     for model, synth in (("basis-melgan", basis_synth), ("hifigan", hifi_synth)):
         log(f"[profile: {model} batch-1 inference on the device]")

@@ -5,10 +5,13 @@ keys as in `docs/checkpoints/*.npz`, onto the port's `state_dict`:
 
   * a node's path becomes its key (`stack_0_0/conv_dilated` ->
     `stack_0_0.conv_dilated`), the port's modules being named alike;
-  * weight norm is fused in float32, as the JAX package's
+  * by default weight norm is fused in float32, as the JAX package's
     `train/checkpoint.py::fuse_weight_norm` does: `g` scales each output
     channel over (K, Cin), `gt` (transposed convs) each input channel over
-    (K, Cout).  Trees already fused are taken as they are;
+    (K, Cout).  Trees already fused are taken as they are.  With
+    `fuse=False` the gains are kept (`<node>.g`, `<node>.gt`) beside the
+    direction (`<node>.weight`): the state of the training form
+    (`build_generator(cfg, weight_norm=True)`, `build_discriminator`);
   * kernels (K, Cin, Cout) become torch weights: (Cout, Cin, K) for a
     convolution, (Cin, Cout, K) for a transposed one.  A transposed conv is
     a node with `gt`, or, in a fused tree, an upsampler node `up_<i>`.
@@ -41,7 +44,7 @@ def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Tree, fuse: bool = True) -> Dict[str, torch.Tensor]:
     nodes: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in _flatten(params).items():
         node, _, leaf = key.rpartition("/")
@@ -55,7 +58,11 @@ def state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{node}: unexpected parameters {sorted(unknown)}")
         if "kernel" in leaves:
             k = leaves["kernel"]
-            if "g" in leaves:
+            if not fuse:
+                for gain in ("g", "gt"):
+                    if gain in leaves:
+                        out[f"{name}.{gain}"] = torch.from_numpy(leaves[gain])
+            elif "g" in leaves:
                 norm = np.sqrt(np.sum(k**2, axis=(0, 1), keepdims=True))
                 k = k * (leaves["g"] / norm)
             elif "gt" in leaves:

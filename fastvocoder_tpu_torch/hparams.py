@@ -174,6 +174,49 @@ class NHVConfig:
 
 
 @dataclass(frozen=True)
+class DiscriminatorConfig:
+    """Composite-discriminator sizes (the reference hard-codes these:
+    model/discriminator/msd.py:117-202, mfd.py:146-175).  The defaults are
+    the reference's architecture; tests use small widths."""
+
+    # MSD: MelGAN multi-scale (reference msd.py)
+    msd_scales: int = 3
+    msd_channels: int = 16
+    msd_max_channels: int = 1024
+    msd_downsample_scales: Sequence[int] = (4, 4, 4, 4)
+    # MFD: multi-resolution STFT (reference mfd.py)
+    mfd_fft_sizes: Sequence[int] = (2048, 1024, 512)
+    mfd_hop_sizes: Sequence[int] = (240, 120, 50)
+    mfd_win_lengths: Sequence[int] = (1200, 600, 240)
+    mfd_channels: int = 64
+    mfd_max_channels: int = 1024
+    mfd_downsample_scales: Sequence[int] = (4, 4)
+    # MPD: optional, unwired in the reference (discriminator.py:16); not
+    # ported yet (ROADMAP queue A)
+    use_mpd: bool = False
+    mpd_periods: Sequence[int] = (2, 3, 5, 7, 11)
+    mpd_channels: Sequence[int] = (32, 128, 512, 1024)
+
+
+DISC = DiscriminatorConfig()
+
+# Small widths for the CPU tests: the same layer structure (grouped strided
+# convs, in-graph STFT) at a fraction of the cost.
+TINY_DISC = DiscriminatorConfig(
+    msd_channels=4,
+    msd_max_channels=32,
+    msd_downsample_scales=(4, 4),
+    mfd_fft_sizes=(256,),
+    mfd_hop_sizes=(64,),
+    mfd_win_lengths=(128,),
+    mfd_channels=8,
+    mfd_max_channels=32,
+    mfd_downsample_scales=(4,),
+    mpd_channels=(4, 8, 8, 8),
+)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     """Parsed per-model YAML plus the shared loss flags."""
 

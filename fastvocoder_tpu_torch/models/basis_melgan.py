@@ -31,7 +31,11 @@ from fastvocoder_tpu_torch.ops.fused_resstack import leaky_relu
 
 
 class BasisMelGANGenerator(nn.Module):
-    def __init__(self, cfg: BasisMelGANConfig):
+    def __init__(self, cfg: BasisMelGANConfig, weight_norm: bool = False,
+                 basis_signal_weight=None):
+        """`basis_signal_weight` (L, out_channels) fills the frozen basis, as
+        training from scratch needs; a checkpoint's `load_state_dict` fills
+        it otherwise."""
         super().__init__()
         if not cfg.transposedconv or cfg.use_causal_conv:
             raise NotImplementedError(
@@ -40,14 +44,15 @@ class BasisMelGANGenerator(nn.Module):
                 "the other variants are in ROADMAP queue A"
             )
         self.cfg = cfg
-        self.conv_pre = Conv1d(cfg.in_channels, cfg.channels[0], cfg.kernel_size, bias=cfg.bias)
+        kw = dict(bias=cfg.bias, weight_norm=weight_norm)
+        self.conv_pre = Conv1d(cfg.in_channels, cfg.channels[0], cfg.kernel_size, **kw)
         self.ups = []
         self.stacks = []
         for i, scale in enumerate(cfg.upsample_scales):
             up = ConvTranspose1d(
                 cfg.channels[i], cfg.channels[i + 1], kernel_size=scale * 2,
                 stride=scale, padding=scale // 2 + scale % 2,
-                output_padding=scale % 2, bias=cfg.bias,
+                output_padding=scale % 2, **kw,
             )
             self.add_module(f"up_{i}", up)
             self.ups.append(up)
@@ -55,12 +60,15 @@ class BasisMelGANGenerator(nn.Module):
             for j in range(cfg.stacks):
                 stack = ResidualStack(
                     cfg.channels[i + 1], kernel_size=cfg.stack_kernel_size,
-                    dilation=cfg.stack_kernel_size ** j, bias=cfg.bias,
+                    dilation=cfg.stack_kernel_size ** j, **kw,
                 )
                 self.add_module(f"stack_{i}_{j}", stack)
                 group.append(stack)
             self.stacks.append(group)
         self.basis_signal = BasisSignalLayer(cfg.L, cfg.out_channels)
+        if basis_signal_weight is not None:
+            with torch.no_grad():
+                self.basis_signal.basis.copy_(torch.as_tensor(basis_signal_weight))
 
     def trunk(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T, in) -> weights (B, T * prod(scales), out_channels)."""

@@ -7,10 +7,14 @@ nearest-neighbour upsample and conv), and the MRF, the mean of the stage's
 resblocks -> leaky(0.01) -> conv_post (K = 7) -> tanh.  The width halves at
 every stage: upsample_initial_channel // 2**(i + 1).
 
-On CUDA, ResBlock1 MRF stages run the MRF kernel (`ops/fused_mrf.py`), and
-the last stage runs the tail kernel (`ops/fused_tail.py`) with the output
-head whenever the JAX package would fuse it: a transposed conv with stride 2
-and ResBlock1 blocks.  A width the kernels do not take raises there.
+On CUDA, ResBlock1 MRF stages run the MRF kernel (`ops/fused_mrf.py`,
+forward and backward), and in the fused form (`weight_norm=False`) the last
+stage runs the tail kernel (`ops/fused_tail.py`) with the output head
+whenever the JAX package would fuse it: a transposed conv with stride 2 and
+ResBlock1 blocks.  The training form (`weight_norm=True`) runs the last
+stage like the others, its MRF through the MRF kernel: the tail kernel is
+inference only, in the JAX package too.  A width the kernels do not take
+raises there.
 
 Submodules are named as in the JAX package (`conv_pre`, `up_<i>`,
 `resblock_<i>_<j>`, `conv_post`), so a parameter's path there is its
@@ -38,34 +42,36 @@ from fastvocoder_tpu_torch.ops.fused_tail import HEAD_SLOPE, fused_hifigan_tail_
 
 
 class HiFiGANGenerator(nn.Module):
-    def __init__(self, cfg: HiFiGANConfig, in_channels: int = 80):
+    def __init__(self, cfg: HiFiGANConfig, in_channels: int = 80, weight_norm: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.weight_norm = weight_norm
+        kw = dict(bias=cfg.bias, weight_norm=weight_norm)
         ch = cfg.upsample_initial_channel
-        self.conv_pre = Conv1d(in_channels, ch, 7, bias=cfg.bias, padding=3)
+        self.conv_pre = Conv1d(in_channels, ch, 7, padding=3, **kw)
         resblock = ResBlock1 if cfg.resblock_type == "1" else ResBlock2
         self.ups, self.mrfs = [], []
         for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
             cin, ch = ch, cfg.upsample_initial_channel // 2 ** (i + 1)
             if cfg.transposedconv:
                 up = ConvTranspose1d(cin, ch, k, stride=u, padding=u // 2 + u % 2,
-                                     output_padding=u % 2, bias=cfg.bias)
+                                     output_padding=u % 2, **kw)
             else:
-                up = UpsampleLayer(cin, ch, upsample_rate=u, kernel_size=k, bias=cfg.bias)
+                up = UpsampleLayer(cin, ch, upsample_rate=u, kernel_size=k, **kw)
             self.add_module(f"up_{i}", up)
             self.ups.append(up)
             blocks = []
             for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes,
                                              cfg.resblock_dilation_sizes)):
-                block = resblock(ch, kernel_size=rk, dilations=rd, bias=cfg.bias)
+                block = resblock(ch, kernel_size=rk, dilations=rd, **kw)
                 self.add_module(f"resblock_{i}_{j}", block)
                 blocks.append(block)
             self.mrfs.append(blocks)
-        self.conv_post = Conv1d(ch, cfg.out_bands, 7, bias=cfg.bias, padding=3)
+        self.conv_post = Conv1d(ch, cfg.out_bands, 7, padding=3, **kw)
         # the JAX package's tail gate (models/hifigan.py::_use_fused_tail),
         # widths aside: those the kernel does not take raise
-        self.tail_fusable = (cfg.transposedconv and cfg.upsample_rates[-1] == 2
-                             and cfg.resblock_type == "1")
+        self.tail_fusable = (not weight_norm and cfg.transposedconv
+                             and cfg.upsample_rates[-1] == 2 and cfg.resblock_type == "1")
 
     def tail_operands(self):
         """The last stage and the head in the form `ops.fused_tail` takes."""

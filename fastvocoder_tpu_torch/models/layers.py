@@ -1,12 +1,17 @@
 """Building blocks of the MelGAN and HiFiGAN families, channels last (B, T, C).
 
-Counterpart of `fastvocoder_tpu/models/layers.py`, in the fused form only:
-weight norm is folded into the weights when a checkpoint is loaded
+Counterpart of `fastvocoder_tpu/models/layers.py`.  Every conv comes in two
+forms.  The fused form (`weight_norm=False`) holds the effective weight:
+weight norm is folded in when a checkpoint is loaded
 (`fastvocoder_tpu_torch.checkpoint`), as the reference's
-`remove_weight_norm()` does before synthesis.  Weights are in PyTorch's
-layout; `ResidualStack.chain_operands`, `ResBlock1.mrf_operands` and the
-convs' `tap_major` hand the CUDA kernels the (tap, c_in, c_out) layout they
-read.
+`remove_weight_norm()` does before synthesis.  The training form
+(`weight_norm=True`) holds the direction `weight` and the gain `g` (`gt` on
+a transposed conv) and computes the effective weight `weight * g / |weight|`
+in PyTorch on every call, so that autograd carries a kernel's dW back to
+both.  Weights are in PyTorch's layout; `ResidualStack.chain_operands`,
+`ResBlock1.mrf_operands` and the convs' `tap_major` hand the CUDA kernels
+the (tap, c_in, c_out) layout they read: cached and detached where no
+gradient is asked for, attached to the graph and built anew where one is.
 """
 
 from __future__ import annotations
@@ -17,7 +22,6 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from fastvocoder_tpu_torch.ops._build import refuse_autograd
 from fastvocoder_tpu_torch.ops.basis_decode import basis_decode
 from fastvocoder_tpu_torch.ops.conv import conv1d, conv_transpose1d, reflect_pad1d
 from fastvocoder_tpu_torch.ops.fused_mrf import LRELU_SLOPE as MRF_SLOPE
@@ -37,8 +41,9 @@ def _uniform_(t: torch.Tensor, fan_in: int) -> None:
 
 
 def _cached(module: nn.Module, build):
-    """`build()`, cached on `module` until one of its parameters is moved or
-    written (keyed on each parameter's device, storage and version)."""
+    """`build()` under no_grad, cached on `module` until one of its
+    parameters is moved or written (keyed on each parameter's device,
+    storage and version)."""
     key = tuple((p.device, p.data_ptr(), p._version) for p in module.parameters())
     if key != getattr(module, "_cache_key", None):
         with torch.no_grad():
@@ -47,45 +52,76 @@ def _cached(module: nn.Module, build):
     return module._cache
 
 
+def _operands(module: nn.Module, build):
+    """`build()` attached to the graph when autograd wants a gradient of one
+    of `module`'s parameters (never cached: the weights move every step),
+    else the cached, detached result."""
+    if torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters()):
+        return build()
+    return _cached(module, build)
+
+
 def _bias_or_zeros(m: nn.Module, n: int) -> torch.Tensor:
     if m.bias is not None:
-        return m.bias.detach().contiguous()
+        return m.bias.contiguous()
     return torch.zeros(n, dtype=m.weight.dtype, device=m.weight.device)
 
 
+def _norm_except(v: torch.Tensor, dim: int) -> torch.Tensor:
+    """|v| over every axis but `dim`, kept for broadcasting."""
+    axes = tuple(i for i in range(v.dim()) if i != dim)
+    return torch.sqrt(torch.sum(v * v, dim=axes, keepdim=True))
+
+
 class Conv1d(nn.Module):
-    """Fused `WNConv1d`: weight (Cout, Cin, K), optional bias, symmetric
-    zero `padding`."""
+    """`WNConv1d`: weight (Cout, Cin // groups, K), optional bias, symmetric
+    zero `padding`.  With `weight_norm`, `weight` is the direction and `g`
+    (Cout,) the gain: each output channel is normalised over (Cin, K), and
+    `g` starts at the norm, so the effective weight starts at `weight`."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, dilation: int = 1,
-                 bias: bool = True, padding: int = 0):
+                 bias: bool = True, padding: int = 0, stride: int = 1, groups: int = 1,
+                 weight_norm: bool = False):
         super().__init__()
         self.dilation = dilation
         self.padding = padding
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel_size))
+        self.stride = stride
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel_size))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
-        fan_in = cin * kernel_size
+        fan_in = cin // groups * kernel_size
         _uniform_(self.weight, fan_in)
         if self.bias is not None:
             _uniform_(self.bias, fan_in)
+        self.g = None
+        if weight_norm:
+            self.g = nn.Parameter(_norm_except(self.weight.detach(), 0).reshape(cout))
+
+    def effective_weight(self) -> torch.Tensor:
+        if self.g is None:
+            return self.weight
+        return self.weight * (self.g[:, None, None] / _norm_except(self.weight, 0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1d(x, self.weight, self.bias, padding=self.padding, dilation=self.dilation)
+        return conv1d(x, self.effective_weight(), self.bias, stride=self.stride,
+                      padding=self.padding, dilation=self.dilation, groups=self.groups)
 
     def tap_major(self):
         """(kernel (K, Cin, Cout), bias (Cout,), zeros without one): the
-        layout the JAX package and the port's kernels take, detached and
-        cached."""
-        return _cached(self, lambda: (self.weight.detach().permute(2, 1, 0).contiguous(),
-                                      _bias_or_zeros(self, self.weight.shape[0])))
+        layout the JAX package and the port's kernels take (`_operands`)."""
+        return _operands(self, lambda: (self.effective_weight().permute(2, 1, 0).contiguous(),
+                                        _bias_or_zeros(self, self.weight.shape[0])))
 
 
 class ConvTranspose1d(nn.Module):
-    """Fused `WNConvTranspose1d`: weight (Cin, Cout, K), optional bias,
-    torch padding semantics."""
+    """`WNConvTranspose1d`: weight (Cin, Cout, K), optional bias, torch
+    padding semantics.  With `weight_norm`, the gain `gt` (Cin,) scales each
+    *input* channel, normalised over (Cout, K), as torch's weight norm does
+    on a transposed conv's weight."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int,
-                 padding: int = 0, output_padding: int = 0, bias: bool = True):
+                 padding: int = 0, output_padding: int = 0, bias: bool = True,
+                 weight_norm: bool = False):
         super().__init__()
         self.stride = stride
         self.padding = padding
@@ -96,17 +132,25 @@ class ConvTranspose1d(nn.Module):
         _uniform_(self.weight, fan_in)
         if self.bias is not None:
             _uniform_(self.bias, fan_in)
+        self.gt = None
+        if weight_norm:
+            self.gt = nn.Parameter(_norm_except(self.weight.detach(), 0).reshape(cin))
+
+    def effective_weight(self) -> torch.Tensor:
+        if self.gt is None:
+            return self.weight
+        return self.weight * (self.gt[:, None, None] / _norm_except(self.weight, 0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose1d(x, self.weight, self.bias, stride=self.stride,
+        return conv_transpose1d(x, self.effective_weight(), self.bias, stride=self.stride,
                                 padding=self.padding,
                                 output_padding=self.output_padding)
 
     def tap_major(self):
-        """(kernel (K, Cin, Cout), bias (Cout,), zeros without one),
-        detached and cached."""
-        return _cached(self, lambda: (self.weight.detach().permute(2, 0, 1).contiguous(),
-                                      _bias_or_zeros(self, self.weight.shape[1])))
+        """(kernel (K, Cin, Cout), bias (Cout,), zeros without one)
+        (`_operands`)."""
+        return _operands(self, lambda: (self.effective_weight().permute(2, 0, 1).contiguous(),
+                                        _bias_or_zeros(self, self.weight.shape[1])))
 
 
 class UpsampleLayer(nn.Module):
@@ -114,10 +158,11 @@ class UpsampleLayer(nn.Module):
     conv's alternative (reference modules.py:135-177)."""
 
     def __init__(self, cin: int, cout: int, upsample_rate: int, kernel_size: int,
-                 bias: bool = True):
+                 bias: bool = True, weight_norm: bool = False):
         super().__init__()
         self.upsample_rate = upsample_rate
-        self.conv = Conv1d(cin, cout, kernel_size, bias=bias, padding=kernel_size // 2)
+        self.conv = Conv1d(cin, cout, kernel_size, bias=bias, padding=kernel_size // 2,
+                           weight_norm=weight_norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.repeat_interleave(self.upsample_rate, dim=1))
@@ -129,13 +174,14 @@ class ResidualStack(nn.Module):
     plus a 1x1 skip conv."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilation: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, weight_norm: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
         self.dilation = dilation
-        self.conv_dilated = Conv1d(channels, channels, kernel_size, dilation=dilation, bias=bias)
-        self.conv_1x1 = Conv1d(channels, channels, 1, bias=bias)
-        self.skip = Conv1d(channels, channels, 1, bias=bias)
+        kw = dict(bias=bias, weight_norm=weight_norm)
+        self.conv_dilated = Conv1d(channels, channels, kernel_size, dilation=dilation, **kw)
+        self.conv_1x1 = Conv1d(channels, channels, 1, **kw)
+        self.skip = Conv1d(channels, channels, 1, **kw)
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         h = leaky_relu(c)
@@ -147,20 +193,19 @@ class ResidualStack(nn.Module):
     def chain_operands(self):
         """(k_dilated (K, C, C), b_d, dilation, k_1x1 (1, C, C), b_1,
         k_skip (1, C, C), b_s): the weights laid out (tap, c_in, c_out) for
-        `ops.fused_resstack`, detached.  Cached until a weight is moved or
-        written."""
-        return _cached(self, lambda: (*self.conv_dilated.tap_major(), self.dilation,
-                                      *self.conv_1x1.tap_major(), *self.skip.tap_major()))
+        `ops.fused_resstack` (`_operands`)."""
+        return _operands(self, lambda: (*self.conv_dilated.tap_major(), self.dilation,
+                                        *self.conv_1x1.tap_major(), *self.skip.tap_major()))
 
 
 def apply_residual_stacks(x: torch.Tensor, stacks: Sequence[ResidualStack]) -> torch.Tensor:
-    """Run a stage's sequential ResidualStacks: one launch of the chain
-    kernel on CUDA (forward only), the modules on the CPU."""
+    """Run a stage's sequential ResidualStacks: the chain kernel on CUDA
+    (one launch forwards, its backward kernel under autograd), the modules
+    on the CPU."""
     if not x.is_cuda:
         for m in stacks:
             x = m(x)
         return x
-    refuse_autograd("fused_resstack", [x] + [p for m in stacks for p in m.parameters()])
     return fused_residual_stacks(x.contiguous(), [m.chain_operands() for m in stacks])
 
 
@@ -170,15 +215,15 @@ class ResBlock1(nn.Module):
     leaky slope 0.1, zero "same" padding."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3, 5),
-                 bias: bool = True):
+                 bias: bool = True, weight_norm: bool = False):
         super().__init__()
         self.dilations = tuple(dilations)
         self.convs1, self.convs2 = [], []
         for i, d in enumerate(self.dilations):
             c1 = Conv1d(channels, channels, kernel_size, dilation=d, bias=bias,
-                        padding=(kernel_size * d - d) // 2)
+                        padding=(kernel_size * d - d) // 2, weight_norm=weight_norm)
             c2 = Conv1d(channels, channels, kernel_size, bias=bias,
-                        padding=(kernel_size - 1) // 2)
+                        padding=(kernel_size - 1) // 2, weight_norm=weight_norm)
             self.add_module(f"conv1_{i}", c1)
             self.add_module(f"conv2_{i}", c2)
             self.convs1.append(c1)
@@ -192,7 +237,7 @@ class ResBlock1(nn.Module):
 
     def mrf_operands(self):
         """[(k1 (K, C, C), b1, dilation, k2 (K, C, C), b2)] per pair: the form
-        `ops.fused_mrf` takes, detached; each conv caches its own copy."""
+        `ops.fused_mrf` takes; each conv caches its own copy (`_operands`)."""
         return [(*c1.tap_major(), d, *c2.tap_major())
                 for c1, c2, d in zip(self.convs1, self.convs2, self.dilations)]
 
@@ -203,12 +248,12 @@ class ResBlock2(nn.Module):
     neither; it runs as modules on every device."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3),
-                 bias: bool = True):
+                 bias: bool = True, weight_norm: bool = False):
         super().__init__()
         self.convs = []
         for i, d in enumerate(dilations):
             c = Conv1d(channels, channels, kernel_size, dilation=d, bias=bias,
-                       padding=(kernel_size * d - d) // 2)
+                       padding=(kernel_size * d - d) // 2, weight_norm=weight_norm)
             self.add_module(f"conv_{i}", c)
             self.convs.append(c)
 
@@ -219,10 +264,10 @@ class ResBlock2(nn.Module):
 
 
 def apply_mrf(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
-    """Run an MRF stage, the mean of its blocks: one call of the MRF kernel
-    on CUDA for ResBlock1 stages (forward only), the modules otherwise."""
+    """Run an MRF stage, the mean of its blocks: the MRF kernel on CUDA for
+    ResBlock1 stages (its backward kernel under autograd), the modules
+    otherwise."""
     if x.is_cuda and all(isinstance(b, ResBlock1) for b in blocks):
-        refuse_autograd("fused_mrf", [x] + [p for b in blocks for p in b.parameters()])
         return fused_mrf_stage(x.contiguous(), [b.mrf_operands() for b in blocks])
     acc = None
     for b in blocks:
@@ -233,11 +278,14 @@ def apply_mrf(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
 
 class BasisSignalLayer(nn.Module):
     """Frozen learned-basis decode (reference modules.py:255-267): weights
-    (B, F, C) @ basis (L, C)^T, 50 %-overlap-added into (B, (F+1) * L/2)."""
+    (B, F, C) @ basis (L, C)^T, 50 %-overlap-added into (B, (F+1) * L/2).
+    `basis` is a parameter, as in the JAX package: no optimiser updates it,
+    but in training its gradient counts in the clip norm
+    (`train.trainer`)."""
 
     def __init__(self, L: int, in_features: int = 256):
         super().__init__()
-        self.register_buffer("basis", torch.zeros(L, in_features))
+        self.basis = nn.Parameter(torch.zeros(L, in_features))
 
     def forward(self, weight: torch.Tensor) -> torch.Tensor:
         return basis_decode(weight.contiguous(), self.basis)

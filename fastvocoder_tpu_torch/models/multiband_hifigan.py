@@ -18,10 +18,10 @@ from fastvocoder_tpu_torch.ops.pqmf import PQMF
 
 
 class MultiBandHiFiGANGenerator(nn.Module):
-    def __init__(self, cfg: HiFiGANConfig):
+    def __init__(self, cfg: HiFiGANConfig, weight_norm: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.trunk = HiFiGANGenerator(cfg)
+        self.trunk = HiFiGANGenerator(cfg, weight_norm=weight_norm)
         self.pqmf = PQMF(subbands=cfg.out_bands)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:

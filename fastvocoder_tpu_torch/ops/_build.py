@@ -144,13 +144,14 @@ def check_operand(op: str, name: str, t: torch.Tensor, device: torch.device) -> 
 
 
 def refuse_autograd(op: str, tensors: Iterable[torch.Tensor]) -> None:
-    """Raise if autograd would have to differentiate through a forward-only
-    kernel: grad mode is on and one of `tensors` requires a gradient."""
+    """Raise if autograd would have to differentiate through an
+    inference-only kernel (the HiFiGAN tail): grad mode is on and one of
+    `tensors` requires a gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{op}: the CUDA kernel is forward only; its backward is still to "
-            "be ported (ROADMAP queue B): run inference under "
-            "torch.inference_mode() or torch.no_grad()"
+            f"{op}: this CUDA kernel is inference only, in the JAX package too "
+            "(training runs the stage through its modules and the MRF kernel): "
+            "call it under torch.inference_mode() or torch.no_grad()"
         )
 
 

@@ -57,6 +57,14 @@ def conv_transpose1d(
     return y.transpose(1, 2).contiguous()
 
 
+def avg_pool1d(x: torch.Tensor, kernel_size: int, stride: int, padding: int = 0,
+               count_include_pad: bool = True) -> torch.Tensor:
+    """`torch.nn.AvgPool1d` on the time axis of (B, T, C)."""
+    y = F.avg_pool1d(x.transpose(1, 2), kernel_size, stride, padding,
+                     count_include_pad=count_include_pad)
+    return y.transpose(1, 2).contiguous()
+
+
 def reflect_index(T: int, pad: Pad, device=None) -> torch.Tensor:
     """Source rows of a reflect-padded length-T sequence: index i of the
     padded sequence reads row reflect(i - left).  Pads of any size repeat

@@ -1,7 +1,7 @@
 """Fused HiFiGAN MRF stage: the mean over a stage's ResBlock1 branches.
 
-Counterpart of `fastvocoder_tpu/ops/fused_mrf.py`, forward only.  Each
-branch is a chain of pairs
+Counterpart of `fastvocoder_tpu/ops/fused_mrf.py`, forward and backward.
+Each branch is a chain of pairs
 
     h = h + conv_K2(leaky(conv_K1,d(leaky(h)) + b1)) + b2
 
@@ -9,10 +9,14 @@ with leaky slope 0.1 and zero "same" padding ((K - 1) d // 2) on every
 conv's own input; the stage returns the mean of the branches' outputs.
 
 `fused_mrf_stage` routes by device: CUDA tensors go to the hand-written
-kernel (`csrc/fused_mrf.cu`), CPU tensors to `fused_mrf_stage_plain`, the
-module semantics written out.  The TPU kernel's blocked (B, Q, 128) layout,
-block-Toeplitz weights and `T % (128 // C)` gate have no counterpart here:
-the kernel takes any T >= 1 and any B.
+kernels, CPU tensors to `fused_mrf_stage_plain`, the module semantics
+written out, which autograd differentiates.  On CUDA the stage is a
+`torch.autograd.Function`: its forward is `csrc/fused_mrf.cu`, its backward
+`csrc/fused_mrf_bwd.cu`, which recomputes the stage from x and returns dx
+and every dW and db (`fused_mrf_stage_vjp_cuda`; the plain version of the
+same function is `fused_mrf_stage_vjp_plain`).  The TPU kernel's blocked
+(B, Q, 128) layout, block-Toeplitz weights and `T % (128 // C)` gate have no
+counterpart here: the kernels take any T >= 1 and any B.
 
 Branches are given as in the JAX package: per branch a list of pairs
 (k1 (K1, C, C), b1 (C,), dilation, k2 (K2, C, C), b2 (C,)), kernels laid
@@ -28,9 +32,10 @@ import torch
 
 from fastvocoder_tpu_torch.ops import _build
 from fastvocoder_tpu_torch.ops.conv import conv1d
-from fastvocoder_tpu_torch.ops.fused_resstack import leaky_relu
+from fastvocoder_tpu_torch.ops.fused_resstack import leaf_copy, leaky_relu
 
 NAME = "fused_mrf"
+BWD_NAME = "fused_mrf_bwd"
 KERNEL_WIDTHS = (16, 32, 64, 128, 256)
 LRELU_SLOPE = 0.1  # HiFiGAN's resblocks (reference modules.py:9)
 
@@ -98,19 +103,22 @@ def mrf_table(op: str, resblocks: Sequence[Sequence[Pair]], C: int, device: torc
     return nb, np_, (ctypes.c_int * len(ints))(*ints), (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def fused_mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]]) -> torch.Tensor:
-    """Launch the CUDA kernel on x (B, T, C) float32, contiguous, on a CUDA
-    device, C in `KERNEL_WIDTHS`."""
+def _check_x(op: str, x: torch.Tensor) -> Tuple[int, int, int]:
     if not x.is_cuda:
-        raise ValueError(f"{NAME}: x must be a CUDA tensor, got {x.device}")
-    _build.refuse_autograd(NAME, [x] + [w for pairs in resblocks for p in pairs for w in p
-                                 if isinstance(w, torch.Tensor)])
+        raise ValueError(f"{op}: x must be a CUDA tensor, got {x.device}")
     if x.dim() != 3:
-        raise ValueError(f"{NAME}: want x (B, T, C), got {tuple(x.shape)}")
-    B, T, C = x.shape
-    if C not in KERNEL_WIDTHS:
-        raise ValueError(f"{NAME}: C={C} not in {KERNEL_WIDTHS}")
-    _build.check_operand(NAME, "x", x, x.device)
+        raise ValueError(f"{op}: want x (B, T, C), got {tuple(x.shape)}")
+    if x.shape[2] not in KERNEL_WIDTHS:
+        raise ValueError(f"{op}: C={x.shape[2]} not in {KERNEL_WIDTHS}")
+    _build.check_operand(op, "x", x, x.device)
+    return tuple(x.shape)
+
+
+def fused_mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]]) -> torch.Tensor:
+    """Launch the forward kernel on x (B, T, C) float32, contiguous, on a
+    CUDA device, C in `KERNEL_WIDTHS`.  Records no graph: gradients come
+    through `fused_mrf_stage`."""
+    B, T, C = _check_x(NAME, x)
     lib = _build.library(NAME)
     nb, np_, ints, ptrs = mrf_table(NAME, resblocks, C, x.device,
                                     lib.fvt_fused_mrf_max_branches(), lib.fvt_fused_mrf_max_pairs())
@@ -129,9 +137,109 @@ def fused_mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]]) -
     return y
 
 
+Grads = List[List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]]
+
+
+def fused_mrf_stage_vjp_plain(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
+                              g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+    """The stage's vector-Jacobian product by autograd of the plain
+    forward: (dx, per branch per pair (dk1, db1, dk2, db2)), kernels
+    (tap, c_in, c_out) as they were given."""
+    with torch.enable_grad():
+        xg = leaf_copy(x)
+        leaves = [[(leaf_copy(k1), leaf_copy(b1), d, leaf_copy(k2), leaf_copy(b2))
+                   for k1, b1, d, k2, b2 in pairs] for pairs in resblocks]
+        y = fused_mrf_stage_plain(xg, leaves)
+        flat = [w for pairs in leaves for p in pairs for w in p if isinstance(w, torch.Tensor)]
+        got = torch.autograd.grad(y, [xg] + flat, g)
+    it = iter(got[1:])
+    return got[0], [[(next(it), next(it), next(it), next(it)) for _ in pairs]
+                    for pairs in resblocks]
+
+
+def fused_mrf_stage_vjp_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
+                             g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+    """Launch the backward kernel: from x and the cotangent g of the stage's
+    output, (dx, per branch per pair (dk1, db1, dk2, db2)), float32, kernels
+    (tap, c_in, c_out).  The stage is recomputed from x on the card."""
+    B, T, C = _check_x(BWD_NAME, x)
+    if tuple(g.shape) != (B, T, C):
+        raise ValueError(f"{BWD_NAME}: g has shape {tuple(g.shape)}, want {(B, T, C)}")
+    _build.check_operand(BWD_NAME, "g", g, x.device)
+    lib = _build.library(BWD_NAME)
+    nb, np_, ints, _ = mrf_table(BWD_NAME, resblocks, C, x.device,
+                                 lib.fvt_fused_mrf_bwd_max_branches(),
+                                 lib.fvt_fused_mrf_bwd_max_pairs())
+    dx = torch.empty_like(x)
+    grads = [[(torch.empty_like(k1), torch.empty_like(b1), torch.empty_like(k2),
+               torch.empty_like(b2)) for k1, b1, _, k2, b2 in pairs] for pairs in resblocks]
+    if B == 0 or T == 0:
+        for pairs in grads:
+            for group in pairs:
+                for t in group:
+                    t.zero_()
+        return dx, grads
+    # the adjoint convs read each kernel with its channel axes swapped
+    swapped = [[(k1.transpose(1, 2).contiguous(), k2.transpose(1, 2).contiguous())
+                for k1, _, _, k2, _ in pairs] for pairs in resblocks]
+    ptrs: List[int] = []
+    for pairs, sw in zip(resblocks, swapped):
+        for (k1, b1, _, k2, b2), (k1t, k2t) in zip(pairs, sw):
+            ptrs += [k1.data_ptr(), b1.data_ptr(), k2.data_ptr(), b2.data_ptr(),
+                     k1t.data_ptr(), k2t.data_ptr()]
+    outs = [t.data_ptr() for pairs in grads for group in pairs for t in group]
+    size_fn = lib.fvt_fused_mrf_bwd_scratch_floats
+    size_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    size_fn.restype = ctypes.c_longlong
+    n_scratch = size_fn(B, T, C, nb, np_, ctypes.addressof(ints))
+    if n_scratch < 0:
+        raise ValueError(f"{BWD_NAME}: the kernel refuses this stage")
+    # the caching allocator hands the same block back on every step
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    fn = lib.fvt_fused_mrf_bwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    out_arr = (ctypes.c_void_p * len(outs))(*outs)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), B, T, C, nb, np_,
+                 ctypes.addressof(ints), ctypes.addressof(ptr_arr), ctypes.addressof(out_arr),
+                 stream)
+    _build.check_launch(BWD_NAME, err)
+    return dx, grads
+
+
+def _pack(dilations, tensors) -> List[List[Pair]]:
+    it = iter(tensors)
+    return [[(next(it), next(it), d, next(it), next(it)) for d in branch] for branch in dilations]
+
+
+class _FusedMRFStage(torch.autograd.Function):
+    """The MRF stage on CUDA: forward kernel, backward kernel.  Saves x and
+    the weights; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, dilations, *tensors):
+        ctx.dilations = dilations
+        ctx.save_for_backward(x, *tensors)
+        return fused_mrf_stage_cuda(x, _pack(dilations, tensors))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, *tensors = ctx.saved_tensors
+        dx, grads = fused_mrf_stage_vjp_cuda(x, _pack(ctx.dilations, tensors), g.contiguous())
+        flat = [t for pairs in grads for group in pairs for t in group]
+        return (dx, None, *flat)
+
+
 def fused_mrf_stage(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]]) -> torch.Tensor:
-    """Apply an MRF stage to x (B, T, C): the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    """Apply an MRF stage to x (B, T, C): the kernels on CUDA tensors (with
+    their own backward), the plain version on CPU tensors."""
     if x.is_cuda:
-        return fused_mrf_stage_cuda(x, resblocks)
+        dilations = tuple(tuple(int(p[2]) for p in pairs) for pairs in resblocks)
+        tensors = [w.contiguous() for pairs in resblocks for p in pairs for w in p
+                   if isinstance(w, torch.Tensor)]
+        return _FusedMRFStage.apply(x, dilations, *tensors)
     return fused_mrf_stage_plain(x, resblocks)

@@ -1,0 +1,300 @@
+"""The GAN train steps: generator and discriminator updates on one device.
+
+Counterpart of `fastvocoder_tpu/train/trainer.py` (the reference's per-step
+`trainer()`, bin/train.py:48-255).  The host picks one of two steps at the
+`discriminator_train_start_steps` boundary:
+
+  * `pre_adv_step`: generator only, MR-STFT loss plus Basis-MelGAN's
+    unscaled weight L1 (reference bin/train.py:77-89);
+  * `gan_step`: the generator update with the adversarial MSE-to-ones and
+    the feature-map L1 against the real features without gradient, both
+    under the discriminator's weights from before its update; then the
+    generator runs again with its *updated* weights under `no_grad` ("which
+    leads better quality", bin/train.py:148), and the discriminator updates
+    on that estimate.
+
+Both optimisers are Adam(b1 0.9, b2 0.999, eps 1e-6) behind a global-norm
+clip at `grad_clip_thresh`, written by hand to the JAX package's rule
+(unchanged below the threshold, g / norm * threshold above: torch's own
+`clip_grad_norm_` divides by norm + 1e-6), with the optional torch-style
+cosine annealing evaluated at each optimiser's own update count.
+Basis-MelGAN's basis is frozen: no optimiser holds it, but its gradient
+counts in the clip norm (the reference clips over `model.parameters()`,
+bin/train.py:133).
+
+PyTorch is eager and stateful: a `TrainState` holds the two modules and the
+two optimisers, and a step updates them in place.  The generator is the
+training form (`weight_norm=True`), whose MRF and residual-stack stages run
+the port's CUDA kernels on the card, forward and backward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from fastvocoder_tpu_torch.hparams import DISC, HP, DiscriminatorConfig, Hparams, ModelConfig
+from fastvocoder_tpu_torch.losses import (
+    adversarial_loss,
+    discriminator_loss,
+    feature_map_loss,
+    reconstruction_loss,
+    reconstruction_loss_masked,
+)
+from fastvocoder_tpu_torch.models.factory import build_discriminator, build_generator
+from fastvocoder_tpu_torch.ops.pqmf import PQMF
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def torch_cosine_annealing(base_lr: float, t_max: int = 2500,
+                           eta_min: Optional[float] = None) -> Callable[[int], float]:
+    """`torch.optim.lr_scheduler.CosineAnnealingLR`'s closed form (reference
+    bin/train.py:344-351: T_max 2500, eta_min lr / 10), as a function of the
+    optimiser's update count."""
+    if eta_min is None:
+        eta_min = base_lr / 10.0
+
+    def schedule(count: int) -> float:
+        return eta_min + (base_lr - eta_min) * 0.5 * (1.0 + math.cos(math.pi * count / t_max))
+
+    return schedule
+
+
+def _adam(params: List[nn.Parameter], lr: float) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-6)
+
+
+def trainable_generator_parameters(generator: nn.Module) -> List[nn.Parameter]:
+    """Every generator parameter but the frozen basis (`basis_signal.*`)."""
+    return [p for name, p in generator.named_parameters()
+            if not name.startswith("basis_signal.")]
+
+
+def make_generator_optimizer(generator: nn.Module, hp: Hparams = HP,
+                             learning_rate: Optional[float] = None) -> torch.optim.Adam:
+    lr = learning_rate if learning_rate is not None else hp.learning_rate
+    return _adam(trainable_generator_parameters(generator), lr)
+
+
+def make_discriminator_optimizer(discriminator: nn.Module, hp: Hparams = HP,
+                                 learning_rate: Optional[float] = None) -> torch.optim.Adam:
+    lr = learning_rate if learning_rate is not None else hp.learning_rate_discriminator
+    return _adam(list(discriminator.parameters()), lr)
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale `grads` in place to a global norm of at most `max_norm`:
+    unchanged below it, g / norm * max_norm above.  -> the norm before."""
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    below = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(below, g, g / norm * max_norm))
+    return norm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a run carries from step to step and into a checkpoint."""
+
+    step: int
+    generator: nn.Module
+    discriminator: nn.Module
+    gen_opt: torch.optim.Adam
+    disc_opt: torch.optim.Adam
+    gen_updates: int = 0   # updates each optimiser has made: the schedule's count
+    disc_updates: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Trainer:
+    """The configuration of a run and its steps.  Construct with
+    `make_trainer`; `init_state` builds the modules and optimisers."""
+
+    cfg: ModelConfig
+    hp: Hparams
+    disc_cfg: DiscriminatorConfig
+    device: torch.device
+    gen_schedule: Callable[[int], float]
+    disc_schedule: Callable[[int], float]
+    pqmf: Optional[PQMF]
+    basis_signal_weight: Optional[np.ndarray] = None
+    # the clip norms of the last step, for tests and logs: "generator",
+    # "discriminator"
+    last_norms: dict = dataclasses.field(default_factory=dict, compare=False)
+    # with keep_grads, the last step's gradients before the clip, by
+    # parameter name, under the same two keys (for comparisons; costs a copy)
+    keep_grads: bool = False
+    last_grads: dict = dataclasses.field(default_factory=dict, compare=False)
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        """Fresh modules on the trainer's device, initialised from `seed`
+        (torch's default conv init, gains at the weights' norms)."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            generator = build_generator(self.cfg, weight_norm=True,
+                                        basis_signal_weight=self.basis_signal_weight)
+            discriminator = build_discriminator(self.disc_cfg)
+        generator.to(self.device).train()
+        discriminator.to(self.device).train()
+        return TrainState(
+            step=0, generator=generator, discriminator=discriminator,
+            gen_opt=make_generator_optimizer(generator, self.hp, self.gen_schedule(0)),
+            disc_opt=make_discriminator_optimizer(discriminator, self.hp, self.disc_schedule(0)),
+        )
+
+    # ---- forward helpers ----
+
+    def _gen_forward(self, generator: nn.Module, mel: torch.Tensor):
+        out = generator(mel)
+        if self.cfg.model_name == "basis-melgan":
+            return out  # (est_source, est_weight)
+        return out, None
+
+    def _to_fullband(self, est: torch.Tensor) -> torch.Tensor:
+        if self.pqmf is not None:
+            return self.pqmf.synthesis(est)[..., 0]
+        return est
+
+    def _update(self, name: str, params: List[nn.Parameter], grads, opt: torch.optim.Adam,
+                lr: float, clipped_with: Tuple[torch.Tensor, ...] = ()) -> None:
+        """Clip `grads` (with `clipped_with` counted in the norm), then one
+        Adam update of `params` at `lr`."""
+        grads = [g.contiguous() for g in grads]
+        self.last_norms[name] = clip_by_global_norm_(grads + list(clipped_with),
+                                                     self.hp.grad_clip_thresh)
+        for p, g in zip(params, grads):
+            p.grad = g
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    def _update_generator(self, state: TrainState, total: torch.Tensor) -> None:
+        named = [(n, p) for n, p in state.generator.named_parameters()]
+        grads = torch.autograd.grad(total, [p for _, p in named])
+        if self.keep_grads:
+            self.last_grads["generator"] = {n: g.clone() for (n, _), g in zip(named, grads)}
+        frozen = tuple(g.contiguous() for (n, _), g in zip(named, grads)
+                       if n.startswith("basis_signal."))
+        trained = [(p, g) for (n, p), g in zip(named, grads)
+                   if not n.startswith("basis_signal.")]
+        self._update("generator", [p for p, _ in trained], [g for _, g in trained],
+                     state.gen_opt, self.gen_schedule(state.gen_updates), frozen)
+        state.gen_updates += 1
+
+    # ---- the two steps ----
+
+    def pre_adv_step(self, state: TrainState, mel, wav, weight=None) -> Tuple[TrainState, Metrics]:
+        """Generator-only phase (step <= discriminator_train_start_steps)."""
+        est, est_weight = self._gen_forward(state.generator, mel)
+        stft_l, weight_l = reconstruction_loss(est, wav, est_weight=est_weight, weight=weight,
+                                               pqmf=self.pqmf)
+        total = self.cfg.lambda_stft * stft_l
+        metrics = {"stft_loss": stft_l}
+        if weight_l is not None:
+            total = total + weight_l  # unscaled (reference bin/train.py:89)
+            metrics["weight_loss"] = weight_l
+            metrics["weight_average_value"] = est_weight.mean()
+        metrics["total_loss"] = total
+        self._update_generator(state, total)
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    def gan_step(self, state: TrainState, mel, wav, weight=None) -> Tuple[TrainState, Metrics]:
+        """Full GAN phase (step > discriminator_train_start_steps): the
+        generator update (stft + adv + fm), then the discriminator update on
+        the estimate of the updated generator.  The discriminator always
+        sees full-band waveforms."""
+        disc = state.discriminator
+        est, est_weight = self._gen_forward(state.generator, mel)
+        stft_l, _ = reconstruction_loss(est, wav, est_weight=est_weight, weight=weight,
+                                        pqmf=self.pqmf)
+        total = self.cfg.lambda_stft * stft_l
+        metrics = {"stft_loss": stft_l}
+        est_p = disc(self._to_fullband(est))
+        adv_l = adversarial_loss(est_p)
+        total = total + self.hp.lambda_adv * adv_l
+        metrics["adversarial_loss"] = adv_l
+        if self.cfg.use_feature_map_loss:
+            with torch.no_grad():
+                real_p = disc(wav)
+            fm_l = feature_map_loss(est_p, real_p)
+            total = total + self.hp.lambda_fm * fm_l
+            metrics["feature_map_loss"] = fm_l
+        metrics["total_loss"] = total
+        self._update_generator(state, total)
+        del est_p, est, est_weight
+
+        with torch.no_grad():
+            est_for_d = self._to_fullband(self._gen_forward(state.generator, mel)[0])
+        real_l, fake_l = discriminator_loss(disc(wav), disc(est_for_d))
+        d_loss = real_l + fake_l
+        params = list(disc.parameters())
+        d_grads = torch.autograd.grad(d_loss, params)
+        if self.keep_grads:
+            self.last_grads["discriminator"] = {
+                n: g.clone() for (n, _), g in zip(disc.named_parameters(), d_grads)}
+        self._update("discriminator", params, d_grads,
+                     state.disc_opt, self.disc_schedule(state.disc_updates))
+        state.disc_updates += 1
+        metrics["discriminator_loss"] = d_loss
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def valid_step(self, state: TrainState, mel, wav) -> torch.Tensor:
+        """Validation MR-STFT loss on a fixed-size crop batch."""
+        est, _ = self._gen_forward(state.generator, mel)
+        return reconstruction_loss(est, wav, pqmf=self.pqmf)[0]
+
+    @torch.no_grad()
+    def valid_step_full(self, generator: nn.Module, mel, wav, valid_samples) -> torch.Tensor:
+        """Full-utterance validation loss (reference bin/train.py:451-471:
+        batch 1, whole items) on inputs padded to a length bucket;
+        `valid_samples` masks the padded tail out of the MR-STFT loss."""
+        est, _ = self._gen_forward(generator, mel)
+        return reconstruction_loss_masked(est, wav, valid_samples, pqmf=self.pqmf)
+
+
+def make_trainer(
+    cfg: ModelConfig,
+    hp: Hparams = HP,
+    basis_signal_weight: Optional[np.ndarray] = None,
+    use_scheduler: bool = False,
+    learning_rate: Optional[float] = None,
+    learning_rate_discriminator: Optional[float] = None,
+    disc_cfg: DiscriminatorConfig = DISC,
+    device=None,
+    keep_grads: bool = False,
+) -> Trainer:
+    """The trainer of `cfg` on `device`: the CUDA device by default, and a
+    RuntimeError without one unless `device="cpu"` is asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: fastvocoder_tpu_torch trains on the GPU; pass "
+                "device='cpu' (--device cpu) to run on the CPU"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if cfg.use_mpd or disc_cfg.use_mpd:
+        raise NotImplementedError(
+            "the multi-period discriminator is not ported yet (ROADMAP queue A)"
+        )
+    hp = hp.replace(use_feature_map_loss=cfg.use_feature_map_loss)
+    lr_g = learning_rate if learning_rate is not None else hp.learning_rate
+    lr_d = (learning_rate_discriminator if learning_rate_discriminator is not None
+            else hp.learning_rate_discriminator)
+    return Trainer(
+        cfg=cfg, hp=hp, disc_cfg=disc_cfg, device=device,
+        gen_schedule=torch_cosine_annealing(lr_g) if use_scheduler else (lambda count: lr_g),
+        disc_schedule=torch_cosine_annealing(lr_d) if use_scheduler else (lambda count: lr_d),
+        pqmf=PQMF().to(device) if cfg.multiband else None,
+        basis_signal_weight=basis_signal_weight, keep_grads=keep_grads,
+    )

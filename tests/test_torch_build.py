@@ -36,3 +36,37 @@ def test_port_kernels_that_share_the_mrf_header():
              for src in _build.CSRC.glob("*.cu")}
     assert names["fused_mrf"] == names["fused_tail"] == ["mrf_common.cuh"]
     assert names["basis_decode"] == names["fused_resstack"] == []
+
+
+def test_backward_kernels_share_one_header_and_its_hash():
+    names = {src.stem: [p.name for p in _build.local_includes(src)]
+             for src in _build.CSRC.glob("*.cu")}
+    assert names["fused_mrf_bwd"] == names["fused_resstack_bwd"] == ["bwd_common.cuh"]
+    assert sorted(names) == ["basis_decode", "fused_mrf", "fused_mrf_bwd", "fused_resstack",
+                             "fused_resstack_bwd", "fused_tail"]
+
+
+def test_a_backward_library_is_rebuilt_when_the_shared_header_changes(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    before = {n: _build._target(csrc / f"{n}.cu")
+              for n in ("fused_mrf_bwd", "fused_resstack_bwd", "fused_mrf")}
+    with open(csrc / "bwd_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._target(csrc / f"{n}.cu") for n in before}
+    assert after["fused_mrf_bwd"] != before["fused_mrf_bwd"]
+    assert after["fused_resstack_bwd"] != before["fused_resstack_bwd"]
+    assert after["fused_mrf"] == before["fused_mrf"]
+
+
+def test_refuse_autograd_speaks_of_an_inference_only_kernel():
+    import pytest
+    import torch
+
+    x = torch.zeros(1, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="inference only"):
+        _build.refuse_autograd("fused_tail", [x])
+    with torch.no_grad():
+        _build.refuse_autograd("fused_tail", [x])

@@ -107,7 +107,9 @@ def test_module_path_matches_plain():
 
 
 def test_mrf_operands_follow_weight_writes():
-    b = ResBlock1(16, kernel_size=3, dilations=(1, 3))
+    # cached where no gradient is asked for, as `load_generator` leaves a
+    # served model; under autograd they are built anew and attached
+    b = ResBlock1(16, kernel_size=3, dilations=(1, 3)).requires_grad_(False)
     first = b.mrf_operands()
     assert b.mrf_operands()[0][0] is first[0][0]  # cached
     with torch.no_grad():

@@ -38,6 +38,11 @@ def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert "fastvocoder_tpu_torch/ops/fused_resstack.py" in names
     assert "fastvocoder_tpu_torch/serving/server.py" in names
+    for new in ("bin/train.py", "train/trainer.py", "train/checkpoint.py", "data/dataset.py",
+                "dsp/stft.py", "losses/__init__.py", "losses/gan.py", "losses/stft_loss.py",
+                "models/discriminator/msd.py", "models/discriminator/mfd.py",
+                "models/discriminator/composite.py"):
+        assert f"fastvocoder_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
 

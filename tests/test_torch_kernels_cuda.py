@@ -15,6 +15,21 @@ The MRF stage and the tail sum up to 6 convs of up to 11 C taps in a chain
 (2816 products a row at C = 256), so their rows are held 30x looser than
 the chain's (1e-5 of the magnitude), the MRF's maximum like the chain's and
 the tail's, after tanh, within 1e-4.
+
+The two backward kernels are held against the plain versions' autograd run
+in float64 (`_f64`), so that only the kernel's own float32 rounding can put
+a pre-activation on the other side of the leaky-relu kink.  One flipped
+slope (about one element in a million) changes dx by a share of a weight's
+size over every row the later convs' adjoints spread it to, 27 rows in the
+chain and more in an MRF branch, and changes dW and db by one row's term of
+their sums (measured on an H100 at (1, 2240, 256): without a flip every
+gradient agrees to 1e-6 of its peak; with one, a run of 27 rows of dx is
+off by 1e-2 and a dW by 1.5e-2).  Below 1000 rows the seeded cases have no
+flip, and a fault at a tile's edge would show: every dW and db, a sum over
+all B T rows, agrees within 2e-4 of its own peak, and 99.5 % of dx's rows
+within 1e-4 of dx's peak.  From 1000 rows on a flip or two occur: dW and db
+within 3e-2, 90 % of the rows.  Every row of dx is within 5e-2 of the peak
+throughout.
 """
 
 import os
@@ -25,10 +40,19 @@ import torch
 
 from fastvocoder_tpu_torch.ops import _build
 from fastvocoder_tpu_torch.ops.basis_decode import basis_decode, basis_decode_plain
-from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage_cuda, fused_mrf_stage_plain
+from fastvocoder_tpu_torch.ops.fused_mrf import (
+    fused_mrf_stage,
+    fused_mrf_stage_cuda,
+    fused_mrf_stage_plain,
+    fused_mrf_stage_vjp_cuda,
+    fused_mrf_stage_vjp_plain,
+)
 from fastvocoder_tpu_torch.ops.fused_resstack import (
+    fused_residual_stacks,
     fused_residual_stacks_cuda,
     fused_residual_stacks_plain,
+    fused_residual_stacks_vjp_cuda,
+    fused_residual_stacks_vjp_plain,
 )
 from fastvocoder_tpu_torch.ops.fused_tail import fused_hifigan_tail_cuda, fused_hifigan_tail_plain
 
@@ -101,9 +125,75 @@ def test_fused_resstack_kernel_matches_plain(cuda, B, T, C):
 
 
 def test_fused_resstack_kernel_is_forward_only(cuda):
+    """The raw launcher records no graph; the gradient comes through
+    `fused_residual_stacks` and its backward kernel."""
     x = torch.randn(1, 64, 256, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        fused_residual_stacks_cuda(x, _stacks(256, cuda))
+    stacks = _stacks(256, cuda)
+    assert not fused_residual_stacks_cuda(x, stacks).requires_grad
+    before = _build.launch_counts["fused_resstack_bwd"]
+    fused_residual_stacks(x, stacks).sum().backward()
+    assert _build.launch_counts["fused_resstack_bwd"] == before + 1
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+def _f64(operands):
+    """The same nested operands with every tensor in float64."""
+    if isinstance(operands, torch.Tensor):
+        return operands.double()
+    if isinstance(operands, (list, tuple)):
+        return type(operands)(_f64(o) for o in operands)
+    return operands
+
+
+def _assert_grads_close(dx, dx_ref, grads, grads_ref):
+    peak = dx_ref.abs().max().item()
+    err = (dx - dx_ref).abs()
+    assert err.max().item() <= 5e-2 * peak
+    share, w_tol = (0.995, 2e-4) if dx.shape[1] < 1000 else (0.9, 3e-2)
+    assert (err.amax(dim=2) <= 1e-4 * peak).float().mean().item() >= share
+    for got, want in zip(grads, grads_ref):
+        assert got.shape == want.shape and got.is_contiguous()
+        assert (got - want).abs().max().item() <= w_tol * want.abs().max().item()
+
+
+# T = 10 is the least the mirrored edges of the d = 9 stack allow; 208 is the
+# JAX package's gate (16 M, M = 13); 227 and 33 are no multiple of a tile
+@pytest.mark.parametrize("B,T,C", [(1, 208, 256), (4, 227, 256), (1, 10, 256), (2, 33, 256),
+                                   (1, 2240, 256), (4, 97, 128), (1, 300, 64), (2, 500, 32)])
+def test_fused_resstack_bwd_kernel_matches_plain_vjp(cuda, B, T, C):
+    gen = torch.Generator().manual_seed(T + C)
+    x = (0.3 * torch.randn(B, T, C, generator=gen)).to(cuda)
+    g = torch.randn(B, T, C, generator=gen).to(cuda)
+    stacks = _stacks(C, cuda, seed=T)
+    before = _build.launch_counts["fused_resstack_bwd"]
+    dx, grads = fused_residual_stacks_vjp_cuda(x, stacks, g)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_resstack_bwd"] == before + 1
+    dx_ref, grads_ref = fused_residual_stacks_vjp_plain(*_f64((x, stacks, g)))
+    _assert_grads_close(dx, dx_ref, [t for s in grads for t in s],
+                        [t for s in grads_ref for t in s])
+
+
+def test_fused_resstack_bwd_kernel_refuses_a_margin_above_the_length(cuda):
+    x = torch.zeros(1, 9, 256, device=cuda)
+    with pytest.raises(ValueError, match="needs T > 9"):
+        fused_residual_stacks_vjp_cuda(x, _stacks(256, cuda), x)
+
+
+def test_fused_resstack_autograd_matches_plain_autograd(cuda):
+    """Through the autograd.Function, with weights that are not leaves (a
+    product, as weight norm makes them): the kernels' dW reaches the leaves."""
+    gen = torch.Generator().manual_seed(11)
+    x = (0.3 * torch.randn(2, 60, 256, generator=gen)).to(cuda).requires_grad_()
+    leaves = [tuple(w if isinstance(w, int) else w.clone().requires_grad_() for w in s)
+              for s in _stacks(256, cuda, seed=5)]
+    flat = [w for s in leaves for w in s if isinstance(w, torch.Tensor)]
+    scaled = [tuple(w if isinstance(w, int) else w * 1.5 for w in s) for s in leaves]
+    cot = torch.randn(2, 60, 256, generator=gen).to(cuda)
+    got = torch.autograd.grad(fused_residual_stacks(x, scaled), [x] + flat, cot, retain_graph=True)
+    want = torch.autograd.grad(fused_residual_stacks_plain(x.double(), _f64(scaled)), [x] + flat,
+                               cot.double())
+    _assert_grads_close(got[0], want[0], got[1:], want[1:])
 
 
 def _assert_rows_close(got, want, tol, row_tol):
@@ -165,6 +255,62 @@ def test_fused_mrf_kernel_matches_plain_seeded(cuda, B, T, C):
                        3e-4, 1e-5)
 
 
+@pytest.mark.parametrize("B,T,C", [(1, 1, 128), (2, 7, 64), (1, 50, 32), (4, 50, 16),
+                                   (1, 1120, 128), (4, 333, 64), (1, 1700, 32), (4, 1100, 16),
+                                   (2, 700, 16), (1, 300, 256)])
+def test_fused_mrf_bwd_kernel_matches_plain_vjp(cuda, B, T, C):
+    gen = torch.Generator().manual_seed(T + C)
+    x = (0.3 * torch.randn(B, T, C, generator=gen)).to(cuda)
+    g = torch.randn(B, T, C, generator=gen).to(cuda)
+    blocks = _resblocks(C, cuda, seed=C)
+    before = _build.launch_counts["fused_mrf_bwd"]
+    dx, grads = fused_mrf_stage_vjp_cuda(x, blocks, g)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_mrf_bwd"] == before + 1
+    dx_ref, grads_ref = fused_mrf_stage_vjp_plain(*_f64((x, blocks, g)))
+    _assert_grads_close(dx, dx_ref, [t for br in grads for p in br for t in p],
+                        [t for br in grads_ref for p in br for t in p])
+
+
+def test_fused_mrf_bwd_kernel_release_weights(cuda, hifigan_light):
+    blocks = [b.mrf_operands() for b in hifigan_light.mrfs[1]]
+    gen = torch.Generator().manual_seed(9)
+    x = (0.3 * torch.randn(2, 700, 64, generator=gen)).to(cuda)
+    g = torch.randn(2, 700, 64, generator=gen).to(cuda)
+    dx, grads = fused_mrf_stage_vjp_cuda(x, blocks, g)
+    dx_ref, grads_ref = fused_mrf_stage_vjp_plain(*_f64((x, blocks, g)))
+    _assert_grads_close(dx, dx_ref, [t for br in grads for p in br for t in p],
+                        [t for br in grads_ref for p in br for t in p])
+
+
+def test_fused_mrf_bwd_kernel_is_the_same_from_run_to_run(cuda):
+    """dW is summed in two stages in a fixed order, without atomics."""
+    gen = torch.Generator().manual_seed(2)
+    x = (0.3 * torch.randn(4, 900, 32, generator=gen)).to(cuda)
+    g = torch.randn(4, 900, 32, generator=gen).to(cuda)
+    blocks = _resblocks(32, cuda, seed=1)
+    dx1, g1 = fused_mrf_stage_vjp_cuda(x, blocks, g)
+    dx2, g2 = fused_mrf_stage_vjp_cuda(x, blocks, g)
+    assert torch.equal(dx1, dx2)
+    for a, b in zip([t for br in g1 for p in br for t in p], [t for br in g2 for p in br for t in p]):
+        assert torch.equal(a, b)
+
+
+def test_fused_mrf_autograd_matches_plain_autograd(cuda):
+    gen = torch.Generator().manual_seed(12)
+    x = (0.3 * torch.randn(2, 90, 64, generator=gen)).to(cuda).requires_grad_()
+    leaves = [[tuple(w if isinstance(w, int) else w.clone().requires_grad_() for w in p)
+               for p in pairs] for pairs in _resblocks(64, cuda, seed=3)]
+    flat = [w for pairs in leaves for p in pairs for w in p if isinstance(w, torch.Tensor)]
+    scaled = [[tuple(w if isinstance(w, int) else w * 1.5 for w in p) for p in pairs]
+              for pairs in leaves]
+    cot = torch.randn(2, 90, 64, generator=gen).to(cuda)
+    got = torch.autograd.grad(fused_mrf_stage(x, scaled), [x] + flat, cot, retain_graph=True)
+    want = torch.autograd.grad(fused_mrf_stage_plain(x.double(), _f64(scaled)), [x] + flat,
+                               cot.double())
+    _assert_grads_close(got[0], want[0], got[1:], want[1:])
+
+
 def _tail_operands(cin, cout, device, seed, bands=1):
     g = torch.Generator().manual_seed(seed)
 
@@ -200,9 +346,10 @@ def test_fused_tail_kernel_matches_plain_seeded(cuda, B, T_in, cin, cout, bands)
 
 
 def test_mrf_and_tail_kernels_are_forward_only(cuda):
+    """The MRF's raw launcher records no graph (its gradient comes through
+    `fused_mrf_stage`); the tail kernel, inference only, refuses."""
     x = torch.randn(1, 64, 32, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        fused_mrf_stage_cuda(x, _resblocks(32, cuda, 0))
+    assert not fused_mrf_stage_cuda(x, _resblocks(32, cuda, 0)).requires_grad
     with pytest.raises(NotImplementedError):
         fused_hifigan_tail_cuda(x, *_tail_operands(32, 16, cuda, 0))
 

@@ -1,0 +1,183 @@
+"""The port's training entry point (`fastvocoder_tpu_torch/bin/train.py`) on the
+CPU: `run_train` over a corpus of 8 utterances in the reference's file
+format, a tiny discriminator, a few steps across the
+`discriminator_train_start_steps` boundary, checkpoints, a resume that
+continues as the unbroken run does, a validation pass, and the flags that
+wait.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from fastvocoder_tpu_torch.bin.train import WAITING, run_train
+from fastvocoder_tpu_torch.data.dataset import (
+    BufferDataset,
+    WeightDataset,
+    batch_iterator,
+    collate,
+    crop_item,
+    load_data_to_buffer,
+    num_batches_per_epoch,
+    to_device,
+)
+from fastvocoder_tpu_torch.hparams import HP, TINY_DISC
+
+HIFI_YAML = (
+    "resblock_kernel_sizes: [3, 5]\nupsample_rates: [8, 5, 3, 2]\n"
+    "upsample_initial_channel: 32\nresblock_type: '1'\n"
+    "upsample_kernel_sizes: [16, 10, 6, 4]\nresblock_dilation_sizes: [[1, 3], [1, 3]]\n"
+    "transposedconv: True\nbias: True\nmultiband: False\nlamda_stft: 5.0\n"
+    "use_feature_map_loss: True\n"
+)
+BASIS_YAML = (
+    "L: 30\nin_channels: 80\nout_channels: 16\nkernel_size: 7\nchannels: [16, 16, 16]\n"
+    "upsample_scales: [4, 4]\nstack_kernel_size: 3\nstacks: 3\nuse_weight_norm: True\n"
+    "use_causal_conv: False\ntransposedconv: True\nbias: True\nlamda_stft: 1.0\n"
+)
+
+
+@pytest.fixture
+def corpus(tmp_path):
+    """8 (wav.npy, mel.npy) pairs of 60-100 frames, their two index files,
+    Basis-MelGAN weight targets and a basis, two model configs."""
+    rng = np.random.default_rng(1)
+    audio_idx, mel_idx = [], []
+    os.makedirs(tmp_path / "weight")
+    for i in range(8):
+        frames = int(rng.integers(60, 100))
+        wav = (0.3 * np.sin(np.linspace(0, 200, frames * 240))).astype(np.float32)
+        np.save(tmp_path / f"{i}.wav.npy", wav)
+        np.save(tmp_path / f"{i}.mel.npy", rng.random((80, frames)).astype(np.float32))
+        np.save(tmp_path / "weight" / f"{i}.wav.npy",
+                rng.random((16, frames * 16)).astype(np.float32))
+        audio_idx.append(str(tmp_path / f"{i}.wav.npy"))
+        mel_idx.append(str(tmp_path / f"{i}.mel.npy"))
+    (tmp_path / "audio.txt").write_text("\n".join(audio_idx) + "\n")
+    (tmp_path / "mel.txt").write_text("\n".join(mel_idx) + "\n")
+    np.save(tmp_path / "basis_signal_weight.npy",
+            (0.1 * rng.standard_normal((30, 16))).astype(np.float32))
+    (tmp_path / "hifigan.yaml").write_text(HIFI_YAML)
+    (tmp_path / "basis.yaml").write_text(BASIS_YAML)
+    return tmp_path
+
+
+def _argv(corpus, model, run_dir, **kw):
+    conf = "hifigan.yaml" if model == "hifigan" else "basis.yaml"
+    args = {
+        "audio_index_path": corpus / "audio.txt", "mel_index_path": corpus / "mel.txt",
+        "audio_index_valid_path": corpus / "audio.txt",
+        "mel_index_valid_path": corpus / "mel.txt",
+        "model_name": model, "config": corpus / conf, "run_dir": run_dir,
+        "basis_dataset_path": corpus, "batch_size": 2, "batch_expand_size": 2,
+        "fixed_length": 10, "save_step": 4, "valid_step": 4, "valid_num": 2,
+        "discriminator_train_start_steps": 2, "device": "cpu", **kw,
+    }
+    return [f"--{k}={v}" for k, v in args.items()]
+
+
+def _only_dir(path):
+    (name,) = os.listdir(path)
+    return path / name
+
+
+def test_run_train_crosses_the_discriminator_boundary_and_resumes(corpus):
+    run_dir = corpus / "run"
+    state = run_train(_argv(corpus, "hifigan", run_dir, max_steps=5), disc_cfg=TINY_DISC)
+    assert state.step == 5 and state.gen_updates == 5 and state.disc_updates == 3
+    history = dict(state.history)
+    assert sorted(history) == [1, 2, 3, 4, 5]
+    assert set(history[2]) == {"stft_loss", "total_loss"}  # pre-adversarial
+    assert set(history[3]) == {"stft_loss", "total_loss", "adversarial_loss",
+                               "feature_map_loss", "discriminator_loss"}
+    assert all(np.isfinite(v) for m in history.values() for v in m.values())
+
+    logdir = _only_dir(run_dir / "logger")
+    assert len((logdir / "total_loss.txt").read_text().splitlines()) == 5
+    assert len((logdir / "stft_loss.txt").read_text().splitlines()) == 5
+    assert "step [5/" in (logdir / "logger.txt").read_text()
+    scalars = json.loads((logdir / "all_scalars.json").read_text())
+    assert [s for s, _ in scalars["valid_stft_loss"]] == [4]  # the validation pass
+    assert np.isfinite(scalars["valid_stft_loss"][0][1])
+    saved = sorted(os.listdir(_only_dir(run_dir / "checkpoint")))
+    assert saved == ["checkpoint_4.pth.tar", "checkpoint_5.pth.tar"]  # save_step and the tail
+
+    # a second run, cut at step 3 and resumed from its run directory, ends
+    # where the unbroken run did: same batches, same weights
+    cut = corpus / "cut"
+    run_train(_argv(corpus, "hifigan", cut, max_steps=3), disc_cfg=TINY_DISC)
+    resumed = run_train(_argv(corpus, "hifigan", cut, max_steps=5,
+                              checkpoint_path=cut / "checkpoint"), disc_cfg=TINY_DISC)
+    assert resumed.step == 5 and [s for s, _ in resumed.history] == [4, 5]
+    for a, b in ((state.generator, resumed.generator),
+                 (state.discriminator, resumed.discriminator)):
+        for (k, v), w in zip(a.state_dict().items(), b.state_dict().values()):
+            torch.testing.assert_close(w, v, rtol=0, atol=0, msg=k)
+
+
+def test_run_train_basis_melgan_drops_the_weight_target_past_the_boundary(corpus):
+    state = run_train(_argv(corpus, "basis-melgan", corpus / "run_b", max_steps=3),
+                      disc_cfg=TINY_DISC)
+    history = dict(state.history)
+    assert "weight_loss" in history[1] and "weight_loss" in history[2]
+    assert "weight_loss" not in history[3] and "adversarial_loss" in history[3]
+    basis = np.load(corpus / "basis_signal_weight.npy")
+    np.testing.assert_array_equal(state.generator.basis_signal.basis.detach().numpy(), basis)
+
+
+@pytest.mark.parametrize("flag", sorted(WAITING))
+def test_a_waiting_flag_raises(corpus, flag):
+    with pytest.raises(NotImplementedError, match=flag):
+        run_train(_argv(corpus, "hifigan", corpus / "run_w", max_steps=1, **{flag: 1}),
+                  disc_cfg=TINY_DISC)
+
+
+def test_run_train_raises_without_a_card_unless_asked_for_the_cpu(corpus):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = [a for a in _argv(corpus, "hifigan", corpus / "run_c", max_steps=1)
+            if not a.startswith("--device")]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        run_train(argv, disc_cfg=TINY_DISC)
+
+
+def test_dataset_crops_collates_and_batches(corpus):
+    hp = HP.replace(fixed_length=10, batch_size=2, batch_expand_size=2)
+    buffer = load_data_to_buffer(str(corpus / "audio.txt"), str(corpus / "mel.txt"),
+                                 log=lambda m: None)
+    assert len(buffer) == 8 and buffer[0]["mel"].shape[1] == 80
+    ds = BufferDataset(buffer, hp)
+    item = crop_item(buffer[0], np.random.default_rng(0), hp)
+    assert item["mel"].shape == (10, 80) and item["wav"].shape == (2400,)
+    short = collate([{"mel": buffer[0]["mel"][:4], "wav": buffer[0]["wav"][:960]}], hp)
+    assert short["mel"].shape == (1, 10, 80) and not short["wav"][0, 960:].any()
+    batches = list(batch_iterator(ds, hp, seed=3, epoch=0))
+    assert len(batches) == num_batches_per_epoch(8, hp) == 4
+    again = list(batch_iterator(ds, hp, seed=3, epoch=0))
+    np.testing.assert_array_equal(batches[1]["wav"], again[1]["wav"])  # seeded
+    assert not np.array_equal(batches[1]["wav"],
+                              list(batch_iterator(ds, hp, seed=3, epoch=1))[1]["wav"])
+
+    wds = WeightDataset.from_index_files(str(corpus / "audio.txt"), str(corpus / "mel.txt"), 30,
+                                         weight_dir=str(corpus / "weight"), hp=hp)
+    wb = next(batch_iterator(wds, hp, seed=0, L=30))
+    assert wb["weight"].shape == (2, 160, 16) and wds.mel_length(0) == buffer[0]["mel"].shape[0]
+    moved = to_device(wb, torch.device("cpu"))
+    assert moved["mel"].dtype == torch.float32 and tuple(moved["wav"].shape) == (2, 2400)
+
+
+def test_buffer_cache_is_rebuilt_for_another_index(corpus):
+    cache = str(corpus / "features.bin")
+    logs = []
+    first = load_data_to_buffer(str(corpus / "audio.txt"), str(corpus / "mel.txt"), cache,
+                                log=logs.append)
+    load_data_to_buffer(str(corpus / "audio.txt"), str(corpus / "mel.txt"), cache,
+                        log=logs.append)
+    assert any("loading buffer" in m for m in logs)
+    fewer = load_data_to_buffer(str(corpus / "audio.txt"), str(corpus / "mel.txt"), cache,
+                                test_size=3, log=logs.append)
+    assert len(first) == 8 and len(fewer) == 3
+    assert any("different index" in m for m in logs)
