@@ -5,8 +5,13 @@
 
 Builds the port's CUDA kernels from `fastvocoder_tpu_torch/csrc/` with
 `nvcc`, holds each against its plain PyTorch version at its paths' shapes
-and times both, then drives each ported model at full width on its release
-checkpoint (`docs/checkpoints/`) through the entry points a user calls:
+and times both.  The two MRF kernels, which contract on the tensor cores in
+3xTF32, are also held at shapes on the edges of their tiles, their error
+against a float64 run of the plain version is printed beside the float32
+plain version's own, and they get two bounds: the float32 rate of the CUDA
+cores, as every kernel, and a third of the tensor cores' TF32 rate.  Then
+the script drives each ported model at full width on its release checkpoint
+(`docs/checkpoints/`) through the entry points a user calls:
 
   * Basis-MelGAN light: `Synthesizer`, the RTF protocol of `bin/test.py`,
     the HTTP server of `bin/serve.py` (kernels: basis_decode,
@@ -66,6 +71,7 @@ HOP = 240
 # H100 SXM published peaks at the full 700 W (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12  # float32 on the CUDA cores, no tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12  # dense TF32 on the tensor cores
 
 # tolerances against the plain versions (both sides float32, TF32 off):
 # decode: twice the worst-case rounding of its 2C-term dot products;
@@ -129,6 +135,22 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bound_3xtf32_ms(nbytes: float, flops: float):
+    """The bound of a kernel that computes every float32 product as three
+    TF32 products on the tensor cores."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / PEAK_TF32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def share(bound: float, ms: float) -> str:
+    """A time's share of its bound, for a log line; a kernel faster than the
+    bound it is set against is a fault of the bound."""
+    if bound > ms:
+        raise AssertionError(f"a kernel ran in {ms:.4f} ms, below its bound of {bound:.4f} ms")
+    return f"{bound / ms:.3f}"
+
+
 def check_basis_decode(torch, F, basis):
     """Kernel 1 against its plain version; -> entry for the kernels line."""
     from fastvocoder_tpu_torch.ops.basis_decode import basis_decode_cuda, basis_decode_plain
@@ -171,7 +193,7 @@ def check_basis_decode(torch, F, basis):
     return {
         "name": "basis_decode", "route": "cuda",
         "source": "fastvocoder_tpu_torch/csrc/basis_decode.cu",
-        "replaces": "fastvocoder_tpu/ops/basis_decode.py:116",
+        "replaces": "fastvocoder_tpu/ops/basis_decode.py:121",
         "shape": f"W (1, {Fr}, {C}), basis ({L}, {C})",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
         "bound_by": by, "library_ms": library,
@@ -263,13 +285,85 @@ def seeded_resblocks(torch, C: int, dev, seed: int, kernels=(3, 7, 11), dilation
               u(C, fan_in=C * K)) for d in dilations] for K in kernels]
 
 
+# Rows a block of the MRF kernels owns, by width: in a forward pair launch
+# (64 rows a warpgroup less the 2 x 5 rows of u the k = 11 branch recomputes)
+# and in an adjoint conv of the backward (`csrc/mma_common.cuh`, `Tile`).
+MRF_PAIR_ROWS = {16: 118, 32: 118, 64: 118, 128: 118, 256: 54}
+MRF_CONV_ROWS = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
+
+
+def mrf_edge_shapes(C: int):
+    """(B, T) on the edges of the MRF kernels' tiles at width C: T = 1, T
+    below the 30-row halo with B = 3, one below, at and one above a forward
+    block's rows, one above an adjoint block's."""
+    R = MRF_PAIR_ROWS[C]
+    return [(1, 1), (3, 7), (1, R - 1), (3, R), (1, R + 1), (2, MRF_CONV_ROWS[C] + 1)]
+
+
+def to_f64(torch, operands):
+    """The same nested operands with every tensor in float64."""
+    if isinstance(operands, torch.Tensor):
+        return operands.double()
+    if isinstance(operands, (list, tuple)):
+        return type(operands)(to_f64(torch, o) for o in operands)
+    return operands
+
+
+def mrf_errors_against_f64(torch, dev) -> None:
+    """What 3xTF32 costs: per width, the MRF kernels' error against a
+    float64 run of the plain version, beside the float32 plain version's own
+    error against it (forward: of the output's peak; backward: dx of its
+    peak, and the worst dW or db of its own peak)."""
+    from fastvocoder_tpu_torch.ops import fused_mrf as m
+
+    g = torch.Generator().manual_seed(64)
+    for C in m.KERNEL_WIDTHS:
+        blocks = seeded_resblocks(torch, C, dev, 60 + C)
+        x = (0.3 * torch.randn(2, 600, C, generator=g)).to(dev)
+        cot = torch.randn(2, 600, C, generator=g).to(dev)
+        x64, blocks64, cot64 = to_f64(torch, (x, blocks, cot))
+        y64 = m.fused_mrf_stage_plain(x64, blocks64)
+        dx64, grads64 = m.fused_mrf_stage_vjp_plain(x64, blocks64, cot64)
+        flat = lambda grads: [t for br in grads for p in br for t in p]
+
+        def fwd_err(y):
+            e = (y.double() - y64).abs() / y64.abs().max()
+            return e.max().item(), e.mean().item()
+
+        def bwd_err(dx, grads):
+            e = (dx.double() - dx64).abs() / dx64.abs().max()
+            w = max(((a.double() - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(flat(grads), flat(grads64)))
+            return e.max().item(), e.mean().item(), w
+
+        k, p = fwd_err(m.fused_mrf_stage_cuda(x, blocks)), fwd_err(m.fused_mrf_stage_plain(x, blocks))
+        log(f"  C = {C} forward against float64: kernel max {k[0]:.3e} mean {k[1]:.3e}; "
+            f"float32 plain max {p[0]:.3e} mean {p[1]:.3e}")
+        if not k[1] <= 4 * p[1] + 1e-8:
+            raise AssertionError(f"the MRF kernel's error against float64 at C = {C} is not "
+                                 "float32's")
+        k = bwd_err(*m.fused_mrf_stage_vjp_cuda(x, blocks, cot))
+        p = bwd_err(*m.fused_mrf_stage_vjp_plain(x, blocks, cot))
+        log(f"  C = {C} backward against float64: kernel dx max {k[0]:.3e} mean {k[1]:.3e}, "
+            f"worst dW/db {k[2]:.3e}; float32 plain dx max {p[0]:.3e} mean {p[1]:.3e}, worst "
+            f"dW/db {p[2]:.3e}")
+        # no bound here: one leaky-relu flip in either moves a run of rows
+        # of dx by 1e-2 (BWD_DX_TOL and its neighbours hold the kernel)
+
+
 def check_fused_mrf(torch, gen, frames: int):
     """Kernel 4 against its plain version: the release weights of HiFiGAN
     light's three MRF stages at one utterance's shapes, at batch 4 and at
-    lengths whose tiles touch both sequence edges, and C = 256 (HiFiGAN
-    large's widest stage) with seeded weights; times at the utterance's
-    shapes.  -> entry for the kernels line."""
-    from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage_cuda, fused_mrf_stage_plain
+    lengths whose tiles touch both sequence edges, C = 256 (HiFiGAN large's
+    widest stage) and every width on the edges of its tiles with seeded
+    weights; times at the utterance's shapes.  -> entry for the kernels
+    line."""
+    from fastvocoder_tpu_torch.ops.fused_mrf import (
+        KERNEL_WIDTHS,
+        fused_mrf_stage_cuda,
+        fused_mrf_stage_plain,
+        swap_channels,
+    )
 
     dev = next(gen.parameters()).device
     g = torch.Generator().manual_seed(4)
@@ -279,6 +373,9 @@ def check_fused_mrf(torch, gen, frames: int):
     cases = [(blocks, B, T) for blocks, T0 in zip(stages, lengths)
              for B, T in ((1, T0), (4, T0), (1, 1), (2, 7), (1, 50))]
     cases.append((seeded_resblocks(torch, 256, dev, 5), 1, frames * rates[0]))
+    for C in KERNEL_WIDTHS:
+        blocks = seeded_resblocks(torch, C, dev, 40 + C)
+        cases += [(blocks, B, T) for B, T in mrf_edge_shapes(C)]
     worst = 0.0
     for blocks, B, T in cases:
         C = blocks[0][0][0].shape[1]
@@ -287,28 +384,36 @@ def check_fused_mrf(torch, gen, frames: int):
         want = fused_mrf_stage_plain(x, blocks)
         torch.cuda.synchronize()
         err, tol, rows_ok, ok = rows_close(got, want, MRF_TOL, MRF_ROW_TOL)
-        log(f"  fused_mrf ({B}, {T}, {C}): max abs {err:.3e} (tol {tol:.3e}), "
-            f"rows within {MRF_ROW_TOL:.0e} of the peak: {rows_ok:.4f}")
+        if T > 1000:
+            log(f"  fused_mrf ({B}, {T}, {C}): max abs {err:.3e} (tol {tol:.3e}), "
+                f"rows within {MRF_ROW_TOL:.0e} of the peak: {rows_ok:.4f}")
         if not ok:
             raise AssertionError(f"fused_mrf disagrees with its plain version at ({B}, {T}, {C})")
         worst = max(worst, err)
+    log(f"  fused_mrf: {len(cases)} shapes agree, among them every width at "
+        f"(B, T) = {mrf_edge_shapes(128)} (C = 128; the edges of each width's own tiles)")
 
     per_stage, total = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
     for blocks, T in zip(stages + [seeded_resblocks(torch, 256, dev, 5)],
                          lengths + [frames * rates[0]]):
         C = blocks[0][0][0].shape[1]
         x = (0.3 * torch.randn(1, T, C, generator=g)).to(dev)
-        ms = cuda_ms(lambda: fused_mrf_stage_cuda(x, blocks), iters=20, warmup=3)
+        swapped = swap_channels(blocks)  # kept by the caller, as a served model keeps them
+        ms = cuda_ms(lambda: fused_mrf_stage_cuda(x, blocks, swapped), iters=20, warmup=3)
         plain = cuda_ms(lambda: fused_mrf_stage_plain(x, blocks), iters=20, warmup=3)
         nbytes, flops = mrf_work(1, T, blocks)
-        bms, by = bound_ms(nbytes, flops)
-        log(f"  fused_mrf (1, {T}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP)")
-        per_stage.append({"shape": [1, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms})
+        bms, _ = bound_ms(nbytes, flops)
+        b3, by = bound_3xtf32_ms(nbytes, flops)
+        log(f"  fused_mrf (1, {T}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, float32 "
+            f"bound {bms:.4f} ms, 3xTF32 bound {b3:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP): "
+            f"{share(b3, ms)} of it")
+        per_stage.append({"shape": [1, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                          "bound_3xtf32_ms": b3})
         if C != 256:  # the main path's stages
             for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
                 total[k] += v
-    bms, by = bound_ms(total["bytes"], total["flops"])
+    bms, _ = bound_ms(total["bytes"], total["flops"])
+    b3, by = bound_3xtf32_ms(total["bytes"], total["flops"])
     return {
         "name": "fused_mrf", "route": "cuda",
         "source": "fastvocoder_tpu_torch/csrc/fused_mrf.cu",
@@ -316,7 +421,8 @@ def check_fused_mrf(torch, gen, frames: int):
         "shape": "HiFiGAN light's 3 MRF stages of a 585-frame utterance, summed: "
                  + ", ".join(str(tuple(s["shape"])) for s in per_stage[:-1]),
         "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": bms, "bound_by": by, "library_ms": None, "stages": per_stage,
+        "bound_ms": bms, "bound_3xtf32_ms": b3, "bound_by": by, "library_ms": None,
+        "stages": per_stage,
     }
 
 
@@ -395,18 +501,43 @@ def grads_close(dx, dx_ref, grads, grads_ref):
 
 
 def check_backward(torch, name, vjp_cuda, vjp_plain, forward_cuda, forward_plain, stages,
-                   fwd_work, replaces, what):
+                   fwd_work, replaces, what, edges=(), tensor_cores=False):
     """A backward kernel against its plain VJP at the training path's
-    shapes (`stages`: (operands, C, T) per stage; batch TRAIN_BATCH and 1),
-    its time, the plain VJP's and the bound, summed over the stages at the
-    training batch; also the forward kernel's time at that batch.  -> (entry
-    for the kernels line, the forward's per-stage times)."""
+    shapes (`stages`: (operands, C, T) per stage; batch TRAIN_BATCH and 1)
+    and at `edges` ((operands, C, B, T), untimed, against the plain VJP in
+    float64: over so few rows one leaky-relu flip of the float32 plain VJP
+    would be a large share of a dW), its time, the plain VJP's
+    and the bound, summed over the stages at the training batch; also the
+    forward kernel's time at that batch.  With `tensor_cores` the 3xTF32
+    bound stands beside the float32 one.  -> (entry for the kernels line,
+    the forward's per-stage times)."""
     g = torch.Generator().manual_seed(len(name))
     dev = torch.device("cuda")
     flat = lambda grads: [t for group in grads for t in (
         group if isinstance(group[0], torch.Tensor) else [u for p in group for u in p])]
     worst, per_stage, fwd_stages = 0.0, [], []
     total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    failed = []
+    for ops, C, B, T in edges:
+        # inputs seeded per shape, so that no pre-activation of the kernel's
+        # lies on the other side of the leaky-relu kink than float64's: a
+        # flip, one element in 1e6, is no fault, but over so few rows it is
+        # 5e-2 of a dW
+        ge = torch.Generator().manual_seed(1000 * C + 10 * T + B)
+        x = (0.3 * torch.randn(B, T, C, generator=ge)).to(dev)
+        cot = torch.randn(B, T, C, generator=ge).to(dev)
+        dx, grads = vjp_cuda(x, ops, cot)
+        dx_ref, grads_ref = vjp_plain(*to_f64(torch, (x, ops, cot)))
+        torch.cuda.synchronize()
+        err, dx_rel, rows_ok, w_rel, ok = grads_close(dx, dx_ref, flat(grads), flat(grads_ref))
+        if not ok:
+            failed.append(f"({B}, {T}, {C}): dx {dx_rel:.3e} of its peak, rows within "
+                          f"{BWD_DX_ROW_TOL:.0e}: {rows_ok:.4f}, dW/db {w_rel:.3e}")
+        worst = max(worst, err)
+    if failed:
+        raise AssertionError(f"{name} disagrees with its plain VJP at " + "; ".join(failed))
+    if edges:
+        log(f"  {name}: {len(edges)} shapes on the edges of its tiles agree")
     for ops, C, T in stages:
         for B in (TRAIN_BATCH, 1):
             x = (0.3 * torch.randn(B, T, C, generator=g)).to(dev)
@@ -431,28 +562,44 @@ def check_backward(torch, name, vjp_cuda, vjp_plain, forward_cuda, forward_plain
             # written; the forward again plus twice its operations
             nbytes, flops = 4 * 3 * B * T * C + 2 * weights, 3 * fflops
             bms, by = bound_ms(nbytes, flops)
-            log(f"  {name} ({B}, {T}, {C}): kernel {ms:.3f} ms, plain VJP {plain:.3f} ms, bound "
-                f"{bms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP)")
-            per_stage.append({"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms})
+            stage = {"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms}
+            against = f"bound {bms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP)"
+            if tensor_cores:
+                stage["bound_3xtf32_ms"], by3 = bound_3xtf32_ms(nbytes, flops)
+                against = (f"float32 {against}, 3xTF32 bound {stage['bound_3xtf32_ms']:.3f} ms "
+                           f"({by3}): {share(stage['bound_3xtf32_ms'], ms)} of it")
+            log(f"  {name} ({B}, {T}, {C}): kernel {ms:.3f} ms, plain VJP {plain:.3f} ms, "
+                + against)
+            per_stage.append(stage)
             for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
                 total[k] += v
             with torch.inference_mode():
                 fms = cuda_ms(lambda: forward_cuda(x, ops), iters=5, warmup=2)
                 fplain = cuda_ms(lambda: forward_plain(x, ops), iters=5, warmup=2)
             fb, _ = bound_ms(fbytes, fflops)
-            log(f"  forward at ({B}, {T}, {C}): kernel {fms:.3f} ms, plain {fplain:.3f} ms, bound "
-                f"{fb:.3f} ms")
-            fwd_stages.append({"shape": [B, T, C], "ms": fms, "plain_ms": fplain, "bound_ms": fb})
+            fstage = {"shape": [B, T, C], "ms": fms, "plain_ms": fplain, "bound_ms": fb}
+            against = f"bound {fb:.3f} ms"
+            if tensor_cores:
+                fstage["bound_3xtf32_ms"], _ = bound_3xtf32_ms(fbytes, fflops)
+                against = (f"float32 {against}, 3xTF32 bound {fstage['bound_3xtf32_ms']:.3f} ms: "
+                           f"{share(fstage['bound_3xtf32_ms'], fms)} of it")
+            log(f"  forward at ({B}, {T}, {C}): kernel {fms:.3f} ms, plain {fplain:.3f} ms, "
+                + against)
+            fwd_stages.append(fstage)
             del x, cot, dx, grads, dx_ref, grads_ref
             torch.cuda.empty_cache()
     bms, by = bound_ms(total["bytes"], total["flops"])
-    return {
+    entry = {
         "name": name, "route": "cuda",
         "source": f"fastvocoder_tpu_torch/csrc/{name}.cu", "replaces": replaces,
         "shape": what + ", summed: " + ", ".join(str(tuple(s["shape"])) for s in per_stage),
         "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
         "bound_ms": bms, "bound_by": by, "library_ms": None, "stages": per_stage,
-    }, fwd_stages
+    }
+    if tensor_cores:
+        entry["bound_3xtf32_ms"], entry["bound_by"] = bound_3xtf32_ms(total["bytes"],
+                                                                     total["flops"])
+    return entry, fwd_stages
 
 
 def chain_work(B: int, T: int, stacks) -> tuple:
@@ -473,11 +620,17 @@ def check_fused_mrf_bwd(torch, gen):
     for i, blocks in enumerate(gen.mrfs):
         ops = [b.mrf_operands() for b in blocks]
         stages.append((ops, ops[0][0][0].shape[1], TRAIN_FRAMES * int(np.prod(rates[: i + 1]))))
+    edges = []
+    for C in m.KERNEL_WIDTHS:
+        ops = seeded_resblocks(torch, C, torch.device("cuda"), 50 + C)
+        edges += [(ops, C, B, T) for B, T in mrf_edge_shapes(C)]
+    edges.append((seeded_resblocks(torch, 256, torch.device("cuda"), 5), 256, 1, MEL_FRAMES * rates[0]))
     return check_backward(
         torch, "fused_mrf_bwd", m.fused_mrf_stage_vjp_cuda, m.fused_mrf_stage_vjp_plain,
         m.fused_mrf_stage_cuda, m.fused_mrf_stage_plain, stages, mrf_work,
         "fastvocoder_tpu/ops/fused_mrf.py:227",
-        f"HiFiGAN light's 4 MRF stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames")
+        f"HiFiGAN light's 4 MRF stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames",
+        edges=edges, tensor_cores=True)
 
 
 def check_fused_resstack_bwd(torch, gen):
@@ -503,10 +656,13 @@ def kernel_class(name: str) -> str:
                        ("basis_decode_kernel", "basis_decode kernel"),
                        ("mrf_pair_kernel", "fused_mrf kernel"),
                        ("mrf_mean_kernel", "fused_mrf kernel"),
+                       ("mrf_bwd_pair_kernel", "fused_mrf_bwd kernel"),
+                       ("conv_mma_kernel", "fused_mrf_bwd kernel"),
+                       ("wgrad_mma_kernel", "fused_mrf_bwd kernel"),
                        ("tail_upsample_kernel", "fused_tail kernel"),
                        ("tail_pair_kernel", "fused_tail kernel"),
                        ("tail_head_kernel", "fused_tail kernel"),
-                       ("fvt_bwd", "backward kernels (fused_mrf_bwd, fused_resstack_bwd)")):
+                       ("fvt_bwd", "fused_resstack_bwd kernel, and the sums of fused_mrf_bwd")):
         if key in name:
             return label
     low = name.lower()
@@ -892,6 +1048,8 @@ def main() -> int:
     mrf_bwd, entries[2]["batch32"] = check_fused_mrf_bwd(torch, hifi_gen)
     entries[2:2] = [chain_bwd]   # kernels 1, 2, 3, 4, 5, 6
     entries[4:4] = [mrf_bwd]
+    log("[the MRF kernels' 3xTF32 against float64]")
+    mrf_errors_against_f64(torch, torch.device("cuda"))
     launches = {e["name"]: 0 for e in entries}
 
     def count_path(name, fn, kernels):

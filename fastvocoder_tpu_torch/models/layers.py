@@ -12,6 +12,9 @@ both.  Weights are in PyTorch's layout; `ResidualStack.chain_operands`,
 `ResBlock1.mrf_operands` and the convs' `tap_major` hand the CUDA kernels
 the (tap, c_in, c_out) layout they read: cached and detached where no
 gradient is asked for, attached to the graph and built anew where one is.
+`ResBlock1.mrf_swapped` hands the MRF kernels the same kernels as
+(tap, c_out, c_in), the tensor cores' B operand of a forward conv, cached
+the same way.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from torch import nn
 from fastvocoder_tpu_torch.ops.basis_decode import basis_decode
 from fastvocoder_tpu_torch.ops.conv import conv1d, conv_transpose1d, reflect_pad1d
 from fastvocoder_tpu_torch.ops.fused_mrf import LRELU_SLOPE as MRF_SLOPE
-from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage
+from fastvocoder_tpu_torch.ops.fused_mrf import StageTable, fused_mrf_stage
 from fastvocoder_tpu_torch.ops.fused_resstack import (
     fused_residual_stacks,
     leaky_relu,
@@ -40,25 +43,25 @@ def _uniform_(t: torch.Tensor, fan_in: int) -> None:
         t.uniform_(-bound, bound)
 
 
-def _cached(module: nn.Module, build):
-    """`build()` under no_grad, cached on `module` until one of its
-    parameters is moved or written (keyed on each parameter's device,
-    storage and version)."""
+def _cached(module: nn.Module, build, slot: str = "_cache"):
+    """`build()` under no_grad, cached on `module` (in attribute `slot`)
+    until one of its parameters is moved or written (keyed on each
+    parameter's device, storage and version)."""
     key = tuple((p.device, p.data_ptr(), p._version) for p in module.parameters())
-    if key != getattr(module, "_cache_key", None):
+    if key != getattr(module, slot + "_key", None):
         with torch.no_grad():
-            module._cache = build()
-        module._cache_key = key
-    return module._cache
+            setattr(module, slot, build())
+        setattr(module, slot + "_key", key)
+    return getattr(module, slot)
 
 
-def _operands(module: nn.Module, build):
+def _operands(module: nn.Module, build, slot: str = "_cache"):
     """`build()` attached to the graph when autograd wants a gradient of one
     of `module`'s parameters (never cached: the weights move every step),
     else the cached, detached result."""
     if torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters()):
         return build()
-    return _cached(module, build)
+    return _cached(module, build, slot)
 
 
 def _bias_or_zeros(m: nn.Module, n: int) -> torch.Tensor:
@@ -111,6 +114,14 @@ class Conv1d(nn.Module):
         layout the JAX package and the port's kernels take (`_operands`)."""
         return _operands(self, lambda: (self.effective_weight().permute(2, 1, 0).contiguous(),
                                         _bias_or_zeros(self, self.weight.shape[0])))
+
+    def tap_major_swapped(self) -> torch.Tensor:
+        """The kernel as (K, Cout, Cin): `tap_major`'s with its channel axes
+        swapped, values only (detached); cached until a parameter is written,
+        built anew on every call while autograd follows the weights."""
+        return _operands(
+            self, lambda: self.effective_weight().detach().permute(2, 0, 1).contiguous(),
+            slot="_swapped")
 
 
 class ConvTranspose1d(nn.Module):
@@ -241,6 +252,31 @@ class ResBlock1(nn.Module):
         return [(*c1.tap_major(), d, *c2.tap_major())
                 for c1, c2, d in zip(self.convs1, self.convs2, self.dilations)]
 
+    def mrf_swapped(self):
+        """[(k1 (K, Cout, Cin), k2 (K, Cout, Cin))] per pair: what
+        `ops.fused_mrf.swap_channels(self.mrf_operands())` would build, kept
+        by each conv (`Conv1d.tap_major_swapped`)."""
+        return [(c1.tap_major_swapped(), c2.tap_major_swapped())
+                for c1, c2 in zip(self.convs1, self.convs2)]
+
+    def kernel_operands(self):
+        """(`mrf_operands()`, `mrf_swapped()`) as `apply_mrf` hands them to
+        the kernels.  Where no gradient is asked for, both are kept under one
+        key over the block's parameters, so that a served model pays for one
+        look at its 12 to 18 parameters a call and not for one per conv and
+        layout.  Under autograd the operands are built anew and the swapped
+        copies are left to the stage, which swaps the operands it is given:
+        (operands, None)."""
+        params = [p for c in self.convs1 + self.convs2 for p in c._parameters.values()
+                  if p is not None]
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return self.mrf_operands(), None
+        key = tuple((p.device, p.data_ptr(), p._version) for p in params)
+        if key != getattr(self, "_kernel_key", None):
+            self._kernel_operands = (self.mrf_operands(), self.mrf_swapped())
+            self._kernel_key = key
+        return self._kernel_operands
+
 
 class ResBlock2(nn.Module):
     """HiFiGAN type-2 MRF block (reference modules.py:233-252): per dilation
@@ -268,7 +304,18 @@ def apply_mrf(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
     ResBlock1 stages (its backward kernel under autograd), the modules
     otherwise."""
     if x.is_cuda and all(isinstance(b, ResBlock1) for b in blocks):
-        return fused_mrf_stage(x.contiguous(), [b.mrf_operands() for b in blocks])
+        operands, swapped = zip(*(b.kernel_operands() for b in blocks))
+        if any(sw is None for sw in swapped):  # autograd follows the weights: nothing is kept
+            return fused_mrf_stage(x.contiguous(), list(operands))
+        # a served model: the stage's checked table is kept on its first block
+        # until a block's operands are rebuilt
+        key = (x.device, *(id(ops) for ops in operands))
+        first = blocks[0]
+        if key != getattr(first, "_stage_key", None):
+            first._stage_table = StageTable(list(operands), list(swapped), x.device)
+            first._stage_key = key
+        table = first._stage_table
+        return fused_mrf_stage(x.contiguous(), *table.keep, table)
     acc = None
     for b in blocks:
         out = b(x)

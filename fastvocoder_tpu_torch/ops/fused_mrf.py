@@ -18,15 +18,23 @@ same function is `fused_mrf_stage_vjp_plain`).  The TPU kernel's blocked
 (B, Q, 128) layout, block-Toeplitz weights and `T % (128 // C)` gate have no
 counterpart here: the kernels take any T >= 1 and any B.
 
+Both kernels contract on the tensor cores in 3xTF32 (`csrc/mma_common.cuh`;
+`ops/tf32.py` models the arithmetic): operands split into two TF32 halves,
+three products, float32 sums, which keeps float32 accuracy.
+
 Branches are given as in the JAX package: per branch a list of pairs
 (k1 (K1, C, C), b1 (C,), dilation, k2 (K2, C, C), b2 (C,)), kernels laid
-out (tap, c_in, c_out).
+out (tap, c_in, c_out).  The kernels' B operand wants the contracted channel
+contiguous: a forward conv reads its kernel as (tap, c_out, c_in)
+(`swap_channels`), the adjoint conv of the backward as it is given.  The
+CUDA wrappers take the swapped copies as `swapped`, so that a caller can
+cache them (`models/layers.py`), and build them when given none.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -103,6 +111,28 @@ def mrf_table(op: str, resblocks: Sequence[Sequence[Pair]], C: int, device: torc
     return nb, np_, (ctypes.c_int * len(ints))(*ints), (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
+Swapped = Sequence[Sequence[Tuple[torch.Tensor, torch.Tensor]]]
+
+
+def swap_channels(resblocks: Sequence[Sequence[Pair]]) -> Swapped:
+    """Per branch per pair (k1, k2) as (tap, c_out, c_in), contiguous: the
+    layout a forward conv's kernel has as the tensor cores' B operand."""
+    return [[(k1.transpose(1, 2).contiguous(), k2.transpose(1, 2).contiguous())
+             for k1, _, _, k2, _ in pairs] for pairs in resblocks]
+
+
+def _check_swapped(op: str, resblocks: Sequence[Sequence[Pair]], swapped: Swapped) -> None:
+    if [len(sw) for sw in swapped] != [len(pairs) for pairs in resblocks]:
+        raise ValueError(f"{op}: `swapped` does not match the branches' pairs")
+    for i, (pairs, sw) in enumerate(zip(resblocks, swapped)):
+        for j, ((k1, _, _, k2, _), (k1t, k2t)) in enumerate(zip(pairs, sw)):
+            for name, k, kt in (("k1", k1, k1t), ("k2", k2, k2t)):
+                if tuple(kt.shape) != (k.shape[0], k.shape[2], k.shape[1]):
+                    raise ValueError(f"{op}: branch {i} pair {j} swapped {name} has shape "
+                                     f"{tuple(kt.shape)}")
+                _build.check_operand(op, f"branch {i} pair {j} swapped {name}", kt, k.device)
+
+
 def _check_x(op: str, x: torch.Tensor) -> Tuple[int, int, int]:
     if not x.is_cuda:
         raise ValueError(f"{op}: x must be a CUDA tensor, got {x.device}")
@@ -114,18 +144,59 @@ def _check_x(op: str, x: torch.Tensor) -> Tuple[int, int, int]:
     return tuple(x.shape)
 
 
-def fused_mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]]) -> torch.Tensor:
+class StageTable:
+    """What the forward's C entry point takes of a stage's operands, checked
+    once: the (K1, dilation, K2) table and the pointers (k1 as
+    (tap, c_out, c_in), b1, k2 as (tap, c_out, c_in), b2) per pair.  It keeps
+    the tensors alive.  A caller whose operands stay (a served model: 0.2 ms
+    of host time a stage to check 54 tensors) builds it once and hands it to
+    `fused_mrf_stage_cuda` with them."""
+
+    def __init__(self, resblocks: Sequence[Sequence[Pair]], swapped: Optional[Swapped],
+                 device: torch.device):
+        lib = _build.library(NAME)
+        self.C, self.device = resblocks[0][0][0].shape[1], device
+        self.nb, self.np_, self.ints, _ = mrf_table(
+            NAME, resblocks, self.C, device, lib.fvt_fused_mrf_max_branches(),
+            lib.fvt_fused_mrf_max_pairs())
+        if swapped is None:
+            swapped = swap_channels(resblocks)
+        _check_swapped(NAME, resblocks, swapped)
+        self.keep = (resblocks, swapped)
+        ptrs = [p for pairs, sw in zip(resblocks, swapped)
+                for (_, b1, _, _, b2), (k1t, k2t) in zip(pairs, sw)
+                for p in (k1t.data_ptr(), b1.data_ptr(), k2t.data_ptr(), b2.data_ptr())]
+        self.ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def fused_mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
+                         swapped: Optional[Swapped] = None,
+                         table: Optional[StageTable] = None) -> torch.Tensor:
     """Launch the forward kernel on x (B, T, C) float32, contiguous, on a
-    CUDA device, C in `KERNEL_WIDTHS`.  Records no graph: gradients come
-    through `fused_mrf_stage`."""
+    CUDA device, C in `KERNEL_WIDTHS`.  `swapped`: `swap_channels(resblocks)`
+    where the caller keeps it; `table`: `StageTable(resblocks, swapped,
+    x.device)` where the caller keeps that too.  Records no graph: gradients
+    come through `fused_mrf_stage`."""
     B, T, C = _check_x(NAME, x)
     lib = _build.library(NAME)
-    nb, np_, ints, ptrs = mrf_table(NAME, resblocks, C, x.device,
-                                    lib.fvt_fused_mrf_max_branches(), lib.fvt_fused_mrf_max_pairs())
+    if table is None:
+        if not resblocks or not resblocks[0]:
+            raise ValueError(f"{NAME}: want at least one branch of at least one pair")
+        table = StageTable(resblocks, swapped, x.device)
+    if table.C != C or table.device != x.device:
+        raise ValueError(f"{NAME}: the stage's operands are for C={table.C} on {table.device}, "
+                         f"x is (B, T, {C}) on {x.device}")
+    nb, np_, ints, ptrs = table.nb, table.np_, table.ints, table.ptrs
     y = torch.empty_like(x)
     if B == 0 or T == 0:
         return y
-    scratch = torch.empty(2 * nb * B * T * C, dtype=torch.float32, device=x.device)
+    size_fn = lib.fvt_fused_mrf_scratch_floats
+    size_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    size_fn.restype = ctypes.c_longlong
+    n_scratch = size_fn(B, T, C, nb, np_, ctypes.addressof(ints))
+    if n_scratch < 0:
+        raise ValueError(f"{NAME}: the kernel refuses this stage")
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     fn = lib.fvt_fused_mrf
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
@@ -158,10 +229,12 @@ def fused_mrf_stage_vjp_plain(x: torch.Tensor, resblocks: Sequence[Sequence[Pair
 
 
 def fused_mrf_stage_vjp_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
-                             g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+                             g: torch.Tensor,
+                             swapped: Optional[Swapped] = None) -> Tuple[torch.Tensor, Grads]:
     """Launch the backward kernel: from x and the cotangent g of the stage's
     output, (dx, per branch per pair (dk1, db1, dk2, db2)), float32, kernels
-    (tap, c_in, c_out).  The stage is recomputed from x on the card."""
+    (tap, c_in, c_out).  The stage is recomputed from x on the card.
+    `swapped`: `swap_channels(resblocks)` where the caller keeps it."""
     B, T, C = _check_x(BWD_NAME, x)
     if tuple(g.shape) != (B, T, C):
         raise ValueError(f"{BWD_NAME}: g has shape {tuple(g.shape)}, want {(B, T, C)}")
@@ -179,9 +252,11 @@ def fused_mrf_stage_vjp_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]
                 for t in group:
                     t.zero_()
         return dx, grads
-    # the adjoint convs read each kernel with its channel axes swapped
-    swapped = [[(k1.transpose(1, 2).contiguous(), k2.transpose(1, 2).contiguous())
-                for k1, _, _, k2, _ in pairs] for pairs in resblocks]
+    # the recompute's forward convs read each kernel with its channel axes
+    # swapped, the adjoint convs as it is
+    if swapped is None:
+        swapped = swap_channels(resblocks)
+    _check_swapped(BWD_NAME, resblocks, swapped)
     ptrs: List[int] = []
     for pairs, sw in zip(resblocks, swapped):
         for (k1, b1, _, k2, b2), (k1t, k2t) in zip(pairs, sw):
@@ -216,30 +291,44 @@ def _pack(dilations, tensors) -> List[List[Pair]]:
 
 
 class _FusedMRFStage(torch.autograd.Function):
-    """The MRF stage on CUDA: forward kernel, backward kernel.  Saves x and
-    the weights; the backward recomputes the rest."""
+    """The MRF stage on CUDA: forward kernel, backward kernel.  Saves x, the
+    weights and their swapped copies; the backward recomputes the rest."""
 
     @staticmethod
-    def forward(ctx, x, dilations, *tensors):
+    def forward(ctx, x, dilations, swapped, *tensors):
         ctx.dilations = dilations
+        ctx.swapped = swapped
         ctx.save_for_backward(x, *tensors)
-        return fused_mrf_stage_cuda(x, _pack(dilations, tensors))
+        return fused_mrf_stage_cuda(x, _pack(dilations, tensors), swapped)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, *tensors = ctx.saved_tensors
-        dx, grads = fused_mrf_stage_vjp_cuda(x, _pack(ctx.dilations, tensors), g.contiguous())
+        dx, grads = fused_mrf_stage_vjp_cuda(x, _pack(ctx.dilations, tensors), g.contiguous(),
+                                             ctx.swapped)
         flat = [t for pairs in grads for group in pairs for t in group]
-        return (dx, None, *flat)
+        return (dx, None, None, *flat)
 
 
-def fused_mrf_stage(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]]) -> torch.Tensor:
+def fused_mrf_stage(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
+                    swapped: Optional[Swapped] = None,
+                    table: Optional[StageTable] = None) -> torch.Tensor:
     """Apply an MRF stage to x (B, T, C): the kernels on CUDA tensors (with
-    their own backward), the plain version on CPU tensors."""
+    their own backward), the plain version on CPU tensors.  `swapped`:
+    `swap_channels(resblocks)` where the caller keeps it (the values only: no
+    gradient flows through it); `table`: the `StageTable` of both, used
+    where nothing needs a gradient."""
     if x.is_cuda:
-        dilations = tuple(tuple(int(p[2]) for p in pairs) for pairs in resblocks)
-        tensors = [w.contiguous() for pairs in resblocks for p in pairs for w in p
+        tensors = [w for pairs in resblocks for p in pairs for w in p
                    if isinstance(w, torch.Tensor)]
-        return _FusedMRFStage.apply(x, dilations, *tensors)
+        if not (torch.is_grad_enabled() and any(t.requires_grad for t in [x] + tensors)):
+            return fused_mrf_stage_cuda(x, resblocks, swapped, table)  # nothing to differentiate
+        dilations = tuple(tuple(int(p[2]) for p in pairs) for pairs in resblocks)
+        tensors = [w.contiguous() for w in tensors]
+        with torch.no_grad():
+            if swapped is None:
+                swapped = swap_channels(_pack(dilations, tensors))
+            swapped = [[(k1t.detach(), k2t.detach()) for k1t, k2t in sw] for sw in swapped]
+        return _FusedMRFStage.apply(x, dilations, swapped, *tensors)
     return fused_mrf_stage_plain(x, resblocks)

@@ -34,14 +34,18 @@ def test_target_changes_with_an_included_header(tmp_path):
 def test_port_kernels_that_share_the_mrf_header():
     names = {src.stem: [p.name for p in _build.local_includes(src)]
              for src in _build.CSRC.glob("*.cu")}
-    assert names["fused_mrf"] == names["fused_tail"] == ["mrf_common.cuh"]
+    assert names["fused_tail"] == ["mrf_common.cuh"]
+    # the MRF forward keeps the table and the mean of the shared header and
+    # contracts on the tensor-core core
+    assert names["fused_mrf"] == ["mma_common.cuh", "mrf_common.cuh"]
     assert names["basis_decode"] == names["fused_resstack"] == []
 
 
 def test_backward_kernels_share_one_header_and_its_hash():
     names = {src.stem: [p.name for p in _build.local_includes(src)]
              for src in _build.CSRC.glob("*.cu")}
-    assert names["fused_mrf_bwd"] == names["fused_resstack_bwd"] == ["bwd_common.cuh"]
+    assert names["fused_resstack_bwd"] == ["bwd_common.cuh"]
+    assert names["fused_mrf_bwd"] == ["bwd_common.cuh", "mma_common.cuh"]
     assert sorted(names) == ["basis_decode", "fused_mrf", "fused_mrf_bwd", "fused_resstack",
                              "fused_resstack_bwd", "fused_tail"]
 
@@ -59,6 +63,22 @@ def test_a_backward_library_is_rebuilt_when_the_shared_header_changes(tmp_path, 
     assert after["fused_mrf_bwd"] != before["fused_mrf_bwd"]
     assert after["fused_resstack_bwd"] != before["fused_resstack_bwd"]
     assert after["fused_mrf"] == before["fused_mrf"]
+
+
+def test_both_mrf_libraries_are_rebuilt_when_the_tensor_core_header_changes(tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    names = ("fused_mrf", "fused_mrf_bwd", "fused_tail", "fused_resstack_bwd")
+    before = {n: _build._target(csrc / f"{n}.cu") for n in names}
+    with open(csrc / "mma_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._target(csrc / f"{n}.cu") for n in names}
+    assert after["fused_mrf"] != before["fused_mrf"]
+    assert after["fused_mrf_bwd"] != before["fused_mrf_bwd"]
+    assert after["fused_tail"] == before["fused_tail"]
+    assert after["fused_resstack_bwd"] == before["fused_resstack_bwd"]
 
 
 def test_refuse_autograd_speaks_of_an_inference_only_kernel():

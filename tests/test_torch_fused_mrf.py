@@ -20,7 +20,11 @@ from fastvocoder_tpu.models.layers import ResBlock1 as JaxResBlock1
 from fastvocoder_tpu.ops.fused_mrf import fused_mrf_stage as jax_fused_mrf_stage
 from fastvocoder_tpu_torch.checkpoint import state_dict_from_jax
 from fastvocoder_tpu_torch.models.layers import ResBlock1, apply_mrf
-from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage, fused_mrf_stage_plain
+from fastvocoder_tpu_torch.ops.fused_mrf import (
+    fused_mrf_stage,
+    fused_mrf_stage_plain,
+    swap_channels,
+)
 
 KERNELS, DILATIONS = (3, 7, 11), (1, 3, 5)
 
@@ -117,6 +121,53 @@ def test_mrf_operands_follow_weight_writes():
     second = b.mrf_operands()
     torch.testing.assert_close(second[1][3], 2 * first[1][3])
     assert second[0][0] is first[0][0]  # the other convs keep their copies
+
+
+@pytest.mark.parametrize("C,K", [(16, 3), (32, 7), (64, 11)])
+def test_swapped_operands_are_the_transposed_kernels(C, K):
+    """The (tap, c_out, c_in) copies the tensor-core kernels read as their B
+    operand: `mrf_operands`' kernels with the channel axes swapped, bit for
+    bit, contiguous, and what `swap_channels` builds from the operands."""
+    torch.manual_seed(C + K)
+    b = ResBlock1(C, kernel_size=K, dilations=(1, 3, 5)).requires_grad_(False)
+    ops, swapped = b.mrf_operands(), b.mrf_swapped()
+    assert len(swapped) == len(ops) == 3
+    for (k1, _, _, k2, _), (k1t, k2t), built in zip(ops, swapped, swap_channels([ops])[0]):
+        for k, kt, again in ((k1, k1t, built[0]), (k2, k2t, built[1])):
+            assert kt.shape == (K, C, C) and kt.is_contiguous() and not kt.requires_grad
+            assert torch.equal(kt, k.transpose(1, 2))
+            assert torch.equal(kt, again)
+    # and against the module's own weight: (c_out, c_in, tap) -> (tap, c_out, c_in)
+    assert torch.equal(swapped[1][0], b.conv1_1.weight.permute(2, 0, 1))
+
+
+def test_swapped_operands_are_cached_in_inference_and_follow_weight_writes():
+    b = ResBlock1(16, kernel_size=3, dilations=(1, 3)).requires_grad_(False)
+    first = b.mrf_swapped()
+    again = b.mrf_swapped()
+    assert all(a is f for pa, pf in zip(again, first) for a, f in zip(pa, pf))  # cached
+    assert b.mrf_operands()[0][0] is b.mrf_operands()[0][0]  # beside the other cache
+    version = b.conv2_1.weight._version
+    with torch.no_grad():
+        b.conv2_1.weight.mul_(2)  # what an optimiser step does: written in place
+    assert b.conv2_1.weight._version != version
+    second = b.mrf_swapped()
+    torch.testing.assert_close(second[1][1], 2 * first[1][1])
+    assert torch.equal(second[1][1], b.mrf_operands()[1][3].transpose(1, 2))
+    assert second[0][0] is first[0][0]  # the other convs keep their copies
+
+
+def test_swapped_operands_are_built_anew_under_autograd():
+    """While autograd follows the weights (training, weight norm on), nothing
+    is cached: the copies are values of this step's weights, detached."""
+    b = ResBlock1(16, kernel_size=3, dilations=(1,), weight_norm=True)
+    first, again = b.mrf_swapped(), b.mrf_swapped()
+    assert first[0][0] is not again[0][0] and torch.equal(first[0][0], again[0][0])
+    assert not first[0][0].requires_grad
+    with torch.no_grad():
+        b.conv1_0.g.mul_(3)
+    torch.testing.assert_close(b.mrf_swapped()[0][0], 3 * first[0][0])
+    assert torch.equal(b.mrf_swapped()[0][0], b.mrf_operands()[0][0].detach().transpose(1, 2))
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -14,7 +14,10 @@ the output's magnitude, and at least 90 % of rows must agree 100x tighter.
 The MRF stage and the tail sum up to 6 convs of up to 11 C taps in a chain
 (2816 products a row at C = 256), so their rows are held 30x looser than
 the chain's (1e-5 of the magnitude), the MRF's maximum like the chain's and
-the tail's, after tanh, within 1e-4.
+the tail's, after tanh, within 1e-4.  The two MRF kernels contract on the
+tensor cores in 3xTF32 (split operands, float32 sums), which is as close to
+float64 as float32 is (`tests/test_torch_tf32_split.py`), so they are held
+to the same bounds as the float32 CUDA-core kernels before them.
 
 The two backward kernels are held against the plain versions' autograd run
 in float64 (`_f64`), so that only the kernel's own float32 rounding can put
@@ -272,9 +275,125 @@ def test_fused_mrf_bwd_kernel_matches_plain_vjp(cuda, B, T, C):
                         [t for br in grads_ref for p in br for t in p])
 
 
+# Rows a block of the MRF kernels owns, by width: a forward pair launch (64
+# rows a warpgroup less the 2 x 5 rows of u the k = 11 branch recomputes),
+# an adjoint conv of the backward, and a chunk of the weight gradient.
+MRF_PAIR_ROWS = {16: 118, 32: 118, 64: 118, 128: 118, 256: 54}
+MRF_CONV_ROWS = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
+MRF_WGRAD_ROWS = {16: 256, 32: 128, 64: 64, 128: 32, 256: 32}
+
+
+def _edge_cases():
+    """(B, T, C) at every width: T = 1, T below the 30-row halo, one below,
+    at and one above a forward block's rows, one above an adjoint block's,
+    and B = 3 at a length that is no multiple of a chunk."""
+    cases = []
+    for C in (16, 32, 64, 128, 256):
+        R = MRF_PAIR_ROWS[C]
+        cases += [(1, 1, C), (3, 7, C), (1, R - 1, C), (2, R, C), (1, R + 1, C),
+                  (1, MRF_CONV_ROWS[C] + 1, C), (3, 2 * MRF_WGRAD_ROWS[C] + 5, C)]
+    return cases
+
+
+@pytest.mark.parametrize("B,T,C", _edge_cases())
+def test_fused_mrf_kernel_matches_plain_at_tile_edges(cuda, B, T, C):
+    g = torch.Generator().manual_seed(T + C)
+    x = (0.3 * torch.randn(B, T, C, generator=g)).to(cuda)
+    blocks = _resblocks(C, cuda, seed=C + 1)
+    _assert_rows_close(fused_mrf_stage_cuda(x, blocks), fused_mrf_stage_plain(x, blocks),
+                       3e-4, 1e-5)
+
+
+@pytest.mark.parametrize("B,T,C", _edge_cases())
+def test_fused_mrf_bwd_kernel_matches_plain_vjp_at_tile_edges(cuda, B, T, C):
+    gen = torch.Generator().manual_seed(T + C)
+    x = (0.3 * torch.randn(B, T, C, generator=gen)).to(cuda)
+    g = torch.randn(B, T, C, generator=gen).to(cuda)
+    blocks = _resblocks(C, cuda, seed=C + 1)
+    dx, grads = fused_mrf_stage_vjp_cuda(x, blocks, g)
+    dx_ref, grads_ref = fused_mrf_stage_vjp_plain(*_f64((x, blocks, g)))
+    _assert_grads_close(dx, dx_ref, [t for br in grads for p in br for t in p],
+                        [t for br in grads_ref for p in br for t in p])
+
+
+# (1, 4680, 256) is HiFiGAN large's widest stage at a 585-frame utterance;
+# (8, 2900, 128) is a grid of several waves of blocks
+@pytest.mark.parametrize("B,T,C", [(1, 4680, 256), (8, 2900, 128)])
+def test_fused_mrf_kernels_at_the_large_model_and_the_wide_block(cuda, B, T, C):
+    gen = torch.Generator().manual_seed(T + C)
+    x = (0.3 * torch.randn(B, T, C, generator=gen)).to(cuda)
+    g = torch.randn(B, T, C, generator=gen).to(cuda)
+    blocks = _resblocks(C, cuda, seed=C)
+    _assert_rows_close(fused_mrf_stage_cuda(x, blocks), fused_mrf_stage_plain(x, blocks),
+                       3e-4, 1e-5)
+    dx, grads = fused_mrf_stage_vjp_cuda(x, blocks, g)
+    dx_ref, grads_ref = fused_mrf_stage_vjp_plain(*_f64((x, blocks, g)))
+    _assert_grads_close(dx, dx_ref, [t for br in grads for p in br for t in p],
+                        [t for br in grads_ref for p in br for t in p])
+
+
+def test_fused_mrf_kernels_take_cached_swapped_weights(cuda):
+    """The wrappers build the (tap, c_out, c_in) copies themselves or take
+    the caller's: the same bits either way; copies of another shape raise."""
+    from fastvocoder_tpu_torch.ops.fused_mrf import swap_channels
+
+    gen = torch.Generator().manual_seed(4)
+    x = (0.3 * torch.randn(2, 80, 32, generator=gen)).to(cuda)
+    g = torch.randn(2, 80, 32, generator=gen).to(cuda)
+    blocks = _resblocks(32, cuda, seed=2)
+    swapped = swap_channels(blocks)
+    assert torch.equal(fused_mrf_stage_cuda(x, blocks), fused_mrf_stage_cuda(x, blocks, swapped))
+    dx1, g1 = fused_mrf_stage_vjp_cuda(x, blocks, g)
+    dx2, g2 = fused_mrf_stage_vjp_cuda(x, blocks, g, swapped)
+    assert torch.equal(dx1, dx2)
+    for a, b in zip([t for br in g1 for p in br for t in p], [t for br in g2 for p in br for t in p]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="swapped"):
+        fused_mrf_stage_cuda(x, blocks, swapped[:2])
+    # and the checked table of both, where the caller keeps that too
+    from fastvocoder_tpu_torch.ops.fused_mrf import StageTable
+
+    table = StageTable(blocks, swapped, x.device)
+    assert torch.equal(fused_mrf_stage_cuda(x, blocks, swapped, table),
+                       fused_mrf_stage_cuda(x, blocks))
+    with pytest.raises(ValueError, match="operands are for C=32"):
+        fused_mrf_stage_cuda(torch.zeros(1, 8, 64, device=cuda), blocks, swapped, table)
+
+
+def test_apply_mrf_follows_weight_writes_on_the_card(cuda):
+    """A served stage keeps its operands, their swapped copies and the checked
+    table; an in-place write to one weight (what loading a checkpoint or an
+    optimiser step does) rebuilds them."""
+    from fastvocoder_tpu_torch.models.layers import ResBlock1, apply_mrf
+
+    torch.manual_seed(3)
+    blocks = [ResBlock1(32, kernel_size=k).to(cuda).requires_grad_(False) for k in (3, 7, 11)]
+    x = 0.3 * torch.randn(2, 200, 32, device=cuda)
+
+    def modules_mean():
+        return sum(b(x) for b in blocks) / len(blocks)
+
+    with torch.no_grad():
+        before = _build.launch_counts["fused_mrf"]
+        first = apply_mrf(x, blocks)
+        table = blocks[0]._stage_table
+        assert apply_mrf(x, blocks) is not first and blocks[0]._stage_table is table  # kept
+        assert _build.launch_counts["fused_mrf"] == before + 2
+        _assert_rows_close(first, modules_mean(), 3e-4, 1e-5)
+        blocks[1].conv2_1.weight.mul_(1.5)
+        second = apply_mrf(x, blocks)
+        assert blocks[0]._stage_table is not table
+        _assert_rows_close(second, modules_mean(), 3e-4, 1e-5)
+        assert (second - first).abs().max().item() > 1e-3
+
+
 def test_fused_mrf_bwd_kernel_release_weights(cuda, hifigan_light):
     blocks = [b.mrf_operands() for b in hifigan_light.mrfs[1]]
-    gen = torch.Generator().manual_seed(9)
+    # a seed without a leaky-relu flip (the docstring).  It was 9 while the
+    # kernel contracted on the CUDA cores; with the tensor-core kernel's
+    # roundings, of seeds 9 to 20 at this shape only 9 has a flip (a run of
+    # 50 rows of dx), and other roundings put one on other seeds
+    gen = torch.Generator().manual_seed(10)
     x = (0.3 * torch.randn(2, 700, 64, generator=gen)).to(cuda)
     g = torch.randn(2, 700, 64, generator=gen).to(cuda)
     dx, grads = fused_mrf_stage_vjp_cuda(x, blocks, g)
@@ -283,12 +402,16 @@ def test_fused_mrf_bwd_kernel_release_weights(cuda, hifigan_light):
                         [t for br in grads_ref for p in br for t in p])
 
 
-def test_fused_mrf_bwd_kernel_is_the_same_from_run_to_run(cuda):
-    """dW is summed in two stages in a fixed order, without atomics."""
+# C = 16 and 32: the warpgroups of a block share a group of dW and add their
+# sums through shared memory; C = 128: a warpgroup a group, many blocks a conv
+@pytest.mark.parametrize("B,T,C", [(4, 900, 32), (3, 1300, 16), (2, 700, 128)])
+def test_fused_mrf_bwd_kernel_is_the_same_from_run_to_run(cuda, B, T, C):
+    """dW is summed in stages in a fixed order (the warpgroups of a block,
+    then the blocks), without atomics."""
     gen = torch.Generator().manual_seed(2)
-    x = (0.3 * torch.randn(4, 900, 32, generator=gen)).to(cuda)
-    g = torch.randn(4, 900, 32, generator=gen).to(cuda)
-    blocks = _resblocks(32, cuda, seed=1)
+    x = (0.3 * torch.randn(B, T, C, generator=gen)).to(cuda)
+    g = torch.randn(B, T, C, generator=gen).to(cuda)
+    blocks = _resblocks(C, cuda, seed=1)
     dx1, g1 = fused_mrf_stage_vjp_cuda(x, blocks, g)
     dx2, g2 = fused_mrf_stage_vjp_cuda(x, blocks, g)
     assert torch.equal(dx1, dx2)
