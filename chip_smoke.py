@@ -5,11 +5,13 @@
 
 Builds the port's CUDA kernels from `fastvocoder_tpu_torch/csrc/` with
 `nvcc`, holds each against its plain PyTorch version at its paths' shapes
-and times both.  The two MRF kernels, which contract on the tensor cores in
-3xTF32, are also held at shapes on the edges of their tiles, their error
-against a float64 run of the plain version is printed beside the float32
-plain version's own, and they get two bounds: the float32 rate of the CUDA
-cores, as every kernel, and a third of the tensor cores' TF32 rate.  Then
+and times both.  The four kernels that contract on the tensor cores in
+3xTF32 (the MRF stage's and the residual-stack chain's, forward and
+backward) are also held at shapes on the edges of their tiles at every
+width, their error against a float64 run of the plain version is printed
+beside the float32 plain version's own, and they get two bounds: the float32
+rate of the CUDA cores, as every kernel, and a third of the tensor cores'
+TF32 rate.  Then
 the script drives each ported model at full width on its release checkpoint
 (`docs/checkpoints/`) through the entry points a user calls:
 
@@ -31,7 +33,8 @@ the data pipeline reads:
   * Basis-MelGAN light: `run_train` for 4 pre-adversarial steps with the
     weight L1 (kernels: fused_resstack, fused_resstack_bwd, basis_decode);
     the same one-step comparison;
-  * ms a step of the three step kinds, and a profile of one GAN step.
+  * ms a step of the three step kinds, and a profile of one HiFiGAN GAN
+    step and of one Basis-MelGAN pre-adversarial step.
 
 Launch counts are zeroed before each path and read right after it; the run
 fails if a kernel of the path was not launched.  A profile of one batch-1
@@ -200,10 +203,38 @@ def check_basis_decode(torch, F, basis):
     }
 
 
+# Rows a block of the chain kernels owns, by width (`csrc/mma_common.cuh`,
+# `Tile`: 64 rows a warpgroup, one over the rows at C = 256, two below).
+CHAIN_ROWS = {32: 128, 64: 128, 128: 128, 256: 64}
+
+
+def chain_edge_shapes(C: int, least: int):
+    """(B, T) on the edges of the chain kernels' tiles at width C: the least
+    T (1 forwards, m + 1 = 10 backwards), one below, at and one above 64
+    rows, one below and one above 128, one above a block's rows."""
+    return [(1, least), (2, 63), (1, 64), (3, 65), (1, 127), (2, 129), (1, CHAIN_ROWS[C] + 1)]
+
+
+def seeded_stacks(torch, C: int, dev, seed: int, dilations=(1, 3, 9), K: int = 3):
+    """Residual stacks with torch's default conv init, from a seed."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, fan_in):
+        return ((torch.rand(shape, generator=g) * 2 - 1) / np.sqrt(fan_in)).to(dev)
+
+    return [(u(K, C, C, fan_in=C * K), u(C, fan_in=C * K), d, u(1, C, C, fan_in=C),
+             u(C, fan_in=C), u(1, C, C, fan_in=C), u(C, fan_in=C)) for d in dilations]
+
+
 def check_fused_resstack(torch, gen, T_main):
     """Kernel 2 against its plain version with the release weights of both
-    stages; -> entry for the kernels line."""
+    stages, and with seeded weights at every width on the edges of its
+    tiles; times with the chain's packed operands kept, as a served model
+    keeps them, and the packing's own time.  -> entry for the kernels
+    line."""
     from fastvocoder_tpu_torch.ops.fused_resstack import (
+        KERNEL_WIDTHS,
+        ChainTable,
         fused_residual_stacks_cuda,
         fused_residual_stacks_plain,
     )
@@ -211,45 +242,58 @@ def check_fused_resstack(torch, gen, T_main):
     dev = next(gen.parameters()).device
     g = torch.Generator().manual_seed(2)
     worst = 0.0
-    for stage, B, T in ((0, 1, 2340), (1, 1, 9360), (0, 4, 2340), (1, 4, 9360), (0, 2, 40), (1, 1, 10)):
-        stacks = [m.chain_operands() for m in gen.stacks[stage]]
+    cases = [([m.chain_operands() for m in gen.stacks[stage]], B, T)
+             for stage, B, T in ((0, 1, 2340), (1, 1, 9360), (0, 4, 2340), (1, 4, 9360),
+                                 (0, 2, 40), (1, 1, 10))]
+    for C in KERNEL_WIDTHS:
+        stacks = seeded_stacks(torch, C, dev, 30 + C)
+        cases += [(stacks, B, T) for B, T in chain_edge_shapes(C, 1)]
+    for stacks, B, T in cases:
         C = stacks[0][0].shape[1]
         x = (0.3 * torch.randn(B, T, C, generator=g)).to(dev)
         got = fused_residual_stacks_cuda(x, stacks)
         want = fused_residual_stacks_plain(x, stacks)
         torch.cuda.synchronize()
-        scale = max(1.0, want.abs().max().item())
-        err = (got - want).abs()
-        rows_ok = (err.amax(dim=(0, 2)) <= CHAIN_ROW_TOL * scale).float().mean().item()
-        log(f"  fused_resstack stage {stage} B={B} T={T}: max abs {err.max().item():.3e}, "
-            f"max rel {(err.max() / scale).item():.3e} (tol {CHAIN_TOL * scale:.3e}), "
-            f"rows within {CHAIN_ROW_TOL * scale:.1e}: {rows_ok:.4f}")
-        if err.max().item() > CHAIN_TOL * scale or rows_ok <= 0.9:
-            raise AssertionError(f"fused_resstack disagrees with its plain version at B={B} T={T}")
-        worst = max(worst, err.max().item())
+        err, tol, rows_ok, ok = rows_close(got, want, CHAIN_TOL, CHAIN_ROW_TOL)
+        if T > 1000 or T == 10:
+            log(f"  fused_resstack ({B}, {T}, {C}): max abs {err:.3e} (tol {tol:.3e}), "
+                f"rows within {CHAIN_ROW_TOL:.0e} of the peak: {rows_ok:.4f}")
+        if not ok:
+            raise AssertionError(f"fused_resstack disagrees with its plain version at ({B}, {T}, {C})")
+        worst = max(worst, err)
+    log(f"  fused_resstack: {len(cases)} shapes agree, among them every width at "
+        f"(B, T) = {chain_edge_shapes(256, 1)} (C = 256; the edges of each width's own tiles)")
 
     times = {}
     for stage, T in ((0, T_main // 4), (1, T_main)):
         stacks = [m.chain_operands() for m in gen.stacks[stage]]
-        x = (0.3 * torch.randn(1, T, stacks[0][0].shape[1], generator=g)).to(dev)
-        times[T] = (cuda_ms(lambda: fused_residual_stacks_cuda(x, stacks), iters=20, warmup=3),
-                    cuda_ms(lambda: fused_residual_stacks_plain(x, stacks), iters=20, warmup=3))
-        log(f"  fused_resstack (1, {T}, 256): kernel {times[T][0]:.4f} ms, plain {times[T][1]:.4f} ms")
-    stacks = [m.chain_operands() for m in gen.stacks[1]]
-    n, K, C = len(stacks), stacks[0][0].shape[0], stacks[0][0].shape[1]
+        C = stacks[0][0].shape[1]
+        x = (0.3 * torch.randn(1, T, C, generator=g)).to(dev)
+        table = ChainTable(stacks, dev)  # kept by the caller, as a served model keeps it
+        ms = cuda_ms(lambda: fused_residual_stacks_cuda(x, stacks, table), iters=20, warmup=3)
+        plain = cuda_ms(lambda: fused_residual_stacks_plain(x, stacks), iters=20, warmup=3)
+        nbytes, flops = chain_work(1, T, stacks)
+        bms, _ = bound_ms(nbytes, flops)
+        b3, by = bound_3xtf32_ms(nbytes, flops)
+        times[T] = (ms, plain, bms, b3)
+        log(f"  fused_resstack (1, {T}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, float32 "
+            f"bound {bms:.4f} ms, 3xTF32 bound {b3:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP): "
+            f"{share(b3, ms)} of it")
+    pack_ms = cuda_ms(lambda: ChainTable(stacks, dev), iters=20, warmup=3)
+    log(f"  fused_resstack: checking and packing a stage's operands (ChainTable), which a "
+        f"served model does once: {pack_ms:.4f} ms a stage")
     T = T_main
-    nbytes = 4 * (2 * T * C + n * ((K + 2) * C * C + 3 * C))
-    flops = 2 * T * n * (K + 2) * C * C
-    bms, by = bound_ms(nbytes, flops)
-    log(f"  fused_resstack (1, {T}, {C}) bound {bms:.4f} ms ({by})")
+    bms, by = bound_ms(*chain_work(1, T, stacks))
     return {
         "name": "fused_resstack", "route": "cuda",
         "source": "fastvocoder_tpu_torch/csrc/fused_resstack.cu",
         "replaces": "fastvocoder_tpu/ops/fused_resstack.py:153",
         "shape": f"x (1, {T}, {C}), 3 stacks K=3 d=1,3,9 (stage 2 of 2)",
         "max_abs_err": worst, "ms": times[T][0], "plain_ms": times[T][1],
-        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "bound_ms": bms, "bound_3xtf32_ms": times[T][3], "bound_by": by, "library_ms": None,
         "stage1_ms": times[T // 4][0], "stage1_plain_ms": times[T // 4][1],
+        "stage1_bound_ms": times[T // 4][2], "stage1_bound_3xtf32_ms": times[T // 4][3],
+        "pack_ms": pack_ms,
     }
 
 
@@ -349,6 +393,50 @@ def mrf_errors_against_f64(torch, dev) -> None:
             f"dW/db {p[2]:.3e}")
         # no bound here: one leaky-relu flip in either moves a run of rows
         # of dx by 1e-2 (BWD_DX_TOL and its neighbours hold the kernel)
+
+
+def chain_errors_against_f64(torch, dev) -> None:
+    """What 3xTF32 costs in the chain kernels: per width, the error against a
+    float64 run of the plain version beside the float32 plain version's
+    own (forward: of the output's peak; backward: dx of its peak, and the
+    worst dW or db of its own peak)."""
+    from fastvocoder_tpu_torch.ops import fused_resstack as r
+
+    g = torch.Generator().manual_seed(65)
+    for C in r.KERNEL_WIDTHS:
+        stacks = seeded_stacks(torch, C, dev, 70 + C)
+        x = (0.3 * torch.randn(2, 600, C, generator=g)).to(dev)
+        cot = torch.randn(2, 600, C, generator=g).to(dev)
+        x64, stacks64, cot64 = to_f64(torch, (x, stacks, cot))
+        y64 = r.fused_residual_stacks_plain(x64, stacks64)
+        dx64, grads64 = r.fused_residual_stacks_vjp_plain(x64, stacks64, cot64)
+
+        def fwd_err(y):
+            e = (y.double() - y64).abs() / y64.abs().max()
+            return e.max().item(), e.mean().item()
+
+        def bwd_err(dx, grads):
+            e = (dx.double() - dx64).abs() / dx64.abs().max()
+            w = max(((a.double() - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip([t for s_ in grads for t in s_], [t for s_ in grads64 for t in s_]))
+            off = int((e.amax(dim=2) > BWD_DX_ROW_TOL).sum().item())
+            return e.max().item(), e.mean().item(), w, off
+
+        k = fwd_err(r.fused_residual_stacks_cuda(x, stacks))
+        p = fwd_err(r.fused_residual_stacks_plain(x, stacks))
+        log(f"  C = {C} chain forward against float64: kernel max {k[0]:.3e} mean {k[1]:.3e}; "
+            f"float32 plain max {p[0]:.3e} mean {p[1]:.3e}")
+        if not k[1] <= 4 * p[1] + 1e-8:
+            raise AssertionError(f"the chain kernel's error against float64 at C = {C} is not "
+                                 "float32's")
+        k = bwd_err(*r.fused_residual_stacks_vjp_cuda(x, stacks, cot))
+        p = bwd_err(*r.fused_residual_stacks_vjp_plain(x, stacks, cot))
+        log(f"  C = {C} chain backward against float64: kernel dx max {k[0]:.3e} mean "
+            f"{k[1]:.3e}, worst dW/db {k[2]:.3e}, rows off by more than {BWD_DX_ROW_TOL:.0e} of "
+            f"the peak {k[3]} of {2 * 600}; float32 plain dx max {p[0]:.3e} mean {p[1]:.3e}, "
+            f"worst dW/db {p[2]:.3e}, rows off {p[3]}")
+        # no bound here either: a leaky-relu flip moves a run of rows of dx
+        # (BWD_DX_TOL and its neighbours hold the kernel)
 
 
 def check_fused_mrf(torch, gen, frames: int):
@@ -635,7 +723,8 @@ def check_fused_mrf_bwd(torch, gen):
 
 def check_fused_resstack_bwd(torch, gen):
     """Kernel 3 with the release weights of Basis-MelGAN light's two stages
-    at the training crop's lengths."""
+    at the training crop's lengths, and with seeded weights at every width
+    on the edges of its tiles."""
     from fastvocoder_tpu_torch.ops import fused_resstack as r
 
     stages = []
@@ -643,26 +732,31 @@ def check_fused_resstack_bwd(torch, gen):
         ops = [s.chain_operands() for s in group]
         stages.append((ops, ops[0][0].shape[1],
                        TRAIN_FRAMES * int(np.prod(gen.cfg.upsample_scales[: i + 1]))))
+    edges = []
+    for C in r.KERNEL_WIDTHS:
+        ops = seeded_stacks(torch, C, torch.device("cuda"), 80 + C)
+        edges += [(ops, C, B, T) for B, T in chain_edge_shapes(C, 10)]
     return check_backward(
         torch, "fused_resstack_bwd", r.fused_residual_stacks_vjp_cuda,
         r.fused_residual_stacks_vjp_plain, r.fused_residual_stacks_cuda,
         r.fused_residual_stacks_plain, stages, chain_work,
         "fastvocoder_tpu/ops/fused_resstack.py:241",
-        f"Basis-MelGAN light's 2 stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames")
+        f"Basis-MelGAN light's 2 stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames",
+        edges=edges, tensor_cores=True)
 
 
 def kernel_class(name: str) -> str:
-    for key, label in (("fused_resstacks_kernel", "fused_resstack kernel"),
+    for key, label in (("resstack_bwd_", "fused_resstack_bwd kernel"),
+                       ("resstack_kernel", "fused_resstack kernel"),
                        ("basis_decode_kernel", "basis_decode kernel"),
+                       ("mrf_bwd_", "fused_mrf_bwd kernel"),
                        ("mrf_pair_kernel", "fused_mrf kernel"),
                        ("mrf_mean_kernel", "fused_mrf kernel"),
-                       ("mrf_bwd_pair_kernel", "fused_mrf_bwd kernel"),
-                       ("conv_mma_kernel", "fused_mrf_bwd kernel"),
-                       ("wgrad_mma_kernel", "fused_mrf_bwd kernel"),
                        ("tail_upsample_kernel", "fused_tail kernel"),
                        ("tail_pair_kernel", "fused_tail kernel"),
                        ("tail_head_kernel", "fused_tail kernel"),
-                       ("fvt_bwd", "fused_resstack_bwd kernel, and the sums of fused_mrf_bwd")):
+                       ("pack_kernel", "weight packing of the tensor-core kernels (2-5)"),
+                       ("fvt_bwd", "sums of the backward kernels (dW reduction, MRF branches)")):
         if key in name:
             return label
     low = name.lower()
@@ -1050,6 +1144,8 @@ def main() -> int:
     entries[4:4] = [mrf_bwd]
     log("[the MRF kernels' 3xTF32 against float64]")
     mrf_errors_against_f64(torch, torch.device("cuda"))
+    log("[the chain kernels' 3xTF32 against float64]")
+    chain_errors_against_f64(torch, torch.device("cuda"))
     launches = {e["name"]: 0 for e in entries}
 
     def count_path(name, fn, kernels):
@@ -1121,7 +1217,7 @@ def main() -> int:
         step_against_cpu(torch, basis_cfg, basis, "pre_adv_step", batch)
         log("[ms a step on the card]")
         step_ms["basis-melgan pre_adv_step"] = time_steps(torch, basis_cfg, basis, "pre_adv_step",
-                                                          batch)
+                                                          batch, profile=True)
     log(f"  ms a step: {step_ms}")
 
     for model, synth in (("basis-melgan", basis_synth), ("hifigan", hifi_synth)):

@@ -91,6 +91,7 @@ cudaError_t run_stage(const float* x, float* y, float* scratch, int B, int T, in
           pack.src[i] = src[c];
           pack.dst[i] = at;
           pack.K[i] = K[c];
+          pack.swap[i] = 0;
           packed[p][br][c] = at;
           at += fvt_mma::packed_floats<C>(K[c]);
         }

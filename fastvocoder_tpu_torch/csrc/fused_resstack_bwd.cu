@@ -17,41 +17,67 @@
 //
 // Bound on an H100: operations.  The forward costs 2 n (K + 2) C^2 FLOP a
 // row (30 C^2 for 3 stacks at K = 3); the backward recomputes it and does
-// twice as much again: 90 C^2 a row.
+// twice as much again: 90 C^2 a row.  All of it is dense contraction, so all
+// of it runs on the tensor cores in 3xTF32 with float32 accumulation (wgmma,
+// mma_common.cuh), at a ceiling of 165 TFLOP/s instead of the CUDA cores'
+// 67.
 //
 // The TPU kernel recomputed the chain's interior in VMEM, left the mirrored
 // edges to XLA and carried dW across its sequential grid.  Here:
-//   * the forward kernel's tile already fills 174 KiB of shared memory at
-//     C = 256, so the inputs and activations of three stacks do not fit
-//     beside it: the chain is recomputed from x into device memory, stack by
-//     stack (each stack's input h and activated u: 2 n - 1 tensors of B T C
+//   * the chain is recomputed from x into device memory by the forward's
+//     stack launch (`resstack_bwd_stack_kernel`, the forward's body), which
+//     also stores each stack's activated u; its ordinary output is the next
+//     stack's h; the last stack stops after u (2 n - 1 tensors of B T C
 //     floats);
-//   * then the stacks run last to first, three launches each: the 1x1
-//     conv's adjoint with the leaky mask (-> dt); the dilated conv's
-//     adjoint, which also folds the mirrored rows' sums back onto the rows
-//     they were copied from, applies the mask and adds the skip conv's
-//     adjoint (-> dh); and the three weight gradients of the stack at once
-//     (blockIdx.z), the dilated conv's reading mirrored rows like any
-//     other input;
-//   * dW and db are summed over rows in two stages: no atomics.
+//   * then the stacks run last to first, four launches each: the 1x1 conv's
+//     adjoint with the leaky mask (-> dt, `resstack_bwd_conv_kernel`); the
+//     dilated conv's adjoint with the mask of h, and the skip conv's adjoint
+//     as a second product over dh' staged in the same tile (-> dh); the
+//     mirrored edges' sums folded back onto the rows they were copied from
+//     (`resstack_bwd_fold_kernel`: m rows a side a sequence, masked by h);
+//     and the three weight gradients of the stack at once (blockIdx.z,
+//     `resstack_bwd_wgrad_kernel`), the dilated conv's staging mirrored rows
+//     of leaky(h);
+//   * an adjoint reads the kernels as the module holds them (tap, c_in,
+//     c_out), a forward conv with its channels swapped: one pack launch
+//     writes both forms of every kernel of the chain;
+//   * dW and db are summed over rows in two stages: no atomics, the same bits
+//     from run to run.
 // The mirrored edges need m <= T - 1, as torch's ReflectionPad1d does.
 // Scratch, in floats, n_el = B T C: (2 n + 2) n_el (h of stacks 1.., u of
-// every stack, dt, two dh used in turn) + the weight gradients' partials.
+// every stack, dt, two dh used in turn) + the packed kernels (2 (K + 2) C^2
+// a stack and form) + the weight gradients' partials.
 
 #include "bwd_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
-
-using namespace fvt_bwd;
 
 constexpr int kMaxStacks = 4;
 constexpr float kSlope = 0.2f;  // leaky-relu slope of MelGAN's stacks
 
+static_assert(6 * kMaxStacks <= fvt_mma::kMaxPack, "one pack launch a chain");
+
+FVT_MMA_STACK_KERNEL(resstack_bwd_stack_kernel)
+FVT_MMA_CONV_KERNEL(resstack_bwd_conv_kernel)
+FVT_MMA_FOLD_KERNEL(resstack_bwd_fold_kernel)
+FVT_MMA_WGRAD_KERNEL(resstack_bwd_wgrad_kernel)
+
 struct Stack {
   int d;
-  const float *wd, *bd, *w1, *b1, *ws, *bs, *wdt, *w1t, *wst;
+  const float *wd, *bd, *w1, *b1, *ws, *bs;  // (tap, c_in, c_out) as the module holds them
   float *dwd, *dbd, *dw1, *db1, *dws, *dbs;
 };
+
+size_t packed_stack_floats(int C, int K) {
+  return static_cast<size_t>(2) * (K + 2) * C * C;
+}
+
+template <int C>
+size_t partial_floats(int B, int T, int K) {
+  const int taps[3] = {K, 1, 1};
+  return fvt_mma::wgrad_floats<C>(B, T, taps, 3);
+}
 
 template <int C>
 cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, int B, int T,
@@ -65,69 +91,88 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
   auto dh_of = [&](int s) -> float* {
     return scratch + static_cast<size_t>(2 * n + s % 2) * n_el;
   };
-  float* partials = scratch + static_cast<size_t>(2 * n + 2) * n_el;
+  // every kernel packed twice: [0] as the forward reads it (produced c_out),
+  // [1] as the adjoint does (produced c_in); (wd, w1, ws) a stack
+  float* packed = scratch + static_cast<size_t>(2 * n + 2) * n_el;
+  float* partials = packed + 2 * n * packed_stack_floats(C, K);
+  const float* pk[kMaxStacks][2][3];
+  {
+    fvt_mma::PackArgs pack;
+    float* at = packed;
+    int i = 0;
+    for (int side = 0; side < 2; ++side) {
+      for (int s = 0; s < n; ++s) {
+        const float* src[3] = {stacks[s].wd, stacks[s].w1, stacks[s].ws};
+        const int taps[3] = {K, 1, 1};
+        for (int c = 0; c < 3; ++c, ++i) {
+          pack.src[i] = src[c];
+          pack.dst[i] = at;
+          pack.K[i] = taps[c];
+          pack.swap[i] = side == 0;
+          pk[s][side][c] = at;
+          at += fvt_mma::packed_floats<C>(taps[c]);
+        }
+      }
+    }
+    const cudaError_t err = fvt_mma::launch_pack<C>(pack, i, stream);
+    if (err != cudaSuccess) return err;
+  }
   cudaError_t err;
 
   // recompute: u of every stack, h of every stack but the first
   for (int s = 0; s < n; ++s) {
     const Stack& q = stacks[s];
-    ConvArgs a;
-    clear(a);
-    a.in_slope = kSlope;
-    a.out_slope = kSlope;
-    a.reflect = 1;
-    a.src[0] = h_in(s);
-    a.w[0] = q.wd;
-    a.bias[0] = q.bd;
-    a.K[0] = K;
-    a.dil[0] = q.d;
-    a.dst[0] = u_of(s);
-    err = launch_conv<C>(a, 1, B, T, stream);
-    if (err != cudaSuccess) return err;
-    if (s == n - 1) break;
-    clear(a);
-    a.src[0] = u_of(s);
-    a.w[0] = q.w1;
-    a.bias[0] = q.b1;
-    a.src2[0] = h_in(s);
-    a.w2[0] = q.ws;
-    a.bias2[0] = q.bs;
-    a.dst[0] = const_cast<float*>(h_in(s + 1));
-    err = launch_conv<C>(a, 1, B, T, stream);
+    fvt_mma::StackArgs a;
+    a.src = h_in(s);
+    a.dst = s == n - 1 ? nullptr : const_cast<float*>(h_in(s + 1));
+    a.u_dst = u_of(s);
+    a.wd = pk[s][0][0];
+    a.w1 = pk[s][0][1];
+    a.ws = pk[s][0][2];
+    a.bd = q.bd;
+    a.b1 = q.b1;
+    a.bs = q.bs;
+    a.K = K;
+    a.dil = q.d;
+    a.slope = kSlope;
+    err = FVT_MMA_LAUNCH_STACK(resstack_bwd_stack_kernel, C, a, B, T, stream);
     if (err != cudaSuccess) return err;
   }
 
   for (int s = n - 1; s >= 0; --s) {
     const Stack& q = stacks[s];
     const float* dh_out = s == n - 1 ? g : dh_of(s + 1);
-    ConvArgs a;
+    float* dh = s == 0 ? dx : dh_of(s);
+    fvt_mma::ConvArgs a;
     // dt = dh' W1^T * leaky'(t)
-    clear(a);
+    fvt_mma::clear(a);
     a.flip = 1;
     a.sgn_slope = kSlope;
     a.src[0] = dh_out;
-    a.w[0] = q.w1t;
+    a.w[0] = pk[s][1][1];
     a.sgn[0] = u_of(s);
     a.dst[0] = dt;
-    err = launch_conv<C>(a, 1, B, T, stream);
+    err = FVT_MMA_LAUNCH_CONV(resstack_bwd_conv_kernel, C, a, 1, B, T, stream);
     if (err != cudaSuccess) return err;
-    // dh = reflect_pad^T(conv^T(dt)) * leaky'(h) + dh' Ws^T
-    clear(a);
+    // dh = conv^T(dt) * leaky'(h) + dh' Ws^T, then the mirrored edges
+    fvt_mma::clear(a);
     a.flip = 1;
-    a.reflect = 1;
     a.sgn_slope = kSlope;
     a.src[0] = dt;
-    a.w[0] = q.wdt;
+    a.w[0] = pk[s][1][0];
     a.K[0] = K;
     a.dil[0] = q.d;
     a.sgn[0] = h_in(s);
     a.src2[0] = dh_out;
-    a.w2[0] = q.wst;
-    a.dst[0] = s == 0 ? dx : dh_of(s);
-    err = launch_conv<C>(a, 1, B, T, stream);
+    a.w2[0] = pk[s][1][2];
+    a.dst[0] = dh;
+    err = FVT_MMA_LAUNCH_CONV(resstack_bwd_conv_kernel, C, a, 1, B, T, stream);
+    if (err != cudaSuccess) return err;
+    a.src2[0] = nullptr;
+    err = FVT_MMA_LAUNCH_FOLD(resstack_bwd_fold_kernel, C, a, B, T, stream);
     if (err != cudaSuccess) return err;
     // dWd, dbd; dW1, db1; dWs, dbs
-    WgradArgs w;
+    fvt_bwd::WgradArgs w;
     w.a[0] = h_in(s);
     w.dy[0] = dt;
     w.dw[0] = q.dwd;
@@ -150,14 +195,15 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
       w.reflect[z] = 0;
       w.slope[z] = 1.0f;
     }
-    err = launch_wgrad<C>(w, 3, B, T, partials, stream);
+    err = FVT_MMA_LAUNCH_WGRAD(resstack_bwd_wgrad_kernel, C, w, 3, B, T, partials, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
 bool chain_ok(int B, int T, int C, int n, int K, const int* dil) {
-  if (B < 1 || T < 1 || n < 1 || n > kMaxStacks || K < 1 || K % 2 == 0 || C < 32 || C % 4 != 0) {
+  if (B < 1 || T < 1 || n < 1 || n > kMaxStacks || K < 1 || K % 2 == 0 ||
+      !(C == 32 || C == 64 || C == 128 || C == 256)) {
     return false;
   }
   for (int s = 0; s < n; ++s) {
@@ -176,18 +222,25 @@ extern "C" long long fvt_fused_resstacks_bwd_scratch_floats(int B, int T, int C,
                                                             const int* dil) {
   if (!chain_ok(B, T, C, n, K, dil)) return -1;
   const size_t n_el = static_cast<size_t>(B) * T * C;
+  size_t partials;
+  switch (C) {
+    case 32: partials = partial_floats<32>(B, T, K); break;
+    case 64: partials = partial_floats<64>(B, T, K); break;
+    case 128: partials = partial_floats<128>(B, T, K); break;
+    default: partials = partial_floats<256>(B, T, K);
+  }
   return static_cast<long long>(static_cast<size_t>(2 * n + 2) * n_el +
-                                wgrad_scratch(B, T, C, K, 3));
+                                2 * n * packed_stack_floats(C, K) + partials);
 }
 
 // x, g, dx (B, T, C) float32 contiguous, C in {32, 64, 128, 256}.  dil: n
-// host ints.  weights: 9 n host pointers to device float32 arrays, per stack
-// (wd (K, C, C), bd (C,), w1 (C, C), b1 (C,), ws (C, C), bs (C,), wdt, w1t,
-// wst): w (tap, c_in, c_out) as the forward takes it, wt the same with its
-// channel axes swapped.  grads: 6 n host pointers to the outputs, per stack
-// (dwd, dbd, dw1, db1, dws, dbs), laid out like the weights.  scratch:
-// `fvt_fused_resstacks_bwd_scratch_floats` floats.  Every pointer 16-byte
-// aligned.  Returns the first CUDA error of the launches (0 = ok).
+// host ints.  weights: 6 n host pointers to device float32 arrays, per stack
+// (wd (K, C, C), bd (C,), w1 (1, C, C), b1 (C,), ws (1, C, C), bs (C,)),
+// kernels laid out (tap, c_in, c_out).  grads: 6 n host pointers to the
+// outputs, per stack (dwd, dbd, dw1, db1, dws, dbs), laid out like the
+// weights.  scratch: `fvt_fused_resstacks_bwd_scratch_floats` floats.  Every
+// pointer 16-byte aligned.  Returns the first CUDA error of the launches
+// (0 = ok).
 extern "C" int fvt_fused_resstacks_bwd(const float* x, const float* g, float* dx,
                                        float* scratch, int B, int T, int C, int n, int K,
                                        const int* dil, const float* const* weights,
@@ -196,7 +249,7 @@ extern "C" int fvt_fused_resstacks_bwd(const float* x, const float* g, float* dx
   Stack stacks[kMaxStacks];
   for (int s = 0; s < n; ++s) {
     Stack& q = stacks[s];
-    const float* const* w = weights + 9 * s;
+    const float* const* w = weights + 6 * s;
     float* const* d = grads + 6 * s;
     q.d = dil[s];
     q.wd = w[0];
@@ -205,9 +258,6 @@ extern "C" int fvt_fused_resstacks_bwd(const float* x, const float* g, float* dx
     q.b1 = w[3];
     q.ws = w[4];
     q.bs = w[5];
-    q.wdt = w[6];
-    q.w1t = w[7];
-    q.wst = w[8];
     q.dwd = d[0];
     q.dbd = d[1];
     q.dw1 = d[2];
@@ -221,8 +271,7 @@ extern "C" int fvt_fused_resstacks_bwd(const float* x, const float* g, float* dx
     case 32: err = run_bwd<32>(x, g, dx, scratch, B, T, n, K, stacks, st); break;
     case 64: err = run_bwd<64>(x, g, dx, scratch, B, T, n, K, stacks, st); break;
     case 128: err = run_bwd<128>(x, g, dx, scratch, B, T, n, K, stacks, st); break;
-    case 256: err = run_bwd<256>(x, g, dx, scratch, B, T, n, K, stacks, st); break;
-    default: err = cudaErrorInvalidValue;
+    default: err = run_bwd<256>(x, g, dx, scratch, B, T, n, K, stacks, st);
   }
   return static_cast<int>(err);
 }

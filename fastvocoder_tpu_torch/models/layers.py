@@ -30,6 +30,7 @@ from fastvocoder_tpu_torch.ops.conv import conv1d, conv_transpose1d, reflect_pad
 from fastvocoder_tpu_torch.ops.fused_mrf import LRELU_SLOPE as MRF_SLOPE
 from fastvocoder_tpu_torch.ops.fused_mrf import StageTable, fused_mrf_stage
 from fastvocoder_tpu_torch.ops.fused_resstack import (
+    ChainTable,
     fused_residual_stacks,
     leaky_relu,
     stack_margin,
@@ -210,14 +211,24 @@ class ResidualStack(nn.Module):
 
 
 def apply_residual_stacks(x: torch.Tensor, stacks: Sequence[ResidualStack]) -> torch.Tensor:
-    """Run a stage's sequential ResidualStacks: the chain kernel on CUDA
-    (one launch forwards, its backward kernel under autograd), the modules
-    on the CPU."""
+    """Run a stage's sequential ResidualStacks: the chain kernels on CUDA
+    (its backward kernel under autograd), the modules on the CPU."""
     if not x.is_cuda:
         for m in stacks:
             x = m(x)
         return x
-    return fused_residual_stacks(x.contiguous(), [m.chain_operands() for m in stacks])
+    operands = [m.chain_operands() for m in stacks]
+    if torch.is_grad_enabled() and any(p.requires_grad for m in stacks for p in m.parameters()):
+        return fused_residual_stacks(x.contiguous(), operands)  # built anew: nothing is kept
+    # a served model: the chain's checked and packed operands are kept on its
+    # first stack until a stack's operands are rebuilt
+    key = (x.device, *(id(ops) for ops in operands))
+    first = stacks[0]
+    if key != getattr(first, "_chain_key", None):
+        first._chain_table = ChainTable(operands, x.device)
+        first._chain_key = key
+    table = first._chain_table
+    return fused_residual_stacks(x.contiguous(), table.keep, table)
 
 
 class ResBlock1(nn.Module):

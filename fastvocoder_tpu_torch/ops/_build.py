@@ -23,7 +23,7 @@ import subprocess
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 import torch
 
@@ -141,6 +141,19 @@ def check_operand(op: str, name: str, t: torch.Tensor, device: torch.device) -> 
         )
     if t.data_ptr() % 16:
         raise ValueError(f"{op}: {name} must be 16-byte aligned")
+
+
+def check_x(op: str, x: torch.Tensor, widths) -> Tuple[int, int, int]:
+    """-> (B, T, C) after checking that x is a (B, T, C) operand on a CUDA
+    device with C in `widths`."""
+    if not x.is_cuda:
+        raise ValueError(f"{op}: x must be a CUDA tensor, got {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"{op}: want x (B, T, C), got {tuple(x.shape)}")
+    if x.shape[2] not in widths:
+        raise ValueError(f"{op}: C={x.shape[2]} not in {widths}")
+    check_operand(op, "x", x, x.device)
+    return tuple(x.shape)
 
 
 def refuse_autograd(op: str, tensors: Iterable[torch.Tensor]) -> None:

@@ -133,17 +133,6 @@ def _check_swapped(op: str, resblocks: Sequence[Sequence[Pair]], swapped: Swappe
                 _build.check_operand(op, f"branch {i} pair {j} swapped {name}", kt, k.device)
 
 
-def _check_x(op: str, x: torch.Tensor) -> Tuple[int, int, int]:
-    if not x.is_cuda:
-        raise ValueError(f"{op}: x must be a CUDA tensor, got {x.device}")
-    if x.dim() != 3:
-        raise ValueError(f"{op}: want x (B, T, C), got {tuple(x.shape)}")
-    if x.shape[2] not in KERNEL_WIDTHS:
-        raise ValueError(f"{op}: C={x.shape[2]} not in {KERNEL_WIDTHS}")
-    _build.check_operand(op, "x", x, x.device)
-    return tuple(x.shape)
-
-
 class StageTable:
     """What the forward's C entry point takes of a stage's operands, checked
     once: the (K1, dilation, K2) table and the pointers (k1 as
@@ -177,7 +166,7 @@ def fused_mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
     where the caller keeps it; `table`: `StageTable(resblocks, swapped,
     x.device)` where the caller keeps that too.  Records no graph: gradients
     come through `fused_mrf_stage`."""
-    B, T, C = _check_x(NAME, x)
+    B, T, C = _build.check_x(NAME, x, KERNEL_WIDTHS)
     lib = _build.library(NAME)
     if table is None:
         if not resblocks or not resblocks[0]:
@@ -235,7 +224,7 @@ def fused_mrf_stage_vjp_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]
     output, (dx, per branch per pair (dk1, db1, dk2, db2)), float32, kernels
     (tap, c_in, c_out).  The stage is recomputed from x on the card.
     `swapped`: `swap_channels(resblocks)` where the caller keeps it."""
-    B, T, C = _check_x(BWD_NAME, x)
+    B, T, C = _build.check_x(BWD_NAME, x, KERNEL_WIDTHS)
     if tuple(g.shape) != (B, T, C):
         raise ValueError(f"{BWD_NAME}: g has shape {tuple(g.shape)}, want {(B, T, C)}")
     _build.check_operand(BWD_NAME, "g", g, x.device)

@@ -10,13 +10,17 @@ sequential ResidualStacks, each
 hand-written kernels, CPU tensors to `fused_residual_stacks_plain`, the
 module semantics written out, which autograd differentiates.  On CUDA the
 chain is a `torch.autograd.Function`: its forward is
-`csrc/fused_resstack.cu`, which runs the whole chain from shared memory and
-mirrors each stack's input at the sequence edges itself; its backward is
+`csrc/fused_resstack.cu`, one launch a stack, which mirrors each stack's
+input at the sequence edges itself; its backward is
 `csrc/fused_resstack_bwd.cu`, which recomputes the chain from x and returns
 dx and every dW and db (`fused_residual_stacks_vjp_cuda`; the plain version
 of the same function is `fused_residual_stacks_vjp_plain`).  The backward
 needs every stack's margin to be at most T - 1, as torch's reflection pad
-does.
+does.  Both kernels contract on the tensor cores in 3xTF32
+(`csrc/mma_common.cuh`; `ops/tf32.py` models the arithmetic), which keeps
+float32 accuracy.  They read the kernels packed by a launch of their own,
+from the layout given here; the forward takes them from a `ChainTable`,
+which a served model keeps (`models/layers.py`).
 
 Stacks are given as in the JAX package: per stack the tuple
 (k_dilated (K, C, C), b_d (C,), dilation, k_1x1 (1, C, C), b_1 (C,),
@@ -26,7 +30,7 @@ k_skip (1, C, C), b_s (C,)), kernels laid out (tap, c_in, c_out).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,20 +78,15 @@ def fused_residual_stacks_plain(x: torch.Tensor, stacks: Sequence[Stack]) -> tor
     return h
 
 
-def _check_chain(op: str, x: torch.Tensor, stacks: Sequence[Stack], max_stacks: int):
-    """-> (B, T, C, K) after checking x and every operand of the chain."""
-    if not x.is_cuda:
-        raise ValueError(f"{op}: x must be a CUDA tensor, got {x.device}")
-    if x.dim() != 3:
-        raise ValueError(f"{op}: want x (B, T, C), got {tuple(x.shape)}")
-    B, T, C = x.shape
-    if C not in KERNEL_WIDTHS:
-        raise ValueError(f"{op}: C={C} not in {KERNEL_WIDTHS}")
-    _build.check_operand(op, "x", x, x.device)
+def _check_stacks(op: str, stacks: Sequence[Stack], C: int, device: torch.device,
+                  max_stacks: int) -> int:
+    """-> K after checking every operand of the chain."""
     if not 1 <= len(stacks) <= max_stacks:
         raise ValueError(f"{op}: want 1..{max_stacks} stacks, got {len(stacks)}")
     K = stacks[0][0].shape[0]
     for i, (kd, bd, d, k1, b1, ks, bs) in enumerate(stacks):
+        if int(d) < 1:
+            raise ValueError(f"{op}: stack {i} has dilation {d}, want >= 1")
         want = {"k_dilated": (kd, (K, C, C)), "b_d": (bd, (C,)),
                 "k_1x1": (k1, (1, C, C)), "b_1": (b1, (C,)),
                 "k_skip": (ks, (1, C, C)), "b_s": (bs, (C,))}
@@ -96,36 +95,89 @@ def _check_chain(op: str, x: torch.Tensor, stacks: Sequence[Stack], max_stacks: 
                 raise ValueError(
                     f"{op}: stack {i} {name} has shape {tuple(w.shape)}, want {shape}"
                 )
-            _build.check_operand(op, f"stack {i} {name}", w, x.device)
-    return B, T, C, K
+            _build.check_operand(op, f"stack {i} {name}", w, device)
+    if K % 2 == 0:
+        raise ValueError(f"{op}: want an odd kernel size, got {K}")
+    return K
 
 
-def fused_residual_stacks_cuda(x: torch.Tensor, stacks: Sequence[Stack]) -> torch.Tensor:
+def _pointers(values) -> ctypes.Array:
+    values = list(values)
+    return (ctypes.c_void_p * len(values))(*values)
+
+
+class ChainTable:
+    """What the forward's C entry point takes of a chain's operands, checked
+    once: the dilations, the bias pointers, and every kernel packed for the
+    tensor cores (split into TF32 halves in the order the kernel reads them,
+    by one launch).  It keeps the operands alive.  A caller whose operands
+    stay (a served model) builds it once and hands it to
+    `fused_residual_stacks_cuda` with them; built on every call, it costs
+    the checks of 3 n + 3 n tensors and one launch."""
+
+    def __init__(self, stacks: Sequence[Stack], device: torch.device):
+        lib = _build.library(NAME)
+        if not stacks:
+            raise ValueError(f"{NAME}: want at least one stack")
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.C, self.device = stacks[0][0].shape[1], device
+        if self.C not in KERNEL_WIDTHS:
+            raise ValueError(f"{NAME}: C={self.C} not in {KERNEL_WIDTHS}")
+        self.n = len(stacks)
+        self.K = _check_stacks(NAME, stacks, self.C, device, lib.fvt_fused_resstacks_max_stacks())
+        self.keep = stacks
+        self.dils = (ctypes.c_int * self.n)(*[int(s[2]) for s in stacks])
+        self.biases = _pointers(w.data_ptr() for kd, bd, d, k1, b1, ks, bs in stacks
+                                for w in (bd, b1, bs))
+        size_fn = lib.fvt_fused_resstacks_packed_floats
+        size_fn.argtypes = [ctypes.c_int] * 3
+        size_fn.restype = ctypes.c_longlong
+        self.packed = torch.empty(size_fn(self.C, self.n, self.K), dtype=torch.float32,
+                                  device=device)
+        kernels = _pointers(w.data_ptr() for kd, bd, d, k1, b1, ks, bs in stacks
+                            for w in (kd, k1, ks))
+        fn = lib.fvt_fused_resstacks_pack
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(self.packed.data_ptr(), self.C, self.n, self.K, ctypes.addressof(kernels),
+                     stream)
+        if err != 0:
+            raise RuntimeError(f"{NAME} kernel packing failed: CUDA error {err}")
+
+
+def fused_residual_stacks_cuda(x: torch.Tensor, stacks: Sequence[Stack],
+                               table: Optional[ChainTable] = None) -> torch.Tensor:
     """Launch the forward kernel on x (B, T, C) float32, contiguous, on a
-    CUDA device, C in `KERNEL_WIDTHS`.  Records no graph: gradients come
+    CUDA device, C in `KERNEL_WIDTHS`.  `table`: `ChainTable(stacks,
+    x.device)` where the caller keeps it.  Records no graph: gradients come
     through `fused_residual_stacks`."""
-    if not x.is_cuda:
-        raise ValueError(f"{NAME}: x must be a CUDA tensor, got {x.device}")
+    B, T, C = _build.check_x(NAME, x, KERNEL_WIDTHS)
     lib = _build.library(NAME)
-    B, T, C, K = _check_chain(NAME, x, stacks, lib.fvt_fused_resstacks_max_stacks())
-    ptrs, dils = [], []
-    for kd, bd, d, k1, b1, ks, bs in stacks:
-        ptrs += [kd.data_ptr(), bd.data_ptr(), k1.data_ptr(), b1.data_ptr(),
-                 ks.data_ptr(), bs.data_ptr()]
-        dils.append(int(d))
+    if table is None:
+        table = ChainTable(stacks, x.device)
+    if table.C != C or table.device != x.device:
+        raise ValueError(f"{NAME}: the chain's operands are for C={table.C} on {table.device}, "
+                         f"x is (B, T, {C}) on {x.device}")
     y = torch.empty_like(x)
     if B == 0 or T == 0:
         return y
+    size_fn = lib.fvt_fused_resstacks_scratch_floats
+    size_fn.argtypes = [ctypes.c_int] * 4
+    size_fn.restype = ctypes.c_longlong
+    # the caching allocator hands the same block back on every call
+    scratch = torch.empty(size_fn(B, T, C, table.n), dtype=torch.float32, device=x.device)
     fn = lib.fvt_fused_resstacks
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 3)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
-    dil_arr = (ctypes.c_int * len(dils))(*dils)
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), B, T, C, len(stacks), K,
-                 ctypes.addressof(dil_arr), ctypes.addressof(ptr_arr), stream)
+        err = fn(x.data_ptr(), y.data_ptr(), scratch.data_ptr(), table.packed.data_ptr(), B, T,
+                 C, table.n, table.K, ctypes.addressof(table.dils),
+                 ctypes.addressof(table.biases), stream)
     _build.check_launch(NAME, err)
     return y
 
@@ -152,11 +204,11 @@ def fused_residual_stacks_vjp_cuda(x: torch.Tensor, stacks: Sequence[Stack],
                                    g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
     """Launch the backward kernel: from x and the cotangent g of the chain's
     output, (dx, per stack (dk_dilated, db_d, dk_1x1, db_1, dk_skip, db_s)),
-    float32.  The chain is recomputed from x on the card."""
-    if not x.is_cuda:
-        raise ValueError(f"{BWD_NAME}: x must be a CUDA tensor, got {x.device}")
+    float32.  The chain is recomputed from x on the card; the kernels are
+    packed for the tensor cores, in both orientations, by the same call."""
+    B, T, C = _build.check_x(BWD_NAME, x, KERNEL_WIDTHS)
     lib = _build.library(BWD_NAME)
-    B, T, C, K = _check_chain(BWD_NAME, x, stacks, lib.fvt_fused_resstacks_bwd_max_stacks())
+    K = _check_stacks(BWD_NAME, stacks, C, x.device, lib.fvt_fused_resstacks_bwd_max_stacks())
     if tuple(g.shape) != (B, T, C):
         raise ValueError(f"{BWD_NAME}: g has shape {tuple(g.shape)}, want {(B, T, C)}")
     _build.check_operand(BWD_NAME, "g", g, x.device)
@@ -174,16 +226,7 @@ def fused_residual_stacks_vjp_cuda(x: torch.Tensor, stacks: Sequence[Stack],
             f"{BWD_NAME}: a stack mirrors {margin} rows at each edge and needs T > {margin}, "
             f"got T={T}"
         )
-    # the adjoint convs read each kernel with its channel axes swapped
-    swapped = [(kd.transpose(1, 2).contiguous(), k1.transpose(1, 2).contiguous(),
-                ks.transpose(1, 2).contiguous()) for kd, _, _, k1, _, ks, _ in stacks]
-    ptrs, outs, dils = [], [], []
-    for (kd, bd, d, k1, b1, ks, bs), sw, group in zip(stacks, swapped, grads):
-        ptrs += [kd.data_ptr(), bd.data_ptr(), k1.data_ptr(), b1.data_ptr(), ks.data_ptr(),
-                 bs.data_ptr()] + [t.data_ptr() for t in sw]
-        outs += [t.data_ptr() for t in group]
-        dils.append(int(d))
-    dil_arr = (ctypes.c_int * len(dils))(*dils)
+    dil_arr = (ctypes.c_int * len(stacks))(*[int(s[2]) for s in stacks])
     size_fn = lib.fvt_fused_resstacks_bwd_scratch_floats
     size_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     size_fn.restype = ctypes.c_longlong
@@ -195,8 +238,8 @@ def fused_residual_stacks_vjp_cuda(x: torch.Tensor, stacks: Sequence[Stack],
     fn = lib.fvt_fused_resstacks_bwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    out_arr = (ctypes.c_void_p * len(outs))(*outs)
+    ptr_arr = _pointers(w.data_ptr() for s in stacks for w in s if isinstance(w, torch.Tensor))
+    out_arr = _pointers(t.data_ptr() for group in grads for t in group)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), B, T, C,
@@ -230,11 +273,16 @@ class _FusedResidualStacks(torch.autograd.Function):
         return (dx, None, *[t for group in grads for t in group])
 
 
-def fused_residual_stacks(x: torch.Tensor, stacks: Sequence[Stack]) -> torch.Tensor:
+def fused_residual_stacks(x: torch.Tensor, stacks: Sequence[Stack],
+                          table: Optional[ChainTable] = None) -> torch.Tensor:
     """Apply a ResidualStack chain to x (B, T, C): the kernels on CUDA
-    tensors (with their own backward), the plain version on CPU tensors."""
+    tensors (with their own backward), the plain version on CPU tensors.
+    `table`: the chain's `ChainTable`, used where nothing needs a
+    gradient."""
     if x.is_cuda:
+        tensors = [w for s in stacks for w in s if isinstance(w, torch.Tensor)]
+        if not (torch.is_grad_enabled() and any(t.requires_grad for t in [x] + tensors)):
+            return fused_residual_stacks_cuda(x, stacks, table)  # nothing to differentiate
         dilations = tuple(int(s[2]) for s in stacks)
-        tensors = [w.contiguous() for s in stacks for w in s if isinstance(w, torch.Tensor)]
-        return _FusedResidualStacks.apply(x, dilations, *tensors)
+        return _FusedResidualStacks.apply(x, dilations, *[w.contiguous() for w in tensors])
     return fused_residual_stacks_plain(x, stacks)

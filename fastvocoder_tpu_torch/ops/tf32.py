@@ -1,20 +1,22 @@
-"""A plain PyTorch model of the MRF kernels' arithmetic: 3xTF32.
+"""A plain PyTorch model of the tensor-core kernels' arithmetic: 3xTF32.
 
-The CUDA kernels of `csrc/fused_mrf.cu` and `csrc/fused_mrf_bwd.cu` contract
-on the tensor cores, whose TF32 operands keep 10 of float32's 23 mantissa
+The CUDA kernels of `csrc/fused_mrf.cu`, `csrc/fused_mrf_bwd.cu`,
+`csrc/fused_resstack.cu` and `csrc/fused_resstack_bwd.cu` contract on the
+tensor cores, whose TF32 operands keep 10 of float32's 23 mantissa
 bits.  To keep float32 accuracy they split every operand `a = hi + lo`, both
 TF32 (hi rounded to nearest; lo = a - hi as the tensor core reads it, its 13
 low mantissa bits ignored), and sum `lo hi + hi lo + hi hi` in float32;
 `lo lo`, 2^-22 of the product, is dropped (`csrc/mma_common.cuh`).  The
 functions here do the same on any device with integer operations on the
 floats' bits, so that the kernels' tolerance can be argued, and tested,
-without a GPU (`tests/test_torch_tf32_split.py`).  Nothing on a model's path
+without a GPU (`tests/test_torch_tf32_split.py`,
+`tests/test_torch_resstack_tf32.py`).  Nothing on a model's path
 calls them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,3 +65,17 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_hi, a_lo = split_tf32(a)
     b_hi, b_lo = split_tf32(b)
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def matmul_3xtf32_units(a: torch.Tensor, b: torch.Tensor, unit: int,
+                        acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """acc + a @ b as a kernel's core sums it over a long depth: the depth in
+    units of `unit` (the contracted channels of one tap a weight unit holds,
+    or the rows of one batch of a weight gradient), each unit's 3xTF32
+    product summed from zero and added to the float32 accumulator in order;
+    acc starts at zero, or at the given bias or partial result."""
+    if acc is None:
+        acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for k0 in range(0, a.shape[1], unit):
+        acc = acc + matmul_3xtf32(a[:, k0:k0 + unit], b[k0:k0 + unit])
+    return acc

@@ -36,49 +36,72 @@ def test_port_kernels_that_share_the_mrf_header():
              for src in _build.CSRC.glob("*.cu")}
     assert names["fused_tail"] == ["mrf_common.cuh"]
     # the MRF forward keeps the table and the mean of the shared header and
-    # contracts on the tensor-core core
-    assert names["fused_mrf"] == ["mma_common.cuh", "mrf_common.cuh"]
-    assert names["basis_decode"] == names["fused_resstack"] == []
+    # contracts on the tensor-core core, which brings the weight gradient's
+    # reduction header with it
+    assert names["fused_mrf"] == ["bwd_common.cuh", "mma_common.cuh", "mrf_common.cuh"]
+    assert names["basis_decode"] == []
+    # the chain's forward runs on the tensor-core core too
+    assert names["fused_resstack"] == ["bwd_common.cuh", "mma_common.cuh"]
 
 
 def test_backward_kernels_share_one_header_and_its_hash():
     names = {src.stem: [p.name for p in _build.local_includes(src)]
              for src in _build.CSRC.glob("*.cu")}
-    assert names["fused_resstack_bwd"] == ["bwd_common.cuh"]
+    assert names["fused_resstack_bwd"] == ["bwd_common.cuh", "mma_common.cuh"]
     assert names["fused_mrf_bwd"] == ["bwd_common.cuh", "mma_common.cuh"]
     assert sorted(names) == ["basis_decode", "fused_mrf", "fused_mrf_bwd", "fused_resstack",
                              "fused_resstack_bwd", "fused_tail"]
 
 
-def test_a_backward_library_is_rebuilt_when_the_shared_header_changes(tmp_path, monkeypatch):
+def _copied_csrc(tmp_path):
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     for src in _build.CSRC.iterdir():
         (csrc / src.name).write_bytes(src.read_bytes())
-    before = {n: _build._target(csrc / f"{n}.cu")
-              for n in ("fused_mrf_bwd", "fused_resstack_bwd", "fused_mrf")}
+    return csrc
+
+
+def test_a_backward_library_is_rebuilt_when_the_shared_header_changes(tmp_path, monkeypatch):
+    csrc = _copied_csrc(tmp_path)
+    names = ("fused_mrf_bwd", "fused_resstack_bwd", "fused_mrf", "fused_tail", "basis_decode")
+    before = {n: _build._target(csrc / f"{n}.cu") for n in names}
     with open(csrc / "bwd_common.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: _build._target(csrc / f"{n}.cu") for n in before}
     assert after["fused_mrf_bwd"] != before["fused_mrf_bwd"]
     assert after["fused_resstack_bwd"] != before["fused_resstack_bwd"]
-    assert after["fused_mrf"] == before["fused_mrf"]
+    # through mma_common.cuh
+    assert after["fused_mrf"] != before["fused_mrf"]
+    assert after["fused_tail"] == before["fused_tail"]
+    assert after["basis_decode"] == before["basis_decode"]
 
 
 def test_both_mrf_libraries_are_rebuilt_when_the_tensor_core_header_changes(tmp_path):
-    csrc = tmp_path / "csrc"
-    csrc.mkdir()
-    for src in _build.CSRC.iterdir():
-        (csrc / src.name).write_bytes(src.read_bytes())
-    names = ("fused_mrf", "fused_mrf_bwd", "fused_tail", "fused_resstack_bwd")
+    csrc = _copied_csrc(tmp_path)
+    names = ("fused_mrf", "fused_mrf_bwd", "fused_tail", "fused_resstack", "fused_resstack_bwd")
     before = {n: _build._target(csrc / f"{n}.cu") for n in names}
     with open(csrc / "mma_common.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: _build._target(csrc / f"{n}.cu") for n in names}
     assert after["fused_mrf"] != before["fused_mrf"]
     assert after["fused_mrf_bwd"] != before["fused_mrf_bwd"]
+    # and both chain libraries, which contract on the same core
+    assert after["fused_resstack"] != before["fused_resstack"]
+    assert after["fused_resstack_bwd"] != before["fused_resstack_bwd"]
     assert after["fused_tail"] == before["fused_tail"]
-    assert after["fused_resstack_bwd"] == before["fused_resstack_bwd"]
+
+
+def test_the_tail_library_alone_is_rebuilt_when_the_mrf_header_changes(tmp_path):
+    csrc = _copied_csrc(tmp_path)
+    names = ("fused_tail", "fused_mrf", "fused_resstack", "fused_resstack_bwd", "fused_mrf_bwd")
+    before = {n: _build._target(csrc / f"{n}.cu") for n in names}
+    with open(csrc / "mrf_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._target(csrc / f"{n}.cu") for n in names}
+    assert after["fused_tail"] != before["fused_tail"]
+    assert after["fused_mrf"] != before["fused_mrf"]
+    for n in ("fused_resstack", "fused_resstack_bwd", "fused_mrf_bwd"):
+        assert after[n] == before[n]
 
 
 def test_refuse_autograd_speaks_of_an_inference_only_kernel():

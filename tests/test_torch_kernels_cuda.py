@@ -14,10 +14,11 @@ the output's magnitude, and at least 90 % of rows must agree 100x tighter.
 The MRF stage and the tail sum up to 6 convs of up to 11 C taps in a chain
 (2816 products a row at C = 256), so their rows are held 30x looser than
 the chain's (1e-5 of the magnitude), the MRF's maximum like the chain's and
-the tail's, after tanh, within 1e-4.  The two MRF kernels contract on the
-tensor cores in 3xTF32 (split operands, float32 sums), which is as close to
-float64 as float32 is (`tests/test_torch_tf32_split.py`), so they are held
-to the same bounds as the float32 CUDA-core kernels before them.
+the tail's, after tanh, within 1e-4.  The MRF and chain kernels contract
+on the tensor cores in 3xTF32 (split operands, float32 sums), which is as
+close to float64 as float32 is (`tests/test_torch_tf32_split.py`,
+`tests/test_torch_resstack_tf32.py`), so they are held to the same bounds
+as the float32 CUDA-core kernels before them.
 
 The two backward kernels are held against the plain versions' autograd run
 in float64 (`_f64`), so that only the kernel's own float32 rounding can put
@@ -197,6 +198,103 @@ def test_fused_resstack_autograd_matches_plain_autograd(cuda):
     want = torch.autograd.grad(fused_residual_stacks_plain(x.double(), _f64(scaled)), [x] + flat,
                                cot.double())
     _assert_grads_close(got[0], want[0], got[1:], want[1:])
+
+
+# The chain kernels' blocks own 64 rows at C = 256 and 128 below (a
+# warpgroup of the tensor cores a 64 rows); T on both sides of each, and the
+# least T: 1 forwards (a pad of 9 rows mirrors 9 times), m + 1 = 10 backwards.
+CHAIN_ROWS = {32: 128, 64: 128, 128: 128, 256: 64}
+
+
+def _chain_edge_cases(least):
+    cases = []
+    for C in (32, 64, 128, 256):
+        R = CHAIN_ROWS[C]
+        cases += [(1, least, C), (2, 63, C), (1, 64, C), (3, 65, C), (1, 127, C), (2, 129, C),
+                  (1, R + 1, C)]
+    return sorted(set(cases), key=lambda c: (c[2], c[1], c[0]))
+
+
+@pytest.mark.parametrize("B,T,C", _chain_edge_cases(1))
+def test_fused_resstack_kernel_matches_plain_at_tile_edges(cuda, B, T, C):
+    g = torch.Generator().manual_seed(T + C + B)
+    x = (0.3 * torch.randn(B, T, C, generator=g)).to(cuda)
+    stacks = _stacks(C, cuda, seed=C + 1)
+    _assert_rows_close(fused_residual_stacks_cuda(x, stacks), fused_residual_stacks_plain(x, stacks),
+                       3e-4, 3e-6)
+
+
+@pytest.mark.parametrize("B,T,C", _chain_edge_cases(10))
+def test_fused_resstack_bwd_kernel_matches_plain_vjp_at_tile_edges(cuda, B, T, C):
+    gen = torch.Generator().manual_seed(T + C + B)
+    x = (0.3 * torch.randn(B, T, C, generator=gen)).to(cuda)
+    g = torch.randn(B, T, C, generator=gen).to(cuda)
+    stacks = _stacks(C, cuda, seed=C + 1)
+    dx, grads = fused_residual_stacks_vjp_cuda(x, stacks, g)
+    dx_ref, grads_ref = fused_residual_stacks_vjp_plain(*_f64((x, stacks, g)))
+    _assert_grads_close(dx, dx_ref, [t for s in grads for t in s],
+                        [t for s in grads_ref for t in s])
+
+
+@pytest.mark.parametrize("B,T,C", [(4, 700, 256), (3, 900, 32)])
+def test_fused_resstack_bwd_kernel_is_the_same_from_run_to_run(cuda, B, T, C):
+    """dW is summed in stages in a fixed order, without atomics, and the
+    mirrored edges are folded back in a launch of their own."""
+    gen = torch.Generator().manual_seed(2)
+    x = (0.3 * torch.randn(B, T, C, generator=gen)).to(cuda)
+    g = torch.randn(B, T, C, generator=gen).to(cuda)
+    stacks = _stacks(C, cuda, seed=1)
+    dx1, g1 = fused_residual_stacks_vjp_cuda(x, stacks, g)
+    dx2, g2 = fused_residual_stacks_vjp_cuda(x, stacks, g)
+    assert torch.equal(dx1, dx2)
+    for a, b in zip([t for s in g1 for t in s], [t for s in g2 for t in s]):
+        assert torch.equal(a, b)
+
+
+def test_fused_resstack_kernel_takes_a_kept_table(cuda):
+    """The wrapper packs the chain's kernels itself or takes the caller's
+    `ChainTable`: the same bits either way; a table of another width raises."""
+    from fastvocoder_tpu_torch.ops.fused_resstack import ChainTable
+
+    gen = torch.Generator().manual_seed(4)
+    x = (0.3 * torch.randn(2, 80, 64, generator=gen)).to(cuda)
+    stacks = _stacks(64, cuda, seed=2)
+    table = ChainTable(stacks, x.device)
+    assert torch.equal(fused_residual_stacks_cuda(x, stacks, table),
+                       fused_residual_stacks_cuda(x, stacks))
+    with pytest.raises(ValueError, match="operands are for C=64"):
+        fused_residual_stacks_cuda(torch.zeros(1, 8, 32, device=cuda), stacks, table)
+
+
+def test_apply_residual_stacks_follows_weight_writes_on_the_card(cuda):
+    """A served stage keeps its checked and packed operands; an in-place
+    write to one weight (what loading a checkpoint or an optimiser step
+    does) rebuilds them."""
+    from fastvocoder_tpu_torch.models.layers import ResidualStack, apply_residual_stacks
+
+    torch.manual_seed(3)
+    stacks = [ResidualStack(32, kernel_size=3, dilation=d).to(cuda).requires_grad_(False)
+              for d in (1, 3, 9)]
+    x = 0.3 * torch.randn(2, 200, 32, device=cuda)
+
+    def modules():
+        h = x
+        for m in stacks:
+            h = m(h)
+        return h
+
+    with torch.no_grad():
+        before = _build.launch_counts["fused_resstack"]
+        first = apply_residual_stacks(x, stacks)
+        table = stacks[0]._chain_table
+        assert apply_residual_stacks(x, stacks) is not first and stacks[0]._chain_table is table
+        assert _build.launch_counts["fused_resstack"] == before + 2
+        _assert_rows_close(first, modules(), 3e-4, 3e-6)
+        stacks[1].skip.weight.mul_(1.5)
+        second = apply_residual_stacks(x, stacks)
+        assert stacks[0]._chain_table is not table
+        _assert_rows_close(second, modules(), 3e-4, 3e-6)
+        assert (second - first).abs().max().item() > 1e-3
 
 
 def _assert_rows_close(got, want, tol, row_tol):
