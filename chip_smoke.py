@@ -11,9 +11,12 @@ backward) are also held at shapes on the edges of their tiles at every
 width, their error against a float64 run of the plain version is printed
 beside the float32 plain version's own, and they get two bounds: the float32
 rate of the CUDA cores, as every kernel, and a third of the tensor cores'
-TF32 rate.  Then
-the script drives each ported model at full width on its release checkpoint
-(`docs/checkpoints/`) through the entry points a user calls:
+TF32 rate.  The tail kernel, whose MRF contracts the same way, gets both
+bounds too, is held on the edges of its tiles at C_out = 16 and 32, and its
+MRF launches are timed beside kernel 4 on the same MRF; the decode is also
+timed at the training batch's shape.  Then the script drives each ported
+model at full width on its release checkpoint (`docs/checkpoints/`)
+through the entry points a user calls:
 
   * Basis-MelGAN light: `Synthesizer`, the RTF protocol of `bin/test.py`,
     the HTTP server of `bin/serve.py` (kernels: basis_decode,
@@ -52,6 +55,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -155,14 +159,21 @@ def share(bound: float, ms: float) -> str:
 
 
 def check_basis_decode(torch, F, basis):
-    """Kernel 1 against its plain version; -> entry for the kernels line."""
+    """Kernel 1 against its plain version at the main path's shape, the
+    training batch's, and lengths on both sides of its 16-frame tiles; times
+    at the main path's (1, F, C) and the training batch's (32, 2240, C), with
+    `conv_transpose1d` on the same inputs.  A batch-1 call's device work is
+    shorter than the host's work to issue it, so CUDA events over a loop of
+    calls time the host: each time is the device's (torch.profiler, the
+    call's kernels summed), the events' rate a call beside it.  -> entry for
+    the kernels line."""
     from fastvocoder_tpu_torch.ops.basis_decode import basis_decode_cuda, basis_decode_plain
 
     dev = basis.device
     eps = float(np.finfo(np.float32).eps)
     g = torch.Generator().manual_seed(1)
     worst = 0.0
-    for B, Fr in ((1, 9360), (32, 1024), (3, 77)):
+    for B, Fr in ((1, 9360), (32, 2240), (32, 1024), (3, 77), (1, 1), (1, 15), (1, 16), (5, 63)):
         w = torch.relu(torch.randn(B, Fr, basis.shape[1], generator=g)).to(dev)
         got = basis_decode_cuda(w, basis)
         want = basis_decode_plain(w, basis)
@@ -176,30 +187,40 @@ def check_basis_decode(torch, F, basis):
             raise AssertionError(f"basis_decode disagrees with its plain version at B={B} F={Fr}")
         worst = max(worst, err.max().item())
 
-    B, Fr, C = 1, F, basis.shape[1]
-    L = basis.shape[0]
+    C, L = basis.shape[1], basis.shape[0]
     hop = L // 2
-    w = torch.relu(torch.randn(B, Fr, C, generator=g)).to(dev)
-    wt = w.transpose(1, 2)
     kernel = basis.t()[:, None, :].contiguous()  # (C, 1, L) for conv_transpose1d
-    lib = torch.nn.functional.conv_transpose1d(wt, kernel, stride=hop)[:, 0]
-    err_lib = (lib - basis_decode_cuda(w, basis)).abs().max().item()
-    log(f"  basis_decode vs conv_transpose1d yardstick: max abs {err_lib:.3e}")
-    ms = cuda_ms(lambda: basis_decode_cuda(w, basis))
-    plain = cuda_ms(lambda: basis_decode_plain(w, basis))
-    library = cuda_ms(lambda: torch.nn.functional.conv_transpose1d(wt, kernel, stride=hop))
-    nbytes = 4 * (B * Fr * C + L * C + B * (Fr + 1) * hop)
-    flops = 2 * 2 * B * (Fr + 1) * hop * C
-    bms, by = bound_ms(nbytes, flops)
-    log(f"  basis_decode (1, {Fr}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"conv_transpose1d {library:.4f} ms, bound {bms:.4f} ms ({by})")
+    times = {}
+    for B, Fr in ((1, F), (TRAIN_BATCH, TRAIN_FRAMES * 16)):
+        w = torch.relu(torch.randn(B, Fr, C, generator=g)).to(dev)
+        wt = w.transpose(1, 2)
+        lib = torch.nn.functional.conv_transpose1d(wt, kernel, stride=hop)[:, 0]
+        err_lib = (lib - basis_decode_cuda(w, basis)).abs().max().item()
+        fns = {"ms": lambda: basis_decode_cuda(w, basis),
+               "plain_ms": lambda: basis_decode_plain(w, basis),
+               "library_ms": lambda: torch.nn.functional.conv_transpose1d(wt, kernel, stride=hop)}
+        got = {k: sum(device_ms_by_name(torch, fn, 20).values()) for k, fn in fns.items()}
+        if min(got.values()) <= 0:
+            raise AssertionError("torch.profiler saw no device time of the decode")
+        calls = {k: cuda_ms(fn) for k, fn in fns.items()}
+        nbytes = 4 * (B * Fr * C + L * C + B * (Fr + 1) * hop)
+        flops = 2 * 2 * B * (Fr + 1) * hop * C
+        bms, by = bound_ms(nbytes, flops)
+        log(f"  basis_decode ({B}, {Fr}, {C}), device ms (a call in a loop): kernel "
+            f"{got['ms']:.4f} ({calls['ms']:.4f}), plain {got['plain_ms']:.4f} "
+            f"({calls['plain_ms']:.4f}), conv_transpose1d {got['library_ms']:.4f} "
+            f"({calls['library_ms']:.4f}; max abs {err_lib:.3e} from the kernel); bound "
+            f"{bms:.4f} ms ({by}): {share(bms, got['ms'])} of it")
+        times[B] = {"shape": [B, Fr, C], **got, "bound_ms": bms, "bound_by": by,
+                    "call_ms": calls["ms"], "plain_call_ms": calls["plain_ms"],
+                    "library_call_ms": calls["library_ms"]}
     return {
         "name": "basis_decode", "route": "cuda",
         "source": "fastvocoder_tpu_torch/csrc/basis_decode.cu",
         "replaces": "fastvocoder_tpu/ops/basis_decode.py:121",
-        "shape": f"W (1, {Fr}, {C}), basis ({L}, {C})",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-        "bound_by": by, "library_ms": library,
+        "shape": f"W (1, {F}, {C}), basis ({L}, {C})",
+        "max_abs_err": worst, **{k: v for k, v in times[1].items() if k != "shape"},
+        "batch32": times[TRAIN_BATCH],
     }
 
 
@@ -514,12 +535,64 @@ def check_fused_mrf(torch, gen, frames: int):
     }
 
 
+def tail_edge_lengths(C: int):
+    """T_in on both sides of the tail's tiles at width C: the pair launches
+    own 118 output rows a block (128 less the k = 11 pairs' margins), the
+    upsample 8192 / C rows, the head 4096 / C; T = 2 T_in."""
+    return (1, 59, 60, 118, 119, 4096 // C // 2, 4096 // C // 2 + 1, 4096 // C, 4096 // C + 1)
+
+
+def device_ms_by_name(torch, fn, n: int = 10, tries: int = 3) -> dict:
+    """Device time of one call of fn by kernel name, from torch.profiler's
+    CUDA events over n calls; empty where the profiler sees no device.  A
+    profile now and then comes back without device events (seen once on the
+    card's machine, where the same profile had given them in earlier runs),
+    so an empty one is taken again, up to `tries` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                d = (e.time_range.end - e.time_range.start) / 1e3 / n
+                out[e.name] = out.get(e.name, 0.0) + d
+        if out:
+            break
+    return out
+
+
+def host_us(torch, fn, n: int = 60) -> float:
+    """Median host time of one call of fn, the device idle when it starts."""
+    for _ in range(5):
+        fn()
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(ts)) * 1e6
+
+
 def check_fused_tail(torch, gen, frames: int):
     """Kernel 6 against its plain version: HiFiGAN light's release tail at
-    one utterance's shape, at batch 2 with a short input and at T_in = 1,
-    and HiFiGAN large's 64 -> 32 tail with seeded weights; times at the
-    utterance's shape.  -> entry for the kernels line."""
+    one utterance's shape, at batch 2 with a short input, at T_in = 1 and at
+    lengths on both sides of its tiles (C_out = 16), and HiFiGAN large's
+    64 -> 32 tail with seeded weights at the utterance's shape and the same
+    edges; times at the utterance's shape with a kept `TailTable` (as a
+    served model keeps it) and built on the call, its pair launches by
+    kernel name beside kernel 4 on the same MRF and shape (the yardstick),
+    and the host time of one wrapper call.  -> entry for the kernels line."""
+    from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage_cuda, swap_channels
     from fastvocoder_tpu_torch.ops.fused_tail import (
+        TailTable,
         fused_hifigan_tail_cuda,
         fused_hifigan_tail_plain,
     )
@@ -535,43 +608,75 @@ def check_fused_tail(torch, gen, frames: int):
 
     large = (u(4, 64, 32, fan_in=128), u(32, fan_in=128), 2, 1,
              seeded_resblocks(torch, 32, dev, 8), u(7, 32, 1, fan_in=224), u(1, fan_in=224))
+    cases = [(light, 1, T_main), (light, 2, 35), (light, 1, 1), (light, 3, 4), (large, 1, T_main)]
+    cases += [(light, 1, t) for t in tail_edge_lengths(16)]
+    cases += [(large, 2, t) for t in tail_edge_lengths(32)]
     worst = 0.0
-    for ops, B, T_in in ((light, 1, T_main), (light, 2, 35), (light, 1, 1), (large, 1, T_main)):
+    for ops, B, T_in in cases:
         cin = ops[0].shape[1]
         x = (0.3 * torch.randn(B, T_in, cin, generator=g)).to(dev)
         got = fused_hifigan_tail_cuda(x, *ops)
         want = fused_hifigan_tail_plain(x, *ops)
         torch.cuda.synchronize()
         err, tol, rows_ok, ok = rows_close(got, want, TAIL_TOL, TAIL_ROW_TOL)
-        log(f"  fused_tail ({B}, {T_in}, {cin}) -> {tuple(got.shape)}: max abs {err:.3e} "
-            f"(tol {tol:.3e}), rows within {TAIL_ROW_TOL:.0e}: {rows_ok:.4f}")
+        if T_in > 1000 or not ok:
+            log(f"  fused_tail ({B}, {T_in}, {cin}) -> {tuple(got.shape)}: max abs {err:.3e} "
+                f"(tol {tol:.3e}), rows within {TAIL_ROW_TOL:.0e}: {rows_ok:.4f}")
         if got.shape != (B, 2 * T_in, 1) or not ok:
             raise AssertionError(
                 f"fused_tail disagrees with its plain version at ({B}, {T_in}, {cin})")
         worst = max(worst, err)
+    log(f"  fused_tail: {len(cases)} shapes agree, among them T_in = {tail_edge_lengths(16)} "
+        f"at C_out = 16 and {tail_edge_lengths(32)} at C_out = 32")
 
+    table = TailTable(*light, dev)
     x = (0.3 * torch.randn(1, T_main, 32, generator=g)).to(dev)
-    ms = cuda_ms(lambda: fused_hifigan_tail_cuda(x, *light), iters=20, warmup=3)
+    ms = cuda_ms(lambda: fused_hifigan_tail_cuda(x, *light, table=table), iters=20, warmup=3)
+    built = cuda_ms(lambda: fused_hifigan_tail_cuda(x, *light), iters=20, warmup=3)
     plain = cuda_ms(lambda: fused_hifigan_tail_plain(x, *light), iters=20, warmup=3)
+    parts = device_ms_by_name(torch, lambda: fused_hifigan_tail_cuda(x, *light, table=table))
+    pair_ms = sum(v for k, v in parts.items() if "tail_pair_kernel" in k)
     k_up, b_up, stride, _, blocks, k_post, b_post = light
     T = stride * T_main
     C = k_up.shape[2]
+    h = (0.3 * torch.randn(1, T, C, generator=g)).to(dev)
+    swapped = swap_channels(blocks)
+    yardstick = cuda_ms(lambda: fused_mrf_stage_cuda(h, blocks, swapped), iters=20, warmup=3)
+    xs = (0.3 * torch.randn(1, 64, 32, generator=g)).to(dev)
+    host = {"built_each_call": host_us(torch, lambda: fused_hifigan_tail_cuda(xs, *light)),
+            "kept_table": host_us(
+                torch, lambda: fused_hifigan_tail_cuda(xs, *light, table=table))}
+
     mrf_bytes, mrf_flops = mrf_work(1, T, blocks)
     # read x and every weight once, write the waveform once
     nbytes = mrf_bytes - 4 * 2 * T * C + 4 * (x.numel() + k_up.numel() + b_up.numel()
                                              + k_post.numel() + b_post.numel() + T)
-    flops = (mrf_flops + 2 * T * (k_up.shape[0] // stride) * k_up.shape[1] * C
-             + 2 * T * k_post.shape[0] * C * k_post.shape[2])
-    bms, by = bound_ms(nbytes, flops)
-    log(f"  fused_tail (1, {T_main}, 32) -> (1, {T}, 1): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP)")
+    core_flops = (2 * T * (k_up.shape[0] // stride) * k_up.shape[1] * C
+                  + 2 * T * k_post.shape[0] * C * k_post.shape[2])
+    bms, by = bound_ms(nbytes, mrf_flops + core_flops)
+    # the MRF on the tensor cores in 3xTF32, the upsample and head on the CUDA cores
+    b3 = max(nbytes / PEAK_BYTES_PER_S,
+             3 * mrf_flops / PEAK_TF32_FLOP_PER_S + core_flops / PEAK_F32_FLOP_PER_S) * 1e3
+    mrf_b3, _ = bound_3xtf32_ms(mrf_bytes, mrf_flops)
+    log(f"  fused_tail (1, {T_main}, 32) -> (1, {T}, 1): kernel {ms:.4f} ms with a kept table, "
+        f"{built:.4f} ms with the table built on the call, plain {plain:.4f} ms; float32 bound "
+        f"{bms:.4f} ms ({by}, {(mrf_flops + core_flops) / 1e9:.2f} GFLOP): {share(bms, ms)} of "
+        f"it; 3xTF32 bound {b3:.4f} ms: {share(b3, ms)} of it")
+    log("  fused_tail by kernel: " + ", ".join(
+        f"{re.findall(r'(\w+(?:<[^()]*>)?)\(', k)[0]} {v:.4f} ms"
+        for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+    log(f"  fused_tail pair launches {pair_ms:.4f} ms against kernel 4 on the same MRF at "
+        f"(1, {T}, {C}) {yardstick:.4f} ms (the MRF's 3xTF32 bound {mrf_b3:.4f} ms)")
+    log(f"  fused_tail host us a wrapper call at (1, 64, 32), device idle, median of 60: "
+        f"table built each call {host['built_each_call']:.1f}, kept {host['kept_table']:.1f}")
     return {
         "name": "fused_tail", "route": "cuda",
         "source": "fastvocoder_tpu_torch/csrc/fused_tail.cu",
         "replaces": "fastvocoder_tpu/ops/fused_tail.py:80",
         "shape": f"x (1, {T_main}, 32) -> (1, {T}, 1), HiFiGAN light's last stage and head",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": None,
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+        "bound_3xtf32_ms": b3, "bound_by": by, "library_ms": None, "ms_table_built": built,
+        "pair_ms": pair_ms, "yardstick_kernel4_ms": yardstick, "host_us": host,
     }
 
 
@@ -748,14 +853,14 @@ def check_fused_resstack_bwd(torch, gen):
 def kernel_class(name: str) -> str:
     for key, label in (("resstack_bwd_", "fused_resstack_bwd kernel"),
                        ("resstack_kernel", "fused_resstack kernel"),
-                       ("basis_decode_kernel", "basis_decode kernel"),
+                       ("basis_decode_kernel", "basis_decode kernel (persistent, cp.async ring)"),
                        ("mrf_bwd_", "fused_mrf_bwd kernel"),
                        ("mrf_pair_kernel", "fused_mrf kernel"),
                        ("mrf_mean_kernel", "fused_mrf kernel"),
-                       ("tail_upsample_kernel", "fused_tail kernel"),
-                       ("tail_pair_kernel", "fused_tail kernel"),
-                       ("tail_head_kernel", "fused_tail kernel"),
-                       ("pack_kernel", "weight packing of the tensor-core kernels (2-5)"),
+                       ("tail_upsample_kernel", "fused_tail kernel: upsample (CUDA cores)"),
+                       ("tail_pair_kernel", "fused_tail kernel: MRF pairs (wgmma, 3xTF32)"),
+                       ("tail_head_kernel", "fused_tail kernel: mean and head"),
+                       ("pack_kernel", "weight packing of the tensor-core kernels (2-6)"),
                        ("fvt_bwd", "sums of the backward kernels (dW reduction, MRF branches)")):
         if key in name:
             return label

@@ -5,8 +5,10 @@
 Builds the kernels, then times, with seeded weights at the shapes of the
 main paths: `fused_mrf_stage_cuda` (kernel 4) and `fused_mrf_stage_vjp_cuda`
 (kernel 5) at HiFiGAN light's three batch-1 stages of a 585-frame
-utterance, HiFiGAN large's (1, 4680, 256), and the four stages of a training
-batch of 32 crops of 140 frames; `fused_residual_stacks_cuda` (kernel 2, its
+utterance, its tail's MRF at (1, 140400, 16) (kernel 4 at the shape of the
+tail kernel's pair launches), HiFiGAN large's (1, 4680, 256), and the four
+stages of a training batch of 32 crops of 140 frames;
+`fused_residual_stacks_cuda` (kernel 2, its
 packed operands kept as a served model keeps them) and
 `fused_residual_stacks_vjp_cuda` (kernel 3) at Basis-MelGAN light's two
 batch-1 stages of a 585-frame utterance and its two training stages.  It
@@ -27,7 +29,7 @@ import numpy as np
 
 CHAIN_SHAPES = ((1, 2340, 256), (1, 9360, 256), (32, 560, 256), (32, 2240, 256))
 CHAIN_DILATIONS = (1, 3, 9)
-SHAPES = ((1, 4680, 128), (1, 23400, 64), (1, 70200, 32), (1, 4680, 256),
+SHAPES = ((1, 4680, 128), (1, 23400, 64), (1, 70200, 32), (1, 140400, 16), (1, 4680, 256),
           (32, 1120, 128), (32, 5600, 64), (32, 16800, 32), (32, 33600, 16))
 KERNELS, DILATIONS = (3, 7, 11), (1, 3, 5)
 

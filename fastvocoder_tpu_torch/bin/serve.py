@@ -10,7 +10,8 @@ import argparse
 def run_serve(argv=None, block: bool = True):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint_path", required=True,
-                   help="release checkpoint (.npz, docs/checkpoints/)")
+                   help="release checkpoint (.npz, docs/checkpoints/) or a "
+                        "checkpoint_<step>.pth.tar of bin/train.py")
     p.add_argument("--model_name", default="basis-melgan")
     p.add_argument("--config", required=True)
     p.add_argument("--host", default="127.0.0.1")

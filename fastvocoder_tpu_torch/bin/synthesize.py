@@ -97,7 +97,8 @@ class Synthesizer:
 def run_synthesizer(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--checkpoint_path", type=str, required=True,
-                        help="release checkpoint (.npz, docs/checkpoints/)")
+                        help="release checkpoint (.npz, docs/checkpoints/) or a "
+                             "checkpoint_<step>.pth.tar of bin/train.py")
     parser.add_argument("--mel_path", type=str, required=True, help="(80, T) .npy")
     parser.add_argument("--wav_path", type=str, required=True)
     parser.add_argument("--model_name", type=str, default="basis-melgan",

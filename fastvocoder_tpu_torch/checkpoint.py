@@ -16,13 +16,19 @@ keys as in `docs/checkpoints/*.npz`, onto the port's `state_dict`:
     convolution, (Cin, Cout, K) for a transposed one.  A transposed conv is
     a node with `gt`, or, in a fused tree, an upsampler node `up_<i>`.
 
-`load_release_npz` reads a committed release checkpoint.
+`load_release_npz` reads a committed release checkpoint.  The port's own
+trainer writes `torch.save` payloads of format `TRAIN_FORMAT`
+(`train/checkpoint.py`), their state in the training form;
+`jax_tree_from_state_dict` carries such a state back into a flat JAX-layout
+tree, so that `state_dict_from_jax` fuses it as it fuses a JAX tree.
+`checkpoint_format` tells the two kinds of file apart by their contents.
 """
 
 from __future__ import annotations
 
 import json
 import re
+import zipfile
 from typing import Dict, Mapping, Union
 
 import numpy as np
@@ -31,6 +37,8 @@ import torch
 Tree = Mapping[str, Union[np.ndarray, "Tree"]]
 
 _UPSAMPLER = re.compile(r"up_\d+")
+
+TRAIN_FORMAT = "fastvocoder_tpu_torch.train/1"  # the trainer's checkpoints
 
 
 def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -42,6 +50,12 @@ def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             out[key] = np.asarray(v)
     return out
+
+
+def _transposed(node: str, leaves: Mapping) -> bool:
+    """Whether a kernel node is a transposed conv: it has a `gt` gain, or, in
+    a fused tree, it is an upsampler `up_<i>`."""
+    return "gt" in leaves or bool(_UPSAMPLER.fullmatch(node.split("/")[-1]))
 
 
 def state_dict_from_jax(params: Tree, fuse: bool = True) -> Dict[str, torch.Tensor]:
@@ -68,14 +82,50 @@ def state_dict_from_jax(params: Tree, fuse: bool = True) -> Dict[str, torch.Tens
             elif "gt" in leaves:
                 norm = np.sqrt(np.sum(k**2, axis=(0, 2), keepdims=True))
                 k = k * (leaves["gt"][None, :, None] / norm)
-            transposed = "gt" in leaves or bool(_UPSAMPLER.fullmatch(node.split("/")[-1]))
-            k = k.transpose(1, 2, 0) if transposed else k.transpose(2, 1, 0)
+            k = k.transpose(1, 2, 0) if _transposed(node, leaves) else k.transpose(2, 1, 0)
             out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
         if "bias" in leaves:
             out[f"{name}.bias"] = torch.from_numpy(leaves["bias"])
         if "basis" in leaves:
             out[f"{name}.basis"] = torch.from_numpy(leaves["basis"])
     return out
+
+
+def jax_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The flat JAX-layout tree of a port `state_dict`: the inverse of
+    `state_dict_from_jax(..., fuse=False)`.  Keys `<node>.<leaf>` become
+    `<node>/<leaf>` (`weight` -> `kernel`), torch weights become kernels
+    (K, Cin, Cout), gains stay as they are."""
+    nodes: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in state.items():
+        node, _, leaf = key.rpartition(".")
+        nodes.setdefault(node.replace(".", "/"), {})[leaf] = value.detach().cpu().numpy()
+    out: Dict[str, np.ndarray] = {}
+    for node, leaves in nodes.items():
+        for leaf, v in leaves.items():
+            if leaf == "weight":
+                leaf = "kernel"
+                v = v.transpose(2, 0, 1) if _transposed(node, leaves) else v.transpose(2, 1, 0)
+            out[f"{node}/{leaf}"] = np.ascontiguousarray(v)
+    return out
+
+
+def checkpoint_format(path: str) -> str:
+    """"release" for a release checkpoint (a `.npz` with `meta`), "train"
+    for a `torch.save` file (the trainer's payload, whose `format` the
+    reader checks); raises ValueError for any other file, whatever its
+    name."""
+    if zipfile.is_zipfile(path):
+        with zipfile.ZipFile(path) as z:
+            names = z.namelist()
+        if "meta.npy" in names:
+            return "release"
+        if any(n.endswith("/data.pkl") for n in names):
+            return "train"
+    raise ValueError(
+        f"{path} is neither a release checkpoint (.npz with `meta` and `param:` arrays, as "
+        f"tools/export_release_checkpoint.py writes) nor a training checkpoint of this "
+        f"package (format {TRAIN_FORMAT!r}, written by bin/train.py)")
 
 
 def load_release_npz(path: str) -> dict:

@@ -40,10 +40,7 @@ namespace {
 
 using fvt_mrf::kMaxBranches;
 using fvt_mrf::kMaxPairs;
-using fvt_mrf::kSlope;
 using fvt_mrf::kThreads;
-
-static_assert(kMaxBranches <= fvt_mma::kMaxZ, "a launch holds every branch");
 
 FVT_MMA_PAIR_KERNEL(mrf_pair_kernel)
 
@@ -56,19 +53,6 @@ mrf_mean_kernel(const float* __restrict__ out, size_t n, int nb, float* __restri
   }
 }
 
-// floats of the packed kernels of the stage (fvt_mma::pack_kernel)
-template <int C>
-size_t stage_packed_floats(int nb, int np, const fvt_mrf::PairArgs* steps) {
-  size_t total = 0;
-  for (int p = 0; p < np; ++p) {
-    for (int br = 0; br < nb; ++br) {
-      total += fvt_mma::packed_floats<C>(steps[p].k1[br]) +
-               fvt_mma::packed_floats<C>(steps[p].k2[br]);
-    }
-  }
-  return total;
-}
-
 // Packs the stage's kernels, then runs the np pair positions of every
 // branch, one launch each, h' to scratch (2 nb B T C floats: two sets of nb
 // buffers used in turn; the packed kernels follow), then the mean of the
@@ -77,48 +61,13 @@ template <int C>
 cudaError_t run_stage(const float* x, float* y, float* scratch, int B, int T, int nb, int np,
                       const fvt_mrf::PairArgs* steps, cudaStream_t stream) {
   const size_t n = static_cast<size_t>(B) * T * C;
-  static_assert(2 * kMaxBranches * kMaxPairs <= fvt_mma::kMaxPack, "one pack launch a stage");
-  fvt_mma::PackArgs pack;
-  const float* packed[kMaxPairs][kMaxBranches][2];
-  {
-    float* at = scratch + 2 * nb * n;
-    int i = 0;
-    for (int p = 0; p < np; ++p) {
-      for (int br = 0; br < nb; ++br) {
-        const float* src[2] = {steps[p].w1[br], steps[p].w2[br]};
-        const int K[2] = {steps[p].k1[br], steps[p].k2[br]};
-        for (int c = 0; c < 2; ++c, ++i) {
-          pack.src[i] = src[c];
-          pack.dst[i] = at;
-          pack.K[i] = K[c];
-          pack.swap[i] = 0;
-          packed[p][br][c] = at;
-          at += fvt_mma::packed_floats<C>(K[c]);
-        }
-      }
-    }
-    const cudaError_t err = fvt_mma::launch_pack<C>(pack, i, stream);
-    if (err != cudaSuccess) return err;
-  }
-  for (int p = 0; p < np; ++p) {
-    fvt_mma::PairArgs a;
-    a.slope = kSlope;
-    for (int br = 0; br < fvt_mma::kMaxZ; ++br) {
-      const int z = br < nb ? br : 0;
-      a.src[br] = p == 0 ? x : scratch + (((p - 1) % 2) * nb + z) * n;
-      a.dst[br] = scratch + ((p % 2) * nb + z) * n;
-      a.u_dst[br] = nullptr;
-      a.w1[br] = packed[p][z][0];
-      a.b1[br] = steps[p].b1[z];
-      a.w2[br] = packed[p][z][1];
-      a.b2[br] = steps[p].b2[z];
-      a.k1[br] = steps[p].k1[z];
-      a.dil[br] = steps[p].dil[z];
-      a.k2[br] = steps[p].k2[z];
-    }
-    const cudaError_t err = FVT_MMA_LAUNCH_PAIR(mrf_pair_kernel, C, a, nb, B, T, stream);
-    if (err != cudaSuccess) return err;
-  }
+  float* packed = scratch + 2 * nb * n;
+  // the kernels come as (tap, c_out, c_in)
+  cudaError_t err = fvt_mrf::pack_stage<C>(packed, steps, nb, np, false, stream);
+  if (err != cudaSuccess) return err;
+  err = fvt_mrf::run_pairs<C>(mrf_pair_kernel<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>,
+                              steps, nb, np, packed, x, scratch, B, T, stream);
+  if (err != cudaSuccess) return err;
   const size_t blocks = (n / 4 + kThreads - 1) / kThreads;
   mrf_mean_kernel<<<static_cast<unsigned>(blocks < 1056 ? blocks : 1056), kThreads, 0, stream>>>(
       scratch + ((np - 1) % 2) * nb * n, n, nb, y);
@@ -128,7 +77,7 @@ cudaError_t run_stage(const float* x, float* y, float* scratch, int B, int T, in
 template <int C>
 long long scratch_floats(int B, int T, int nb, int np, const fvt_mrf::PairArgs* steps) {
   return static_cast<long long>(2 * static_cast<size_t>(nb) * B * T * C +
-                                stage_packed_floats<C>(nb, np, steps));
+                                fvt_mrf::packed_layout<C>(steps, nb, np));
 }
 
 }  // namespace

@@ -1,13 +1,15 @@
 // The tensor-core contraction core of the MRF stage's kernels, forward
-// (fused_mrf.cu) and backward (fused_mrf_bwd.cu), and of the residual-stack
-// chain's, forward (fused_resstack.cu) and backward (fused_resstack_bwd.cu).
+// (fused_mrf.cu) and backward (fused_mrf_bwd.cu), of the HiFiGAN tail's MRF
+// (fused_tail.cu), and of the residual-stack chain's, forward
+// (fused_resstack.cu) and backward (fused_resstack_bwd.cu).
 //
-// Replaces, as the inner loop of all four: the float32 CUDA-core
-// contraction of mrf_common.cuh (`rows_times_weight`, which the tail kernel
-// still uses) and of the chain kernels' first versions.  The TPU kernels
-// these serve are fastvocoder_tpu/ops/fused_mrf.py::_mrf_kernel and
-// ::_mrf_bwd_kernel, fastvocoder_tpu/ops/fused_resstack.py::_chain_kernel
-// and ::_chain_bwd_kernel.
+// Replaces, as the inner loop of all five: the float32 CUDA-core
+// contraction of the MRF and tail kernels' first versions and of the chain
+// kernels'.  The TPU kernels these serve are
+// fastvocoder_tpu/ops/fused_mrf.py::_mrf_kernel and ::_mrf_bwd_kernel,
+// fastvocoder_tpu/ops/fused_tail.py::_tail_kernel, and
+// fastvocoder_tpu/ops/fused_resstack.py::_chain_kernel and
+// ::_chain_bwd_kernel.
 //
 // Every conv of a stage is out[r] (+)= sum_k in[r + off_k] W[k] over a tile
 // of rows staged in shared memory: an implicit GEMM with M = rows, N = C,
@@ -60,11 +62,12 @@
 #include <stdint.h>
 
 #include "bwd_common.cuh"
+#include "smem_attr.cuh"
 
 namespace fvt_mma {
 
 constexpr int kMaxZ = 4;          // convs (branches) of one launch: blockIdx.z
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
+constexpr int kMaxSmem = fvt_smem::kMaxSmem;  // dynamic shared memory a block may use
 
 // ---------------------------------------------------------------------------
 // 3xTF32 primitives
@@ -622,8 +625,7 @@ cudaError_t launch_pair(PairKernel kernel, const PairArgs& a, int nz, int B, int
   const int smem =
       static_cast<int>(sizeof(float)) * (tile_rows * G::kSA + ST * G::kSlabFloats);
   if (R < 1 || smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
   const dim3 grid((T + R - 1) / R, B, nz);
   kernel<<<grid, block_threads<C, WM>(), smem, stream>>>(a, T, R, tile_rows);
@@ -744,8 +746,7 @@ cudaError_t launch_stack(StackKernel kernel, const StackArgs& a, int B, int T,
   const int smem =
       static_cast<int>(sizeof(float)) * (tile_rows * G::kSA + ST * G::kSlabFloats);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
   const dim3 grid((T + R - 1) / R, B);
   kernel<<<grid, block_threads<C, WM>(), smem, stream>>>(a, T, tile_rows);
@@ -922,8 +923,7 @@ cudaError_t launch_conv(ConvKernel kernel, const ConvArgs& a, int nz, int B, int
   const int tile_rows = R + 2 * max_m;
   const int smem = conv_smem<C, ST>(tile_rows);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
   const dim3 grid((T + R - 1) / R, B, nz);
   kernel<<<grid, block_threads<C, WM>(), smem, stream>>>(a, T, tile_rows);
@@ -1015,8 +1015,7 @@ cudaError_t launch_fold(ConvKernel kernel, const ConvArgs& a, int B, int T,
   const int tile_rows = 64 * WM + 2 * m;
   const int smem = conv_smem<C, ST>(tile_rows);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
   kernel<<<dim3(T > 2 * m + 1 ? 2 : 1, B), block_threads<C, WM>(), smem, stream>>>(a, T,
                                                                                 tile_rows);
@@ -1396,8 +1395,7 @@ cudaError_t launch_wgrad(WgradKernel kernel, fvt_bwd::WgradArgs& w, int nz, int 
   floats = floats > exchange ? floats : exchange;
   const int smem = static_cast<int>(sizeof(float)) * floats;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
   kernel<<<dim3(max_x, S, nz), kWgradThreads, smem, stream>>>(w, B, T, in_rows);
   err = cudaGetLastError();

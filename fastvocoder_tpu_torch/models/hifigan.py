@@ -38,7 +38,14 @@ from fastvocoder_tpu_torch.models.layers import (
 from fastvocoder_tpu_torch.ops._build import refuse_autograd
 from fastvocoder_tpu_torch.ops.fused_mrf import LRELU_SLOPE
 from fastvocoder_tpu_torch.ops.fused_resstack import leaky_relu
-from fastvocoder_tpu_torch.ops.fused_tail import HEAD_SLOPE, fused_hifigan_tail_cuda
+from fastvocoder_tpu_torch.ops.fused_tail import HEAD_SLOPE, TailTable, fused_hifigan_tail_cuda
+
+
+def _tensors(ops):
+    """The tensors of `tail_operands()`, in order."""
+    k_up, b_up, _, _, blocks, k_post, b_post = ops
+    return [k_up, b_up, *(t for pairs in blocks for p in pairs for t in p
+                          if isinstance(t, torch.Tensor)), k_post, b_post]
 
 
 class HiFiGANGenerator(nn.Module):
@@ -81,6 +88,17 @@ class HiFiGANGenerator(nn.Module):
         return (k_up, b_up, up.stride, up.padding,
                 [b.mrf_operands() for b in self.mrfs[-1]], k_post, b_post)
 
+    def tail_table(self, device: torch.device) -> TailTable:
+        """The tail's `TailTable` on `device`, kept on the model until one
+        of the tail's operands is rebuilt (a weight written or moved: the
+        convs' caches key on each parameter's storage and version)."""
+        ops = self.tail_operands()
+        key = (device, *(id(t) for t in _tensors(ops)))
+        if key != getattr(self, "_tail_key", None):
+            self._tail_table = TailTable(*ops, device)
+            self._tail_key = key
+        return self._tail_table
+
     def trunk(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T, in) -> (B, T * prod(rates), out_bands), after tanh."""
         x = self.conv_pre(mel)
@@ -88,7 +106,8 @@ class HiFiGANGenerator(nn.Module):
         for i, (up, blocks) in enumerate(zip(self.ups, self.mrfs)):
             if i == last and x.is_cuda and self.tail_fusable:
                 refuse_autograd("fused_tail", self.parameters())
-                return fused_hifigan_tail_cuda(x.contiguous(), *self.tail_operands())
+                table = self.tail_table(x.device)
+                return fused_hifigan_tail_cuda(x.contiguous(), *table.keep, table=table)
             x = leaky_relu(x, LRELU_SLOPE)
             x = up(x)
             x = apply_mrf(x, blocks)

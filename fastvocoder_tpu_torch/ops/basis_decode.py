@@ -86,10 +86,13 @@ def basis_decode_cuda(weight: torch.Tensor, basis: torch.Tensor) -> torch.Tensor
     if weight.data_ptr() % 16 or basis.data_ptr() % 16:
         raise ValueError(f"{NAME}: weight and basis must be 16-byte aligned")
     hop = L // 2
+    lib = _build.library(NAME)
+    if hop > lib.fvt_basis_decode_max_hop():
+        raise ValueError(f"{NAME}: the kernel takes L up to {2 * lib.fvt_basis_decode_max_hop()}, "
+                         f"got L={L}")
     out = torch.empty((B, (Fr + 1) * hop), dtype=torch.float32, device=weight.device)
     if B == 0:
         return out
-    lib = _build.library(NAME)
     fn = lib.fvt_basis_decode
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

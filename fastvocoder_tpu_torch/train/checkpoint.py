@@ -4,9 +4,11 @@ checkpoint.
 A checkpoint is one `torch.save` file, `checkpoint_<step>.pth.tar` as the
 JAX package names its own: the generator's and discriminator's `state_dict`
 in the training form (weight-norm gains beside the directions), both Adam
-states, the step and each optimiser's update count.  The reference's own
-checkpoint layout (`fastvocoder_tpu/train/checkpoint.py`'s key maps) is not
-read or written here yet.
+states, the step and each optimiser's update count.
+`models/factory.py::load_generator` reads its generator for synthesis and
+serving.  The reference's own checkpoint layout
+(`fastvocoder_tpu/train/checkpoint.py`'s key maps) is not read or written
+here yet.
 """
 
 from __future__ import annotations
@@ -16,9 +18,8 @@ from typing import Optional
 
 import torch
 
+from fastvocoder_tpu_torch.checkpoint import TRAIN_FORMAT as FORMAT
 from fastvocoder_tpu_torch.train.trainer import TrainState
-
-FORMAT = "fastvocoder_tpu_torch.train/1"
 
 
 def latest_checkpoint(run_dir: str) -> Optional[str]:

@@ -34,21 +34,23 @@ def test_target_changes_with_an_included_header(tmp_path):
 def test_port_kernels_that_share_the_mrf_header():
     names = {src.stem: [p.name for p in _build.local_includes(src)]
              for src in _build.CSRC.glob("*.cu")}
-    assert names["fused_tail"] == ["mrf_common.cuh"]
-    # the MRF forward keeps the table and the mean of the shared header and
-    # contracts on the tensor-core core, which brings the weight gradient's
-    # reduction header with it
-    assert names["fused_mrf"] == ["bwd_common.cuh", "mma_common.cuh", "mrf_common.cuh"]
-    assert names["basis_decode"] == []
+    # the MRF forward and the tail keep the table and the mean of the shared
+    # header and contract on the tensor-core core, which brings the weight
+    # gradient's reduction header with it; every kernel opts into its shared
+    # memory through one header
+    mrf = ["bwd_common.cuh", "mma_common.cuh", "mrf_common.cuh", "smem_attr.cuh"]
+    assert names["fused_tail"] == mrf
+    assert names["fused_mrf"] == mrf
+    assert names["basis_decode"] == ["smem_attr.cuh"]
     # the chain's forward runs on the tensor-core core too
-    assert names["fused_resstack"] == ["bwd_common.cuh", "mma_common.cuh"]
+    assert names["fused_resstack"] == ["bwd_common.cuh", "mma_common.cuh", "smem_attr.cuh"]
 
 
 def test_backward_kernels_share_one_header_and_its_hash():
     names = {src.stem: [p.name for p in _build.local_includes(src)]
              for src in _build.CSRC.glob("*.cu")}
-    assert names["fused_resstack_bwd"] == ["bwd_common.cuh", "mma_common.cuh"]
-    assert names["fused_mrf_bwd"] == ["bwd_common.cuh", "mma_common.cuh"]
+    assert names["fused_resstack_bwd"] == ["bwd_common.cuh", "mma_common.cuh", "smem_attr.cuh"]
+    assert names["fused_mrf_bwd"] == ["bwd_common.cuh", "mma_common.cuh", "smem_attr.cuh"]
     assert sorted(names) == ["basis_decode", "fused_mrf", "fused_mrf_bwd", "fused_resstack",
                              "fused_resstack_bwd", "fused_tail"]
 
@@ -72,23 +74,25 @@ def test_a_backward_library_is_rebuilt_when_the_shared_header_changes(tmp_path, 
     assert after["fused_resstack_bwd"] != before["fused_resstack_bwd"]
     # through mma_common.cuh
     assert after["fused_mrf"] != before["fused_mrf"]
-    assert after["fused_tail"] == before["fused_tail"]
+    assert after["fused_tail"] != before["fused_tail"]
     assert after["basis_decode"] == before["basis_decode"]
 
 
 def test_both_mrf_libraries_are_rebuilt_when_the_tensor_core_header_changes(tmp_path):
     csrc = _copied_csrc(tmp_path)
-    names = ("fused_mrf", "fused_mrf_bwd", "fused_tail", "fused_resstack", "fused_resstack_bwd")
+    names = ("fused_mrf", "fused_mrf_bwd", "fused_tail", "fused_resstack", "fused_resstack_bwd",
+             "basis_decode")
     before = {n: _build._target(csrc / f"{n}.cu") for n in names}
     with open(csrc / "mma_common.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: _build._target(csrc / f"{n}.cu") for n in names}
     assert after["fused_mrf"] != before["fused_mrf"]
     assert after["fused_mrf_bwd"] != before["fused_mrf_bwd"]
-    # and both chain libraries, which contract on the same core
+    # and the tail's MRF and both chain libraries, which contract on the same core
+    assert after["fused_tail"] != before["fused_tail"]
     assert after["fused_resstack"] != before["fused_resstack"]
     assert after["fused_resstack_bwd"] != before["fused_resstack_bwd"]
-    assert after["fused_tail"] == before["fused_tail"]
+    assert after["basis_decode"] == before["basis_decode"]
 
 
 def test_the_tail_library_alone_is_rebuilt_when_the_mrf_header_changes(tmp_path):
@@ -102,6 +106,16 @@ def test_the_tail_library_alone_is_rebuilt_when_the_mrf_header_changes(tmp_path)
     assert after["fused_mrf"] != before["fused_mrf"]
     for n in ("fused_resstack", "fused_resstack_bwd", "fused_mrf_bwd"):
         assert after[n] == before[n]
+
+
+def test_every_library_is_rebuilt_when_the_shared_memory_header_changes(tmp_path):
+    csrc = _copied_csrc(tmp_path)
+    sources = sorted(csrc.glob("*.cu"))
+    before = {src.stem: _build._target(src) for src in sources}
+    with open(csrc / "smem_attr.cuh", "a") as f:
+        f.write("// edited\n")
+    assert all(_build._target(src) != before[src.stem] for src in sources)
+    assert len(sources) == 6
 
 
 def test_refuse_autograd_speaks_of_an_inference_only_kernel():

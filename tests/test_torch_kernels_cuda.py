@@ -14,11 +14,12 @@ the output's magnitude, and at least 90 % of rows must agree 100x tighter.
 The MRF stage and the tail sum up to 6 convs of up to 11 C taps in a chain
 (2816 products a row at C = 256), so their rows are held 30x looser than
 the chain's (1e-5 of the magnitude), the MRF's maximum like the chain's and
-the tail's, after tanh, within 1e-4.  The MRF and chain kernels contract
-on the tensor cores in 3xTF32 (split operands, float32 sums), which is as
-close to float64 as float32 is (`tests/test_torch_tf32_split.py`,
-`tests/test_torch_resstack_tf32.py`), so they are held to the same bounds
-as the float32 CUDA-core kernels before them.
+the tail's, after tanh, within 1e-4.  The MRF and chain kernels and the
+tail's MRF contract on the tensor cores in 3xTF32 (split operands, float32
+sums), which is as close to float64 as float32 is
+(`tests/test_torch_tf32_split.py`, `tests/test_torch_resstack_tf32.py`), so
+they are held to the same bounds as the float32 CUDA-core kernels before
+them.
 
 The two backward kernels are held against the plain versions' autograd run
 in float64 (`_f64`), so that only the kernel's own float32 rounding can put
@@ -84,7 +85,13 @@ def _stacks(C, device, seed=0, K=3, dilations=(1, 3, 9)):
     return [(u(K, C, C), u(C), d, u(1, C, C), u(C), u(1, C, C), u(C)) for d in dilations]
 
 
-@pytest.mark.parametrize("B,F,C,L", [(1, 9360, 256, 30), (32, 1024, 256, 30), (3, 77, 256, 30), (2, 5, 64, 12)])
+# tiles of 16 output frames (F + 1 of them a sequence): F = 1, one tile, one
+# tile and one frame, two tiles and one frame, several sequences a block, and
+# the training batch, whose blocks take 17 tiles each through the 3-tile ring
+@pytest.mark.parametrize("B,F,C,L", [(1, 9360, 256, 30), (32, 1024, 256, 30), (3, 77, 256, 30),
+                                     (2, 5, 64, 12), (1, 1, 256, 30), (1, 15, 256, 30),
+                                     (1, 16, 256, 30), (1, 32, 256, 30), (5, 63, 256, 30),
+                                     (32, 2240, 256, 30), (2, 40, 16, 40)])
 def test_basis_decode_kernel_matches_plain(cuda, B, F, C, L):
     g = torch.Generator().manual_seed(B + F)
     w = torch.relu(torch.randn(B, F, C, generator=g)).to(cuda)
@@ -97,6 +104,11 @@ def test_basis_decode_kernel_matches_plain(cuda, B, F, C, L):
     bound = 4 * C * EPS * basis_decode_plain(w.abs(), basis.abs())
     assert got.shape == (B, (F + 1) * (L // 2))
     assert torch.all((got - want).abs() <= bound)
+
+
+def test_basis_decode_kernel_refuses_a_basis_longer_than_its_block(cuda):
+    with pytest.raises(ValueError, match="takes L up to 40"):
+        basis_decode(torch.ones(1, 4, 16, device=cuda), torch.ones(42, 16, device=cuda))
 
 
 def test_basis_decode_kernel_gradient_is_plain_vjp(cuda):
@@ -564,6 +576,68 @@ def test_fused_tail_kernel_matches_plain_seeded(cuda, B, T_in, cin, cout, bands)
     x = (0.3 * torch.randn(B, T_in, cin, generator=g)).to(cuda)
     _assert_rows_close(fused_hifigan_tail_cuda(x, *ops), fused_hifigan_tail_plain(x, *ops),
                        1e-4, 1e-5)
+
+
+def _tail_edge_cases():
+    """Lengths on both sides of the tail's tiles: the pair launches own 118
+    output rows a block (128 rows less the k = 11 pairs' margins), the
+    upsample 512 / C_out * 16 rows, the head 4096 / C_out; T = 2 T_in."""
+    cases = [(2, 1, 32, 16), (1, 1, 64, 32)]
+    cases += [(1, t, 32, 16) for t in (59, 60, 118, 119, 128, 129, 256, 257)]
+    cases += [(2, t, 64, 32) for t in (59, 60, 64, 65, 118, 119, 128, 129)]
+    return cases
+
+
+@pytest.mark.parametrize("B,T_in,cin,cout", _tail_edge_cases())
+def test_fused_tail_kernel_matches_plain_at_tile_edges(cuda, B, T_in, cin, cout):
+    ops = _tail_operands(cin, cout, cuda, seed=cout + T_in)
+    g = torch.Generator().manual_seed(T_in + 1)
+    x = (0.3 * torch.randn(B, T_in, cin, generator=g)).to(cuda)
+    got = fused_hifigan_tail_cuda(x, *ops)
+    assert got.shape == (B, 2 * T_in, 1)
+    _assert_rows_close(got, fused_hifigan_tail_plain(x, *ops), 1e-4, 1e-5)
+
+
+def test_fused_tail_kernel_takes_a_kept_table(cuda):
+    """A `TailTable` holds the checked operands and the packed MRF kernels:
+    the same bits as a table built for the call, and x of another width is
+    refused."""
+    from fastvocoder_tpu_torch.ops.fused_tail import TailTable
+
+    ops = _tail_operands(32, 16, cuda, seed=5)
+    table = TailTable(*ops, cuda)
+    x = (0.3 * torch.randn(2, 300, 32)).to(cuda)
+    assert torch.equal(fused_hifigan_tail_cuda(x, *ops, table=table),
+                       fused_hifigan_tail_cuda(x, *ops))
+    with pytest.raises(ValueError, match="take \\(B, T_in, 32\\)"):
+        fused_hifigan_tail_cuda(torch.zeros(1, 8, 64, device=cuda), *ops, table=table)
+
+
+def test_hifigan_keeps_its_tail_table_until_a_weight_is_written(cuda):
+    """A served HiFiGAN keeps its tail's table; an in-place write to a weight
+    of the last stage rebuilds it, and the output follows the write."""
+    from fastvocoder_tpu_torch.hparams import HiFiGANConfig
+    from fastvocoder_tpu_torch.models.hifigan import HiFiGANGenerator
+
+    torch.manual_seed(4)
+    cfg = HiFiGANConfig(upsample_rates=(5, 2), upsample_initial_channel=64,
+                        upsample_kernel_sizes=(10, 4))
+    gen = HiFiGANGenerator(cfg).requires_grad_(False)
+    cpu = HiFiGANGenerator(cfg).requires_grad_(False)
+    gen.to(cuda)
+    mel = torch.rand(1, 40, 80)
+    with torch.no_grad():
+        cpu.load_state_dict(gen.state_dict())
+        first = gen(mel.to(cuda))
+        table = gen._tail_table
+        assert torch.equal(gen(mel.to(cuda)), first) and gen._tail_table is table  # kept
+        _assert_rows_close(first[..., None], cpu(mel).to(cuda)[..., None], 1e-4, 1e-5)
+        for m in (gen, cpu):
+            m.resblock_1_2.conv2_1.weight.mul_(1.5)
+        second = gen(mel.to(cuda))
+        assert gen._tail_table is not table
+        _assert_rows_close(second[..., None], cpu(mel).to(cuda)[..., None], 1e-4, 1e-5)
+        assert (second - first).abs().max().item() > 1e-4
 
 
 def test_mrf_and_tail_kernels_are_forward_only(cuda):

@@ -3,7 +3,9 @@ CPU: `run_train` over a corpus of 8 utterances in the reference's file
 format, a tiny discriminator, a few steps across the
 `discriminator_train_start_steps` boundary, checkpoints, a resume that
 continues as the unbroken run does, a validation pass, and the flags that
-wait.
+wait.  Then the checkpoint a run wrote loads where a release checkpoint
+does (`Synthesizer`, `bin/test.py`, `ServingModel`) and synthesizes what
+the trained generator computes; a file of neither format is refused.
 """
 
 import json
@@ -13,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from fastvocoder_tpu_torch.bin.synthesize import Synthesizer
+from fastvocoder_tpu_torch.bin.test import run_test
 from fastvocoder_tpu_torch.bin.train import WAITING, run_train
 from fastvocoder_tpu_torch.data.dataset import (
     BufferDataset,
@@ -25,6 +29,8 @@ from fastvocoder_tpu_torch.data.dataset import (
     to_device,
 )
 from fastvocoder_tpu_torch.hparams import HP, TINY_DISC
+from fastvocoder_tpu_torch.serving import ServingModel
+from fastvocoder_tpu_torch.train.checkpoint import latest_checkpoint
 
 HIFI_YAML = (
     "resblock_kernel_sizes: [3, 5]\nupsample_rates: [8, 5, 3, 2]\n"
@@ -65,8 +71,12 @@ def corpus(tmp_path):
     return tmp_path
 
 
+def _conf(model):
+    return "hifigan.yaml" if model == "hifigan" else "basis.yaml"
+
+
 def _argv(corpus, model, run_dir, **kw):
-    conf = "hifigan.yaml" if model == "hifigan" else "basis.yaml"
+    conf = _conf(model)
     args = {
         "audio_index_path": corpus / "audio.txt", "mel_index_path": corpus / "mel.txt",
         "audio_index_valid_path": corpus / "audio.txt",
@@ -181,3 +191,62 @@ def test_buffer_cache_is_rebuilt_for_another_index(corpus):
                                 test_size=3, log=logs.append)
     assert len(first) == 8 and len(fewer) == 3
     assert any("different index" in m for m in logs)
+
+
+@pytest.mark.parametrize("model", ["hifigan", "basis-melgan"])
+def test_a_trained_checkpoint_synthesizes_what_the_trained_generator_computes(corpus, model):
+    """A run's checkpoint in `Synthesizer`: its waveform is the trained
+    weight-norm generator's within 1e-5 of the peak (weight norm fused in
+    float32)."""
+    run_dir = corpus / f"trained_{model}"
+    state = run_train(_argv(corpus, model, run_dir, max_steps=3, save_step=3),
+                      disc_cfg=TINY_DISC)
+    path = latest_checkpoint(str(run_dir))
+    assert path.endswith("checkpoint_3.pth.tar")
+    mel = np.random.default_rng(5).random((23, 80)).astype(np.float32)
+    synth = Synthesizer(path, str(corpus / _conf(model)), model, device="cpu")
+    assert synth.pattern is None
+    got = synth._run(mel)
+    with torch.no_grad():
+        want = state.generator.eval().inference(torch.from_numpy(mel)[None])[0].numpy()
+    assert got.shape == want.shape and np.all(np.isfinite(got))
+    peak = np.abs(want).max()
+    assert peak > 0 and np.abs(got - want).max() <= 1e-5 * peak
+
+
+def test_a_trained_checkpoint_serves_and_runs_the_rtf_protocol(corpus):
+    run_dir = corpus / "served"
+    state = run_train(_argv(corpus, "hifigan", run_dir, max_steps=2, save_step=2),
+                      disc_cfg=TINY_DISC)
+    path = latest_checkpoint(str(run_dir))
+    conf = str(corpus / _conf("hifigan"))
+    mel = np.random.default_rng(6).random((32, 80)).astype(np.float32)  # two whole buckets
+    (served,) = ServingModel(path, conf, "hifigan", bucket_frames=16, max_batch=2,
+                             device="cpu")([mel])
+    with torch.no_grad():
+        want = state.generator.eval().inference(torch.from_numpy(mel)[None])[0].numpy()
+    assert served.shape == want.shape
+    assert np.abs(served - want).max() <= 1e-5 * np.abs(want).max()
+    mels = corpus / "mels"
+    os.makedirs(mels)
+    np.save(mels / "a.npy", mel)
+    rtf = run_test([f"--checkpoint_path={path}", f"--file_path={mels}", "--model_name=hifigan",
+                    f"--config={conf}", "--device=cpu"])
+    assert np.isfinite(rtf) and rtf > 0
+
+
+def test_a_file_of_neither_checkpoint_format_is_refused(corpus):
+    conf = str(corpus / _conf("hifigan"))
+    npy = corpus / "not_a_checkpoint.npz"  # the extension decides nothing
+    np.save(corpus / "plain.npy", np.zeros(3))
+    os.replace(corpus / "plain.npy", npy)
+    tensor = corpus / "tensor.pth.tar"
+    torch.save({"generator": {}}, tensor)
+    with pytest.raises(ValueError, match="neither a release checkpoint"):
+        Synthesizer(str(npy), conf, "hifigan", device="cpu")
+    with pytest.raises(ValueError, match="not a checkpoint of this package's trainer"):
+        Synthesizer(str(tensor), conf, "hifigan", device="cpu")
+    run_train(_argv(corpus, "basis-melgan", corpus / "run_b", max_steps=1, save_step=1),
+              disc_cfg=TINY_DISC)
+    with pytest.raises(ValueError, match="holds a 'basis-melgan' model, not 'hifigan'"):
+        Synthesizer(latest_checkpoint(str(corpus / "run_b")), conf, "hifigan", device="cpu")

@@ -1,6 +1,8 @@
 """The training slice as a whole: one step of the port's trainer
 (`fastvocoder_tpu_torch/train/trainer.py`) against the same step of the JAX
-package's, from equal weights and an equal batch, on the CPU.
+package's, from equal weights and an equal batch, on the CPU: the
+pre-adversarial and the GAN step of narrow HiFiGAN, Basis-MelGAN and
+MultiBand-HiFiGAN (4 bands) generators.
 
 Weights are initialised on the JAX side and carried across with
 `state_dict_from_jax(..., fuse=False)`; the batch comes from numpy.  Held:
@@ -51,12 +53,20 @@ HIFI_ARCH = dict(resblock_kernel_sizes=(3, 5), upsample_rates=(8, 5, 3, 2),
                  upsample_initial_channel=32, upsample_kernel_sizes=(16, 10, 6, 4),
                  resblock_dilation_sizes=((1, 3), (1, 3)))
 BASIS_ARCH = dict(out_channels=16, channels=(16, 16, 16))
+# MultiBand-HiFiGAN: 4 bands of 60 samples a frame, PQMF-synthesised
+MB_ARCH = dict(resblock_kernel_sizes=(3, 5), upsample_rates=(10, 6),
+               upsample_initial_channel=32, upsample_kernel_sizes=(20, 12),
+               resblock_dilation_sizes=((1, 3), (1, 3)), out_bands=4)
+MODELS = ("hifigan", "basis-melgan", "multiband-hifigan")
 
 
 def _cfgs(name):
     if name == "hifigan":
         return (jhp.ModelConfig("hifigan", jhp.HiFiGANConfig(**HIFI_ARCH), lambda_stft=5.0),
                 thp.ModelConfig("hifigan", thp.HiFiGANConfig(**HIFI_ARCH), lambda_stft=5.0))
+    if name == "multiband-hifigan":
+        return tuple(hp.ModelConfig(name, hp.HiFiGANConfig(**MB_ARCH), lambda_stft=5.0,
+                                    multiband=True) for hp in (jhp, thp))
     return (jhp.ModelConfig("basis-melgan", jhp.BasisMelGANConfig(**BASIS_ARCH), lambda_stft=1.0),
             thp.ModelConfig("basis-melgan", thp.BasisMelGANConfig(**BASIS_ARCH), lambda_stft=1.0))
 
@@ -107,7 +117,7 @@ def runs():
     """One jitted JAX trainer per model, shared by the cases: (JAX trainer,
     its initial state, jitted steps and gradient functions)."""
     out = {}
-    for name in ("hifigan", "basis-melgan"):
+    for name in MODELS:
         jcfg, _ = _cfgs(name)
         basis = None
         if name == "basis-melgan":
@@ -176,7 +186,7 @@ def _assert_params(module, before, after_tree, grads_tree, clip_norm, lr):
     assert checked > 100
 
 
-@pytest.mark.parametrize("name", ["hifigan", "basis-melgan"])
+@pytest.mark.parametrize("name", MODELS)
 def test_pre_adv_step_matches_jax(runs, name):
     jtr, jstate, basis = runs[name]
     mel, wav, weight = _batch(name)
@@ -204,8 +214,8 @@ def test_pre_adv_step_matches_jax(runs, name):
     assert tstate.step == 1 and tstate.gen_updates == 1 and tstate.disc_updates == 0
 
 
-def test_gan_step_matches_jax(runs):
-    name = "hifigan"
+@pytest.mark.parametrize("name", MODELS)
+def test_gan_step_matches_jax(runs, name):
     jtr, jstate, basis = runs[name]
     mel, wav, weight = _batch(name)
     _, gan_gen, gan_disc = _jax_loss_fns(jtr, jstate, mel, wav, weight)
