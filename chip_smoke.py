@@ -23,7 +23,14 @@ through the entry points a user calls:
     fused_resstack);
   * HiFiGAN light: the same three (kernels: fused_mrf, fused_tail);
   * MultiBand-HiFiGAN light: `Synthesizer` and the RTF protocol (kernel:
-    fused_mrf).
+    fused_mrf);
+  * MelGAN original: the same three as Basis-MelGAN (kernel: fused_resstack
+    at C = 256, 128, 64, 32), and a profile of one inference with kernel
+    2's time at each width beside its bounds;
+  * NHV: the generator on the card against the CPU with the same sources,
+    the card's own impulse train against the CPU's, `Synthesizer` with f0,
+    the RTF protocol and the HTTP server (no kernel of ours: cuDNN convs and
+    cuFFT, as the JAX package runs NHV as XLA).
 
 Then it trains, at full width and the reference's batch (32 crops of 140
 frames, float32, TF32 off), on a corpus it writes from a seed in the format
@@ -36,12 +43,19 @@ the data pipeline reads:
   * Basis-MelGAN light: `run_train` for 4 pre-adversarial steps with the
     weight L1 (kernels: fused_resstack, fused_resstack_bwd, basis_decode);
     the same one-step comparison;
-  * ms a step of the three step kinds, and a profile of one HiFiGAN GAN
-    step and of one Basis-MelGAN pre-adversarial step.
+  * MelGAN original: `run_train` with `--use_mpd 1`, 2 pre-adversarial and
+    2 GAN steps against MSD + MFD + MPD (kernels: fused_resstack,
+    fused_resstack_bwd at every width); one GAN step with the MPD on the
+    card against the CPU, at a batch of MELGAN_CPU_BATCH crops;
+  * NHV: `run_train` for 2 pre-adversarial steps on the corpus's f0 files;
+  * ms a step of each step kind, and a profile of one HiFiGAN GAN step, of
+    one Basis-MelGAN pre-adversarial step and of one MelGAN GAN step with
+    the MPD.
 
 Launch counts are zeroed before each path and read right after it; the run
 fails if a kernel of the path was not launched.  A profile of one batch-1
-inference of each of the first two models closes the run.
+inference of each of the first two models closes the run (MelGAN's and
+NHV's come with their phases).
 
 Output: the card's name and power limit, a log per phase, then one JSON line
 with the kernels (launches, error, times, bound) and, last, one JSON line
@@ -72,6 +86,12 @@ HIFI_CKPT = os.path.join(ROOT, "docs", "checkpoints", "hifigan_light_clean2.npz"
 HIFI_CONF = os.path.join(ROOT, "conf", "hifigan", "light.yaml")
 MB_CKPT = os.path.join(ROOT, "docs", "checkpoints", "mb_hifigan_light_clean.npz")
 MB_CONF = os.path.join(ROOT, "conf", "multiband-hifigan", "light.yaml")
+MELGAN_CKPT = os.path.join(ROOT, "docs", "checkpoints", "melgan_clean.npz")
+MELGAN_CONF = os.path.join(ROOT, "conf", "melgan", "original.yaml")
+NHV_CKPT = os.path.join(ROOT, "docs", "checkpoints", "nhv_clean.npz")
+NHV_CONF = os.path.join(ROOT, "conf", "nhv", "default.yaml")
+NHV_F0_HZ = 220.0  # bench.py:116-119's contour
+MELGAN_CPU_BATCH = 4  # MelGAN's GAN step with the MPD on the CPU: 4 crops, not 32
 MEL_FRAMES = 585  # the RTF protocol's utterance (bench.py's eval set)
 HOP = 240
 
@@ -316,6 +336,47 @@ def check_fused_resstack(torch, gen, T_main):
         "stage1_bound_ms": times[T // 4][2], "stage1_bound_3xtf32_ms": times[T // 4][3],
         "pack_ms": pack_ms,
     }
+
+
+def check_melgan_chain(torch, gen, frames: int) -> dict:
+    """Kernel 2 with MelGAN original's release weights at its four stages
+    of one utterance (C = 256, 128, 64, 32 over frames * 10 to frames * 240
+    rows), against its plain version, and its time at each with the chain's
+    packed operands kept, beside the float32 and 3xTF32 bounds.  -> the
+    per-stage record for the kernels line."""
+    from fastvocoder_tpu_torch.ops.fused_resstack import (
+        ChainTable,
+        fused_residual_stacks_cuda,
+        fused_residual_stacks_plain,
+    )
+
+    dev = next(gen.parameters()).device
+    g = torch.Generator().manual_seed(9)
+    out, T = [], frames
+    for stage, scale in enumerate(gen.cfg.upsample_scales):
+        T *= scale
+        stacks = [m.chain_operands() for m in gen.stacks[stage]]
+        C = stacks[0][0].shape[1]
+        x = (0.3 * torch.randn(1, T, C, generator=g)).to(dev)
+        err, tol, rows_ok, ok = rows_close(fused_residual_stacks_cuda(x, stacks),
+                                           fused_residual_stacks_plain(x, stacks),
+                                           CHAIN_TOL, CHAIN_ROW_TOL)
+        if not ok:
+            raise AssertionError(f"fused_resstack disagrees with its plain version at MelGAN's "
+                                 f"stage {stage} (1, {T}, {C})")
+        table = ChainTable(stacks, dev)
+        ms = cuda_ms(lambda: fused_residual_stacks_cuda(x, stacks, table), iters=20, warmup=3)
+        plain = cuda_ms(lambda: fused_residual_stacks_plain(x, stacks), iters=20, warmup=3)
+        nbytes, flops = chain_work(1, T, stacks)
+        bms, _ = bound_ms(nbytes, flops)
+        b3, by = bound_3xtf32_ms(nbytes, flops)
+        log(f"  fused_resstack MelGAN stage {stage} (1, {T}, {C}): max abs {err:.3e} (tol "
+            f"{tol:.3e}), rows within {CHAIN_ROW_TOL:.0e}: {rows_ok:.4f}; kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, float32 bound {bms:.4f} ms, 3xTF32 bound {b3:.4f} ms ({by}, "
+            f"{flops / 1e9:.2f} GFLOP): {share(b3, ms)} of it")
+        out.append({"shape": [1, T, C], "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                    "bound_ms": bms, "bound_3xtf32_ms": b3})
+    return out
 
 
 def rows_close(got, want, tol: float, row_tol: float):
@@ -850,6 +911,27 @@ def check_fused_resstack_bwd(torch, gen):
         edges=edges, tensor_cores=True)
 
 
+def check_melgan_chain_bwd(torch, gen):
+    """Kernel 3 with MelGAN original's release weights at its four training
+    stages (32 crops of 140 frames: 1400 to 33,600 rows, C = 256 to 32)."""
+    from fastvocoder_tpu_torch.ops import fused_resstack as r
+
+    stages, T = [], TRAIN_FRAMES
+    for i, scale in enumerate(gen.cfg.upsample_scales):
+        T *= scale
+        ops = [s_.chain_operands() for s_ in gen.stacks[i]]
+        stages.append((ops, ops[0][0].shape[1], T))
+    entry, fwd = check_backward(
+        torch, "fused_resstack_bwd", r.fused_residual_stacks_vjp_cuda,
+        r.fused_residual_stacks_vjp_plain, r.fused_residual_stacks_cuda,
+        r.fused_residual_stacks_plain, stages, chain_work, "",
+        f"MelGAN original's 4 stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames",
+        tensor_cores=True)
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_3xtf32_ms", "bound_by",
+            "stages")
+    return {k: v for k, v in entry.items() if k in keep}, fwd
+
+
 def kernel_class(name: str) -> str:
     for key, label in (("resstack_bwd_", "fused_resstack_bwd kernel"),
                        ("resstack_kernel", "fused_resstack kernel"),
@@ -960,13 +1042,29 @@ def synthesizer_phase(torch, count_path, Synthesizer, model: str, ckpt: str, con
     return synth, mel
 
 
+def conditioning(model: str, mel: np.ndarray) -> np.ndarray:
+    """A model's input for `mel` (T, 80): NHV's adds f0 (NHV_F0_HZ) as
+    channel 80."""
+    from fastvocoder_tpu_torch.dsp.f0 import f0_to_condition
+
+    if model != "nhv":
+        return mel
+    return f0_to_condition(mel, np.full(mel.shape[0], NHV_F0_HZ, np.float32))
+
+
 def rtf_phase(count_path, run_test, model: str, ckpt: str, conf: str, kernels) -> float:
     """The RTF protocol of bin/test.py over 4 utterances; it writes
-    pattern-subtracted wavs for Basis-MelGAN only."""
+    pattern-subtracted wavs for Basis-MelGAN only.  NHV's utterances are
+    `<name>.mel.npy` files with their `<name>.f0.npy`."""
     log(f"[{model}: RTF protocol (bin/test.py)]")
     with tempfile.TemporaryDirectory() as d:
         for i, frames in enumerate((585, 585, 320, 700)):
-            np.save(os.path.join(d, f"utt{i}.npy"), mel_like_bench(frames, 10 + i).T)
+            mel = mel_like_bench(frames, 10 + i)
+            if model == "nhv":
+                np.save(os.path.join(d, f"utt{i}.mel.npy"), mel.T)
+                np.save(os.path.join(d, f"utt{i}.f0.npy"), conditioning(model, mel)[:, 80])
+            else:
+                np.save(os.path.join(d, f"utt{i}.npy"), mel.T)
         rtf = count_path(f"{model} RTF", lambda: run_test([
             "--checkpoint_path", ckpt, "--file_path", d, "--config", conf, "--model_name", model,
         ]), kernels)
@@ -982,7 +1080,7 @@ def serving_phase(count_path, run_serve, ServingModel, model: str, ckpt: str, co
     """4 concurrent HTTP requests, twice, against a direct ServingModel call."""
     log(f"[{model}: HTTP serving (bin/serve.py)]")
     lengths = (60, 130, 300, 585)
-    req_mels = [mel_like_bench(n, 20 + i) for i, n in enumerate(lengths)]
+    req_mels = [conditioning(model, mel_like_bench(n, 20 + i)) for i, n in enumerate(lengths)]
     results = [None] * len(req_mels)
 
     def serve_all():
@@ -1026,11 +1124,79 @@ def serving_phase(count_path, run_serve, ServingModel, model: str, ckpt: str, co
             raise AssertionError(f"served request {i} is wrong")
 
 
+def nhv_phase(torch, count_path, Synthesizer):
+    """NHV on its release weights and the seeded 585-frame mel with a
+    NHV_F0_HZ f0 channel: the generator on the card against the CPU with
+    the same sources (the CPU's impulse train and noise), the card's own
+    impulse train against the CPU's (the same samples, or the phase sums
+    disagree), then `Synthesizer` with `f0=` on the card.  -> (the card's
+    Synthesizer, the conditioning (T, 81))."""
+    log("[nhv: the card against the CPU with the same sources]")
+    synth = Synthesizer(NHV_CKPT, NHV_CONF, "nhv")
+    cpu = Synthesizer(NHV_CKPT, NHV_CONF, "nhv", device="cpu")
+    mel = mel_like_bench(MEL_FRAMES, 0)
+    cond = torch.from_numpy(conditioning("nhv", mel)[None])
+    with torch.inference_mode():
+        harmonic, noise = cpu.generator.sources(cond[..., 80])
+        want = cpu.generator(cond, sources=(harmonic, noise))
+        got = count_path("nhv generator", lambda: synth.generator(
+            cond.cuda(), sources=(harmonic.cuda(), noise.cuda())), ()).cpu()
+        card_train = synth.generator.sources(cond[..., 80].cuda())[0].cpu()
+    err = (got - want).abs().max().item()
+    tol = MODEL_TOL * max(1.0, want.abs().max().item())
+    moved = int((card_train != harmonic).sum().item())
+    log(f"  waveform {tuple(got.shape)}, peak {want.abs().max().item():.3f}, card vs CPU max abs "
+        f"{err:.3e} (tol {tol:.3e}); impulse trains: {int(harmonic.sum().item())} impulses on the "
+        f"CPU, {int(card_train.sum().item())} on the card, {moved} samples differ")
+    if got.shape != (1, MEL_FRAMES * HOP) or not torch.isfinite(got).all() or err > tol:
+        raise AssertionError("nhv on the card disagrees with the CPU")
+    if moved:
+        raise AssertionError("nhv's impulse train on the card is not the CPU's")
+
+    log("[nhv: Synthesizer with f0]")
+    f0 = np.full(MEL_FRAMES, NHV_F0_HZ, np.float32)
+    t0 = time.perf_counter()
+    est, est_remove, bias = count_path("nhv Synthesizer", lambda: synth.synthesize(mel, f0=f0), ())
+    log(f"  synthesize (585 frames, bias + utterance): {time.perf_counter() - t0:.3f} s "
+        f"(first call), wav {est.shape}, peak {np.abs(est).max():.3f}, bias peak "
+        f"{np.abs(bias).max():.3f}")
+    if (est.shape != (MEL_FRAMES * HOP,) or not np.isfinite(est).all()
+            or not np.array_equal(est - bias, est_remove)):
+        raise AssertionError("nhv Synthesizer failed")
+    return synth, cond[0].numpy()
+
+
+def profile_melgan(torch, synth, mel: np.ndarray, stages) -> None:
+    """A profile of MelGAN's batch-1 inference, then kernel 2's device time
+    in one inference at each width (its three launches a stage) beside the
+    stage's bounds (`check_melgan_chain`'s `stages`, which it fills in)."""
+    profile_inference(torch, synth, mel)
+    by_name = device_ms_by_name(torch, lambda: synth.test_rtf(mel), 10)
+    per_width = {}
+    for name, ms in by_name.items():
+        m = re.search(r"resstack_kernel<(\d+)", name)
+        if m:
+            per_width[int(m.group(1))] = per_width.get(int(m.group(1)), 0.0) + ms
+    if not per_width:
+        log("  torch.profiler shows no device time of kernel 2: not measured")
+    for st in stages:
+        C = st["shape"][2]
+        if C in per_width:
+            st["in_inference_ms"] = per_width[C]
+            log(f"  kernel 2 at C = {C} in one inference ({tuple(st['shape'])}, 3 launches): "
+                f"{per_width[C]:.4f} ms device, float32 bound {st['bound_ms']:.4f} ms, 3xTF32 "
+                f"bound {st['bound_3xtf32_ms']:.4f} ms: {share(st['bound_3xtf32_ms'], per_width[C])}"
+                " of it")
+
+
 def write_corpus(root: str, n: int = 64, seed: int = 0, weight_channels: int = 0):
     """A seeded corpus in the format `data/dataset.py` reads: per utterance
-    `<i>.wav.npy` (sines plus noise, 160-220 frames of 240 samples) and
-    `<i>.mel.npy` (80, T), two index files, and with `weight_channels` a
-    `weight/<i>.wav.npy` (C, 16 T) target each.  -> (audio index, mel index)."""
+    `<i>.wav.npy` (sines plus noise, 160-220 frames of 240 samples),
+    `<i>.mel.npy` (80, T) and `<i>.f0.npy` (the port's `extract_f0` of the
+    wav), two index files, and with `weight_channels` a `weight/<i>.wav.npy`
+    (C, 16 T) target each.  -> (audio index, mel index)."""
+    from fastvocoder_tpu_torch.dsp.f0 import extract_f0
+
     rng = np.random.default_rng(seed)
     audio, mel = [], []
     if weight_channels:
@@ -1045,6 +1211,7 @@ def write_corpus(root: str, n: int = 64, seed: int = 0, weight_channels: int = 0
         mel.append(os.path.join(root, f"{i}.mel.npy"))
         np.save(audio[-1], wav)
         np.save(mel[-1], rng.random((80, frames), dtype=np.float32))
+        np.save(os.path.join(root, f"{i}.f0.npy"), extract_f0(wav))
         if weight_channels:
             np.save(os.path.join(root, "weight", f"{i}.wav.npy"),
                     rng.random((weight_channels, frames * 16), dtype=np.float32))
@@ -1057,9 +1224,12 @@ def write_corpus(root: str, n: int = 64, seed: int = 0, weight_channels: int = 0
 
 
 def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, steps: int,
-                start_steps: int, kernels, basis_dir: str = ""):
-    """`run_train` as a user calls it, at full width on the card; checks the
-    losses, that the weights moved, and that the checkpoint loads back."""
+                start_steps: int, kernels, basis_dir: str = "", use_mpd: bool = False):
+    """`run_train` as a user calls it, at full width on the card (with
+    `use_mpd`, `--use_mpd 1`); checks the losses, that the weights moved,
+    and that the checkpoint loads back."""
+    import dataclasses
+
     from fastvocoder_tpu_torch.bin.train import run_train
     from fastvocoder_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
     from fastvocoder_tpu_torch.train.trainer import make_trainer
@@ -1076,6 +1246,8 @@ def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, st
             "--discriminator_train_start_steps", str(start_steps)]
     if basis_dir:
         argv += ["--basis_dataset_path", basis_dir]
+    if use_mpd:
+        argv += ["--use_mpd", "1"]
     t0 = time.perf_counter()
     state = count_path(f"{model} training", lambda: run_train(argv), kernels)
     log(f"  {steps} steps, a validation pass and a checkpoint in {time.perf_counter() - t0:.2f} s")
@@ -1090,7 +1262,9 @@ def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, st
             "discriminator_loss" in m for s_, m in state.history if s_ <= start_steps):
         raise AssertionError(f"{model} training: the steps' kinds do not follow the boundary")
 
-    cfg = load_model_config(model, conf)
+    if (state.discriminator.mpd is not None) != use_mpd:
+        raise AssertionError(f"{model} training: the discriminator's MPD is not as asked")
+    cfg = dataclasses.replace(load_model_config(model, conf), use_mpd=use_mpd)
     basis = state.generator.basis_signal.basis.detach().cpu().numpy() if basis_dir else None
     trainer = make_trainer(cfg, basis_signal_weight=basis)
     fresh = trainer.init_state(0)  # the run's own initial weights (seed 0)
@@ -1127,7 +1301,8 @@ def fixed_batch(cfg, index, basis_dir: str = ""):
         ds = d.WeightDataset.from_index_files(index[0], index[1], cfg.arch.L,
                                               os.path.join(basis_dir, "weight"), hp=hp)
         return next(d.batch_iterator(ds, hp, seed=1, L=cfg.arch.L))
-    ds = d.BufferDataset(d.load_data_to_buffer(index[0], index[1], log=lambda m: None), hp)
+    ds = d.BufferDataset(d.load_data_to_buffer(index[0], index[1], log=lambda m: None,
+                                               with_f0=cfg.model_name == "nhv"), hp)
     return next(d.batch_iterator(ds, hp, seed=1))
 
 
@@ -1236,15 +1411,22 @@ def main() -> int:
     log("[kernels against their plain versions]")
     basis_gen = Synthesizer(CKPT, CONF, "basis-melgan").generator
     hifi_gen = Synthesizer(HIFI_CKPT, HIFI_CONF, "hifigan").generator
+    melgan_gen = Synthesizer(MELGAN_CKPT, MELGAN_CONF, "melgan").generator
     F_main = MEL_FRAMES * 16
     with torch.inference_mode():
         entries = [check_basis_decode(torch, F_main, basis_gen.basis_signal.basis),
                    check_fused_resstack(torch, basis_gen, F_main),
                    check_fused_mrf(torch, hifi_gen, MEL_FRAMES),
                    check_fused_tail(torch, hifi_gen, MEL_FRAMES)]
+        log("[kernel 2 at MelGAN original's stages]")
+        entries[1]["melgan_stages"] = check_melgan_chain(torch, melgan_gen, MEL_FRAMES)
     log("[backward kernels against their plain VJPs]")
     chain_bwd, entries[1]["batch32"] = check_fused_resstack_bwd(torch, basis_gen)
     mrf_bwd, entries[2]["batch32"] = check_fused_mrf_bwd(torch, hifi_gen)
+    log("[kernel 3 at MelGAN original's training stages]")
+    chain_bwd["melgan"], entries[1]["melgan_batch32"] = check_melgan_chain_bwd(torch, melgan_gen)
+    del melgan_gen
+    torch.cuda.empty_cache()
     entries[2:2] = [chain_bwd]   # kernels 1, 2, 3, 4, 5, 6
     entries[4:4] = [mrf_bwd]
     log("[the MRF kernels' 3xTF32 against float64]")
@@ -1285,6 +1467,22 @@ def main() -> int:
                       ("fused_mrf",), wav_len)
     rtfs["multiband-hifigan"] = rtf_phase(count_path, run_test, "multiband-hifigan", MB_CKPT,
                                           MB_CONF, ("fused_mrf",))
+
+    chain = ("fused_resstack",)
+    melgan_synth, _ = synthesizer_phase(torch, count_path, Synthesizer, "melgan", MELGAN_CKPT,
+                                        MELGAN_CONF, chain, wav_len)
+    rtfs["melgan"] = rtf_phase(count_path, run_test, "melgan", MELGAN_CKPT, MELGAN_CONF, chain)
+    serving_phase(count_path, run_serve, ServingModel, "melgan", MELGAN_CKPT, MELGAN_CONF, chain)
+    log("[profile: melgan batch-1 inference on the device]")
+    profile_melgan(torch, melgan_synth, mel, entries[1]["melgan_stages"])
+    del melgan_synth
+
+    nhv_synth, nhv_cond = nhv_phase(torch, count_path, Synthesizer)
+    log("[profile: nhv batch-1 inference on the device]")
+    profile_inference(torch, nhv_synth, nhv_cond)
+    del nhv_synth
+    rtfs["nhv"] = rtf_phase(count_path, run_test, "nhv", NHV_CKPT, NHV_CONF, ())
+    serving_phase(count_path, run_serve, ServingModel, "nhv", NHV_CKPT, NHV_CONF, ())
     log(f"  rtf by model: {rtfs}")
 
     torch.cuda.empty_cache()
@@ -1323,6 +1521,29 @@ def main() -> int:
         log("[ms a step on the card]")
         step_ms["basis-melgan pre_adv_step"] = time_steps(torch, basis_cfg, basis, "pre_adv_step",
                                                           batch, profile=True)
+        torch.cuda.empty_cache()
+
+        seen = dict(launches)
+        melgan_cfg, _ = train_phase(
+            torch, count_path, "melgan", MELGAN_CONF, corpus, index, steps=4, start_steps=2,
+            kernels=("fused_resstack", "fused_resstack_bwd"), use_mpd=True)
+        # one generator backward a step, 4 stages each
+        if launches["fused_resstack_bwd"] - seen["fused_resstack_bwd"] != 4 * 4:
+            raise AssertionError("4 MelGAN steps did not launch fused_resstack_bwd 16 times")
+        batch = fixed_batch(melgan_cfg, index)
+        step_against_cpu(torch, melgan_cfg, None, "gan_step",
+                         {k: v[:MELGAN_CPU_BATCH] for k, v in batch.items()})
+        log("[ms a step on the card]")
+        step_ms["melgan pre_adv_step"] = time_steps(torch, melgan_cfg, None, "pre_adv_step", batch)
+        step_ms["melgan gan_step (MSD + MFD + MPD)"] = time_steps(torch, melgan_cfg, None,
+                                                                  "gan_step", batch, profile=True)
+        torch.cuda.empty_cache()
+
+        nhv_cfg, _ = train_phase(torch, count_path, "nhv", NHV_CONF, corpus, index, steps=2,
+                                 start_steps=2, kernels=())
+        log("[ms a step on the card]")
+        step_ms["nhv pre_adv_step"] = time_steps(torch, nhv_cfg, None, "pre_adv_step",
+                                                 fixed_batch(nhv_cfg, index))
     log(f"  ms a step: {step_ms}")
 
     for model, synth in (("basis-melgan", basis_synth), ("hifigan", hifi_synth)):

@@ -1,18 +1,23 @@
 """fastvocoder_tpu_torch — the PyTorch / CUDA port of fastvocoder_tpu.
 
-Runs Basis-MelGAN, HiFiGAN and MultiBand-HiFiGAN inference and serving on
-an NVIDIA H100.  The JAX package `fastvocoder_tpu` beside it is the
-reference; this package imports nothing of it.  Public functions keep its
-layout: mel (B, T, 80), basis weights (B, F, C), waveform (B, N).
+Runs all five generator families of the JAX package (Basis-MelGAN,
+HiFiGAN, MultiBand-HiFiGAN, MelGAN, NHV) through synthesis, serving and GAN
+training on an NVIDIA H100, with the MSD, MFD and MPD discriminators.  The
+JAX package `fastvocoder_tpu` beside it is the reference; this package
+imports nothing of it.  Public functions keep its layout: mel (B, T, 80),
+NHV's conditioning (B, T, 81) with f0 on channel 80, basis weights
+(B, F, C), waveform (B, N).
 
-  * ops/     — conv primitives, PQMF, and the four hand-written CUDA kernels
-               (`csrc/`): the basis decode, the fused residual-stack chain,
-               the HiFiGAN MRF stage and the HiFiGAN tail, each beside its
-               plain PyTorch version.
-  * models/  — the Basis-MelGAN, HiFiGAN and MultiBand-HiFiGAN generators,
-               batched synthesis.
+  * ops/     — conv primitives, PQMF, overlap-add, and the six hand-written
+               CUDA kernels (`csrc/`): the basis decode, the residual-stack
+               chain forward and backward, the HiFiGAN MRF stage forward and
+               backward and the HiFiGAN tail, each beside its plain PyTorch
+               version.
+  * models/  — the five generators, the discriminators, batched synthesis.
+  * dsp/, losses/, data/, train/ — STFT, f0, the GAN losses, the data
+               pipeline and the trainer.
   * serving/ — request batching and the HTTP frontend.
-  * bin/     — synthesize / test (RTF) / serve entry points.
+  * bin/     — synthesize / test (RTF) / serve / train entry points.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """

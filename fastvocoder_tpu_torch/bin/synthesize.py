@@ -1,6 +1,5 @@
 """Synthesis entry point (counterpart of `fastvocoder_tpu/bin/synthesize.py`,
-reference bin/synthesize.py:17-104), for Basis-MelGAN, HiFiGAN and
-MultiBand-HiFiGAN.
+reference bin/synthesize.py:17-104), for every generator family.
 
 `Synthesizer` loads a release checkpoint into the fused generator and
 synthesizes with zero-mel bias removal (reference bin/synthesize.py:74-80),
@@ -11,6 +10,12 @@ unpadded length: Basis-MelGAN's raw decode length, `T * hop` for the other
 families, as the JAX package's entry point trims.  Samples within the
 generator's receptive field of the pad boundary then differ from an
 exact-length run by edge effects only.
+
+NHV is conditioned on the mel and f0 (T, 81) (`dsp.f0.f0_to_condition`):
+`synthesize` takes the packed tensor, or an 80-channel mel with `f0=`; its
+zero-conditioning bias has f0 = 0 everywhere (no voicing: the noise source
+alone).  The CLI reads f0 from `--f0_path`, by default the `<name>.f0.npy`
+beside a `<name>.mel.npy`.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 
 from fastvocoder_tpu_torch import resolve_device
 from fastvocoder_tpu_torch.dsp import audio
+from fastvocoder_tpu_torch.dsp.f0 import f0_to_condition
 from fastvocoder_tpu_torch.hparams import HP, Hparams, load_model_config
 from fastvocoder_tpu_torch.models.factory import load_generator
 
@@ -81,9 +87,24 @@ class Synthesizer:
             steps *= s
         return steps
 
-    def synthesize(self, mel: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """mel (T, 80) -> (est, est - bias, bias); bias from a zero mel."""
+    def condition(self, mel: np.ndarray, f0=None) -> np.ndarray:
+        """The generator's input for mel (T, C): NHV's (T, 81) from an
+        80-channel mel and `f0` (T,), which it then needs; else the mel."""
         mel = np.asarray(mel, dtype=np.float32)
+        if self.model_name == "nhv" and mel.shape[1] == self.cfg.arch.in_channels:
+            if f0 is None:
+                raise ValueError(
+                    "nhv conditioning must be mel + f0: pass f0=(T,) with the 80-channel "
+                    "mel, or the packed (T, 81) tensor (dsp.f0.f0_to_condition)")
+            mel = f0_to_condition(mel, np.asarray(f0, np.float32))
+        return mel
+
+    def synthesize(self, mel: np.ndarray, f0=None
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """mel (T, 80) -> (est, est - bias, bias); bias from a zero mel (for
+        NHV a zero conditioning, f0 = 0 included).  NHV takes (T, 81), or
+        the mel with `f0` (T,)."""
+        mel = self.condition(mel, f0)
         bias = self._run(np.zeros_like(mel))
         est = self._run(mel)
         return est, est - bias, bias
@@ -102,9 +123,12 @@ def run_synthesizer(argv=None):
     parser.add_argument("--mel_path", type=str, required=True, help="(80, T) .npy")
     parser.add_argument("--wav_path", type=str, required=True)
     parser.add_argument("--model_name", type=str, default="basis-melgan",
-                        help="basis-melgan, hifigan or multiband-hifigan")
+                        help="basis-melgan, hifigan, multiband-hifigan, melgan or nhv")
     parser.add_argument("--config", type=str, required=True,
                         help="path to model configuration file")
+    parser.add_argument("--f0_path", type=str, default="",
+                        help="nhv only: the f0 track (T,) .npy; by default the <name>.f0.npy "
+                             "beside a --mel_path <name>.mel.npy")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
@@ -113,7 +137,14 @@ def run_synthesizer(argv=None):
         args.checkpoint_path, args.config, args.model_name, hp, device=args.device
     )
     mel = np.load(args.mel_path)
-    est, est_remove, bias = synthesizer.synthesize(mel.T)
+    f0 = None
+    if args.model_name == "nhv":
+        f0_path = args.f0_path or args.mel_path.replace(".mel.npy", ".f0.npy")
+        if f0_path == args.mel_path:
+            raise SystemExit("nhv needs an f0 track: --mel_path is not named <name>.mel.npy, so "
+                             "there is no default f0 path; pass --f0_path")
+        f0 = np.load(f0_path)
+    est, est_remove, bias = synthesizer.synthesize(mel.T, f0=f0)
     audio.save_wav(est, args.wav_path, hp.sample_rate, rescale_out=hp.rescale_out)
     audio.save_wav(est_remove, args.wav_path[:-3] + "remove.wav", hp.sample_rate,
                    rescale_out=hp.rescale_out)

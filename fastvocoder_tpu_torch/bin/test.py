@@ -8,6 +8,10 @@ every family it then measures RTF with the reference protocol: 10
 inference passes over every mel, rtf = elapsed / (10 * total audio
 seconds) (reference bin/test.py:123-132), best of 2 windows.  Each window
 ends with `torch.cuda.synchronize()`.
+
+NHV reads its conditioning as the mel and f0: a packed (81, T) file, or an
+(80, T) `<name>.mel.npy` with its `<name>.f0.npy` beside it (f0 files are
+not mels of their own).
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ def run_test(argv=None):
     parser.add_argument("--file_path", type=str, required=True,
                         help="directory of mel .npy files")
     parser.add_argument("--model_name", type=str, default="basis-melgan",
-                        help="basis-melgan, hifigan or multiband-hifigan")
+                        help="basis-melgan, hifigan, multiband-hifigan, melgan or nhv")
     parser.add_argument("--config", type=str, required=True,
                         help="path to model configuration file")
     parser.add_argument("--device", type=str, default="cuda")
@@ -63,13 +67,20 @@ def run_test(argv=None):
 
     mels = []
     duration = 0.0
-    list_files = sorted(f for f in os.listdir(args.file_path) if f.endswith(".npy"))
+    list_files = sorted(f for f in os.listdir(args.file_path)
+                        if f.endswith(".npy") and not f.endswith(".f0.npy"))
     for file in list_files:
         mel = np.load(os.path.join(args.file_path, file))
-        if mel.shape[0] == hp.num_mels:
+        if mel.shape[0] == hp.num_mels or (args.model_name == "nhv"
+                                            and mel.shape[0] == hp.num_mels + 1):
             mel = mel.T
-        mels.append(mel.astype(np.float32))
-        duration += (mel.shape[0] * hp.hop_size) / hp.sample_rate
+        f0 = None
+        if args.model_name == "nhv" and mel.shape[1] == hp.num_mels:
+            f0_file = os.path.join(args.file_path, file.replace(".mel.npy", ".f0.npy"))
+            if f0_file.endswith(".f0.npy") and os.path.exists(f0_file):
+                f0 = np.load(f0_file)
+        mels.append(synthesizer.condition(mel, f0))
+        duration += (mels[-1].shape[0] * hp.hop_size) / hp.sample_rate
     print(f"duration is {duration}s.")
 
     if args.model_name == "basis-melgan":

@@ -14,14 +14,18 @@ would have seen.
 
 The run is on the CUDA device unless `--device cpu` is passed; with neither
 it raises.  Metrics stay on the device between log points, so steps queue
-without a host sync.  Arguments of the JAX script whose features are not
-ported yet (`--mixprecision`, `--remat`, `--device_cache`, `--use_mpd`)
-raise when set.
+without a host sync.  `--use_mpd 1` adds the multi-period discriminator
+(`-1`, the default, takes the YAML's `use_mpd` key).  NHV reads each
+utterance's `<name>.f0.npy` beside its `<name>.mel.npy` (training and
+validation) and conditions on the mel and f0.  Arguments of the JAX script
+whose features are not ported yet (`--mixprecision`, `--remat`,
+`--device_cache`) raise when set.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -55,7 +59,6 @@ WAITING = {
     "mixprecision": (0, "bf16 mixed precision"),
     "remat": (0, "rematerialisation of the generator forward"),
     "device_cache": (0, "the on-device corpus cache"),
-    "use_mpd": (0, "the multi-period discriminator"),
 }
 
 
@@ -69,6 +72,8 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
                 f"--{name}: {what} is not ported yet (ROADMAP queue A)"
             )
     cfg = load_model_config(args.model_name, args.config)
+    if args.use_mpd >= 0:  # the command line over the YAML's key
+        cfg = dataclasses.replace(cfg, use_mpd=bool(args.use_mpd))
     hp = HP.replace(
         use_feature_map_loss=cfg.use_feature_map_loss,
         batch_size=args.batch_size,
@@ -95,7 +100,7 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         cfg, hp=hp, basis_signal_weight=basis_signal_weight,
         use_scheduler=bool(args.use_scheduler), learning_rate=args.learning_rate,
         learning_rate_discriminator=args.learning_rate_discriminator,
-        disc_cfg=disc_cfg, device=args.device or None,
+        disc_cfg=disc_cfg, device=args.device or None, seed=args.seed,
     )
     device = trainer.device
     state = trainer.init_state(args.seed)
@@ -133,12 +138,13 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
             args.audio_index_valid_path, args.mel_index_valid_path, cfg.arch.L,
             weight_dir=weight_dir, hp=hp, test_size=hp.test_size)
     else:
+        with_f0 = args.model_name == "nhv"  # NHV's f0 conditioning
         dataset = BufferDataset(load_data_to_buffer(
             args.audio_index_path, args.mel_index_path, test_size=hp.test_size,
-            log=logger.info), hp)
+            log=logger.info, with_f0=with_f0), hp)
         valid_dataset = BufferDataset(load_data_to_buffer(
             args.audio_index_valid_path, args.mel_index_valid_path, test_size=hp.test_size,
-            log=logger.info), hp)
+            log=logger.info, with_f0=with_f0), hp)
 
     steps_per_epoch = num_batches_per_epoch(len(dataset), hp)
     total_step = hp.epochs * steps_per_epoch
@@ -183,9 +189,12 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         state.generator.eval()
         for idx in range(n_items):
             item = valid_dataset[idx]
-            t_mel = item["mel"].shape[0]
+            mel_item = item["mel"]
+            if "f0" in item:  # NHV's conditioning channel
+                mel_item = np.concatenate([mel_item, item["f0"][: mel_item.shape[0], None]], 1)
+            t_mel = mel_item.shape[0]
             t_b = (t_mel + bucket - 1) // bucket * bucket
-            mel = np.pad(item["mel"], ((0, t_b - t_mel), (0, 0)))[None]
+            mel = np.pad(mel_item, ((0, t_b - t_mel), (0, 0)))[None]
             wav = item["wav"][: t_mel * hp.hop_size]
             n_true = wav.shape[0]
             wav = np.pad(wav, (0, t_b * hp.hop_size - n_true))[None]
@@ -278,7 +287,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--learning_rate_discriminator", type=float,
                         default=HP.learning_rate_discriminator)
     parser.add_argument("--model_name", type=str, required=True,
-                        help="hifigan, multiband-hifigan, basis-melgan")
+                        help="hifigan, multiband-hifigan, basis-melgan, melgan or nhv")
     parser.add_argument("--config", type=str, required=True,
                         help="path to the model configuration file")
     parser.add_argument("--use_scheduler", type=int, default=0)
@@ -298,6 +307,9 @@ def build_parser() -> argparse.ArgumentParser:
                         default=HP.discriminator_train_start_steps)
     parser.add_argument("--device", type=str, default="",
                         help="cuda (default; raises without a GPU) or cpu")
+    parser.add_argument("--use_mpd", type=int, default=-1,
+                        help="1 adds the multi-period discriminator, 0 leaves it out; -1 "
+                             "takes the YAML's use_mpd key (off, as in the reference)")
     for name, (off, what) in WAITING.items():
         parser.add_argument(f"--{name}", type=int, default=off,
                             help=f"{what}: not ported yet, raises when set")

@@ -14,7 +14,14 @@ keys as in `docs/checkpoints/*.npz`, onto the port's `state_dict`:
     (`build_generator(cfg, weight_norm=True)`, `build_discriminator`);
   * kernels (K, Cin, Cout) become torch weights: (Cout, Cin, K) for a
     convolution, (Cin, Cout, K) for a transposed one.  A transposed conv is
-    a node with `gt`, or, in a fused tree, an upsampler node `up_<i>`.
+    a node with `gt`, or, in a fused tree, an upsampler node `up_<i>`;
+  * 2-D kernels (kh, kw, Cin, Cout) (the multi-period discriminator's
+    `_WNConv2d`) become (Cout, Cin, kh, kw), their gain `g` normalising each
+    output channel over (kh, kw, Cin);
+  * a leaf of the tree's root that is a parameter of its own (`ROOT_LEAVES`:
+    NHV's trainable FIR `fir`, (taps, 1, 1)) keeps its name and layout.
+
+Any other leaf is refused by name.
 
 `load_release_npz` reads a committed release checkpoint.  The port's own
 trainer writes `torch.save` payloads of format `TRAIN_FORMAT`
@@ -39,6 +46,7 @@ Tree = Mapping[str, Union[np.ndarray, "Tree"]]
 _UPSAMPLER = re.compile(r"up_\d+")
 
 TRAIN_FORMAT = "fastvocoder_tpu_torch.train/1"  # the trainer's checkpoints
+ROOT_LEAVES = ("fir",)  # parameters at a tree's root, carried as they are
 
 
 def _flatten(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -58,6 +66,25 @@ def _transposed(node: str, leaves: Mapping) -> bool:
     return "gt" in leaves or bool(_UPSAMPLER.fullmatch(node.split("/")[-1]))
 
 
+def _fold_gain(k: np.ndarray, leaves: Mapping[str, np.ndarray]) -> np.ndarray:
+    """The effective kernel of a weight-norm node: `g` scales each output
+    channel (the last axis) over every other axis, `gt` (a transposed conv)
+    each input channel (axis 1) over (K, Cout)."""
+    if "g" in leaves:
+        axes = tuple(range(k.ndim - 1))
+        return k * (leaves["g"] / np.sqrt(np.sum(k**2, axis=axes, keepdims=True)))
+    if "gt" in leaves:
+        norm = np.sqrt(np.sum(k**2, axis=(0, 2), keepdims=True))
+        return k * (leaves["gt"][None, :, None] / norm)
+    return k
+
+
+def _torch_layout(node: str, leaves: Mapping, k: np.ndarray) -> np.ndarray:
+    if k.ndim == 4:  # (kh, kw, Cin, Cout) -> (Cout, Cin, kh, kw)
+        return k.transpose(3, 2, 0, 1)
+    return k.transpose(1, 2, 0) if _transposed(node, leaves) else k.transpose(2, 1, 0)
+
+
 def state_dict_from_jax(params: Tree, fuse: bool = True) -> Dict[str, torch.Tensor]:
     nodes: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in _flatten(params).items():
@@ -66,24 +93,26 @@ def state_dict_from_jax(params: Tree, fuse: bool = True) -> Dict[str, torch.Tens
 
     out: Dict[str, torch.Tensor] = {}
     for node, leaves in nodes.items():
+        if not node:
+            unknown = set(leaves) - set(ROOT_LEAVES)
+            if unknown:
+                raise ValueError(f"unexpected parameters at the root {sorted(unknown)}")
+            out.update((leaf, torch.from_numpy(v)) for leaf, v in leaves.items())
+            continue
         name = node.replace("/", ".")
         unknown = set(leaves) - {"kernel", "g", "gt", "bias", "basis"}
         if unknown:
             raise ValueError(f"{node}: unexpected parameters {sorted(unknown)}")
         if "kernel" in leaves:
             k = leaves["kernel"]
-            if not fuse:
+            if fuse:
+                k = _fold_gain(k, leaves)
+            else:
                 for gain in ("g", "gt"):
                     if gain in leaves:
                         out[f"{name}.{gain}"] = torch.from_numpy(leaves[gain])
-            elif "g" in leaves:
-                norm = np.sqrt(np.sum(k**2, axis=(0, 1), keepdims=True))
-                k = k * (leaves["g"] / norm)
-            elif "gt" in leaves:
-                norm = np.sqrt(np.sum(k**2, axis=(0, 2), keepdims=True))
-                k = k * (leaves["gt"][None, :, None] / norm)
-            k = k.transpose(1, 2, 0) if _transposed(node, leaves) else k.transpose(2, 1, 0)
-            out[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
+            out[f"{name}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(_torch_layout(node, leaves, k)))
         if "bias" in leaves:
             out[f"{name}.bias"] = torch.from_numpy(leaves["bias"])
         if "basis" in leaves:
@@ -95,7 +124,8 @@ def jax_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, np.
     """The flat JAX-layout tree of a port `state_dict`: the inverse of
     `state_dict_from_jax(..., fuse=False)`.  Keys `<node>.<leaf>` become
     `<node>/<leaf>` (`weight` -> `kernel`), torch weights become kernels
-    (K, Cin, Cout), gains stay as they are."""
+    (K, Cin, Cout) or (kh, kw, Cin, Cout), gains and root leaves stay as
+    they are."""
     nodes: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in state.items():
         node, _, leaf = key.rpartition(".")
@@ -105,8 +135,11 @@ def jax_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, np.
         for leaf, v in leaves.items():
             if leaf == "weight":
                 leaf = "kernel"
-                v = v.transpose(2, 0, 1) if _transposed(node, leaves) else v.transpose(2, 1, 0)
-            out[f"{node}/{leaf}"] = np.ascontiguousarray(v)
+                if v.ndim == 4:
+                    v = v.transpose(2, 3, 1, 0)
+                else:
+                    v = v.transpose(2, 0, 1) if _transposed(node, leaves) else v.transpose(2, 1, 0)
+            out[f"{node}/{leaf}" if node else leaf] = np.ascontiguousarray(v)
     return out
 
 

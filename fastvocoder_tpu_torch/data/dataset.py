@@ -12,7 +12,10 @@ reference's dataset semantics (reference data/dataset.py):
     frame (dataset.py:99-100);
   * mega-batches of `batch_expand_size * batch_size` items, sorted by
     pre-crop mel length descending and split into `batch_expand_size`
-    sub-batches (dataset.py:131-142).
+    sub-batches (dataset.py:131-142);
+  * with `with_f0` (NHV), each item's `<name>.f0.npy` beside its
+    `<name>.mel.npy`, cropped with the mel and packed by `collate` as mel
+    channel 80 (`dsp.f0.f0_to_condition`'s layout).
 
 Every batch is padded to exactly `fixed_length` frames, so every step sees
 one shape.  `to_device` moves a batch to the card through pinned memory
@@ -47,10 +50,12 @@ def load_data_to_buffer(
     feature_savepath: Optional[str] = None,
     test_size: int = 0,
     log=print,
+    with_f0: bool = False,
 ) -> List[Item]:
-    """Every (mel (T, 80), wav) pair of the two index files, in order.  With
+    """Every (mel (T, 80), wav) pair of the two index files, in order; with
+    `with_f0` also its f0 (T,) from `<name>.f0.npy`.  With
     `feature_savepath` the buffer is pickled there and reloaded while the
-    (truncated) mel index it records still matches."""
+    (truncated) mel index it records and its f0 still match."""
     audio_index = parse_path_file(audio_index_path_file)
     mel_index = parse_path_file(mel_index_path_file)
     if len(audio_index) != len(mel_index):
@@ -65,9 +70,10 @@ def load_data_to_buffer(
         log(f"loading buffer from {feature_savepath}")
         with open(feature_savepath, "rb") as f:
             cached = pickle.load(f)
-        if isinstance(cached, dict) and cached.get("mel_index") == mel_index[:n]:
+        if (isinstance(cached, dict) and cached.get("mel_index") == mel_index[:n]
+                and cached.get("with_f0", False) == with_f0):
             return cached["items"]
-        log("cached buffer was built from a different index; reloading")
+        log("cached buffer was built from a different index or f0 choice; reloading")
 
     buffer: List[Item] = []
     start = time.perf_counter()
@@ -76,13 +82,17 @@ def load_data_to_buffer(
         mel = np.load(mel_index[i]).T.astype(np.float32)  # (T, 80)
         wav = np.load(audio_index[i]).astype(np.float32)
         min_length = mel.shape[0] if min_length is None else min(min_length, mel.shape[0])
-        buffer.append({"mel": mel, "wav": wav})
+        item = {"mel": mel, "wav": wav}
+        if with_f0:
+            f0 = np.load(mel_index[i].replace(".mel.npy", ".f0.npy")).astype(np.float32)
+            item["f0"] = f0[: mel.shape[0]]
+        buffer.append(item)
     log(f"loaded {n} items in {time.perf_counter() - start:.1f}s; min mel length {min_length}")
 
     if feature_savepath:
         tmp = feature_savepath + ".tmp"  # readers never see a partial pickle
         with open(tmp, "wb") as f:
-            pickle.dump({"mel_index": mel_index[:n], "items": buffer}, f)
+            pickle.dump({"mel_index": mel_index[:n], "with_f0": with_f0, "items": buffer}, f)
         os.replace(tmp, feature_savepath)
     return buffer
 
@@ -164,6 +174,8 @@ def crop_item(data: Item, rng: np.random.Generator, hp: Hparams,
         "mel": data["mel"][start:end],
         "wav": data["wav"][start * hp.hop_size: end * hp.hop_size],
     }
+    if "f0" in data:
+        out["f0"] = data["f0"][start:end]
     if "weight" in data:
         wstep = hp.hop_size // (L // 2)
         out["weight"] = data["weight"][start * wstep: end * wstep]
@@ -177,13 +189,17 @@ def _pad_to(x: np.ndarray, length: int) -> np.ndarray:
 
 
 def collate(items: Sequence[Item], hp: Hparams, L: Optional[int] = None) -> Item:
-    """Stack crops into a static-shape batch: mel (B, fixed, 80), wav
-    (B, fixed * hop) [, weight (B, fixed * hop / (L/2), C)]."""
+    """Stack crops into a static-shape batch: mel (B, fixed, 80), or with f0
+    (B, fixed, 81) with f0 as channel 80; wav (B, fixed * hop) [, weight
+    (B, fixed * hop / (L/2), C)]."""
     fixed = hp.fixed_length
     batch: Item = {
         "mel": np.stack([_pad_to(d["mel"], fixed) for d in items]),
         "wav": np.stack([_pad_to(d["wav"], fixed * hp.hop_size) for d in items]),
     }
+    if "f0" in items[0]:
+        f0 = np.stack([_pad_to(d["f0"], fixed) for d in items])
+        batch["mel"] = np.concatenate([batch["mel"], f0[..., None]], axis=-1)
     if "weight" in items[0]:
         wlen = fixed * (hp.hop_size // (L // 2))
         batch["weight"] = np.stack([_pad_to(d["weight"], wlen) for d in items])

@@ -191,8 +191,8 @@ class DiscriminatorConfig:
     mfd_channels: int = 64
     mfd_max_channels: int = 1024
     mfd_downsample_scales: Sequence[int] = (4, 4)
-    # MPD: optional, unwired in the reference (discriminator.py:16); not
-    # ported yet (ROADMAP queue A)
+    # MPD: optional, unwired in the reference (discriminator.py:16); on
+    # with use_mpd (models/discriminator/mpd.py)
     use_mpd: bool = False
     mpd_periods: Sequence[int] = (2, 3, 5, 7, 11)
     mpd_channels: Sequence[int] = (32, 128, 512, 1024)

@@ -6,6 +6,11 @@ temporal upsampling, ending in ReLU, predicts non-negative basis weights
 (B, T*16, 256); a frozen basis of length L = 30 maps each weight row to a
 frame, and the frames are 50 %-overlap-added into the waveform.
 
+The upsamplers are transposed convs, or with `transposedconv: False`
+nearest-neighbour upsampling and a conv (`UpsampleLayer`); the stacks run
+the chain kernels on CUDA unless `use_causal_conv` asks for causal stacks,
+which run as library convs (`models.layers.apply_residual_stacks`).
+
 Submodules are named as in the JAX package (`conv_pre`, `up_<i>`,
 `stack_<i>_<j>`, `basis_signal`), so a parameter's path there is its
 `state_dict` key here.
@@ -24,6 +29,7 @@ from fastvocoder_tpu_torch.models.layers import (
     Conv1d,
     ConvTranspose1d,
     ResidualStack,
+    UpsampleLayer,
     apply_residual_stacks,
 )
 from fastvocoder_tpu_torch.ops.conv import reflect_pad1d
@@ -37,30 +43,29 @@ class BasisMelGANGenerator(nn.Module):
         training from scratch needs; a checkpoint's `load_state_dict` fills
         it otherwise."""
         super().__init__()
-        if not cfg.transposedconv or cfg.use_causal_conv:
-            raise NotImplementedError(
-                "the port builds Basis-MelGAN with transposed-conv upsampling "
-                "and non-causal stacks only (conf/basis-melgan/light.yaml); "
-                "the other variants are in ROADMAP queue A"
-            )
         self.cfg = cfg
         kw = dict(bias=cfg.bias, weight_norm=weight_norm)
         self.conv_pre = Conv1d(cfg.in_channels, cfg.channels[0], cfg.kernel_size, **kw)
         self.ups = []
         self.stacks = []
         for i, scale in enumerate(cfg.upsample_scales):
-            up = ConvTranspose1d(
-                cfg.channels[i], cfg.channels[i + 1], kernel_size=scale * 2,
-                stride=scale, padding=scale // 2 + scale % 2,
-                output_padding=scale % 2, **kw,
-            )
+            if cfg.transposedconv:
+                up = ConvTranspose1d(
+                    cfg.channels[i], cfg.channels[i + 1], kernel_size=scale * 2,
+                    stride=scale, padding=scale // 2 + scale % 2,
+                    output_padding=scale % 2, **kw,
+                )
+            else:  # nearest-neighbour upsampling and a conv of K = 2s + 1
+                up = UpsampleLayer(cfg.channels[i], cfg.channels[i + 1], upsample_rate=scale,
+                                   kernel_size=scale * 2 + 1, **kw)
             self.add_module(f"up_{i}", up)
             self.ups.append(up)
             group = []
             for j in range(cfg.stacks):
                 stack = ResidualStack(
                     cfg.channels[i + 1], kernel_size=cfg.stack_kernel_size,
-                    dilation=cfg.stack_kernel_size ** j, **kw,
+                    dilation=cfg.stack_kernel_size ** j,
+                    use_causal_conv=cfg.use_causal_conv, **kw,
                 )
                 self.add_module(f"stack_{i}_{j}", stack)
                 group.append(stack)

@@ -1,9 +1,11 @@
 """Model factory (counterpart of `fastvocoder_tpu/models/factory.py`).
 
-Every generator the port builds has `inference(mel (B, T, 80)) -> waveform
-(B, N)`, the method the JAX package serves its family with: Basis-MelGAN's
-`inference` (raw, untrimmed decode), HiFiGAN's plain call, and
-MultiBand-HiFiGAN's `synthesize` (PQMF synthesis of the trunk's bands).
+Builds all five generator families.  Every generator has
+`inference(mel (B, T, C)) -> waveform (B, N)`, the method the JAX package
+serves its family with: Basis-MelGAN's `inference` (raw, untrimmed decode),
+the plain call of HiFiGAN, MelGAN and NHV (whose conditioning is the mel
+and an f0 channel, C = 81), and MultiBand-HiFiGAN's `synthesize` (PQMF
+synthesis of the trunk's bands).
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from fastvocoder_tpu_torch.hparams import DISC, DiscriminatorConfig, ModelConfig
 from fastvocoder_tpu_torch.models.basis_melgan import BasisMelGANGenerator
 from fastvocoder_tpu_torch.models.discriminator.composite import Discriminator
 from fastvocoder_tpu_torch.models.hifigan import HiFiGANGenerator
+from fastvocoder_tpu_torch.models.melgan import MelGANGenerator
 from fastvocoder_tpu_torch.models.multiband_hifigan import MultiBandHiFiGANGenerator
+from fastvocoder_tpu_torch.models.nhv import NHVGenerator
 
 
 def build_generator(cfg: ModelConfig, weight_norm: bool = False,
@@ -37,14 +41,18 @@ def build_generator(cfg: ModelConfig, weight_norm: bool = False,
         return HiFiGANGenerator(cfg.arch, weight_norm=weight_norm)
     if cfg.model_name == "multiband-hifigan":
         return MultiBandHiFiGANGenerator(cfg.arch, weight_norm=weight_norm)
-    raise NotImplementedError(
-        f"{cfg.model_name!r} is not ported yet: MelGAN and NHV are in ROADMAP queue A"
-    )
+    if cfg.model_name == "melgan":
+        return MelGANGenerator(cfg.arch, weight_norm=weight_norm)
+    if cfg.model_name == "nhv":
+        return NHVGenerator(cfg.arch, weight_norm=weight_norm)
+    raise ValueError(f"no model {cfg.model_name!r}")
 
 
-def build_discriminator(disc_cfg: DiscriminatorConfig = DISC) -> Discriminator:
-    """The composite discriminator (MSD + MFD) at `disc_cfg`'s sizes."""
-    return Discriminator(disc_cfg)
+def build_discriminator(disc_cfg: DiscriminatorConfig = DISC, use_mpd: bool = False
+                        ) -> Discriminator:
+    """The composite discriminator (MSD + MFD, and the MPD with `use_mpd` or
+    `disc_cfg.use_mpd`) at `disc_cfg`'s sizes."""
+    return Discriminator(disc_cfg, use_mpd=use_mpd)
 
 
 def load_generator(checkpoint_path: str, cfg: ModelConfig, device: torch.device):

@@ -180,24 +180,64 @@ class UpsampleLayer(nn.Module):
         return self.conv(x.repeat_interleave(self.upsample_rate, dim=1))
 
 
+class LastLayer(nn.Module):
+    """MelGAN's output layer (reference modules.py:76-89): leaky(0.2), a
+    reflect pad of (K - 1) // 2, then the conv (the child `conv`)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, bias: bool = True,
+                 weight_norm: bool = False):
+        super().__init__()
+        self.conv = Conv1d(cin, cout, kernel_size, bias=bias, weight_norm=weight_norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pad = (self.conv.weight.shape[-1] - 1) // 2
+        return self.conv(reflect_pad1d(leaky_relu(x), pad))
+
+
+class CausalConv1d(nn.Module):
+    """`CausalWNConv1d` (reference modules.py:273-294): the input reflected
+    by (K - 1) d rows at its left edge, then the dilated conv, so that
+    output t reads rows t - (K - 1) d .. t only.  The JAX package pads
+    both edges and keeps the first T outputs, which read no row of the
+    right pad: the same function.  The conv is the child `conv`, as the JAX
+    tree's `conv_dilated/conv/kernel`."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, dilation: int = 1,
+                 bias: bool = True, weight_norm: bool = False):
+        super().__init__()
+        self.pad = (kernel_size - 1) * dilation
+        self.conv = Conv1d(cin, cout, kernel_size, dilation=dilation, bias=bias,
+                           weight_norm=weight_norm)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(reflect_pad1d(x, (self.pad, 0)))
+
+
 class ResidualStack(nn.Module):
     """MelGAN residual stack (reference modules.py:320-382):
     leaky(0.2) -> reflect-pad -> dilated conv -> leaky(0.2) -> 1x1 conv,
-    plus a 1x1 skip conv."""
+    plus a 1x1 skip conv.  With `use_causal_conv` the dilated conv is a
+    `CausalConv1d` (left-only reflect pad)."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilation: int = 1,
-                 bias: bool = True, weight_norm: bool = False):
+                 bias: bool = True, weight_norm: bool = False, use_causal_conv: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
         self.dilation = dilation
+        self.causal = use_causal_conv
         kw = dict(bias=bias, weight_norm=weight_norm)
-        self.conv_dilated = Conv1d(channels, channels, kernel_size, dilation=dilation, **kw)
+        if use_causal_conv:
+            self.conv_dilated = CausalConv1d(channels, channels, kernel_size, dilation=dilation,
+                                             **kw)
+        else:
+            self.conv_dilated = Conv1d(channels, channels, kernel_size, dilation=dilation, **kw)
         self.conv_1x1 = Conv1d(channels, channels, 1, **kw)
         self.skip = Conv1d(channels, channels, 1, **kw)
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         h = leaky_relu(c)
-        h = reflect_pad1d(h, stack_margin(self.kernel_size, self.dilation))
+        if not self.causal:
+            h = reflect_pad1d(h, stack_margin(self.kernel_size, self.dilation))
         h = self.conv_dilated(h)
         h = leaky_relu(h)
         return self.conv_1x1(h) + self.skip(c)
@@ -205,15 +245,23 @@ class ResidualStack(nn.Module):
     def chain_operands(self):
         """(k_dilated (K, C, C), b_d, dilation, k_1x1 (1, C, C), b_1,
         k_skip (1, C, C), b_s): the weights laid out (tap, c_in, c_out) for
-        `ops.fused_resstack` (`_operands`)."""
+        `ops.fused_resstack` (`_operands`).  Non-causal stacks only."""
         return _operands(self, lambda: (*self.conv_dilated.tap_major(), self.dilation,
                                         *self.conv_1x1.tap_major(), *self.skip.tap_major()))
 
 
 def apply_residual_stacks(x: torch.Tensor, stacks: Sequence[ResidualStack]) -> torch.Tensor:
     """Run a stage's sequential ResidualStacks: the chain kernels on CUDA
-    (its backward kernel under autograd), the modules on the CPU."""
-    if not x.is_cuda:
+    (its backward kernel under autograd), the modules on the CPU.
+
+    Causal stacks compute another function (a left-only reflect pad, which
+    the chain kernels do not mirror), so they run as the modules, library
+    convs, on every device, as the JAX package runs them as plain XLA convs
+    (`use_fused_stacks` refuses them): decided from the stacks'
+    configuration before any kernel is tried, never as a fallback from a
+    kernel that failed.  Every non-causal width runs the kernels; a width
+    outside `ops.fused_resstack.KERNEL_WIDTHS` raises there."""
+    if not x.is_cuda or any(m.causal for m in stacks):
         for m in stacks:
             x = m(x)
         return x

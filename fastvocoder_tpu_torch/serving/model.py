@@ -1,6 +1,5 @@
 """Checkpoint -> batched serving callable (counterpart of
-`fastvocoder_tpu/serving/model.py`), for Basis-MelGAN, HiFiGAN and
-MultiBand-HiFiGAN.
+`fastvocoder_tpu/serving/model.py`), for every generator family.
 
 Loads a release checkpoint into the fused generator, batches requests by
 length bucket (`models/batched.py`) through the generator's `inference`,
@@ -9,7 +8,8 @@ the method the JAX package serves the family with (Basis-MelGAN's
 `models/factory.py`), and subtracts a published `pattern` (Basis-MelGAN's
 zero-mel response) from each utterance after the `T * hop` trim, as the
 reference's test harness does (reference bin/test.py:85-88).  The other
-families' checkpoints carry no pattern and are served as they come.
+families' checkpoints carry no pattern and are served as they come.  NHV
+takes its conditioning (T, 81), the mel and f0 (`dsp.f0.f0_to_condition`).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from fastvocoder_tpu_torch.models.streaming import check_pattern_covers
 
 
 class ServingModel:
-    """list[mel (T_i, C)] -> list[wav (T_i * hop,)] — load once, serve many."""
+    """list[mel (T_i, C)] -> list[wav (T_i * hop,)], C = `input_channels` —
+    load once, serve many."""
 
     def __init__(
         self,
@@ -58,7 +59,7 @@ class ServingModel:
 
     @property
     def input_channels(self) -> int:
-        return self.hp.num_mels
+        return self.hp.num_mels + 1 if self.model_name == "nhv" else self.hp.num_mels
 
     def warmup(self, max_frames: int) -> int:
         """Run every (bucket, group-size) shape for utterances up to

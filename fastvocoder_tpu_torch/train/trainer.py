@@ -26,13 +26,21 @@ PyTorch is eager and stateful: a `TrainState` holds the two modules and the
 two optimisers, and a step updates them in place.  The generator is the
 training form (`weight_norm=True`), whose MRF and residual-stack stages run
 the port's CUDA kernels on the card, forward and backward.
+
+NHV's noise source is drawn once a step by `Trainer.noise(step, shape)`
+(by default seeded from the run's seed and the step) and goes into every
+generator forward of that step, as the JAX package's `fold_in(PRNGKey(42),
+step)` does; its impulse train comes from the f0 channel of the batch.
+The discriminator is the composite of `disc_cfg`, with the multi-period
+discriminator when `disc_cfg.use_mpd` or the model configuration's
+`use_mpd` asks for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,9 +55,23 @@ from fastvocoder_tpu_torch.losses import (
     reconstruction_loss_masked,
 )
 from fastvocoder_tpu_torch.models.factory import build_discriminator, build_generator
+from fastvocoder_tpu_torch.models.nhv import NOISE_SCALE
 from fastvocoder_tpu_torch.ops.pqmf import PQMF
 
 Metrics = Dict[str, torch.Tensor]
+Noise = Callable[[int, Sequence[int]], torch.Tensor]
+
+
+def seeded_noise(seed: int, device: torch.device) -> Noise:
+    """NHV's training noise: `noise(step, shape)` is 0.3 randn of `shape`
+    on `device` from a generator seeded with (seed, step), one draw a step
+    whatever the number of forwards."""
+
+    def noise(step: int, shape: Sequence[int]) -> torch.Tensor:
+        g = torch.Generator(device=device).manual_seed(seed * 2 ** 32 + step)
+        return NOISE_SCALE * torch.randn(tuple(shape), generator=g, device=device)
+
+    return noise
 
 
 def torch_cosine_annealing(base_lr: float, t_max: int = 2500,
@@ -123,6 +145,7 @@ class Trainer:
     gen_schedule: Callable[[int], float]
     disc_schedule: Callable[[int], float]
     pqmf: Optional[PQMF]
+    noise: Noise  # NHV's noise source of a step: noise(step, (B, samples))
     basis_signal_weight: Optional[np.ndarray] = None
     # the clip norms of the last step, for tests and logs: "generator",
     # "discriminator"
@@ -150,8 +173,21 @@ class Trainer:
 
     # ---- forward helpers ----
 
-    def _gen_forward(self, generator: nn.Module, mel: torch.Tensor):
-        out = generator(mel)
+    def _step_noise(self, state: TrainState, mel: torch.Tensor) -> Optional[torch.Tensor]:
+        """NHV's noise of this step (None for the other families)."""
+        if self.cfg.model_name != "nhv":
+            return None
+        return self.noise(state.step, (mel.shape[0], mel.shape[1] * self.cfg.arch.hop_size))
+
+    def _gen_forward(self, generator: nn.Module, mel: torch.Tensor,
+                     noise: Optional[torch.Tensor] = None):
+        """The generator's training forward; NHV's with the step's `noise`
+        (its inference sources without one, as validation runs it)."""
+        if noise is not None:
+            f0 = mel[..., self.cfg.arch.in_channels]
+            out = generator(mel, sources=generator.sources(f0, noise))
+        else:
+            out = generator(mel)
         if self.cfg.model_name == "basis-melgan":
             return out  # (est_source, est_weight)
         return out, None
@@ -192,7 +228,7 @@ class Trainer:
 
     def pre_adv_step(self, state: TrainState, mel, wav, weight=None) -> Tuple[TrainState, Metrics]:
         """Generator-only phase (step <= discriminator_train_start_steps)."""
-        est, est_weight = self._gen_forward(state.generator, mel)
+        est, est_weight = self._gen_forward(state.generator, mel, self._step_noise(state, mel))
         stft_l, weight_l = reconstruction_loss(est, wav, est_weight=est_weight, weight=weight,
                                                pqmf=self.pqmf)
         total = self.cfg.lambda_stft * stft_l
@@ -212,7 +248,8 @@ class Trainer:
         the estimate of the updated generator.  The discriminator always
         sees full-band waveforms."""
         disc = state.discriminator
-        est, est_weight = self._gen_forward(state.generator, mel)
+        noise = self._step_noise(state, mel)  # one draw for both generator forwards
+        est, est_weight = self._gen_forward(state.generator, mel, noise)
         stft_l, _ = reconstruction_loss(est, wav, est_weight=est_weight, weight=weight,
                                         pqmf=self.pqmf)
         total = self.cfg.lambda_stft * stft_l
@@ -232,7 +269,7 @@ class Trainer:
         del est_p, est, est_weight
 
         with torch.no_grad():
-            est_for_d = self._to_fullband(self._gen_forward(state.generator, mel)[0])
+            est_for_d = self._to_fullband(self._gen_forward(state.generator, mel, noise)[0])
         real_l, fake_l = discriminator_loss(disc(wav), disc(est_for_d))
         d_loss = real_l + fake_l
         params = list(disc.parameters())
@@ -272,9 +309,14 @@ def make_trainer(
     disc_cfg: DiscriminatorConfig = DISC,
     device=None,
     keep_grads: bool = False,
+    seed: int = 0,
+    noise: Optional[Noise] = None,
 ) -> Trainer:
     """The trainer of `cfg` on `device`: the CUDA device by default, and a
-    RuntimeError without one unless `device="cpu"` is asked for."""
+    RuntimeError without one unless `device="cpu"` is asked for.  `noise`
+    replaces NHV's draw of a step (`seeded_noise(seed, device)`); the
+    discriminator takes the MPD where `cfg.use_mpd` or `disc_cfg.use_mpd`
+    says so."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -283,10 +325,8 @@ def make_trainer(
             )
         device = "cuda"
     device = torch.device(device)
-    if cfg.use_mpd or disc_cfg.use_mpd:
-        raise NotImplementedError(
-            "the multi-period discriminator is not ported yet (ROADMAP queue A)"
-        )
+    if cfg.use_mpd and not disc_cfg.use_mpd:
+        disc_cfg = dataclasses.replace(disc_cfg, use_mpd=True)
     hp = hp.replace(use_feature_map_loss=cfg.use_feature_map_loss)
     lr_g = learning_rate if learning_rate is not None else hp.learning_rate
     lr_d = (learning_rate_discriminator if learning_rate_discriminator is not None
@@ -296,5 +336,6 @@ def make_trainer(
         gen_schedule=torch_cosine_annealing(lr_g) if use_scheduler else (lambda count: lr_g),
         disc_schedule=torch_cosine_annealing(lr_d) if use_scheduler else (lambda count: lr_d),
         pqmf=PQMF().to(device) if cfg.multiband else None,
+        noise=noise if noise is not None else seeded_noise(seed, device),
         basis_signal_weight=basis_signal_weight, keep_grads=keep_grads,
     )

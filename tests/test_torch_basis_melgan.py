@@ -25,7 +25,7 @@ from fastvocoder_tpu.models.basis_melgan import BasisMelGANGenerator as JaxGener
 from fastvocoder_tpu.models.factory import build_generator as jax_build_generator
 from fastvocoder_tpu.train.checkpoint import fuse_weight_norm
 from fastvocoder_tpu_torch.checkpoint import load_release_npz, state_dict_from_jax
-from fastvocoder_tpu_torch.hparams import BasisMelGANConfig, load_model_config
+from fastvocoder_tpu_torch.hparams import BasisMelGANConfig, ModelConfig, load_model_config
 from fastvocoder_tpu_torch.models.basis_melgan import BasisMelGANGenerator
 from fastvocoder_tpu_torch.models.factory import build_generator
 
@@ -34,6 +34,18 @@ NPZ = os.path.join(ROOT, "docs", "checkpoints", "basis_melgan_clean2.npz")
 CONF = os.path.join(ROOT, "conf", "basis-melgan", "light.yaml")
 NARROW = dict(L=30, in_channels=80, out_channels=32, kernel_size=7,
               channels=(32, 32, 32), upsample_scales=(4, 4), stacks=3)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs, restored afterwards:
+    pytest-xdist runs several test processes side by side, and torch's
+    default of a thread a core in each made these small-op tests over 20x
+    slower (six processes on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _mel(T, seed):
@@ -135,7 +147,13 @@ def test_release_checkpoint_matches_jax_inference():
 
 
 def test_other_families_are_not_ported_yet():
+    """Every family is ported now: MelGAN and NHV build at full width in
+    both forms (held against the JAX package in test_torch_melgan.py and
+    test_torch_nhv.py), and so do Basis-MelGAN's other variants."""
     for name, conf in (("melgan", "melgan/original.yaml"), ("nhv", "nhv/default.yaml")):
         cfg = load_model_config(name, os.path.join(ROOT, "conf", conf))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_generator(cfg)
+        for weight_norm in (False, True):
+            gen = build_generator(cfg, weight_norm=weight_norm)
+            assert callable(gen.inference)
+    for variant in (dict(transposedconv=False), dict(use_causal_conv=True)):
+        build_generator(ModelConfig("basis-melgan", BasisMelGANConfig(**NARROW, **variant)))

@@ -6,6 +6,14 @@ computes from the folded weights, and what the JAX generator computes from
 the same tree, both within 1e-4 of the output's peak (the fold is done in
 numpy on one side and in torch on the other, and Basis-MelGAN's output is
 the difference of two trunk passes, which cancels most of the peak).
+
+The leaves that are not 1-D conv nodes carry across both ways: a leaf of
+the tree's root (NHV's FIR `fir`, (taps, 1, 1)) keeps its name and layout,
+and the MPD's 2-D kernels (kh, kw, Cin, Cout) become (Cout, Cin, kh, kw),
+their gain normalising each output channel over (kh, kw, Cin), fused as the
+JAX package's `fuse_weight_norm` fuses them (within 1e-6; measured: the
+same bits) or kept.  Any
+other leaf is refused by name.  Both new release checkpoints load.
 """
 
 import jax
@@ -16,8 +24,14 @@ import torch
 
 from fastvocoder_tpu import hparams as jhp
 from fastvocoder_tpu.models.factory import build_generator as jax_build_generator
+from fastvocoder_tpu.train.checkpoint import fuse_weight_norm
 from fastvocoder_tpu_torch import hparams as thp
-from fastvocoder_tpu_torch.checkpoint import state_dict_from_jax
+from fastvocoder_tpu_torch.checkpoint import (
+    jax_tree_from_state_dict,
+    load_release_npz,
+    state_dict_from_jax,
+)
+from fastvocoder_tpu_torch.models.discriminator.mpd import Conv2d
 from fastvocoder_tpu_torch.models.factory import build_generator
 from fastvocoder_tpu_torch.train.checkpoint import (
     latest_checkpoint,
@@ -30,6 +44,18 @@ HIFI_ARCH = dict(resblock_kernel_sizes=(3, 5), upsample_rates=(8, 5, 3, 2),
                  upsample_initial_channel=32, upsample_kernel_sizes=(16, 10, 6, 4),
                  resblock_dilation_sizes=((1, 3), (1, 3)))
 BASIS_ARCH = dict(out_channels=16, channels=(16, 16, 16))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs, restored afterwards:
+    pytest-xdist runs several test processes side by side, and torch's
+    default of a thread a core in each made these small-op tests over 20x
+    slower (six processes on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfgs(name):
@@ -117,3 +143,81 @@ def test_training_checkpoint_round_trip_and_latest(tmp_path):
 
     with pytest.raises(ValueError, match="not 'basis-melgan'"):
         load_checkpoint(str(os_dir / "checkpoint_2.pth.tar"), fresh, "basis-melgan")
+
+
+def _root_and_2d_tree():
+    rng = np.random.default_rng(11)
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    return {
+        "fir": f32(17, 1, 1),
+        "mpd": {"disc_0": {"conv_0": {"kernel": f32(5, 1, 1, 4), "g": f32(4) ** 2,
+                                      "bias": f32(4)},
+                           "conv_1": {"kernel": f32(5, 1, 4, 8), "g": f32(8) ** 2,
+                                      "bias": f32(8)}}},
+        "filter_estimator": {"conv_0": {"kernel": f32(3, 80, 16), "g": f32(16) ** 2,
+                                        "bias": f32(16)}},
+    }
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def test_root_leaves_and_2d_kernels_round_trip():
+    tree = _root_and_2d_tree()
+    kept = state_dict_from_jax(tree, fuse=False)
+    np.testing.assert_array_equal(kept["fir"].numpy(), tree["fir"])
+    k = tree["mpd"]["disc_0"]["conv_1"]["kernel"]
+    np.testing.assert_array_equal(kept["mpd.disc_0.conv_1.weight"].numpy(),
+                                  k.transpose(3, 2, 0, 1))
+    assert "mpd.disc_0.conv_1.g" in kept
+    back = jax_tree_from_state_dict(kept)
+    want = _flat(tree)
+    assert back.keys() == want.keys()
+    for key, v in want.items():
+        np.testing.assert_array_equal(back[key], v, err_msg=key)
+
+    fused = state_dict_from_jax(tree)
+    assert not any(key.endswith((".g", ".gt")) for key in fused)
+    jax_fused = _flat(fuse_weight_norm(tree))
+    for key, v in jax_tree_from_state_dict(fused).items():
+        np.testing.assert_allclose(v, jax_fused[key], rtol=1e-6, atol=1e-6, err_msg=key)
+
+
+def test_a_2d_conv_computes_alike_fused_and_with_its_gain():
+    torch.manual_seed(3)
+    trained = Conv2d(4, 8, (5, 1), (3, 1), (2, 0))
+    with torch.no_grad():
+        trained.g.mul_(torch.rand(8) + 0.5)
+    tree = jax_tree_from_state_dict({f"c.{k}": v for k, v in trained.state_dict().items()})
+    assert tree["c/kernel"].shape == (5, 1, 4, 8)
+    served = Conv2d(4, 8, (5, 1), (3, 1), (2, 0), weight_norm=False)
+    served.load_state_dict({k[2:]: v for k, v in state_dict_from_jax(tree).items()})
+    x = torch.randn(2, 4, 40, 3)
+    with torch.no_grad():
+        torch.testing.assert_close(served(x), trained(x), rtol=1e-5, atol=1e-6)
+
+
+def test_unknown_leaves_are_refused_by_name():
+    tree = _root_and_2d_tree()
+    with pytest.raises(ValueError, match="'scale'"):
+        state_dict_from_jax(dict(tree, scale=np.ones(3, np.float32)))
+    tree["filter_estimator"]["conv_0"]["alpha"] = np.ones(3, np.float32)
+    with pytest.raises(ValueError, match="filter_estimator/conv_0.*'alpha'"):
+        state_dict_from_jax(tree)
+
+
+@pytest.mark.parametrize("name,tensors", [("melgan", 84), ("nhv", 9)])
+def test_release_checkpoints_of_melgan_and_nhv_load(name, tensors):
+    import os
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    ckpt = load_release_npz(os.path.join(root, "docs", "checkpoints", f"{name}_clean.npz"))
+    assert ckpt["model_name"] == name and ckpt["pattern"] is None
+    gen = build_generator(thp.load_model_config(name, os.path.join(root, ckpt["config"])))
+    gen.load_state_dict(ckpt["state_dict"])  # strict: every key carried, every key used
+    assert len(ckpt["state_dict"]) == tensors  # weights and biases, gains folded; NHV's fir

@@ -54,6 +54,18 @@ NARROW = dict(resblock_kernel_sizes=(3, 5), upsample_rates=(4, 2), upsample_init
               upsample_kernel_sizes=(8, 4), resblock_dilation_sizes=((1, 3), (1, 3)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs, restored afterwards:
+    pytest-xdist runs several test processes side by side, and torch's
+    default of a thread a core in each made these small-op tests over 20x
+    slower (six processes on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mel(T, seed, B=1):
     rng = np.random.default_rng(seed)
     return np.clip(0.5 + 0.25 * rng.standard_normal((B, T, 80)), 0, 1).astype(np.float32)

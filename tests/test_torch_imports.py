@@ -41,7 +41,8 @@ def test_scan_sees_the_whole_port():
     for new in ("bin/train.py", "train/trainer.py", "train/checkpoint.py", "data/dataset.py",
                 "dsp/stft.py", "losses/__init__.py", "losses/gan.py", "losses/stft_loss.py",
                 "models/discriminator/msd.py", "models/discriminator/mfd.py",
-                "models/discriminator/composite.py"):
+                "models/discriminator/composite.py", "models/melgan.py", "models/nhv.py",
+                "models/discriminator/mpd.py", "dsp/f0.py", "ops/overlap_add.py"):
         assert f"fastvocoder_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 

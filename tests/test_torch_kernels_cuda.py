@@ -248,6 +248,81 @@ def test_fused_resstack_bwd_kernel_matches_plain_vjp_at_tile_edges(cuda, B, T, C
                         [t for s in grads_ref for t in s])
 
 
+@pytest.fixture(scope="module")
+def melgan_original():
+    from fastvocoder_tpu_torch.hparams import load_model_config
+    from fastvocoder_tpu_torch.models.factory import load_generator
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = os.path.join(os.path.dirname(__file__), "..")
+    cfg = load_model_config("melgan", os.path.join(root, "conf", "melgan", "original.yaml"))
+    gen, _ = load_generator(os.path.join(root, "docs", "checkpoints", "melgan_clean.npz"),
+                            cfg, torch.device("cuda"))
+    return gen
+
+
+# MelGAN original's four stages of a 585-frame utterance (C = 256, 128, 64,
+# 32 over 5850 to 140,400 rows), with its release weights
+@pytest.mark.parametrize("stage,T", [(0, 5850), (1, 35100), (2, 70200), (3, 140400)])
+def test_fused_resstack_kernel_matches_plain_melgan_stages(cuda, melgan_original, stage, T):
+    stacks = [m.chain_operands() for m in melgan_original.stacks[stage]]
+    C = stacks[0][0].shape[1]
+    g = torch.Generator().manual_seed(stage)
+    x = (0.3 * torch.randn(1, T, C, generator=g)).to(cuda)
+    _assert_rows_close(fused_residual_stacks_cuda(x, stacks), fused_residual_stacks_plain(x, stacks),
+                       3e-4, 3e-6)
+
+
+# the longest chain any path runs, C = 32 at 140,400 rows, on both sides of
+# the 128-row blocks nearest it (140,288 and 140,416 rows are whole blocks)
+@pytest.mark.parametrize("T", [140287, 140288, 140289, 140400, 140415, 140416, 140417])
+def test_fused_resstack_kernel_matches_plain_at_melgan_length(cuda, T):
+    g = torch.Generator().manual_seed(T)
+    x = (0.3 * torch.randn(1, T, 32, generator=g)).to(cuda)
+    stacks = _stacks(32, cuda, seed=33)
+    _assert_rows_close(fused_residual_stacks_cuda(x, stacks), fused_residual_stacks_plain(x, stacks),
+                       3e-4, 3e-6)
+
+
+# MelGAN's training stages (crops of 140 frames; batch 2 here, 32 in
+# chip_smoke.py) with the release weights, and C = 32 at 140,400 rows
+@pytest.mark.parametrize("stage,B,T", [(0, 2, 1400), (1, 2, 8400), (2, 1, 16800), (3, 1, 33600),
+                                       (3, 1, 140400), (3, 1, 140417)])
+def test_fused_resstack_bwd_kernel_matches_plain_vjp_melgan_stages(cuda, melgan_original, stage,
+                                                                   B, T):
+    stacks = [m.chain_operands() for m in melgan_original.stacks[stage]]
+    C = stacks[0][0].shape[1]
+    gen = torch.Generator().manual_seed(10 * stage + B)
+    x = (0.3 * torch.randn(B, T, C, generator=gen)).to(cuda)
+    g = torch.randn(B, T, C, generator=gen).to(cuda)
+    dx, grads = fused_residual_stacks_vjp_cuda(x, stacks, g)
+    dx_ref, grads_ref = fused_residual_stacks_vjp_plain(*_f64((x, stacks, g)))
+    _assert_grads_close(dx, dx_ref, [t for s in grads for t in s],
+                        [t for s in grads_ref for t in s])
+
+
+@pytest.mark.parametrize("kind", ["constant", "random"])
+def test_nhv_impulse_train_on_the_card_is_the_cpus(cuda, kind):
+    """NHV's impulse train sums its phase as integers, so the card's
+    parallel cumsum fires on the very samples the CPU's does (585 frames,
+    bench.py's 220 Hz contour and a random 150-250 Hz one with unvoiced
+    frames)."""
+    from fastvocoder_tpu_torch.models.nhv import impulse_train
+
+    rng = np.random.default_rng(585)
+    if kind == "constant":
+        f0 = np.full((2, 585), 220.0, np.float32)
+    else:
+        f0 = rng.uniform(150.0, 250.0, (2, 585)).astype(np.float32)
+        f0[rng.random((2, 585)) < 0.2] = 0.0
+    f0 = torch.from_numpy(f0)
+    got = impulse_train(f0.to(cuda), 240, 24000).cpu()
+    want = impulse_train(f0, 240, 24000)
+    assert want.sum() > 2000 if kind == "constant" else want.sum() > 1500
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("B,T,C", [(4, 700, 256), (3, 900, 32)])
 def test_fused_resstack_bwd_kernel_is_the_same_from_run_to_run(cuda, B, T, C):
     """dW is summed in stages in a fixed order, without atomics, and the

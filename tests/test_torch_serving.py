@@ -33,6 +33,18 @@ CONF = os.path.join(ROOT, "conf", "basis-melgan", "light.yaml")
 LENGTHS = (20, 45, 64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs, restored afterwards:
+    pytest-xdist runs several test processes side by side, and torch's
+    default of a thread a core in each made these small-op tests over 20x
+    slower (six processes on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mels():
     rng = np.random.default_rng(7)
     return [np.clip(0.5 + 0.25 * rng.standard_normal((T, 80)), 0, 1).astype(np.float32)

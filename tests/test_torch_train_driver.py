@@ -6,6 +6,9 @@ continues as the unbroken run does, a validation pass, and the flags that
 wait.  Then the checkpoint a run wrote loads where a release checkpoint
 does (`Synthesizer`, `bin/test.py`, `ServingModel`) and synthesizes what
 the trained generator computes; a file of neither format is refused.
+MelGAN trains with `--use_mpd 1` (its GAN step against MSD + MFD + MPD),
+NHV on the corpus's `<name>.f0.npy` files (f0 packed as mel channel 80,
+validation included), and each is then served from its own checkpoint.
 """
 
 import json
@@ -39,6 +42,18 @@ HIFI_YAML = (
     "transposedconv: True\nbias: True\nmultiband: False\nlamda_stft: 5.0\n"
     "use_feature_map_loss: True\n"
 )
+MELGAN_YAML = (
+    "in_channels: 80\nout_channels: 1\nkernel_size: 7\nchannels: [32, 16, 16, 8, 8]\n"
+    "upsample_scales: [10, 6, 2, 2]\nstack_kernel_size: 3\nstacks: 3\n"
+    "use_weight_norm: True\nuse_causal_conv: False\nlamda_stft: 1.0\n"
+)
+NHV_YAML = (
+    "in_channels: 80\nchannels: 16\nn_layers: 2\nkernel_size: 3\nccep_size: 32\n"
+    "fir_taps: 17\nfft_size: 512\nwin_length: 480\nhop_size: 240\nsample_rate: 24000\n"
+    "lamda_stft: 5.0\n"
+)
+CONFS = {"hifigan": "hifigan.yaml", "basis-melgan": "basis.yaml", "melgan": "melgan.yaml",
+         "nhv": "nhv.yaml"}
 BASIS_YAML = (
     "L: 30\nin_channels: 80\nout_channels: 16\nkernel_size: 7\nchannels: [16, 16, 16]\n"
     "upsample_scales: [4, 4]\nstack_kernel_size: 3\nstacks: 3\nuse_weight_norm: True\n"
@@ -46,10 +61,22 @@ BASIS_YAML = (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs, restored afterwards:
+    pytest-xdist runs several test processes side by side, and torch's
+    default of a thread a core in each made these small-op tests over 20x
+    slower (six processes on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def corpus(tmp_path):
-    """8 (wav.npy, mel.npy) pairs of 60-100 frames, their two index files,
-    Basis-MelGAN weight targets and a basis, two model configs."""
+    """8 (wav.npy, mel.npy, f0.npy) triples of 60-100 frames, the two index
+    files, Basis-MelGAN weight targets and a basis, four model configs."""
     rng = np.random.default_rng(1)
     audio_idx, mel_idx = [], []
     os.makedirs(tmp_path / "weight")
@@ -58,6 +85,9 @@ def corpus(tmp_path):
         wav = (0.3 * np.sin(np.linspace(0, 200, frames * 240))).astype(np.float32)
         np.save(tmp_path / f"{i}.wav.npy", wav)
         np.save(tmp_path / f"{i}.mel.npy", rng.random((80, frames)).astype(np.float32))
+        f0 = rng.uniform(150.0, 250.0, frames + 1).astype(np.float32)  # one frame long
+        f0[rng.random(frames + 1) < 0.2] = 0.0
+        np.save(tmp_path / f"{i}.f0.npy", f0)
         np.save(tmp_path / "weight" / f"{i}.wav.npy",
                 rng.random((16, frames * 16)).astype(np.float32))
         audio_idx.append(str(tmp_path / f"{i}.wav.npy"))
@@ -66,13 +96,14 @@ def corpus(tmp_path):
     (tmp_path / "mel.txt").write_text("\n".join(mel_idx) + "\n")
     np.save(tmp_path / "basis_signal_weight.npy",
             (0.1 * rng.standard_normal((30, 16))).astype(np.float32))
-    (tmp_path / "hifigan.yaml").write_text(HIFI_YAML)
-    (tmp_path / "basis.yaml").write_text(BASIS_YAML)
+    for model, text in (("hifigan", HIFI_YAML), ("basis-melgan", BASIS_YAML),
+                        ("melgan", MELGAN_YAML), ("nhv", NHV_YAML)):
+        (tmp_path / CONFS[model]).write_text(text)
     return tmp_path
 
 
 def _conf(model):
-    return "hifigan.yaml" if model == "hifigan" else "basis.yaml"
+    return CONFS[model]
 
 
 def _argv(corpus, model, run_dir, **kw):
@@ -250,3 +281,47 @@ def test_a_file_of_neither_checkpoint_format_is_refused(corpus):
               disc_cfg=TINY_DISC)
     with pytest.raises(ValueError, match="holds a 'basis-melgan' model, not 'hifigan'"):
         Synthesizer(latest_checkpoint(str(corpus / "run_b")), conf, "hifigan", device="cpu")
+
+
+def test_dataset_packs_f0_as_mel_channel_80(corpus):
+    hp = HP.replace(batch_size=2, batch_expand_size=2, fixed_length=10)
+    buf = load_data_to_buffer(str(corpus / "audio.txt"), str(corpus / "mel.txt"),
+                              log=lambda m: None, with_f0=True)
+    assert all(item["f0"].shape == (item["mel"].shape[0],) for item in buf)  # cut to the mel
+    item = crop_item(buf[0], np.random.default_rng(0), hp)
+    batch = collate([item, crop_item(buf[1], np.random.default_rng(1), hp)], hp)
+    assert batch["mel"].shape == (2, 10, 81)
+    np.testing.assert_array_equal(batch["mel"][0, :, :80], item["mel"])
+    np.testing.assert_array_equal(batch["mel"][0, :, 80], item["f0"])
+    start = int(np.flatnonzero((buf[0]["mel"] == item["mel"][0]).all(axis=1))[0])
+    np.testing.assert_array_equal(item["f0"], buf[0]["f0"][start: start + 10])  # cropped alike
+
+
+@pytest.mark.parametrize("model,flags", [("melgan", {"use_mpd": 1}), ("nhv", {})])
+def test_run_train_melgan_with_the_mpd_and_nhv_with_f0_then_serve(corpus, model, flags):
+    """3 steps across the boundary (two pre-adversarial, one GAN step), a
+    validation pass; the checkpoint synthesizes, through `Synthesizer`,
+    what the trained generator computes, within 1e-5 of the peak."""
+    run_dir = corpus / f"run_{model}"
+    state = run_train(_argv(corpus, model, run_dir, max_steps=3, save_step=3, valid_step=3,
+                            **flags), disc_cfg=TINY_DISC)
+    history = dict(state.history)
+    assert "adversarial_loss" in history[3] and "adversarial_loss" not in history[2]
+    assert all(np.isfinite(v) for m in history.values() for v in m.values())
+    assert (state.discriminator.mpd is not None) == (model == "melgan")
+    scalars = json.loads((_only_dir(run_dir / "logger") / "all_scalars.json").read_text())
+    assert np.isfinite(scalars["valid_stft_loss"][0][1])
+    path = latest_checkpoint(str(run_dir))
+    assert path.endswith("checkpoint_3.pth.tar")
+    synth = Synthesizer(path, str(corpus / _conf(model)), model, device="cpu")
+    mel = np.random.default_rng(5).random((23, 80)).astype(np.float32)
+    if model == "nhv":
+        f0 = np.full(23, 200.0, np.float32)
+        got = synth.synthesize(mel, f0=f0)[0]
+        cond = np.concatenate([mel, f0[:, None]], axis=1)
+    else:
+        got, cond = synth.synthesize(mel)[0], mel
+    with torch.no_grad():
+        want = state.generator.eval().inference(torch.from_numpy(cond)[None])[0].numpy()
+    assert got.shape == want.shape == (23 * 240,) and np.all(np.isfinite(got))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
