@@ -32,6 +32,21 @@ through the entry points a user calls:
     the RTF protocol and the HTTP server (no kernel of ours: cuDNN convs and
     cuFFT, as the JAX package runs NHV as XLA).
 
+Then bf16 serving (`compute_dtype=torch.bfloat16`, the bf16 forms of
+kernels 1, 2, 4 and 6), after the bf16 forms are held against their plain
+versions (the same bf16 arithmetic) at the float32 phases' shapes, on the
+edges of their tiles and, for kernel 2, at batch 32, each timed against its
+bf16 bound (its error against float64 printed beside the float32 kernel's):
+
+  * every family's `Synthesizer` in bf16 on the release weights, on the
+    card and on the CPU, beside float32 on both, launching the bf16 forms
+    and no float32 form;
+  * the RTF protocol in bf16 for Basis-MelGAN light, HiFiGAN light and
+    MelGAN, beside the float32 RTF of the same run;
+  * `bin/serve.py --bf16 1` for Basis-MelGAN light, 4 concurrent requests;
+  * the JAX package's bf16 gate on random init at full width, every family;
+  * a profile of one bf16 batch-1 inference of Basis-MelGAN and HiFiGAN.
+
 Then it trains, at full width and the reference's batch (32 crops of 140
 frames, float32, TF32 off), on a corpus it writes from a seed in the format
 the data pipeline reads:
@@ -99,6 +114,7 @@ HOP = 240
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12  # float32 on the CUDA cores, no tensor cores
 PEAK_TF32_FLOP_PER_S = 495e12  # dense TF32 on the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
 
 # tolerances against the plain versions (both sides float32, TF32 off):
 # decode: twice the worst-case rounding of its 2C-term dot products;
@@ -128,6 +144,17 @@ BWD_DX_TOL, BWD_DX_ROW_TOL, BWD_W_TOL = 5e-2, 1e-4, 3e-2
 # step on the CPU, tests/test_torch_trainer.py)
 STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-2
 TRAIN_BATCH, TRAIN_FRAMES = 32, 140  # the reference's batch (hparams.py:50,72)
+# the bf16 forms against the plain versions of the same bf16 arithmetic: the
+# two sum in other orders, so elements near a bf16 rounding boundary or the
+# leaky-relu kink round the other way and the difference travels through the
+# later convs: within 1 % of the plain output's peak (the share of elements
+# more than one bf16 ulp apart is printed).  A bf16 waveform: the JAX
+# package's bf16 gate, max(2e-3, 1 % of the float32 peak), which it meets on
+# random init (tests/test_quality_gate.py); on trained weights bf16 arithmetic
+# costs more than the gate, in the JAX package too
+# (tests/test_torch_bf16_models.py), so there the card is held to what the
+# same arithmetic costs on the CPU (`bf16_release_phase`).
+BF16_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -932,8 +959,444 @@ def check_melgan_chain_bwd(torch, gen):
     return {k: v for k, v in entry.items() if k in keep}, fwd
 
 
+def bound_bf16_ms(nbytes: float, flops: float):
+    """The bound of a bf16 form: bytes at bf16 widths (as the caller counts
+    them) or every product at the dense bf16 rate of the tensor cores."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulp(torch, v):
+    """One bf16 ulp at each element of v: 2^(e - 7), e its binade."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def bf16_close(torch, got, want, tol: float = BF16_TOL):
+    """(max abs error, the peak, share of elements more than one bf16 ulp
+    apart, ok) of a bf16 form's output against its plain version's."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    peak = want.abs().max().item()
+    far = (err > bf16_ulp(torch, want)).float().mean().item()
+    ok = bool(torch.isfinite(got).all()) and err.max().item() <= tol * peak
+    return err.max().item(), peak, far, ok
+
+
+def bf16_cases(torch, name, cases, run, plain, log_if):
+    """Runs a bf16 form (`run`) and its plain version on every case (the
+    arguments after x, B, T, C, the input's width); fails on a case out of
+    BF16_TOL.  -> the worst max abs error."""
+    g = torch.Generator().manual_seed(80)
+    worst = 0.0
+    for args, B, T, C in cases:
+        dev = next(a for a in _flat_tensors(args)).device
+        x = (0.3 * torch.randn(B, T, C, generator=g)).to(dev).to(torch.bfloat16)
+        got = run(x, *args)
+        want = plain(x, *args)
+        torch.cuda.synchronize()
+        err, peak, far, ok = bf16_close(torch, got, want)
+        if log_if(B, T) or not ok:
+            log(f"  {name} ({B}, {T}, {C}): max abs {err:.3e} of peak {peak:.3e} (tol "
+                f"{BF16_TOL * peak:.3e}), {far:.4f} of elements more than one bf16 ulp apart")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain bf16 version at ({B}, {T}, {C})")
+        worst = max(worst, err)
+    return worst
+
+
+def _flat_tensors(obj):
+    if isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _flat_tensors(o)
+    elif hasattr(obj, "device"):
+        yield obj
+
+
+def against_f64(torch, name, x, args, bf16_form, f32_kernel, plain) -> None:
+    """The error against float64 (the plain version in float64 on the bf16
+    input) of the bf16 form, of its plain bf16 version and of the float32
+    kernel on the same input, each of the float64 output's peak."""
+    xb = x.to(torch.bfloat16)
+    y64 = plain(xb.double(), *to_f64(torch, args)).double()
+    peak = y64.abs().max().item()
+
+    def rel(y):
+        return ((y.double() - y64).abs().max() / peak).item()
+
+    log(f"  {name} against float64 at {tuple(x.shape)}: bf16 form {rel(bf16_form(xb, *args)):.3e}, "
+        f"its plain bf16 version {rel(plain(xb, *args)):.3e}, float32 kernel "
+        f"{rel(f32_kernel(xb.float(), *args)):.3e} of the peak {peak:.3e}")
+
+
+def check_bf16_decode(torch, F, basis):
+    """Kernel 1's bf16 form against its plain version at the main path's
+    shape, the training batch's and lengths on both sides of its tiles;
+    device times at (1, F, C) and (32, 2240, C) beside `conv_transpose1d` in
+    bf16.  -> entry for the kernels line."""
+    from fastvocoder_tpu_torch.ops.basis_decode import (
+        basis_decode_bf16_cuda,
+        basis_decode_cuda,
+        basis_decode_plain,
+    )
+
+    dev = basis.device
+    bb = basis.to(torch.bfloat16)
+    eps = float(np.finfo(np.float32).eps)
+    g = torch.Generator().manual_seed(11)
+    worst = 0.0
+    C, L = basis.shape[1], basis.shape[0]
+    for B, Fr in ((1, F), (32, 2240), (3, 77), (1, 1), (1, 15), (1, 16), (5, 63)):
+        w = torch.relu(torch.randn(B, Fr, C, generator=g)).to(dev).to(torch.bfloat16)
+        got = basis_decode_bf16_cuda(w, bb)
+        want = basis_decode_plain(w, bb)
+        torch.cuda.synchronize()
+        # the same bf16 products summed in float32: the float32 form's bound
+        err = (got - want).abs()
+        ok = bool(torch.all(err <= 4 * C * eps * basis_decode_plain(w.abs(), bb.abs())))
+        if not ok or B * Fr > 1000:
+            log(f"  basis_decode_bf16 B={B} F={Fr}: max abs {err.max().item():.3e} of peak "
+                f"{want.abs().max().item():.3e}, within the float32 form's bound {ok}")
+        if not ok:
+            raise AssertionError(f"basis_decode_bf16 disagrees with its plain version at B={B}")
+        worst = max(worst, err.max().item())
+    w = torch.relu(torch.randn(1, F, C, generator=g)).to(dev)
+    against_f64(torch, "basis_decode", w, (basis,),
+                lambda xb, b: basis_decode_bf16_cuda(xb, b.to(torch.bfloat16)),
+                lambda xf, b: basis_decode_cuda(xf, b), basis_decode_plain)
+    hop = L // 2
+    kernel = bb.t()[:, None, :].contiguous()
+    times = {}
+    for B, Fr in ((1, F), (TRAIN_BATCH, TRAIN_FRAMES * 16)):
+        w = torch.relu(torch.randn(B, Fr, C, generator=g)).to(dev).to(torch.bfloat16)
+        wt = w.transpose(1, 2)
+        fns = {"ms": lambda: basis_decode_bf16_cuda(w, bb),
+               "plain_ms": lambda: basis_decode_plain(w, bb),
+               "library_ms": lambda: torch.nn.functional.conv_transpose1d(wt, kernel, stride=hop)}
+        got = {k: sum(device_ms_by_name(torch, fn, 20).values()) for k, fn in fns.items()}
+        if min(got.values()) <= 0:
+            raise AssertionError("torch.profiler saw no device time of the bf16 decode")
+        nbytes = 2 * (B * Fr * C + L * C) + 4 * B * (Fr + 1) * hop
+        bms, by = bound_bf16_ms(nbytes, 2 * 2 * B * (Fr + 1) * hop * C)
+        log(f"  basis_decode_bf16 ({B}, {Fr}, {C}), device ms: kernel {got['ms']:.4f}, plain "
+            f"{got['plain_ms']:.4f}, conv_transpose1d in bf16 {got['library_ms']:.4f}; bound "
+            f"{bms:.4f} ms ({by}): {share(bms, got['ms'])} of it")
+        times[B] = {"shape": [B, Fr, C], **got, "bound_ms": bms, "bound_by": by}
+    return {
+        "name": "basis_decode_bf16", "route": "cuda",
+        "source": "fastvocoder_tpu_torch/csrc/basis_decode.cu",
+        "replaces": "fastvocoder_tpu/ops/basis_decode.py:121", "form": "bf16",
+        "shape": f"W (1, {F}, {C}) bf16, basis ({L}, {C}) bf16",
+        "max_abs_err": worst, **{k: v for k, v in times[1].items() if k != "shape"},
+        "batch32": times[TRAIN_BATCH],
+    }
+
+
+def check_bf16_chain(torch, basis_gen, melgan_gen, T_main):
+    """Kernel 2's bf16 form against its plain version with the release
+    weights of Basis-MelGAN light's two stages (batch 1 and 32) and MelGAN
+    original's four, and with seeded weights at every width on the edges of
+    its tiles; times with a kept bf16 `ChainTable`.  -> entry for the
+    kernels line."""
+    from fastvocoder_tpu_torch.ops.fused_resstack import (
+        KERNEL_WIDTHS,
+        ChainTable,
+        fused_residual_stacks_bf16_cuda,
+        fused_residual_stacks_cuda,
+        fused_residual_stacks_plain,
+    )
+
+    dev = next(basis_gen.parameters()).device
+    basis_stages = [[m.chain_operands() for m in st] for st in basis_gen.stacks]
+    melgan_stages = [[m.chain_operands() for m in st] for st in melgan_gen.stacks]
+    main = [((basis_stages[0],), 1, T_main // 4), ((basis_stages[1],), 1, T_main)]
+    T, melgan = MEL_FRAMES, []
+    for stage, scale in zip(melgan_stages, melgan_gen.cfg.upsample_scales):
+        T *= scale
+        melgan.append(((stage,), 1, T))
+    batch32 = [((basis_stages[0],), TRAIN_BATCH, TRAIN_FRAMES * 4),
+               ((basis_stages[1],), TRAIN_BATCH, TRAIN_FRAMES * 16)]
+    cases = [(a, B, T, a[0][0][0].shape[1]) for a, B, T in main + melgan + batch32]
+    for C in KERNEL_WIDTHS:
+        stacks = seeded_stacks(torch, C, dev, 90 + C)
+        cases += [((stacks,), B, T, C) for B, T in chain_edge_shapes(C, 1)]
+    worst = bf16_cases(torch, "fused_resstack_bf16", cases, fused_residual_stacks_bf16_cuda,
+                       fused_residual_stacks_plain, lambda B, T: T > 1000)
+    log(f"  fused_resstack_bf16: {len(cases)} shapes agree, every width on the edges of its tiles")
+    g = torch.Generator().manual_seed(81)
+    x = (0.3 * torch.randn(1, T_main // 4, 256, generator=g)).to(dev)
+    against_f64(torch, "fused_resstack", x, (basis_stages[0],), fused_residual_stacks_bf16_cuda,
+                fused_residual_stacks_cuda, fused_residual_stacks_plain)
+
+    timed = []
+    for (stacks,), B, T in main + melgan + batch32:
+        C = stacks[0][0].shape[1]
+        x = (0.3 * torch.randn(B, T, C, generator=g)).to(dev).to(torch.bfloat16)
+        table = ChainTable(stacks, dev, torch.bfloat16)  # kept, as a served model keeps it
+        it = 5 if B > 1 else 20
+        ms = cuda_ms(lambda: fused_residual_stacks_bf16_cuda(x, stacks, table), iters=it, warmup=2)
+        plain = cuda_ms(lambda: fused_residual_stacks_plain(x, stacks), iters=it, warmup=2)
+        nbytes, flops = chain_work(B, T, stacks)
+        weights = nbytes / 4 - 2 * B * T * C
+        bms, by = bound_bf16_ms(2 * 2 * B * T * C + 2 * weights, flops)
+        log(f"  fused_resstack_bf16 ({B}, {T}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bf16 bound {bms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP): {share(bms, ms)} of it")
+        timed.append({"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                      "bound_by": by})
+    main_entry = timed[1]
+    return {
+        "name": "fused_resstack_bf16", "route": "cuda",
+        "source": "fastvocoder_tpu_torch/csrc/fused_resstack.cu",
+        "replaces": "fastvocoder_tpu/ops/fused_resstack.py:153", "form": "bf16",
+        "shape": f"x (1, {T_main}, 256) bf16, 3 stacks K=3 d=1,3,9 (stage 2 of 2)",
+        "max_abs_err": worst, "ms": main_entry["ms"], "plain_ms": main_entry["plain_ms"],
+        "bound_ms": main_entry["bound_ms"], "bound_by": main_entry["bound_by"],
+        "library_ms": None, "stage1": timed[0], "melgan_stages": timed[2:6],
+        "batch32": timed[6:],
+    }
+
+
+def check_bf16_mrf(torch, gen, frames: int):
+    """Kernel 4's bf16 form against its plain version: the release weights of
+    HiFiGAN light's three MRF stages at one utterance's shapes, and seeded
+    weights at every width on the edges of its tiles; times at the
+    utterance's shapes with a kept bf16 `StageTable`.  -> entry for the
+    kernels line."""
+    from fastvocoder_tpu_torch.ops.fused_mrf import (
+        KERNEL_WIDTHS,
+        StageTable,
+        fused_mrf_stage_bf16_cuda,
+        fused_mrf_stage_cuda,
+        fused_mrf_stage_plain,
+    )
+
+    dev = next(gen.parameters()).device
+    stages = [[b.mrf_operands() for b in blocks] for blocks in gen.mrfs[:-1]]
+    rates = gen.cfg.upsample_rates
+    lengths = [frames * int(np.prod(rates[: i + 1])) for i in range(len(stages))]
+    cases = [((blocks,), 1, T, blocks[0][0][0].shape[1]) for blocks, T in zip(stages, lengths)]
+    for C in KERNEL_WIDTHS:
+        blocks = seeded_resblocks(torch, C, dev, 90 + C)
+        cases += [((blocks,), B, T, C) for B, T in mrf_edge_shapes(C)]
+    worst = bf16_cases(torch, "fused_mrf_bf16", cases, fused_mrf_stage_bf16_cuda,
+                       fused_mrf_stage_plain, lambda B, T: T > 1000)
+    log(f"  fused_mrf_bf16: {len(cases)} shapes agree, every width on the edges of its tiles")
+    g = torch.Generator().manual_seed(82)
+    x = (0.3 * torch.randn(1, lengths[0], stages[0][0][0][0].shape[1], generator=g)).to(dev)
+    against_f64(torch, "fused_mrf", x, (stages[0],), fused_mrf_stage_bf16_cuda,
+                fused_mrf_stage_cuda, fused_mrf_stage_plain)
+    per_stage, total = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    for blocks, T in zip(stages, lengths):
+        C = blocks[0][0][0].shape[1]
+        x = (0.3 * torch.randn(1, T, C, generator=g)).to(dev).to(torch.bfloat16)
+        table = StageTable(blocks, None, x.device, torch.bfloat16)
+        ms = cuda_ms(lambda: fused_mrf_stage_bf16_cuda(x, blocks, None, table), iters=20, warmup=3)
+        plain = cuda_ms(lambda: fused_mrf_stage_plain(x, blocks), iters=20, warmup=3)
+        nbytes, flops = mrf_work(1, T, blocks)
+        nbytes /= 2  # bf16 activations and weights
+        bms, by = bound_bf16_ms(nbytes, flops)
+        log(f"  fused_mrf_bf16 (1, {T}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, bf16 "
+            f"bound {bms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP): {share(bms, ms)} of it")
+        per_stage.append({"shape": [1, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms})
+        for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
+            total[k] += v
+    bms, by = bound_bf16_ms(total["bytes"], total["flops"])
+    return {
+        "name": "fused_mrf_bf16", "route": "cuda",
+        "source": "fastvocoder_tpu_torch/csrc/fused_mrf.cu",
+        "replaces": "fastvocoder_tpu/ops/fused_mrf.py:112", "form": "bf16",
+        "shape": "HiFiGAN light's 3 MRF stages of a 585-frame utterance in bf16, summed: "
+                 + ", ".join(str(tuple(s["shape"])) for s in per_stage),
+        "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": bms, "bound_by": by, "library_ms": None, "stages": per_stage,
+    }
+
+
+def check_bf16_tail(torch, gen, frames: int):
+    """Kernel 6's bf16 form against its plain version: HiFiGAN light's release
+    tail at one utterance's shape, batch 2, T_in = 1 and lengths on both
+    sides of its tiles; its time with a kept bf16 `TailTable`.  -> entry for
+    the kernels line."""
+    from fastvocoder_tpu_torch.ops.fused_tail import (
+        TailTable,
+        fused_hifigan_tail_bf16_cuda,
+        fused_hifigan_tail_cuda,
+        fused_hifigan_tail_plain,
+    )
+
+    dev = next(gen.parameters()).device
+    light = gen.tail_operands()
+    T_main = frames * int(np.prod(gen.cfg.upsample_rates[:-1]))
+    cases = [(light, 1, T_main, 32), (light, 2, 35, 32), (light, 1, 1, 32)]
+    cases += [(light, 1, t, 32) for t in tail_edge_lengths(16)]
+    worst = bf16_cases(torch, "fused_tail_bf16", cases, fused_hifigan_tail_bf16_cuda,
+                       fused_hifigan_tail_plain, lambda B, T: T > 1000)
+    log(f"  fused_tail_bf16: {len(cases)} shapes agree, among them T_in = "
+        f"{tail_edge_lengths(16)}")
+    g = torch.Generator().manual_seed(83)
+    x = (0.3 * torch.randn(1, T_main, 32, generator=g)).to(dev)
+    against_f64(torch, "fused_tail", x, light, fused_hifigan_tail_bf16_cuda,
+                fused_hifigan_tail_cuda, fused_hifigan_tail_plain)
+    table = TailTable(*light, dev, torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    ms = cuda_ms(lambda: fused_hifigan_tail_bf16_cuda(xb, *light, table=table), iters=20, warmup=3)
+    plain = cuda_ms(lambda: fused_hifigan_tail_plain(xb, *light), iters=20, warmup=3)
+    parts = device_ms_by_name(torch, lambda: fused_hifigan_tail_bf16_cuda(xb, *light, table=table))
+    k_up, b_up, stride, _, blocks, k_post, b_post = light
+    T, C = stride * T_main, k_up.shape[2]
+    mrf_bytes, mrf_flops = mrf_work(1, T, blocks)
+    nbytes = (mrf_bytes - 4 * 2 * T * C) / 2 + 2 * (xb.numel() + T) + 4 * (
+        k_up.numel() + b_up.numel() + k_post.numel() + b_post.numel())
+    core_flops = (2 * T * (k_up.shape[0] // stride) * k_up.shape[1] * C
+                  + 2 * T * k_post.shape[0] * C * k_post.shape[2])
+    # the MRF on the tensor cores in bf16, the upsample and head on the CUDA cores
+    bms = max(nbytes / PEAK_BYTES_PER_S,
+              mrf_flops / PEAK_BF16_FLOP_PER_S + core_flops / PEAK_F32_FLOP_PER_S) * 1e3
+    by = "bytes" if nbytes / PEAK_BYTES_PER_S * 1e3 >= bms else "operations"
+    log(f"  fused_tail_bf16 (1, {T_main}, 32) -> (1, {T}, 1): kernel {ms:.4f} ms with a kept "
+        f"table, plain {plain:.4f} ms; bound {bms:.4f} ms ({by}): {share(bms, ms)} of it")
+    log("  fused_tail_bf16 by kernel: " + ", ".join(
+        f"{re.findall(r'(\w+(?:<[^()]*>)?)\(', k)[0]} {v:.4f} ms"
+        for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+    return {
+        "name": "fused_tail_bf16", "route": "cuda",
+        "source": "fastvocoder_tpu_torch/csrc/fused_tail.cu",
+        "replaces": "fastvocoder_tpu/ops/fused_tail.py:80", "form": "bf16",
+        "shape": f"x (1, {T_main}, 32) bf16 -> (1, {T}, 1), HiFiGAN light's last stage and head",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def bf16_gate(want) -> float:
+    return max(2e-3, 0.01 * float(np.abs(want).max()))
+
+
+def rms(d) -> float:
+    return float(np.sqrt(np.mean(np.square(d, dtype=np.float64))))
+
+
+def bf16_release_phase(torch, count_path, Synthesizer, model: str, ckpt: str, conf: str,
+                       kernels, absent) -> None:
+    """`Synthesizer(compute_dtype=bf16)` on the release weights and the
+    seeded 585-frame mel on the card (NHV: its generator with the CPU's
+    sources), beside the float32 Synthesizer on the card and both on the
+    CPU: the bf16 path launches the bf16 forms and no float32 form, its
+    waveform is finite, and its deviation from float32 is the bf16
+    arithmetic's.  On these trained weights that deviation exceeds the JAX
+    package's gate on every implementation (the JAX package's own,
+    tests/test_torch_bf16_models.py), and its maximum moves by tens of
+    percent between two faithful ones, so the card is held by the root mean
+    square: its deviation from float32 at most twice the CPU's (6 dB of
+    SNR; a fault of layout or rounding point shows at the signal's scale).
+    The gate's maxima and the card's distance from the CPU's bf16 waveform
+    (two faithful runs differ as independent roundings do) are printed."""
+    log(f"[{model}: Synthesizer in bf16]")
+    mel = conditioning(model, mel_like_bench(MEL_FRAMES, 0))
+    outs = {}
+    for where in ("cuda", "cpu"):
+        for dtype in (torch.bfloat16, None):
+            synth = Synthesizer(ckpt, conf, model, device=where, compute_dtype=dtype)
+            if model == "nhv":
+                with torch.inference_mode():
+                    cond = torch.from_numpy(mel[None])
+                    src = Synthesizer(ckpt, conf, model, device="cpu").generator.sources(
+                        cond[..., 80])
+                    fn = lambda: synth.generator(  # noqa: E731
+                        cond.to(where), sources=tuple(s.to(where) for s in src))[0].cpu().numpy()
+            else:
+                fn = lambda: synth._run(mel)  # noqa: E731
+            if where == "cuda" and dtype is not None:
+                outs[(where, dtype)] = count_path(f"{model} Synthesizer in bf16", fn, kernels,
+                                                  absent=absent)
+                if not all(p.dtype == torch.float32 for p in synth.generator.parameters()):
+                    raise AssertionError(f"{model}: a bf16 model's parameters left float32")
+            else:
+                outs[(where, dtype)] = fn()
+    card, f32 = outs[("cuda", torch.bfloat16)], outs[("cuda", None)]
+    cpu, cpu_f32 = outs[("cpu", torch.bfloat16)], outs[("cpu", None)]
+    gate = bf16_gate(f32)
+    dev_card, dev_cpu, card_cpu = (float(np.abs(d).max())
+                                   for d in (card - f32, cpu - cpu_f32, card - cpu))
+    r_card, r_cpu, r_cc = rms(card - f32), rms(cpu - cpu_f32), rms(card - cpu)
+    log(f"  wav {f32.shape}, peak {np.abs(f32).max():.3f}, gate {gate:.3e}; max abs: card bf16 - "
+        f"card float32 {dev_card:.3e}, CPU bf16 - CPU float32 {dev_cpu:.3e}, card bf16 - CPU "
+        f"bf16 {card_cpu:.3e}; rms: {r_card:.3e}, {r_cpu:.3e}, {r_cc:.3e} (signal rms "
+        f"{rms(f32):.3e}, SNR of the card's bf16 {20 * np.log10(rms(f32) / r_card):.1f} dB)")
+    if not np.isfinite(card).all() or card.shape != f32.shape or r_card > 2 * r_cpu:
+        raise AssertionError(f"{model} in bf16 on the card is not the bf16 arithmetic's: rms "
+                             f"{r_card:.3e} from float32, against the CPU's {r_cpu:.3e}")
+
+
+def bf16_random_init_phase(torch) -> None:
+    """The JAX package's bf16 gate as its own test applies it
+    (tests/test_quality_gate.py): every family at full width from a seeded
+    init (Basis-MelGAN with a 0.02-scaled basis), 128 frames of the seeded
+    mel; the card's bf16 waveform within max(2e-3, 1 % of the peak) of the
+    card's float32 one and of the CPU's bf16 one."""
+    from fastvocoder_tpu_torch.hparams import load_model_config
+    from fastvocoder_tpu_torch.models.factory import build_generator
+
+    log("[bf16 on random init: the JAX package's gate]")
+    mel = mel_like_bench(128, 3)
+    for model, conf in (("basis-melgan", CONF), ("hifigan", HIFI_CONF),
+                        ("multiband-hifigan", MB_CONF), ("melgan", MELGAN_CONF), ("nhv", NHV_CONF)):
+        cfg = load_model_config(model, conf)
+        kw = {}
+        if model == "basis-melgan":
+            rng = np.random.default_rng(4)
+            kw["basis_signal_weight"] = (0.02 * rng.standard_normal(
+                (cfg.arch.L, cfg.arch.out_channels))).astype(np.float32)
+        torch.manual_seed(0)
+        state = build_generator(cfg, **kw).state_dict()
+        x = torch.from_numpy(conditioning(model, mel)[None])
+        outs = {}
+        for where in ("cuda", "cpu"):
+            for dtype in (torch.bfloat16, None):
+                gen = build_generator(cfg, compute_dtype=dtype, **kw)
+                gen.load_state_dict(state)
+                gen.to(where).eval().requires_grad_(False)
+                with torch.inference_mode():
+                    if model == "nhv":
+                        torch.manual_seed(1)
+                        src = (torch.zeros(1, 128 * HOP), 0.3 * torch.randn(1, 128 * HOP))
+                        y = gen(x.to(where), sources=tuple(s.to(where) for s in src))
+                    else:
+                        y = gen.inference(x.to(where))
+                outs[(where, dtype)] = y.float().cpu().numpy()
+        f32 = outs[("cuda", None)]
+        gate = bf16_gate(f32)
+        dev = float(np.abs(outs[("cuda", torch.bfloat16)] - f32).max())
+        card_cpu = float(np.abs(outs[("cuda", torch.bfloat16)]
+                                - outs[("cpu", torch.bfloat16)]).max())
+        log(f"  {model}: peak {np.abs(f32).max():.3f}, gate {gate:.3e}: card bf16 - card float32 "
+            f"{dev:.3e}, card bf16 - CPU bf16 {card_cpu:.3e}")
+        if not np.isfinite(outs[("cuda", torch.bfloat16)]).all() or dev > gate or card_cpu > gate:
+            raise AssertionError(f"{model} in bf16 on random init misses the gate")
+
+
+def bf16_rtf(torch, model: str, ckpt: str, conf: str) -> float:
+    """The RTF protocol of bin/test.py (`measure_rtf`) over its 4 utterances
+    with the model in bf16 (the entry point has no bf16 flag, as the JAX
+    package's has none)."""
+    from fastvocoder_tpu_torch.bin.test import Synthesizer as RtfSynthesizer
+    from fastvocoder_tpu_torch.bin.test import measure_rtf
+
+    synth = RtfSynthesizer(ckpt, conf, model, bucket_frames=64, compute_dtype=torch.bfloat16)
+    mels = [mel_like_bench(frames, 10 + i) for i, frames in enumerate((585, 585, 320, 700))]
+    duration = sum(m.shape[0] for m in mels) * HOP / 24000
+    return measure_rtf(synth, mels, duration)
+
+
 def kernel_class(name: str) -> str:
-    for key, label in (("resstack_bwd_", "fused_resstack_bwd kernel"),
+    for key, label in (("resstack_bf16_kernel", "fused_resstack_bf16 kernel"),
+                       ("basis_decode_bf16_kernel", "basis_decode_bf16 kernel"),
+                       ("mrf_pair_bf16_kernel", "fused_mrf_bf16 kernel"),
+                       ("mrf_mean_bf16_kernel", "fused_mrf_bf16 kernel"),
+                       ("tail_upsample_bf16_kernel", "fused_tail_bf16 kernel: upsample"),
+                       ("tail_pair_bf16_kernel", "fused_tail_bf16 kernel: MRF pairs (bf16 wgmma)"),
+                       ("tail_head_bf16_kernel", "fused_tail_bf16 kernel: mean and head"),
+                       ("resstack_bwd_", "fused_resstack_bwd kernel"),
                        ("resstack_kernel", "fused_resstack kernel"),
                        ("basis_decode_kernel", "basis_decode kernel (persistent, cp.async ring)"),
                        ("mrf_bwd_", "fused_mrf_bwd kernel"),
@@ -1076,16 +1539,21 @@ def rtf_phase(count_path, run_test, model: str, ckpt: str, conf: str, kernels) -
 
 
 def serving_phase(count_path, run_serve, ServingModel, model: str, ckpt: str, conf: str,
-                  kernels) -> None:
-    """4 concurrent HTTP requests, twice, against a direct ServingModel call."""
-    log(f"[{model}: HTTP serving (bin/serve.py)]")
+                  kernels, bf16: bool = False, absent=()) -> None:
+    """4 concurrent HTTP requests, twice, against a direct ServingModel call
+    (with `bf16`, `--bf16 1` against a ServingModel in bf16, within the bf16
+    gate: a bucket's batch may take other library algorithms)."""
+    import torch
+
+    log(f"[{model}: HTTP serving (bin/serve.py{' --bf16 1' if bf16 else ''})]")
     lengths = (60, 130, 300, 585)
     req_mels = [conditioning(model, mel_like_bench(n, 20 + i)) for i, n in enumerate(lengths)]
     results = [None] * len(req_mels)
 
     def serve_all():
         httpd, batcher = run_serve(
-            ["--checkpoint_path", ckpt, "--config", conf, "--model_name", model, "--port", "0"],
+            ["--checkpoint_path", ckpt, "--config", conf, "--model_name", model, "--port", "0"]
+            + (["--bf16", "1"] if bf16 else []),
             block=False,
         )
         try:
@@ -1110,15 +1578,16 @@ def serving_phase(count_path, run_serve, ServingModel, model: str, ckpt: str, co
             httpd.server_close()
             batcher.close()
 
-    health = count_path(f"{model} HTTP serving", serve_all, kernels)
+    health = count_path(f"{model} HTTP serving", serve_all, kernels, absent=absent)
     log(f"  healthz {health}")
-    direct = ServingModel(ckpt, conf, model)(req_mels)
+    direct = ServingModel(ckpt, conf, model,
+                          compute_dtype=torch.bfloat16 if bf16 else None)(req_mels)
     for i, n in enumerate(lengths):
         if results[i] is None:
             raise AssertionError(f"request {i} got no answer")
         status, wav = results[i]
         err = float(np.abs(wav - direct[i]).max())
-        tol = MODEL_TOL * max(1.0, float(np.abs(direct[i]).max()))
+        tol = bf16_gate(direct[i]) if bf16 else MODEL_TOL * max(1.0, float(np.abs(direct[i]).max()))
         log(f"  request T={n}: status {status}, wav {wav.shape}, vs ServingModel max abs {err:.3e} (tol {tol:.3e})")
         if status != 200 or wav.shape != (n * HOP,) or not np.isfinite(wav).all() or err > tol:
             raise AssertionError(f"served request {i} is wrong")
@@ -1425,19 +1894,25 @@ def main() -> int:
     mrf_bwd, entries[2]["batch32"] = check_fused_mrf_bwd(torch, hifi_gen)
     log("[kernel 3 at MelGAN original's training stages]")
     chain_bwd["melgan"], entries[1]["melgan_batch32"] = check_melgan_chain_bwd(torch, melgan_gen)
-    del melgan_gen
-    torch.cuda.empty_cache()
     entries[2:2] = [chain_bwd]   # kernels 1, 2, 3, 4, 5, 6
     entries[4:4] = [mrf_bwd]
+    log("[bf16 forms against their plain versions]")
+    with torch.inference_mode():
+        entries += [check_bf16_decode(torch, F_main, basis_gen.basis_signal.basis),
+                    check_bf16_chain(torch, basis_gen, melgan_gen, F_main),
+                    check_bf16_mrf(torch, hifi_gen, MEL_FRAMES),
+                    check_bf16_tail(torch, hifi_gen, MEL_FRAMES)]
     log("[the MRF kernels' 3xTF32 against float64]")
     mrf_errors_against_f64(torch, torch.device("cuda"))
     log("[the chain kernels' 3xTF32 against float64]")
     chain_errors_against_f64(torch, torch.device("cuda"))
+    del melgan_gen
+    torch.cuda.empty_cache()
     launches = {e["name"]: 0 for e in entries}
 
-    def count_path(name, fn, kernels):
+    def count_path(name, fn, kernels, absent=()):
         """Run one path with every count zeroed; fail if it launched none
-        of `kernels`."""
+        of `kernels`, or any of `absent`."""
         _build.launch_counts.clear()
         out = fn()
         torch.cuda.synchronize()
@@ -1446,6 +1921,9 @@ def main() -> int:
         missing = [k for k in kernels if counts[k] == 0]
         if missing:
             raise AssertionError(f"{name} path never launched {missing}")
+        stray = [k for k in absent if counts[k] != 0]
+        if stray:
+            raise AssertionError(f"{name} path launched {stray}")
         for k, v in counts.items():
             launches[k] += v
         return out
@@ -1483,6 +1961,32 @@ def main() -> int:
     del nhv_synth
     rtfs["nhv"] = rtf_phase(count_path, run_test, "nhv", NHV_CKPT, NHV_CONF, ())
     serving_phase(count_path, run_serve, ServingModel, "nhv", NHV_CKPT, NHV_CONF, ())
+    log(f"  rtf by model: {rtfs}")
+
+    # bf16 serving: every family through Synthesizer, the RTF protocol and
+    # --bf16 serving for three, the JAX package's gate on random init
+    f32_forms = ("basis_decode", "fused_resstack", "fused_mrf", "fused_tail")
+    bf16_paths = (("basis-melgan", CKPT, CONF, ("basis_decode_bf16", "fused_resstack_bf16")),
+                  ("hifigan", HIFI_CKPT, HIFI_CONF, ("fused_mrf_bf16", "fused_tail_bf16")),
+                  ("multiband-hifigan", MB_CKPT, MB_CONF, ("fused_mrf_bf16",)),
+                  ("melgan", MELGAN_CKPT, MELGAN_CONF, ("fused_resstack_bf16",)),
+                  ("nhv", NHV_CKPT, NHV_CONF, ()))
+    for model, ckpt, conf, kernels in bf16_paths:
+        bf16_release_phase(torch, count_path, Synthesizer, model, ckpt, conf, kernels, f32_forms)
+    for model, ckpt, conf, kernels in bf16_paths:
+        if model in ("basis-melgan", "hifigan", "melgan"):
+            log(f"[{model}: RTF protocol in bf16]")
+            rtfs[model + " bf16"] = count_path(f"{model} RTF in bf16",
+                                               lambda: bf16_rtf(torch, model, ckpt, conf),
+                                               kernels, absent=f32_forms)
+            log(f"  rtf {rtfs[model + ' bf16']!r} in bf16, {rtfs[model]!r} in float32 (this call)")
+    serving_phase(count_path, run_serve, ServingModel, "basis-melgan", CKPT, CONF,
+                  bf16_paths[0][3], bf16=True, absent=f32_forms)
+    bf16_random_init_phase(torch)
+    for model, ckpt, conf, _ in bf16_paths[:2]:
+        log(f"[profile: {model} batch-1 inference in bf16 on the device]")
+        profile_inference(torch, Synthesizer(ckpt, conf, model, compute_dtype=torch.bfloat16),
+                          mel)
     log(f"  rtf by model: {rtfs}")
 
     torch.cuda.empty_cache()

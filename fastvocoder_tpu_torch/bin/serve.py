@@ -1,6 +1,7 @@
 """Serving entry point: HTTP frontend with dynamic request batching
-(counterpart of `fastvocoder_tpu/bin/serve.py`, without `--mesh` and
-`--bf16`)."""
+(counterpart of `fastvocoder_tpu/bin/serve.py`, without `--mesh`).  `--bf16
+1` serves in bf16 (`compute_dtype`: parameters float32, the kernels' bf16
+forms, a float32 waveform)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ def run_serve(argv=None, block: bool = True):
     p.add_argument("--bucket_frames", type=int, default=64)
     p.add_argument("--max_batch", type=int, default=32)
     p.add_argument("--max_wait_ms", type=float, default=5.0)
+    p.add_argument("--bf16", type=int, default=0, help="1: compute in bf16")
     p.add_argument("--device", default="cuda")
     p.add_argument(
         "--warmup_frames", type=int, default=0,
@@ -26,6 +28,8 @@ def run_serve(argv=None, block: bool = True):
         "once before accepting traffic",
     )
     args = p.parse_args(argv)
+
+    import torch
 
     from fastvocoder_tpu_torch.serving import ServingModel, make_server, run_server
 
@@ -36,6 +40,7 @@ def run_serve(argv=None, block: bool = True):
         bucket_frames=args.bucket_frames,
         max_batch=args.max_batch,
         device=args.device,
+        compute_dtype=torch.bfloat16 if args.bf16 else None,
     )
     if args.warmup_frames:
         n = model.warmup(args.warmup_frames)

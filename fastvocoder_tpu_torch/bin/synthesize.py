@@ -16,6 +16,10 @@ NHV is conditioned on the mel and f0 (T, 81) (`dsp.f0.f0_to_condition`):
 zero-conditioning bias has f0 = 0 everywhere (no voicing: the noise source
 alone).  The CLI reads f0 from `--f0_path`, by default the `<name>.f0.npy`
 beside a `<name>.mel.npy`.
+
+`Synthesizer(compute_dtype=torch.bfloat16)` synthesizes in bf16 as the JAX
+package's `compute_dtype` does (parameters float32, the waveform float32);
+the CLI has no bf16 flag, as the JAX package's has none.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ class Synthesizer:
         hp: Hparams = HP,
         bucket_frames: int = 0,
         device: str | torch.device = "cuda",
+        compute_dtype=None,
     ) -> None:
         self.device = resolve_device(device)
         self.hp = hp
@@ -50,7 +55,7 @@ class Synthesizer:
         self.bucket_frames = bucket_frames
         self.L = getattr(self.cfg.arch, "L", None)  # Basis-MelGAN's frame length
         self.generator, self.pattern = load_generator(
-            checkpoint_path, self.cfg, self.device
+            checkpoint_path, self.cfg, self.device, compute_dtype=compute_dtype
         )
 
     def _pad_frames(self, T: int) -> int:

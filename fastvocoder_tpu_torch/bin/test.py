@@ -91,6 +91,15 @@ def run_test(argv=None):
                 sample_rate=hp.sample_rate,
             )
 
+    return measure_rtf(synthesizer, mels, duration)
+
+
+def measure_rtf(synthesizer: _BaseSynthesizer, mels, duration: float) -> float:
+    """The reference's protocol: 10 inference passes over every mel (the
+    generator's input, `Synthesizer.condition`), rtf = elapsed / (10 *
+    `duration` seconds of audio), best of 2 windows; the first pass, untimed,
+    builds the kernels and lets the libraries tune."""
+
     def sync():
         if synthesizer.device.type == "cuda":
             torch.cuda.synchronize(synthesizer.device)

@@ -56,7 +56,8 @@ logger = logging.getLogger(__name__)
 # arguments of the JAX script that this package accepts only at their
 # "off" value: name -> (off value, what waits)
 WAITING = {
-    "mixprecision": (0, "bf16 mixed precision"),
+    "mixprecision": (0, "bf16 mixed precision (bf16 inference is ported; bf16 training "
+                        "waits for the bf16 forms of the backward kernels, the next slice)"),
     "remat": (0, "rematerialisation of the generator forward"),
     "device_cache": (0, "the on-device corpus cache"),
 }

@@ -47,13 +47,24 @@
 // sets the pace and the halo's 12 % more operations would not pay.  Each
 // kernel is allowed its shared memory once per process (smem_attr.cuh), not
 // on every call.
+//
+// The bf16 form (`fvt_fused_tail_bf16`: `tail_upsample_bf16_kernel`,
+// `tail_pair_bf16_kernel`, `tail_head_bf16_kernel`): x, y and the
+// intermediates in bf16; the MRF's kernels packed as bf16 once for a kept
+// table (`fvt_fused_tail_bf16_pack`), the upsample's and the head's weights
+// and biases given as float32 holding bf16 values; float32 sums, rounded to
+// bf16 where fused_tail.py's Pallas body rounds: the upsample's output, the
+// MRF as in fused_mrf.cu, the branches' mean, the head's leaky-relu and its
+// tanh (taken of the float32 sum).  Bound: the MRF's operations at 989
+// TFLOP/s, the upsample's and the head's at the float32 rate.
 
 #include "mma_common.cuh"
 #include "mrf_common.cuh"
 
 namespace {
 
-using fvt_mma::leaky4;
+using fvt_mma::bf16;
+using fvt_mma::leaky_fit;
 using fvt_mrf::kMaxBranches;
 using fvt_mrf::kMaxPairs;
 using fvt_mrf::kSlope;
@@ -114,13 +125,19 @@ __device__ __forceinline__ void rows_times_weight(float4 (&acc)[kRowsPerThread],
 }
 
 FVT_MMA_PAIR_KERNEL(tail_pair_kernel)
+FVT_MMA_BF16_PAIR_KERNEL(tail_pair_bf16_kernel)
 
-template <int C>
-__global__ void __launch_bounds__(kThreads, 2)
-tail_upsample_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ y, int T_in, int cin,
-                     int K, int u, int pad) {
-  extern __shared__ __align__(16) float smem[];
+template <typename E>
+__device__ __forceinline__ float4 leaky4_fit(float4 v, float slope) {
+  return make_float4(leaky_fit<E>(v.x, slope), leaky_fit<E>(v.y, slope),
+                     leaky_fit<E>(v.z, slope), leaky_fit<E>(v.w, slope));
+}
+
+template <int C, typename E>
+__device__ __forceinline__ void upsample_body(const E* __restrict__ x, const float* __restrict__ w,
+                                              const float* __restrict__ bias, E* __restrict__ y,
+                                              int T_in, int cin, int K, int u, int pad,
+                                              float* smem) {
   constexpr int C4 = C / 4;
   constexpr int kGroups = kThreads / C4;
   constexpr int R = pass_rows(C);
@@ -131,14 +148,13 @@ tail_upsample_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int ni = floor_div(q0 + R - 1 + pad, u) + 1 - i_lo;
   const int cin4 = cin / 4;
   {
-    const float* src = x + static_cast<size_t>(b) * T_in * cin;
+    const E* src = x + static_cast<size_t>(b) * T_in * cin;
     for (int i = threadIdx.x; i < ni * cin4; i += kThreads) {
       const int g = i_lo + i / cin4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (g >= 0 && g < T_in) {
-        v = leaky4(__ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(g) * cin) +
-                         i % cin4),
-                   kSlope);
+        v = leaky4_fit<E>(fvt_mma::load4(src + static_cast<size_t>(g) * cin + 4 * (i % cin4)),
+                          kSlope);
       }
       reinterpret_cast<float4*>(smem)[i] = v;
     }
@@ -165,19 +181,36 @@ tail_upsample_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j) {
     const int t = q0 + rgroup + j * kGroups;
-    if (t < T) *reinterpret_cast<float4*>(y + base + static_cast<size_t>(t) * C + col) = acc[j];
+    if (t < T) fvt_mma::store4(y + base + static_cast<size_t>(t) * C + col, acc[j]);
   }
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+tail_upsample_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ y, int T_in, int cin,
+                     int K, int u, int pad) {
+  extern __shared__ __align__(16) float smem[];
+  upsample_body<C>(x, w, bias, y, T_in, cin, K, u, pad, smem);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+tail_upsample_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ bias, bf16* __restrict__ y, int T_in,
+                          int cin, int K, int u, int pad) {
+  extern __shared__ __align__(16) float smem[];
+  upsample_body<C>(x, w, bias, y, T_in, cin, K, u, pad, smem);
 }
 
 // output rows of a head block (its shared memory: (R + Kp - 1) (C + 1) floats)
 __host__ __device__ constexpr int head_rows(int C) { return 4096 / C; }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-tail_head_kernel(const float* __restrict__ out, size_t n, int nb, int T,
-                 const float* __restrict__ wp, const float* __restrict__ bp, int kp, int bands,
-                 float* __restrict__ y) {
-  extern __shared__ __align__(16) float smem[];
+template <int C, typename E>
+__device__ __forceinline__ void head_body(const E* __restrict__ out, size_t n, int nb, int T,
+                                          const float* __restrict__ wp,
+                                          const float* __restrict__ bp, int kp, int bands,
+                                          E* __restrict__ y, float* smem) {
   constexpr int C4 = C / 4;
   constexpr int CP = C + 1;  // padded row of the head's input
   constexpr int R = head_rows(C);
@@ -190,7 +223,8 @@ tail_head_kernel(const float* __restrict__ out, size_t n, int nb, int T,
     const int g = q0 - e + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (g >= 0 && g < T) {
-      v = leaky4(branch_mean4(out, n, nb, base4 + static_cast<size_t>(g) * C4 + c4), kHeadSlope);
+      v = leaky4_fit<E>(branch_mean4(out, n, nb, base4 + static_cast<size_t>(g) * C4 + c4),
+                        kHeadSlope);
     }
     float* row = smem + r * CP + c4 * 4;
     row[0] = v.x;
@@ -210,74 +244,108 @@ tail_head_kernel(const float* __restrict__ out, size_t n, int nb, int T,
 #pragma unroll 4
       for (int c = 0; c < C; ++c) acc = fmaf(m[c], __ldg(wk + c * bands), acc);
     }
-    y[(static_cast<size_t>(b) * T + g) * bands + ob] = tanhf(acc);
+    const float v = tanhf(acc);
+    if constexpr (fvt_mma::is_bf16<E>()) {
+      y[(static_cast<size_t>(b) * T + g) * bands + ob] = __float2bfloat16_rn(v);
+    } else {
+      y[(static_cast<size_t>(b) * T + g) * bands + ob] = v;
+    }
   }
 }
 
 template <int C>
-cudaError_t run_tail(const float* x, float* y, float* scratch, const float* packed, int B,
-                     int T_in, int cin, const float* w_up, const float* b_up, int k_up, int u,
-                     int pad, int nb, int np, const fvt_mrf::PairArgs* steps,
-                     const float* w_post, const float* b_post, int k_post, int bands,
-                     cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+tail_head_kernel(const float* __restrict__ out, size_t n, int nb, int T,
+                 const float* __restrict__ wp, const float* __restrict__ bp, int kp, int bands,
+                 float* __restrict__ y) {
+  extern __shared__ __align__(16) float smem[];
+  head_body<C>(out, n, nb, T, wp, bp, kp, bands, y, smem);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+tail_head_bf16_kernel(const bf16* __restrict__ out, size_t n, int nb, int T,
+                      const float* __restrict__ wp, const float* __restrict__ bp, int kp,
+                      int bands, bf16* __restrict__ y) {
+  extern __shared__ __align__(16) float smem[];
+  head_body<C>(out, n, nb, T, wp, bp, kp, bands, y, smem);
+}
+
+template <int C, typename E>
+cudaError_t run_tail(const E* x, E* y, E* scratch, const E* packed, int B, int T_in, int cin,
+                     const float* w_up, const float* b_up, int k_up, int u, int pad, int nb,
+                     int np, const fvt_mrf::PairArgs* steps, const float* w_post,
+                     const float* b_post, int k_post, int bands, cudaStream_t stream) {
+  constexpr bool kBf16 = fvt_mma::is_bf16<E>();
   constexpr int kGroups = kThreads / (C / 4);
+  constexpr int WM = fvt_mma::Tile<C>::kWM, ST = fvt_mma::Tile<C>::kST;
   if (kGroups % u != 0) return cudaErrorInvalidValue;
   const int T = T_in * u;
   const size_t n = static_cast<size_t>(B) * T * C;
-  float* h0 = scratch + 2 * nb * n;
+  E* h0 = scratch + 2 * nb * n;
 
   const int up_smem = static_cast<int>(sizeof(float)) * up_rows(pass_rows(C), k_up, u) * cin;
   if (up_smem > fvt_smem::kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err =
-      fvt_smem::allow_max_smem(reinterpret_cast<const void*>(tail_upsample_kernel<C>));
+  const void* up_kernel = kBf16 ? reinterpret_cast<const void*>(tail_upsample_bf16_kernel<C>)
+                                : reinterpret_cast<const void*>(tail_upsample_kernel<C>);
+  cudaError_t err = fvt_smem::allow_max_smem(up_kernel);
   if (err != cudaSuccess) return err;
-  tail_upsample_kernel<C><<<dim3((T + pass_rows(C) - 1) / pass_rows(C), B), kThreads, up_smem,
-                            stream>>>(x, w_up, b_up, h0, T_in, cin, k_up, u, pad);
+  const dim3 up_grid((T + pass_rows(C) - 1) / pass_rows(C), B);
+  if constexpr (kBf16) {
+    tail_upsample_bf16_kernel<C><<<up_grid, kThreads, up_smem, stream>>>(x, w_up, b_up, h0, T_in,
+                                                                         cin, k_up, u, pad);
+  } else {
+    tail_upsample_kernel<C><<<up_grid, kThreads, up_smem, stream>>>(x, w_up, b_up, h0, T_in, cin,
+                                                                    k_up, u, pad);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = fvt_mrf::run_pairs<C>(tail_pair_kernel<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>,
-                              steps, nb, np, packed, h0, scratch, B, T, stream);
+  if constexpr (kBf16) {
+    err = fvt_mrf::run_pairs<C>(tail_pair_bf16_kernel<C, WM, ST>, steps, nb, np, packed, h0,
+                                scratch, B, T, stream);
+  } else {
+    err = fvt_mrf::run_pairs<C>(tail_pair_kernel<C, WM, ST>, steps, nb, np, packed, h0, scratch,
+                                B, T, stream);
+  }
   if (err != cudaSuccess) return err;
 
   const int head_smem = static_cast<int>(sizeof(float)) * (head_rows(C) + k_post - 1) * (C + 1);
   if (head_smem > fvt_smem::kMaxSmem) return cudaErrorInvalidValue;
-  err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(tail_head_kernel<C>));
+  const void* head_kernel = kBf16 ? reinterpret_cast<const void*>(tail_head_bf16_kernel<C>)
+                                  : reinterpret_cast<const void*>(tail_head_kernel<C>);
+  err = fvt_smem::allow_max_smem(head_kernel);
   if (err != cudaSuccess) return err;
-  tail_head_kernel<C><<<dim3((T + head_rows(C) - 1) / head_rows(C), B), kThreads, head_smem,
-                        stream>>>(scratch + ((np - 1) % 2) * nb * n, n, nb, T, w_post, b_post,
-                                  k_post, bands, y);
+  const dim3 head_grid((T + head_rows(C) - 1) / head_rows(C), B);
+  const E* last = scratch + ((np - 1) % 2) * nb * n;
+  if constexpr (kBf16) {
+    tail_head_bf16_kernel<C><<<head_grid, kThreads, head_smem, stream>>>(
+        last, n, nb, T, w_post, b_post, k_post, bands, y);
+  } else {
+    tail_head_kernel<C><<<head_grid, kThreads, head_smem, stream>>>(last, n, nb, T, w_post,
+                                                                    b_post, k_post, bands, y);
+  }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int fvt_fused_tail_max_bands() { return kMaxBands; }
-extern "C" int fvt_fused_tail_max_branches() { return kMaxBranches; }
-extern "C" int fvt_fused_tail_max_pairs() { return kMaxPairs; }
-
-// floats of the packed MRF kernels of a tail (`fvt_fused_tail_pack`); -1
-// for a width or table it refuses.  ints as `fvt_fused_tail` takes them.
-extern "C" long long fvt_fused_tail_packed_floats(int C, int nb, int np, const int* ints) {
+template <typename E>
+long long packed_elems(int C, int nb, int np, const int* ints) {
   fvt_mrf::PairArgs steps[kMaxPairs];
   const float* none[4 * kMaxBranches * kMaxPairs] = {};
   if (fvt_mrf::load_steps(steps, nb, np, ints, none) != cudaSuccess) return -1;
   switch (C) {
-    case 16: return static_cast<long long>(fvt_mrf::packed_layout<16>(steps, nb, np));
-    case 32: return static_cast<long long>(fvt_mrf::packed_layout<32>(steps, nb, np));
-    case 64: return static_cast<long long>(fvt_mrf::packed_layout<64>(steps, nb, np));
-    case 128: return static_cast<long long>(fvt_mrf::packed_layout<128>(steps, nb, np));
-    case 256: return static_cast<long long>(fvt_mrf::packed_layout<256>(steps, nb, np));
+    case 16: return static_cast<long long>(fvt_mrf::packed_layout<16, E>(steps, nb, np));
+    case 32: return static_cast<long long>(fvt_mrf::packed_layout<32, E>(steps, nb, np));
+    case 64: return static_cast<long long>(fvt_mrf::packed_layout<64, E>(steps, nb, np));
+    case 128: return static_cast<long long>(fvt_mrf::packed_layout<128, E>(steps, nb, np));
+    case 256: return static_cast<long long>(fvt_mrf::packed_layout<256, E>(steps, nb, np));
     default: return -1;
   }
 }
 
-// packed (`fvt_fused_tail_packed_floats` floats, 16-byte aligned) = the
-// MRF's kernels split for the tensor cores, in one launch on `stream`.
-// ints and weights as `fvt_fused_tail` takes them.  Returns the CUDA error
-// of the launch (0 = ok).
-extern "C" int fvt_fused_tail_pack(float* packed, int C, int nb, int np, const int* ints,
-                                   const float* const* weights, void* stream) {
+template <typename E>
+int pack_any(E* packed, int C, int nb, int np, const int* ints, const float* const* weights,
+             void* stream) {
   fvt_mrf::PairArgs steps[kMaxPairs];
   cudaError_t err = fvt_mrf::load_steps(steps, nb, np, ints, weights);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -292,23 +360,11 @@ extern "C" int fvt_fused_tail_pack(float* packed, int C, int nb, int np, const i
   }
 }
 
-// x (B, T_in, cin) and y (B, stride * T_in, bands) float32 contiguous; C (the
-// stage's width) in {16, 32, 64, 128, 256}, cin a multiple of 4.  scratch:
-// (2 nb + 1) * B * stride * T_in * C floats.  packed: the MRF's kernels as
-// `fvt_fused_tail_pack` wrote them from the same table.  w_up (k_up, cin,
-// C), b_up (C,): the transposed conv, torch semantics with `pad`.  ints /
-// weights: the MRF's nb branches of np pairs, per (branch, pair),
-// branch-major, (K1, dilation, K2) and (w1 (K1, C, C), b1 (C,), w2
-// (K2, C, C), b2 (C,)), kernels (tap, c_in, c_out), of which this call
-// reads the biases.  w_post (k_post, C, bands), b_post (bands,), k_post
-// odd, bands <= 4.  Device pointers 16-byte aligned.  Returns the first
-// CUDA error of the launches (0 = ok).
-extern "C" int fvt_fused_tail(const float* x, float* y, float* scratch, const float* packed,
-                              int B, int T_in, int cin, int C, const float* w_up,
-                              const float* b_up, int k_up, int stride, int pad, int nb, int np,
-                              const int* ints, const float* const* weights,
-                              const float* w_post, const float* b_post, int k_post, int bands,
-                              void* stream) {
+template <typename E>
+int run_any(const E* x, E* y, E* scratch, const E* packed, int B, int T_in, int cin, int C,
+            const float* w_up, const float* b_up, int k_up, int stride, int pad, int nb, int np,
+            const int* ints, const float* const* weights, const float* w_post,
+            const float* b_post, int k_post, int bands, void* stream) {
   if (B < 1 || T_in < 1 || cin < 4 || cin % 4 != 0 || k_up < 1 || stride < 1 || pad < 0 ||
       k_post < 1 || k_post % 2 == 0 || bands < 1 || bands > kMaxBands) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -330,4 +386,75 @@ extern "C" int fvt_fused_tail(const float* x, float* y, float* scratch, const fl
   }
 #undef FVT_TAIL
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" int fvt_fused_tail_max_bands() { return kMaxBands; }
+extern "C" int fvt_fused_tail_max_branches() { return kMaxBranches; }
+extern "C" int fvt_fused_tail_max_pairs() { return kMaxPairs; }
+
+// floats of the packed MRF kernels of a tail (`fvt_fused_tail_pack`); -1
+// for a width or table it refuses.  ints as `fvt_fused_tail` takes them.
+extern "C" long long fvt_fused_tail_packed_floats(int C, int nb, int np, const int* ints) {
+  return packed_elems<float>(C, nb, np, ints);
+}
+
+// packed (`fvt_fused_tail_packed_floats` floats, 16-byte aligned) = the
+// MRF's kernels split for the tensor cores, in one launch on `stream`.
+// ints and weights as `fvt_fused_tail` takes them.  Returns the CUDA error
+// of the launch (0 = ok).
+extern "C" int fvt_fused_tail_pack(float* packed, int C, int nb, int np, const int* ints,
+                                   const float* const* weights, void* stream) {
+  return pack_any(packed, C, nb, np, ints, weights, stream);
+}
+
+// x (B, T_in, cin) and y (B, stride * T_in, bands) float32 contiguous; C (the
+// stage's width) in {16, 32, 64, 128, 256}, cin a multiple of 4.  scratch:
+// (2 nb + 1) * B * stride * T_in * C floats.  packed: the MRF's kernels as
+// `fvt_fused_tail_pack` wrote them from the same table.  w_up (k_up, cin,
+// C), b_up (C,): the transposed conv, torch semantics with `pad`.  ints /
+// weights: the MRF's nb branches of np pairs, per (branch, pair),
+// branch-major, (K1, dilation, K2) and (w1 (K1, C, C), b1 (C,), w2
+// (K2, C, C), b2 (C,)), kernels (tap, c_in, c_out), of which this call
+// reads the biases.  w_post (k_post, C, bands), b_post (bands,), k_post
+// odd, bands <= 4.  Device pointers 16-byte aligned.  Returns the first
+// CUDA error of the launches (0 = ok).
+extern "C" int fvt_fused_tail(const float* x, float* y, float* scratch, const float* packed,
+                              int B, int T_in, int cin, int C, const float* w_up,
+                              const float* b_up, int k_up, int stride, int pad, int nb, int np,
+                              const int* ints, const float* const* weights,
+                              const float* w_post, const float* b_post, int k_post, int bands,
+                              void* stream) {
+  return run_any(x, y, scratch, packed, B, T_in, cin, C, w_up, b_up, k_up, stride, pad, nb, np,
+                 ints, weights, w_post, b_post, k_post, bands, stream);
+}
+
+// The bf16 form.  Elements (bf16) of the packed MRF kernels of a tail; -1
+// for a width or table it refuses.
+extern "C" long long fvt_fused_tail_bf16_packed_elems(int C, int nb, int np, const int* ints) {
+  return packed_elems<bf16>(C, nb, np, ints);
+}
+
+// packed (`fvt_fused_tail_bf16_packed_elems` bf16, 16-byte aligned) = the
+// MRF's float32 kernels, as `fvt_fused_tail_pack` takes them, rounded to
+// bf16 in the order the pair launches read them.
+extern "C" int fvt_fused_tail_bf16_pack(bf16* packed, int C, int nb, int np, const int* ints,
+                                        const float* const* weights, void* stream) {
+  return pack_any(packed, C, nb, np, ints, weights, stream);
+}
+
+// x (B, T_in, cin), y (B, stride * T_in, bands) and scratch ((2 nb + 1) B
+// stride T_in C elements) bf16; packed as `fvt_fused_tail_bf16_pack` wrote
+// it; the other arguments as `fvt_fused_tail` takes them, w_up, b_up,
+// w_post and b_post float32 holding bf16 values.  Returns the first CUDA
+// error of the launches (0 = ok).
+extern "C" int fvt_fused_tail_bf16(const bf16* x, bf16* y, bf16* scratch, const bf16* packed,
+                                   int B, int T_in, int cin, int C, const float* w_up,
+                                   const float* b_up, int k_up, int stride, int pad, int nb,
+                                   int np, const int* ints, const float* const* weights,
+                                   const float* w_post, const float* b_post, int k_post,
+                                   int bands, void* stream) {
+  return run_any(x, y, scratch, packed, B, T_in, cin, C, w_up, b_up, k_up, stride, pad, nb, np,
+                 ints, weights, w_post, b_post, k_post, bands, stream);
 }

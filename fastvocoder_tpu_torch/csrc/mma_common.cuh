@@ -55,11 +55,31 @@
 // Geometry of a block at width C: kGroupsN warpgroups side by side over the
 // channels (128 each, all of them below that) times WM warpgroups over the
 // rows; 64 WM rows a pass.
+//
+// The bf16 forms (E = __nv_bfloat16: activations bf16 in device and shared
+// memory, float32 parameters packed as bf16; the inference of a model
+// served with compute_dtype bf16) run the same core on
+// wgmma.mma_async.m64nNk16.f32.bf16.bf16: one product a depth step of 16
+// where 3xTF32 takes three a step of 8, so their bound is the operation
+// count at 989 TFLOP/s.  A lane's A fragment of a step holds the pairs of
+// channels (2 t, 2 t + 1) and (2 t + 8, 2 t + 9) of rows g and g + 8, two
+// bf16 to a register, low half first (mma.m16n8k16's layout), read straight
+// from the bf16 tile; a weight core matrix is 8 produced x 8 contracted
+// channels, again 128 contiguous bytes, so the descriptor's strides are the
+// TF32 form's.  The forms round to bf16 where the JAX package's Pallas
+// bodies round (`fit`): the bias before it is added, every conv's output,
+// every leaky-relu, every residual sum; products are summed in float32, a
+// weight unit in the tensor core and the units on the CUDA cores as in the
+// TF32 forms.  Their kernels have names of their own
+// (`FVT_MMA_BF16_*_KERNEL`), so that a profile tells the two forms apart.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "bwd_common.cuh"
 #include "smem_attr.cuh"
@@ -68,6 +88,82 @@ namespace fvt_mma {
 
 constexpr int kMaxZ = 4;          // convs (branches) of one launch: blockIdx.z
 constexpr int kMaxSmem = fvt_smem::kMaxSmem;  // dynamic shared memory a block may use
+
+using bf16 = __nv_bfloat16;
+
+// What a form's element type E sets: the padding of a staged row (16
+// bytes), the halves of a packed weight (TF32 hi and lo; bf16 one) and the
+// depth of one wgmma.
+template <typename E>
+struct Form;
+template <>
+struct Form<float> {
+  static constexpr int kPad = 4, kHalves = 2, kDepth = 8;
+};
+template <>
+struct Form<bf16> {
+  static constexpr int kPad = 8, kHalves = 1, kDepth = 16;
+};
+
+template <typename E>
+__host__ __device__ constexpr bool is_bf16() {
+  return std::is_same<E, bf16>::value;
+}
+
+// v as the form stores it: bf16 rounds to nearest, float32 keeps it
+template <typename E>
+__device__ __forceinline__ float fit(float v) {
+  if constexpr (is_bf16<E>()) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x in the low half
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// two neighbouring elements (8-byte or 4-byte aligned) as floats, and back
+template <typename E>
+__device__ __forceinline__ float2 load2(const E* p) {
+  if constexpr (is_bf16<E>()) {
+    return unpack_bf16x2(__ldg(reinterpret_cast<const unsigned int*>(p)));
+  } else {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+}
+template <typename E>
+__device__ __forceinline__ void store2(E* p, float2 v) {
+  if constexpr (is_bf16<E>()) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v.x, v.y);
+  } else {
+    *reinterpret_cast<float2*>(p) = v;
+  }
+}
+// four neighbouring elements (16-byte or 8-byte aligned)
+template <typename E>
+__device__ __forceinline__ float4 load4(const E* p) {
+  if constexpr (is_bf16<E>()) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 a = unpack_bf16x2(v.x), b = unpack_bf16x2(v.y);
+    return make_float4(a.x, a.y, b.x, b.y);
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+}
+template <typename E>
+__device__ __forceinline__ void store4(E* p, float4 v) {
+  if constexpr (is_bf16<E>()) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+  } else {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // 3xTF32 primitives
@@ -191,10 +287,113 @@ struct Wgmma<128> {
   }
 };
 
+// d (64 x N) (+)= a (64 x 16, from registers) b (N x 16, K-major in shared
+// memory behind `desc`), bf16 operands, float32 sums, one warpgroup;
+// asynchronous.  Warp w of the group holds rows 16 w .. 16 w + 15 of a and
+// d; there lane l = 4 g + t holds, two bf16 a register (the lower channel in
+// the low half), a0 (g, 2 t .. 2 t + 1), a1 (g + 8, 2 t ..), a2 (g,
+// 2 t + 8 ..), a3 (g + 8, 2 t + 8 ..), and d as `Wgmma` does.  B is not
+// transposed (the last immediate).
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<16> {
+  static __device__ __forceinline__ void run(float (&d)[2][4], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<32> {
+  static __device__ __forceinline__ void run(float (&d)[4][4], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<64> {
+  static __device__ __forceinline__ void run(float (&d)[8][4], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<128> {
+  static __device__ __forceinline__ void run(float (&d)[16][4], const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
 // The descriptor of a K-major operand without swizzle: core matrices (8 rows
 // of 16 bytes, contiguous) `k_stride` bytes apart along the depth and
 // `n_stride` bytes apart along the rows.
-__device__ __forceinline__ uint64_t wgmma_desc(const float* smem, uint32_t k_stride,
+__device__ __forceinline__ uint64_t wgmma_desc(const void* smem, uint32_t k_stride,
                                                uint32_t n_stride) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
@@ -218,7 +417,7 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem));
 }
@@ -257,29 +456,37 @@ __device__ __forceinline__ int reflect_index(int i, int T) {
 // geometry
 // ---------------------------------------------------------------------------
 
-template <int C>
+template <int C, typename E = float>
 struct Geo {
   static constexpr int kNW = C < 128 ? C : 128;  // channels a warpgroup produces
   static constexpr int kGroupsN = C / kNW;       // warpgroups side by side
   static constexpr int kNT = kNW / 8;            // 8-channel tiles of a warpgroup
-  static constexpr int kSA = C + 4;              // floats a staged row
+  static constexpr int kSA = C + Form<E>::kPad;  // elements a staged row
   // a weight unit: the kKC contracted channels [c kKC, (c + 1) kKC) of one
-  // tap for all C produced channels, as a hi half and a lo half, each in
-  // core matrices [kKC / 4][C / 8][8 produced][4 contracted]
+  // tap for all C produced channels, as kHalves halves (TF32: hi, then lo),
+  // each in core matrices of 128 bytes, [kKC / kCK][C / 8][8 produced][kCK
+  // contracted], kCK = 16 bytes of E
   static constexpr int kKC = C == 16 || C >= 256 ? 16 : 32;
   static constexpr int kChunks = C / kKC;
-  static constexpr int kHalfFloats = C * kKC;
-  static constexpr int kUnitFloats = 2 * kHalfFloats;
-  static constexpr int kUnitsPerSlab = 4608 / kUnitFloats > 0 ? 4608 / kUnitFloats : 1;
-  static constexpr int kSlabFloats = kUnitsPerSlab * kUnitFloats;
+  static constexpr int kCK = 16 / static_cast<int>(sizeof(E));
+  static constexpr int kCoreElems = 8 * kCK;
+  static constexpr int kHalfElems = C * kKC;
+  static constexpr int kUnitElems = Form<E>::kHalves * kHalfElems;
+  static constexpr int kUnitBytes = kUnitElems * static_cast<int>(sizeof(E));
+  static constexpr int kUnitsPerSlab = 18432 / kUnitBytes > 0 ? 18432 / kUnitBytes : 1;
+  static constexpr int kSlabElems = kUnitsPerSlab * kUnitElems;
   static constexpr uint32_t kStrideK = C / 8 * 128;  // bytes between core matrices in depth
   static constexpr uint32_t kStrideN = 128;          // and along the produced channels
 };
 
-// floats of the packed form of a kernel of K taps (`pack_kernel`)
+// elements of the packed form of a kernel of K taps (`pack_kernel`)
+template <int C, typename E = float>
+__host__ __device__ constexpr size_t packed_elems(int K) {
+  return static_cast<size_t>(Form<E>::kHalves) * K * C * C;
+}
 template <int C>
 __host__ __device__ constexpr size_t packed_floats(int K) {
-  return static_cast<size_t>(2) * K * C * C;
+  return packed_elems<C, float>(K);
 }
 
 template <int C, int WM>
@@ -310,22 +517,22 @@ struct Lane {
 
 // Slab s of a packed kernel of K taps into one stage of the ring, by all
 // threads of the block: a flat copy.
-template <int C, int THREADS>
-__device__ __forceinline__ void load_slab(float* stage, const float* __restrict__ W, int K,
-                                          int s) {
-  using G = Geo<C>;
+template <int C, int THREADS, typename E>
+__device__ __forceinline__ void load_slab(E* stage, const E* __restrict__ W, int K, int s) {
+  using G = Geo<C, E>;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(E));
   const int first = s * G::kUnitsPerSlab;
   const int units = min(G::kUnitsPerSlab, K * G::kChunks - first);
-  const float* src = W + static_cast<size_t>(first) * G::kUnitFloats;
-  for (int i = threadIdx.x; i < units * (G::kUnitFloats / 4); i += THREADS) {
-    cp_async16(stage + 4 * i, src + 4 * i);
+  const E* src = W + static_cast<size_t>(first) * G::kUnitElems;
+  for (int i = threadIdx.x; i < units * (G::kUnitElems / kVec); i += THREADS) {
+    cp_async16(stage + kVec * i, src + kVec * i);
   }
   cp_async_commit();  // a group per call, empty past the last slab
 }
 
 // acc[j] += sum_{k < K} sum_c tile[row + off0 + k step][c] W[k][n_j][c] for
 // the warpgroup's 64 rows and its channel tiles j, where `active`.  `tile` is
-// the staged tile (rows of kSA floats), `off0` and `step` are in rows (step
+// the staged tile (rows of kSA elements), `off0` and `step` are in rows (step
 // may be negative: an adjoint walks the taps backwards); W is the packed
 // kernel; `ring` holds ST slabs, of which ST - 1 are in flight ahead of the
 // one in use.  Starts with a __syncthreads(): what the block staged before
@@ -336,56 +543,80 @@ __device__ __forceinline__ void load_slab(float* stage, const float* __restrict_
 // (measured on the mma.sync version: 1e-5 of a stage's output).  So the
 // products of one unit are summed in the tensor core from zero, where a
 // truncation is relative to that small partial sum, and the partial sum is
-// added to acc on the CUDA cores, rounded to nearest.
-template <int C, int WM, int ST>
-__device__ __forceinline__ void conv_core(float (&acc)[Geo<C>::kNT][4], const float* tile,
-                                          int off0, int step, const float* __restrict__ W, int K,
-                                          float* ring, const Lane<C, WM>& ln, bool active) {
-  using G = Geo<C>;
+// added to acc on the CUDA cores, rounded to nearest.  The bf16 form keeps
+// that order: a unit is one or two wgmmas there, and its sums agree with
+// the plain float32 sums of bf16 operands to float32's rounding.
+template <int C, int WM, int ST, typename E>
+__device__ __forceinline__ void conv_core(float (&acc)[Geo<C>::kNT][4], const E* tile, int off0,
+                                          int step, const E* __restrict__ W, int K, E* ring,
+                                          const Lane<C, WM>& ln, bool active) {
+  using G = Geo<C, E>;
   constexpr int THREADS = block_threads<C, WM>();
-  constexpr int kSteps = G::kKC / 8;
+  constexpr int kSteps = G::kKC / Form<E>::kDepth;
   const int n_slabs = (K * G::kChunks + G::kUnitsPerSlab - 1) / G::kUnitsPerSlab;
-  const float* a_lane = tile + (ln.row0 + ln.g) * G::kSA + ln.t;
-  const int b_group = ln.n0 / 8 * 32;  // floats to the warpgroup's first core matrix
+  // the lane's first element: row g, channel t (TF32) or channels 2 t, 2 t + 1 (bf16)
+  const E* a_lane = tile + (ln.row0 + ln.g) * G::kSA + (is_bf16<E>() ? 2 : 1) * ln.t;
+  const int b_group = ln.n0 / 8 * G::kCoreElems;  // to the warpgroup's first core matrix
 
   __syncthreads();
 #pragma unroll
-  for (int s = 0; s < ST - 1; ++s) load_slab<C, THREADS>(ring + s * G::kSlabFloats, W, K, s);
+  for (int s = 0; s < ST - 1; ++s) load_slab<C, THREADS>(ring + s * G::kSlabElems, W, K, s);
   for (int s = 0; s < n_slabs; ++s) {
     cp_async_wait<ST - 2>();
     fence_smem_for_wgmma();
     __syncthreads();  // slab s has landed; every warp is done with slab s - 1
-    load_slab<C, THREADS>(ring + (s + ST - 1) % ST * G::kSlabFloats, W, K, s + ST - 1);
+    load_slab<C, THREADS>(ring + (s + ST - 1) % ST * G::kSlabElems, W, K, s + ST - 1);
     if (!active) continue;
-    const float* slab = ring + s % ST * G::kSlabFloats;
+    const E* slab = ring + s % ST * G::kSlabElems;
     const int first = s * G::kUnitsPerSlab;
     const int units = min(G::kUnitsPerSlab, K * G::kChunks - first);
     for (int u = 0; u < units; ++u) {
       const int q = first + u;
       const int tap = q / G::kChunks, chunk = q % G::kChunks;
-      const float* ap = a_lane + (off0 + tap * step) * G::kSA + chunk * G::kKC;
-      const float* hi = slab + u * G::kUnitFloats + b_group;
-      uint32_t a_hi[kSteps][4], a_lo[kSteps][4];
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        split_tf32(ap[ks * 8], a_hi[ks][0], a_lo[ks][0]);
-        split_tf32(ap[ks * 8 + 8 * G::kSA], a_hi[ks][1], a_lo[ks][1]);
-        split_tf32(ap[ks * 8 + 4], a_hi[ks][2], a_lo[ks][2]);
-        split_tf32(ap[ks * 8 + 8 * G::kSA + 4], a_hi[ks][3], a_lo[ks][3]);
-      }
+      const E* ap = a_lane + (off0 + tap * step) * G::kSA + chunk * G::kKC;
+      const E* hi = slab + u * G::kUnitElems + b_group;
       float p[G::kNT][4];
 #pragma unroll
       for (int j = 0; j < G::kNT; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.0f;
-      wgmma_fence();
+      if constexpr (is_bf16<E>()) {
+        uint32_t a[kSteps][4];
 #pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks) {
-        // depth step ks: the core matrices 2 ks and 2 ks + 1 of each half
-        const uint64_t d_hi = wgmma_desc(hi + 2 * ks * (C / 8) * 32, G::kStrideK, G::kStrideN);
-        const uint64_t d_lo =
-            wgmma_desc(hi + G::kHalfFloats + 2 * ks * (C / 8) * 32, G::kStrideK, G::kStrideN);
-        Wgmma<G::kNW>::run(p, a_lo[ks], d_hi, ks > 0);
-        Wgmma<G::kNW>::run(p, a_hi[ks], d_lo, 1);
-        Wgmma<G::kNW>::run(p, a_hi[ks], d_hi, 1);
+        for (int ks = 0; ks < kSteps; ++ks) {
+          const E* at = ap + ks * 16;
+          a[ks][0] = *reinterpret_cast<const uint32_t*>(at);
+          a[ks][1] = *reinterpret_cast<const uint32_t*>(at + 8 * G::kSA);
+          a[ks][2] = *reinterpret_cast<const uint32_t*>(at + 8);
+          a[ks][3] = *reinterpret_cast<const uint32_t*>(at + 8 * G::kSA + 8);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+          // depth step ks: the core matrices 2 ks and 2 ks + 1
+          WgmmaBf16<G::kNW>::run(
+              p, a[ks], wgmma_desc(hi + 2 * ks * (C / 8) * G::kCoreElems, G::kStrideK, G::kStrideN),
+              ks > 0);
+        }
+      } else {
+        uint32_t a_hi[kSteps][4], a_lo[kSteps][4];
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+          split_tf32(ap[ks * 8], a_hi[ks][0], a_lo[ks][0]);
+          split_tf32(ap[ks * 8 + 8 * G::kSA], a_hi[ks][1], a_lo[ks][1]);
+          split_tf32(ap[ks * 8 + 4], a_hi[ks][2], a_lo[ks][2]);
+          split_tf32(ap[ks * 8 + 8 * G::kSA + 4], a_hi[ks][3], a_lo[ks][3]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ++ks) {
+          // depth step ks: the core matrices 2 ks and 2 ks + 1 of each half
+          const uint64_t d_hi =
+              wgmma_desc(hi + 2 * ks * (C / 8) * G::kCoreElems, G::kStrideK, G::kStrideN);
+          const uint64_t d_lo = wgmma_desc(hi + G::kHalfElems + 2 * ks * (C / 8) * G::kCoreElems,
+                                           G::kStrideK, G::kStrideN);
+          Wgmma<G::kNW>::run(p, a_lo[ks], d_hi, ks > 0);
+          Wgmma<G::kNW>::run(p, a_hi[ks], d_lo, 1);
+          Wgmma<G::kNW>::run(p, a_hi[ks], d_hi, 1);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -398,8 +629,10 @@ __device__ __forceinline__ void conv_core(float (&acc)[Geo<C>::kNT][4], const fl
   }
 }
 
-// acc[j] = bias[channel] (+ bias2[channel]; zeros without a bias)
-template <int C, int WM>
+// acc[j] = bias[channel] (+ bias2[channel]; zeros without a bias), each
+// bias as the form E stores it (rounded to bf16 in the bf16 forms, as the
+// JAX package casts a bias to the compute type before it is added)
+template <int C, int WM, typename E = float>
 __device__ __forceinline__ void init_acc(float (&acc)[Geo<C>::kNT][4],
                                          const float* __restrict__ bias,
                                          const Lane<C, WM>& ln,
@@ -408,33 +641,59 @@ __device__ __forceinline__ void init_acc(float (&acc)[Geo<C>::kNT][4],
   for (int j = 0; j < Geo<C>::kNT; ++j) {
     const int col = ln.n0 + j * 8 + 2 * ln.t;
     float2 b = make_float2(0.f, 0.f);
-    if (bias != nullptr) b = __ldg(reinterpret_cast<const float2*>(bias + col));
+    if (bias != nullptr) {
+      b = __ldg(reinterpret_cast<const float2*>(bias + col));
+      b = make_float2(fit<E>(b.x), fit<E>(b.y));
+    }
     if (bias2 != nullptr) {
       const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias2 + col));
-      b = make_float2(b.x + b2.x, b.y + b2.y);
+      b = make_float2(b.x + fit<E>(b2.x), b.y + fit<E>(b2.y));
     }
     acc[j][0] = acc[j][2] = b.x;
     acc[j][1] = acc[j][3] = b.y;
   }
 }
 
+// leaky(v, slope) as the form E stores it
+template <typename E>
+__device__ __forceinline__ float leaky_fit(float v, float slope) {
+  return v >= 0.0f ? v : fit<E>(v * slope);
+}
+
+__device__ __forceinline__ uint32_t leaky_bf16x2(uint32_t v, float slope) {
+  const float2 f = unpack_bf16x2(v);
+  return pack_bf16x2(leaky(f.x, slope), leaky(f.y, slope));
+}
+
 // Stages leaky(src[g_lo .. g_lo + n), slope) of one sequence (T rows of C
-// floats) into `tile`, zeros outside [0, T): every conv's zero padding; or,
+// elements) into `tile`, zeros outside [0, T): every conv's zero padding; or,
 // with `mirror`, the mirrored rows there: a residual stack's reflect pad
-// (any number of folds, down to T = 1).
-template <int C, int THREADS>
-__device__ __forceinline__ void stage_rows(float* tile, const float* __restrict__ src, int T,
-                                           int g_lo, int n, float slope, bool mirror = false) {
-  constexpr int C4 = C / 4;
-  for (int i = threadIdx.x; i < n * C4; i += THREADS) {
-    const int row = i / C4, c4 = i % C4;
+// (any number of folds, down to T = 1).  The bf16 form rounds the
+// leaky-relu's products to bf16, as the Pallas bodies do.
+template <int C, int THREADS, typename E>
+__device__ __forceinline__ void stage_rows(E* tile, const E* __restrict__ src, int T, int g_lo,
+                                           int n, float slope, bool mirror = false) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(E));  // elements of a 16-byte copy
+  constexpr int CV = C / kVec;
+  for (int i = threadIdx.x; i < n * CV; i += THREADS) {
+    const int row = i / CV, cv = i % CV;
     const int g = mirror ? reflect_index(g_lo + row, T) : g_lo + row;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g >= 0 && g < T) {
-      v = leaky4(__ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(g) * C) + c4),
-                 slope);
+    if constexpr (is_bf16<E>()) {
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (g >= 0 && g < T) {
+        v = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(g) * C) + cv);
+        v = make_uint4(leaky_bf16x2(v.x, slope), leaky_bf16x2(v.y, slope),
+                       leaky_bf16x2(v.z, slope), leaky_bf16x2(v.w, slope));
+      }
+      *reinterpret_cast<uint4*>(tile + row * Geo<C, E>::kSA + kVec * cv) = v;
+    } else {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (g >= 0 && g < T) {
+        v = leaky4(__ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(g) * C) + cv),
+                   slope);
+      }
+      *reinterpret_cast<float4*>(tile + row * Geo<C, E>::kSA + kVec * cv) = v;
     }
-    *reinterpret_cast<float4*>(tile + row * Geo<C>::kSA + 4 * c4) = v;
   }
 }
 
@@ -444,48 +703,57 @@ __device__ __forceinline__ void stage_rows(float* tile, const float* __restrict_
 
 constexpr int kMaxPack = 64;
 
-// Up to kMaxPack kernels: src (K, C, C) as (tap, produced, contracted), or
-// with `swap` as (tap, contracted, produced); dst `packed_floats<C>(K)`
-// floats.
-struct PackArgs {
+// Up to kMaxPack kernels: src (K, C, C) float32 as (tap, produced,
+// contracted), or with `swap` as (tap, contracted, produced); dst
+// `packed_elems<C, E>(K)` elements.
+template <typename E>
+struct PackArgsT {
   const float* src[kMaxPack];
-  float* dst[kMaxPack];
+  E* dst[kMaxPack];
   int K[kMaxPack];
   int swap[kMaxPack];
 };
+using PackArgs = PackArgsT<float>;
 
-// dst = src split into TF32 halves in the order `conv_core` reads: per unit
-// (tap, chunk of kKC contracted channels) the hi half, then the lo half,
-// each as core matrices [kKC / 4][C / 8][8 produced][4 contracted].
-template <int C>
-__global__ void __launch_bounds__(256) pack_kernel(PackArgs a) {
-  using G = Geo<C>;
+// dst = src in the order `conv_core` reads it: per unit (tap, chunk of kKC
+// contracted channels) the core matrices [kKC / kCK][C / 8][8 produced][kCK
+// contracted]; the TF32 form split into its hi half, then its lo half, the
+// bf16 form rounded to nearest.
+template <int C, typename E>
+__global__ void __launch_bounds__(256) pack_kernel(PackArgsT<E> a) {
+  using G = Geo<C, E>;
+  constexpr int kCK = G::kCK;
   const int conv = blockIdx.y;
   const float* __restrict__ src = a.src[conv];
-  float* __restrict__ dst = a.dst[conv];
+  E* __restrict__ dst = a.dst[conv];
   const int total = a.K[conv] * C * C;
   const bool swap = a.swap[conv] != 0;
   for (int i = blockIdx.x * 256 + threadIdx.x; i < total; i += gridDim.x * 256) {
-    const int unit = i / G::kHalfFloats, within = i % G::kHalfFloats;
-    const int k4 = within % 4, r8 = within / 4 % 8, ng = within / 32 % (C / 8);
-    const int kg = within / (32 * (C / 8));
+    const int unit = i / G::kHalfElems, within = i % G::kHalfElems;
+    const int kk = within % kCK, r8 = within / kCK % 8, ng = within / (8 * kCK) % (C / 8);
+    const int kg = within / (8 * kCK * (C / 8));
     const int tap = unit / G::kChunks, chunk = unit % G::kChunks;
-    const int produced = ng * 8 + r8, contracted = chunk * G::kKC + kg * 4 + k4;
+    const int produced = ng * 8 + r8, contracted = chunk * G::kKC + kg * kCK + kk;
     const float v = __ldg(src + (static_cast<size_t>(tap) * C + (swap ? contracted : produced)) * C +
                           (swap ? produced : contracted));
-    uint32_t hi, lo;
-    split_tf32(v, hi, lo);
-    dst[static_cast<size_t>(unit) * G::kUnitFloats + within] = __uint_as_float(hi);
-    dst[static_cast<size_t>(unit) * G::kUnitFloats + G::kHalfFloats + within] = __uint_as_float(lo);
+    E* at = dst + static_cast<size_t>(unit) * G::kUnitElems + within;
+    if constexpr (is_bf16<E>()) {
+      *at = __float2bfloat16_rn(v);
+    } else {
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      at[0] = __uint_as_float(hi);
+      at[G::kHalfElems] = __uint_as_float(lo);
+    }
   }
 }
 
-template <int C>
-cudaError_t launch_pack(const PackArgs& a, int n, cudaStream_t stream) {
+template <int C, typename E>
+cudaError_t launch_pack(const PackArgsT<E>& a, int n, cudaStream_t stream) {
   int max_K = 1;
   for (int i = 0; i < n; ++i) max_K = max_K > a.K[i] ? max_K : a.K[i];
   const int blocks = (max_K * C * C + 255) / 256;
-  pack_kernel<C><<<dim3(blocks < 64 ? blocks : 64, n), 256, 0, stream>>>(a);
+  pack_kernel<C, E><<<dim3(blocks < 64 ? blocks : 64, n), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -494,20 +762,22 @@ cudaError_t launch_pack(const PackArgs& a, int n, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 // One pair position of up to kMaxZ branches.  Kernels packed from
-// (tap, c_out, c_in).
-struct PairArgs {
-  const float* src[kMaxZ];    // (B, T, C): the pair's input h
-  float* dst[kMaxZ];          // (B, T, C): h', or null: conv2 is not run
-  float* u_dst[kMaxZ];        // (B, T, C): u = leaky(conv1 + b1), or null
-  const float* w1[kMaxZ];     // packed (K1, C, C)
+// (tap, c_out, c_in); activations of the form's type E.
+template <typename E>
+struct PairArgsT {
+  const E* src[kMaxZ];        // (B, T, C): the pair's input h
+  E* dst[kMaxZ];              // (B, T, C): h', or null: conv2 is not run
+  E* u_dst[kMaxZ];            // (B, T, C): u = leaky(conv1 + b1), or null
+  const E* w1[kMaxZ];         // packed (K1, C, C)
   const float* b1[kMaxZ];     // (C,)
-  const float* w2[kMaxZ];     // packed (K2, C, C)
+  const E* w2[kMaxZ];         // packed (K2, C, C)
   const float* b2[kMaxZ];     // (C,)
   int k1[kMaxZ];
   int dil[kMaxZ];
   int k2[kMaxZ];
   float slope;                // the leaky-relu's, before both convs
 };
+using PairArgs = PairArgsT<float>;
 
 // Block x owns rows [x R, x R + R) of sequence blockIdx.y in branch
 // blockIdx.z.  It stages leaky(h) over the R + 2 (m1 + m2) rows the pair
@@ -516,13 +786,16 @@ struct PairArgs {
 // shared-memory rows once every warp has read the tile for the last time;
 // computes conv2 over its R rows and adds the residual h from device
 // memory.  R + 2 m2 <= 64 WM.  Shared memory: `tile_rows` rows of kSA
-// floats, then the weight ring.  The body of each library's pair kernel
-// (`FVT_MMA_PAIR_KERNEL`), which names it after its library, so that a
-// profile tells the forward's launches from the backward's recompute.
-template <int C, int WM, int ST>
-__device__ __forceinline__ void pair_body(const PairArgs& a, int T, int R, int tile_rows,
-                                          float* smem) {
-  using G = Geo<C>;
+// elements, then the weight ring.  The bf16 form rounds u's conv and its
+// leaky-relu, conv2 and the residual sum, as fused_mrf.py's Pallas body
+// does.  The body of each library's pair kernel (`FVT_MMA_PAIR_KERNEL`,
+// `FVT_MMA_BF16_PAIR_KERNEL`), which names it after its library and form,
+// so that a profile tells the forward's launches from the backward's
+// recompute.
+template <int C, int WM, int ST, typename E>
+__device__ __forceinline__ void pair_body(const PairArgsT<E>& a, int T, int R, int tile_rows,
+                                          E* smem) {
+  using G = Geo<C, E>;
   constexpr int THREADS = block_threads<C, WM>();
   const Lane<C, WM> ln;
   const int z = gridDim.z - 1 - blockIdx.z, b = blockIdx.y;  // see launch_pair
@@ -532,18 +805,18 @@ __device__ __forceinline__ void pair_body(const PairArgs& a, int T, int R, int t
   const int m1 = (K1 - 1) / 2 * d, m2 = (K2 - 1) / 2;
   const int nu = no + 2 * m2, u_lo = q0 - m2;
   const size_t base = static_cast<size_t>(b) * T * C;
-  float* tile = smem;
-  float* ring = smem + tile_rows * G::kSA;
+  E* tile = smem;
+  E* ring = smem + tile_rows * G::kSA;
   float acc[G::kNT][4];
 
   stage_rows<C, THREADS>(tile, a.src[z] + base, T, u_lo - m1, nu + 2 * m1, a.slope);
 
   // u row i reads the staged rows i + k d
   const bool active_u = ln.group_m * 64 < nu;
-  init_acc<C, WM>(acc, a.b1[z], ln);
+  init_acc<C, WM, E>(acc, a.b1[z], ln);
   conv_core<C, WM, ST>(acc, tile, 0, d, a.w1[z], K1, ring, ln, active_u);
   __syncthreads();  // the tile is read no more: u takes its rows
-  float* u_out = a.u_dst[z];
+  E* u_out = a.u_dst[z];
   if (active_u) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -556,12 +829,11 @@ __device__ __forceinline__ void pair_body(const PairArgs& a, int T, int R, int t
         const int col = ln.n0 + j * 8 + 2 * ln.t;
         float2 v = make_float2(0.f, 0.f);
         if (inside) {
-          v = make_float2(leaky(acc[j][2 * half], a.slope), leaky(acc[j][2 * half + 1], a.slope));
+          v = make_float2(leaky_fit<E>(fit<E>(acc[j][2 * half]), a.slope),
+                          leaky_fit<E>(fit<E>(acc[j][2 * half + 1]), a.slope));
         }
-        *reinterpret_cast<float2*>(tile + r * G::kSA + col) = v;
-        if (owned) {
-          *reinterpret_cast<float2*>(u_out + base + static_cast<size_t>(gr) * C + col) = v;
-        }
+        store2(tile + r * G::kSA + col, v);
+        if (owned) store2(u_out + base + static_cast<size_t>(gr) * C + col, v);
       }
     }
   }
@@ -569,7 +841,7 @@ __device__ __forceinline__ void pair_body(const PairArgs& a, int T, int R, int t
 
   // output row i reads u rows i + k
   const bool active_o = ln.group_m * 64 < no;
-  init_acc<C, WM>(acc, a.b2[z], ln);
+  init_acc<C, WM, E>(acc, a.b2[z], ln);
   conv_core<C, WM, ST>(acc, tile, 0, 1, a.w2[z], K2, ring, ln, active_o);
   if (!active_o) return;
 #pragma unroll
@@ -580,32 +852,43 @@ __device__ __forceinline__ void pair_body(const PairArgs& a, int T, int R, int t
 #pragma unroll
     for (int j = 0; j < G::kNT; ++j) {
       const size_t at = row + ln.n0 + j * 8 + 2 * ln.t;
-      const float2 h = __ldg(reinterpret_cast<const float2*>(a.src[z] + at));
-      *reinterpret_cast<float2*>(a.dst[z] + at) =
-          make_float2(h.x + acc[j][2 * half], h.y + acc[j][2 * half + 1]);
+      const float2 h = load2(a.src[z] + at);
+      store2(a.dst[z] + at, make_float2(fit<E>(h.x + fit<E>(acc[j][2 * half])),
+                                        fit<E>(h.y + fit<E>(acc[j][2 * half + 1]))));
     }
   }
 }
 
-typedef void (*PairKernel)(PairArgs, int, int, int);
+template <typename E>
+using PairKernelT = void (*)(PairArgsT<E>, int, int, int);
+typedef PairKernelT<float> PairKernel;
 
 #define FVT_MMA_PAIR_KERNEL(name)                                               \
   template <int C, int WM, int ST>                                              \
   __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
   name(fvt_mma::PairArgs a, int T, int R, int tile_rows) {                      \
     extern __shared__ __align__(16) float smem[];                              \
-    fvt_mma::pair_body<C, WM, ST>(a, T, R, tile_rows, smem);                    \
+    fvt_mma::pair_body<C, WM, ST, float>(a, T, R, tile_rows, smem);             \
   }
 
-// One launch of `kernel` (a FVT_MMA_PAIR_KERNEL at C, WM, ST) with `a` over
-// nz branches of (B, T, C).  The grid starts its blocks in the order of
-// blockIdx.z, and the kernels read it backwards: HiFiGAN lists its branches
-// by rising kernel size, so the longest blocks start first and the short
-// ones fill the launch's tail.
-template <int C, int WM, int ST>
-cudaError_t launch_pair(PairKernel kernel, const PairArgs& a, int nz, int B, int T,
+#define FVT_MMA_BF16_PAIR_KERNEL(name)                                          \
+  template <int C, int WM, int ST>                                              \
+  __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
+  name(fvt_mma::PairArgsT<fvt_mma::bf16> a, int T, int R, int tile_rows) {      \
+    extern __shared__ __align__(16) unsigned char smem_raw[];                  \
+    fvt_mma::pair_body<C, WM, ST, fvt_mma::bf16>(                               \
+        a, T, R, tile_rows, reinterpret_cast<fvt_mma::bf16*>(smem_raw));        \
+  }
+
+// One launch of `kernel` (a FVT_MMA_PAIR_KERNEL or FVT_MMA_BF16_PAIR_KERNEL
+// at C, WM, ST) with `a` over nz branches of (B, T, C).  The grid starts its
+// blocks in the order of blockIdx.z, and the kernels read it backwards:
+// HiFiGAN lists its branches by rising kernel size, so the longest blocks
+// start first and the short ones fill the launch's tail.
+template <int C, int WM, int ST, typename E>
+cudaError_t launch_pair(PairKernelT<E> kernel, const PairArgsT<E>& a, int nz, int B, int T,
                         cudaStream_t stream) {
-  using G = Geo<C>;
+  using G = Geo<C, E>;
   constexpr int kRows = 64 * WM;
   int max_m1 = 0, max_m2 = 0;
   for (int z = 0; z < nz; ++z) {
@@ -622,8 +905,7 @@ cudaError_t launch_pair(PairKernel kernel, const PairArgs& a, int nz, int B, int
   // last rows may read past the rows staged; what they produce is never
   // stored)
   const int tile_rows = kRows + 2 * (max_m1 > max_m2 ? max_m1 : max_m2);
-  const int smem =
-      static_cast<int>(sizeof(float)) * (tile_rows * G::kSA + ST * G::kSlabFloats);
+  const int smem = static_cast<int>(sizeof(E)) * (tile_rows * G::kSA + ST * G::kSlabElems);
   if (R < 1 || smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
@@ -638,21 +920,24 @@ cudaError_t launch_pair(PairKernel kernel, const PairArgs& a, int nz, int B, int
 //      + conv_1x1_skip(h) + bs
 // ---------------------------------------------------------------------------
 
-// One stack.  Kernels packed from (tap, c_out, c_in).
-struct StackArgs {
-  const float* src;  // (B, T, C): the stack's input h
-  float* dst;        // (B, T, C): h', or null: the 1x1 convs are not run
-  float* u_dst;      // (B, T, C): u = leaky(conv_d + bd), or null
-  const float* wd;   // packed (K, C, C)
+// One stack.  Kernels packed from (tap, c_out, c_in); activations of the
+// form's type E.
+template <typename E>
+struct StackArgsT {
+  const E* src;      // (B, T, C): the stack's input h
+  E* dst;            // (B, T, C): h', or null: the 1x1 convs are not run
+  E* u_dst;          // (B, T, C): u = leaky(conv_d + bd), or null
+  const E* wd;       // packed (K, C, C)
   const float* bd;   // (C,)
-  const float* w1;   // packed (1, C, C)
+  const E* w1;       // packed (1, C, C)
   const float* b1;   // (C,)
-  const float* ws;   // packed (1, C, C): the skip conv
+  const E* ws;       // packed (1, C, C): the skip conv
   const float* bs;   // (C,)
   int K;
   int dil;
   float slope;  // the leaky-relu's, before both convs
 };
+using StackArgs = StackArgsT<float>;
 
 // Block x owns rows [x R, x R + R) of sequence blockIdx.y, R = 64 WM.  A
 // 1x1 conv needs no halo, so a stack a launch recomputes nothing: the block
@@ -661,13 +946,17 @@ struct StackArgs {
 // into the same shared-memory rows once every warp has read the tile for the
 // last time; then acc = b1 + bs + W1 u and, with the raw h of its rows
 // staged over u, acc += Ws h.  One tile and the weight ring: 150 KB at
-// C = 256, m = 9.  The body of each library's stack kernel
-// (`FVT_MMA_STACK_KERNEL`), which names it after its library, so that a
-// profile tells the forward's launches from the backward's recompute.
-template <int C, int WM, int ST>
-__device__ __forceinline__ void stack_body(const StackArgs& a, int T, int tile_rows,
-                                           float* smem) {
-  using G = Geo<C>;
+// C = 256, m = 9.  The bf16 form rounds where fused_resstack.py's Pallas
+// body does: u's conv and its leaky-relu, t = W1 u + b1 and the skip
+// Ws h + bs apart (t is kept in registers as bf16 pairs meanwhile), and
+// their sum.  The body of each library's stack kernel
+// (`FVT_MMA_STACK_KERNEL`, `FVT_MMA_BF16_STACK_KERNEL`), which names it
+// after its library and form, so that a profile tells the forward's
+// launches from the backward's recompute.
+template <int C, int WM, int ST, typename E>
+__device__ __forceinline__ void stack_body(const StackArgsT<E>& a, int T, int tile_rows,
+                                           E* smem) {
+  using G = Geo<C, E>;
   constexpr int THREADS = block_threads<C, WM>();
   constexpr int R = 64 * WM;
   const Lane<C, WM> ln;
@@ -675,15 +964,15 @@ __device__ __forceinline__ void stack_body(const StackArgs& a, int T, int tile_r
   const int no = min(R, T - q0);
   const int d = a.dil, m = (a.K - 1) / 2 * d;
   const size_t base = static_cast<size_t>(blockIdx.y) * T * C;
-  const float* src = a.src + base;
-  float* tile = smem;
-  float* ring = smem + tile_rows * G::kSA;
+  const E* src = a.src + base;
+  E* tile = smem;
+  E* ring = smem + tile_rows * G::kSA;
   float acc[G::kNT][4];
 
   stage_rows<C, THREADS>(tile, src, T, q0 - m, no + 2 * m, a.slope, true);
   // u row i reads the staged rows i + k d
   const bool active = ln.group_m * 64 < no;
-  init_acc<C, WM>(acc, a.bd, ln);
+  init_acc<C, WM, E>(acc, a.bd, ln);
   conv_core<C, WM, ST>(acc, tile, 0, d, a.wd, a.K, ring, ln, active);
   __syncthreads();  // the tile is read no more: u takes its rows
   if (active) {
@@ -693,19 +982,31 @@ __device__ __forceinline__ void stack_body(const StackArgs& a, int T, int tile_r
 #pragma unroll
       for (int j = 0; j < G::kNT; ++j) {
         const int col = ln.n0 + j * 8 + 2 * ln.t;
-        const float2 v = make_float2(leaky(acc[j][2 * half], a.slope),
-                                     leaky(acc[j][2 * half + 1], a.slope));
-        *reinterpret_cast<float2*>(tile + r * G::kSA + col) = v;
+        const float2 v = make_float2(leaky_fit<E>(fit<E>(acc[j][2 * half]), a.slope),
+                                     leaky_fit<E>(fit<E>(acc[j][2 * half + 1]), a.slope));
+        store2(tile + r * G::kSA + col, v);
         if (a.u_dst != nullptr && r < no) {
-          *reinterpret_cast<float2*>(a.u_dst + base + static_cast<size_t>(q0 + r) * C + col) = v;
+          store2(a.u_dst + base + static_cast<size_t>(q0 + r) * C + col, v);
         }
       }
     }
   }
   if (a.dst == nullptr) return;
 
-  init_acc<C, WM>(acc, a.b1, ln, a.bs);
-  conv_core<C, WM, ST>(acc, tile, 0, 1, a.w1, 1, ring, ln, active);
+  uint32_t t_kept[G::kNT][2];  // the bf16 form's t, rows g and g + 8
+  if constexpr (is_bf16<E>()) {
+    init_acc<C, WM, E>(acc, a.b1, ln);
+    conv_core<C, WM, ST>(acc, tile, 0, 1, a.w1, 1, ring, ln, active);
+#pragma unroll
+    for (int j = 0; j < G::kNT; ++j) {
+      t_kept[j][0] = pack_bf16x2(acc[j][0], acc[j][1]);
+      t_kept[j][1] = pack_bf16x2(acc[j][2], acc[j][3]);
+    }
+    init_acc<C, WM, E>(acc, a.bs, ln);
+  } else {
+    init_acc<C, WM, E>(acc, a.b1, ln, a.bs);
+    conv_core<C, WM, ST>(acc, tile, 0, 1, a.w1, 1, ring, ln, active);
+  }
   __syncthreads();  // u is read no more: the raw rows of h take its place
   stage_rows<C, THREADS>(tile, src, T, q0, no, 1.0f);
   conv_core<C, WM, ST>(acc, tile, 0, 1, a.ws, 1, ring, ln, active);
@@ -714,37 +1015,51 @@ __device__ __forceinline__ void stack_body(const StackArgs& a, int T, int tile_r
   for (int half = 0; half < 2; ++half) {
     const int r = ln.row0 + ln.g + 8 * half;
     if (r >= no) continue;
-    float* row = a.dst + base + static_cast<size_t>(q0 + r) * C;
+    E* row = a.dst + base + static_cast<size_t>(q0 + r) * C;
 #pragma unroll
     for (int j = 0; j < G::kNT; ++j) {
-      *reinterpret_cast<float2*>(row + ln.n0 + j * 8 + 2 * ln.t) =
-          make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+      float2 v = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+      if constexpr (is_bf16<E>()) {
+        const float2 t = unpack_bf16x2(t_kept[j][half]);
+        v = make_float2(fit<E>(t.x + fit<E>(v.x)), fit<E>(t.y + fit<E>(v.y)));
+      }
+      store2(row + ln.n0 + j * 8 + 2 * ln.t, v);
     }
   }
 }
 
-typedef void (*StackKernel)(StackArgs, int, int);
+template <typename E>
+using StackKernelT = void (*)(StackArgsT<E>, int, int);
+typedef StackKernelT<float> StackKernel;
 
 #define FVT_MMA_STACK_KERNEL(name)                                              \
   template <int C, int WM, int ST>                                              \
   __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
   name(fvt_mma::StackArgs a, int T, int tile_rows) {                            \
     extern __shared__ __align__(16) float smem[];                              \
-    fvt_mma::stack_body<C, WM, ST>(a, T, tile_rows, smem);                      \
+    fvt_mma::stack_body<C, WM, ST, float>(a, T, tile_rows, smem);               \
   }
 
-// One launch of `kernel` (a FVT_MMA_STACK_KERNEL at C, WM, ST) with `a` over
-// (B, T, C).
-template <int C, int WM, int ST>
-cudaError_t launch_stack(StackKernel kernel, const StackArgs& a, int B, int T,
+#define FVT_MMA_BF16_STACK_KERNEL(name)                                         \
+  template <int C, int WM, int ST>                                              \
+  __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
+  name(fvt_mma::StackArgsT<fvt_mma::bf16> a, int T, int tile_rows) {            \
+    extern __shared__ __align__(16) unsigned char smem_raw[];                  \
+    fvt_mma::stack_body<C, WM, ST, fvt_mma::bf16>(                              \
+        a, T, tile_rows, reinterpret_cast<fvt_mma::bf16*>(smem_raw));           \
+  }
+
+// One launch of `kernel` (a FVT_MMA_STACK_KERNEL or FVT_MMA_BF16_STACK_KERNEL
+// at C, WM, ST) with `a` over (B, T, C).
+template <int C, int WM, int ST, typename E>
+cudaError_t launch_stack(StackKernelT<E> kernel, const StackArgsT<E>& a, int B, int T,
                          cudaStream_t stream) {
-  using G = Geo<C>;
+  using G = Geo<C, E>;
   constexpr int R = 64 * WM;
   if (a.K < 1 || a.K % 2 == 0 || a.dil < 1) return cudaErrorInvalidValue;
   // conv_d reads up to row R - 1 + 2 m of the tile
   const int tile_rows = R + 2 * ((a.K - 1) / 2 * a.dil);
-  const int smem =
-      static_cast<int>(sizeof(float)) * (tile_rows * G::kSA + ST * G::kSlabFloats);
+  const int smem = static_cast<int>(sizeof(E)) * (tile_rows * G::kSA + ST * G::kSlabElems);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
@@ -898,7 +1213,7 @@ typedef void (*ConvKernel)(ConvArgs, int, int);
 // shared memory of a launch of the convs of `a` whose tile has `rows` rows
 template <int C, int ST>
 inline int conv_smem(int rows) {
-  return static_cast<int>(sizeof(float)) * (rows * Geo<C>::kSA + ST * Geo<C>::kSlabFloats);
+  return static_cast<int>(sizeof(float)) * (rows * Geo<C>::kSA + ST * Geo<C>::kSlabElems);
 }
 
 // the largest margin of nz convs of `a`, -1 for a conv no launch takes
@@ -1035,12 +1350,12 @@ struct Tile {
   static constexpr int kWM = C >= 256 ? 1 : 2, kST = 2;
 };
 
-// `name`: a FVT_MMA_PAIR_KERNEL
+// `name`: a FVT_MMA_PAIR_KERNEL or a FVT_MMA_BF16_PAIR_KERNEL
 #define FVT_MMA_LAUNCH_PAIR(name, C, a, nz, B, T, stream)                    \
   fvt_mma::launch_pair<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>(     \
       name<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>, a, nz, B, T, stream)
 
-// `name`: a FVT_MMA_STACK_KERNEL
+// `name`: a FVT_MMA_STACK_KERNEL or a FVT_MMA_BF16_STACK_KERNEL
 #define FVT_MMA_LAUNCH_STACK(name, C, a, B, T, stream)                       \
   fvt_mma::launch_stack<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>(    \
       name<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>, a, B, T, stream)

@@ -16,7 +16,7 @@
 // of a stage's kernels for the tensor cores (`packed_layout`, `pack_stage`:
 // once a call in the MRF kernel, once a kept table in the tail), the pair
 // launches (`run_pairs`), and the mean in the plain version's order
-// (`branch_mean4`).
+// (`branch_mean4`); each in the float32 form and the bf16 one (E).
 
 #pragma once
 
@@ -75,10 +75,10 @@ inline cudaError_t load_steps(PairArgs* steps, int nb, int np, const int* ints,
 static_assert(kMaxBranches <= fvt_mma::kMaxZ, "a launch holds every branch");
 static_assert(2 * kMaxBranches * kMaxPairs <= fvt_mma::kMaxPack, "one pack launch a stage");
 
-// Floats of the packed kernels of a stage (`pack_stage`) and, where `off`
-// is given, each kernel's offset among them: pair by pair, branch by
-// branch, conv1 then conv2.
-template <int C>
+// Elements (of the form's type E) of the packed kernels of a stage
+// (`pack_stage`) and, where `off` is given, each kernel's offset among them:
+// pair by pair, branch by branch, conv1 then conv2.
+template <int C, typename E = float>
 size_t packed_layout(const PairArgs* steps, int nb, int np,
                      size_t (*off)[kMaxBranches][2] = nullptr) {
   size_t total = 0;
@@ -87,22 +87,22 @@ size_t packed_layout(const PairArgs* steps, int nb, int np,
       const int K[2] = {steps[p].k1[br], steps[p].k2[br]};
       for (int c = 0; c < 2; ++c) {
         if (off != nullptr) off[p][br][c] = total;
-        total += fvt_mma::packed_floats<C>(K[c]);
+        total += fvt_mma::packed_elems<C, E>(K[c]);
       }
     }
   }
   return total;
 }
 
-// packed (`packed_layout` floats) = every kernel of the stage split into the
-// TF32 halves the pair launches read, by one launch.  `swap`: the kernels
-// are given as (tap, c_in, c_out), else as (tap, c_out, c_in).
-template <int C>
-cudaError_t pack_stage(float* packed, const PairArgs* steps, int nb, int np, bool swap,
+// packed (`packed_layout` elements) = every kernel of the stage in the form
+// the pair launches read (TF32 halves, or bf16), by one launch.  `swap`: the
+// kernels are given as (tap, c_in, c_out), else as (tap, c_out, c_in).
+template <int C, typename E>
+cudaError_t pack_stage(E* packed, const PairArgs* steps, int nb, int np, bool swap,
                        cudaStream_t stream) {
   size_t off[kMaxPairs][kMaxBranches][2];
-  packed_layout<C>(steps, nb, np, off);
-  fvt_mma::PackArgs pack;
+  packed_layout<C, E>(steps, nb, np, off);
+  fvt_mma::PackArgsT<E> pack;
   int i = 0;
   for (int p = 0; p < np; ++p) {
     for (int br = 0; br < nb; ++br) {
@@ -120,20 +120,20 @@ cudaError_t pack_stage(float* packed, const PairArgs* steps, int nb, int np, boo
 }
 
 // Runs the np pair positions of every branch on x (B, T, C), one launch of
-// `kernel` (a FVT_MMA_PAIR_KERNEL at <C, WM, ST>) each, all branches at once,
-// reading the kernels `pack_stage` wrote to `packed` and writing h' to
-// scratch (2 nb B T C floats: two sets of nb buffers used in turn).  The
-// branches' outputs end in set (np - 1) % 2: buffer br at
-// scratch + ((np - 1) % 2 * nb + br) B T C.
-template <int C, int WM = fvt_mma::Tile<C>::kWM, int ST = fvt_mma::Tile<C>::kST>
-cudaError_t run_pairs(fvt_mma::PairKernel kernel, const PairArgs* steps, int nb, int np,
-                      const float* packed, const float* x, float* scratch, int B, int T,
+// `kernel` (a FVT_MMA_PAIR_KERNEL or FVT_MMA_BF16_PAIR_KERNEL at <C, WM,
+// ST>) each, all branches at once, reading the kernels `pack_stage` wrote to
+// `packed` and writing h' to scratch (2 nb B T C elements: two sets of nb
+// buffers used in turn).  The branches' outputs end in set (np - 1) % 2:
+// buffer br at scratch + ((np - 1) % 2 * nb + br) B T C.
+template <int C, typename E, int WM = fvt_mma::Tile<C>::kWM, int ST = fvt_mma::Tile<C>::kST>
+cudaError_t run_pairs(fvt_mma::PairKernelT<E> kernel, const PairArgs* steps, int nb, int np,
+                      const E* packed, const E* x, E* scratch, int B, int T,
                       cudaStream_t stream) {
   const size_t n = static_cast<size_t>(B) * T * C;
   size_t off[kMaxPairs][kMaxBranches][2];
-  packed_layout<C>(steps, nb, np, off);
+  packed_layout<C, E>(steps, nb, np, off);
   for (int p = 0; p < np; ++p) {
-    fvt_mma::PairArgs a;
+    fvt_mma::PairArgsT<E> a;
     a.slope = kSlope;
     for (int br = 0; br < fvt_mma::kMaxZ; ++br) {
       const int z = br < nb ? br : 0;
@@ -154,15 +154,19 @@ cudaError_t run_pairs(fvt_mma::PairKernel kernel, const PairArgs* steps, int nb,
   return cudaSuccess;
 }
 
-// The mean of the nb branch outputs at element i: (((b0 + b1) + b2) ...) / nb,
-// the plain version's order.
-__device__ __forceinline__ float4 branch_mean4(const float* out, size_t n, int nb, size_t i) {
-  float4 s = __ldg(reinterpret_cast<const float4*>(out) + i);
+// The mean of the nb branch outputs at elements 4 i .. 4 i + 3: (((b0 + b1)
+// + b2) ...) / nb, the plain version's order; the bf16 form rounds each sum
+// and the quotient, as fused_mrf.py's Pallas body does.
+template <typename E>
+__device__ __forceinline__ float4 branch_mean4(const E* out, size_t n, int nb, size_t i) {
+  using fvt_mma::fit;
+  float4 s = fvt_mma::load4(out + 4 * i);
   for (int br = 1; br < nb; ++br) {
-    s = add4(s, __ldg(reinterpret_cast<const float4*>(out + br * n) + i));
+    const float4 v = add4(s, fvt_mma::load4(out + br * n + 4 * i));
+    s = make_float4(fit<E>(v.x), fit<E>(v.y), fit<E>(v.z), fit<E>(v.w));
   }
   const float f = static_cast<float>(nb);
-  return make_float4(s.x / f, s.y / f, s.z / f, s.w / f);
+  return make_float4(fit<E>(s.x / f), fit<E>(s.y / f), fit<E>(s.z / f), fit<E>(s.w / f));
 }
 
 }  // namespace fvt_mrf

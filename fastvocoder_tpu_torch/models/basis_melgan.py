@@ -11,6 +11,12 @@ nearest-neighbour upsampling and a conv (`UpsampleLayer`); the stacks run
 the chain kernels on CUDA unless `use_causal_conv` asks for causal stacks,
 which run as library convs (`models.layers.apply_residual_stacks`).
 
+With `compute_dtype=torch.bfloat16` the trunk computes in bf16 as the JAX
+package's does (library convs and the chain kernel's bf16 form), the
+decode takes bf16 weights and the basis in bf16 and writes float32
+(`fastvocoder_tpu/models/basis_melgan.py:100-135`); parameters stay
+float32.
+
 Submodules are named as in the JAX package (`conv_pre`, `up_<i>`,
 `stack_<i>_<j>`, `basis_signal`), so a parameter's path there is its
 `state_dict` key here.
@@ -38,13 +44,13 @@ from fastvocoder_tpu_torch.ops.fused_resstack import leaky_relu
 
 class BasisMelGANGenerator(nn.Module):
     def __init__(self, cfg: BasisMelGANConfig, weight_norm: bool = False,
-                 basis_signal_weight=None):
+                 basis_signal_weight=None, compute_dtype=None):
         """`basis_signal_weight` (L, out_channels) fills the frozen basis, as
         training from scratch needs; a checkpoint's `load_state_dict` fills
-        it otherwise."""
+        it otherwise.  `compute_dtype`: None or torch.bfloat16."""
         super().__init__()
         self.cfg = cfg
-        kw = dict(bias=cfg.bias, weight_norm=weight_norm)
+        kw = dict(bias=cfg.bias, weight_norm=weight_norm, compute_dtype=compute_dtype)
         self.conv_pre = Conv1d(cfg.in_channels, cfg.channels[0], cfg.kernel_size, **kw)
         self.ups = []
         self.stacks = []
@@ -94,7 +100,7 @@ class BasisMelGANGenerator(nn.Module):
         zero_source = self.basis_signal(zero_weight)[:, : zero_weight.shape[1] * half_l]
         weight = self.trunk(mel)
         est_source = self.basis_signal(weight)[:, : weight.shape[1] * half_l]
-        return est_source - zero_source, weight - zero_weight
+        return est_source - zero_source, (weight - zero_weight).float()
 
     def inference(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T, in) -> (B, (T*16 - 1) * L/2 + L) raw waveform: no bias

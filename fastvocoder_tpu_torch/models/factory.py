@@ -27,24 +27,29 @@ from fastvocoder_tpu_torch.models.hifigan import HiFiGANGenerator
 from fastvocoder_tpu_torch.models.melgan import MelGANGenerator
 from fastvocoder_tpu_torch.models.multiband_hifigan import MultiBandHiFiGANGenerator
 from fastvocoder_tpu_torch.models.nhv import NHVGenerator
+from fastvocoder_tpu_torch.ops.precision import check_compute_dtype
 
 
 def build_generator(cfg: ModelConfig, weight_norm: bool = False,
-                    basis_signal_weight=None) -> nn.Module:
+                    basis_signal_weight=None, compute_dtype=None) -> nn.Module:
     """The generator for `cfg.model_name`: the fused (weight-norm-removed)
     form that serves, or with `weight_norm=True` the form that trains.
-    `basis_signal_weight` (L, 256) fills Basis-MelGAN's frozen basis."""
+    `basis_signal_weight` (L, 256) fills Basis-MelGAN's frozen basis.
+    `compute_dtype` (None, or torch.bfloat16 for bf16 inference): the type
+    it computes in, as the JAX package's `compute_dtype`; parameters stay
+    float32 and the waveform is float32."""
+    compute_dtype = check_compute_dtype(compute_dtype)
+    kw = dict(weight_norm=weight_norm, compute_dtype=compute_dtype)
     if cfg.model_name == "basis-melgan":
-        return BasisMelGANGenerator(cfg.arch, weight_norm=weight_norm,
-                                    basis_signal_weight=basis_signal_weight)
+        return BasisMelGANGenerator(cfg.arch, basis_signal_weight=basis_signal_weight, **kw)
     if cfg.model_name == "hifigan":
-        return HiFiGANGenerator(cfg.arch, weight_norm=weight_norm)
+        return HiFiGANGenerator(cfg.arch, **kw)
     if cfg.model_name == "multiband-hifigan":
-        return MultiBandHiFiGANGenerator(cfg.arch, weight_norm=weight_norm)
+        return MultiBandHiFiGANGenerator(cfg.arch, **kw)
     if cfg.model_name == "melgan":
-        return MelGANGenerator(cfg.arch, weight_norm=weight_norm)
+        return MelGANGenerator(cfg.arch, **kw)
     if cfg.model_name == "nhv":
-        return NHVGenerator(cfg.arch, weight_norm=weight_norm)
+        return NHVGenerator(cfg.arch, **kw)
     raise ValueError(f"no model {cfg.model_name!r}")
 
 
@@ -55,9 +60,11 @@ def build_discriminator(disc_cfg: DiscriminatorConfig = DISC, use_mpd: bool = Fa
     return Discriminator(disc_cfg, use_mpd=use_mpd)
 
 
-def load_generator(checkpoint_path: str, cfg: ModelConfig, device: torch.device):
+def load_generator(checkpoint_path: str, cfg: ModelConfig, device: torch.device,
+                   compute_dtype=None):
     """A checkpoint -> (generator on `device` in eval mode without
-    gradients, pattern or None).  Takes a release checkpoint
+    gradients, computing in `compute_dtype` (`build_generator`), pattern or
+    None).  Takes a release checkpoint
     (`checkpoint.load_release_npz`) or a checkpoint of the port's trainer
     (`train/checkpoint.py`, format `TRAIN_FORMAT`), of which only the
     generator is read: its training form, with weight norm fused into the
@@ -76,7 +83,7 @@ def load_generator(checkpoint_path: str, cfg: ModelConfig, device: torch.device)
         trained = build_generator(cfg, weight_norm=True)
         trained.load_state_dict(payload["generator"])
         state, pattern = state_dict_from_jax(jax_tree_from_state_dict(trained.state_dict())), None
-    gen = build_generator(cfg)
+    gen = build_generator(cfg, compute_dtype=compute_dtype)
     gen.load_state_dict(state)
     gen.to(device).eval().requires_grad_(False)
     return gen, pattern

@@ -16,6 +16,11 @@ stage like the others, its MRF through the MRF kernel: the tail kernel is
 inference only, in the JAX package too.  A width the kernels do not take
 raises there.
 
+With `compute_dtype=torch.bfloat16` the generator computes in bf16 as the
+JAX package's does (`fastvocoder_tpu/models/hifigan.py:146-155,208,248`):
+library convs in bf16, the MRF and tail kernels' bf16 forms (the input cast
+to bf16 before each), a float32 waveform out; parameters stay float32.
+
 Submodules are named as in the JAX package (`conv_pre`, `up_<i>`,
 `resblock_<i>_<j>`, `conv_post`), so a parameter's path there is its
 `state_dict` key here.
@@ -38,7 +43,8 @@ from fastvocoder_tpu_torch.models.layers import (
 from fastvocoder_tpu_torch.ops._build import refuse_autograd
 from fastvocoder_tpu_torch.ops.fused_mrf import LRELU_SLOPE
 from fastvocoder_tpu_torch.ops.fused_resstack import leaky_relu
-from fastvocoder_tpu_torch.ops.fused_tail import HEAD_SLOPE, TailTable, fused_hifigan_tail_cuda
+from fastvocoder_tpu_torch.ops.fused_tail import HEAD_SLOPE, TailTable, fused_hifigan_tail
+from fastvocoder_tpu_torch.ops.precision import check_compute_dtype
 
 
 def _tensors(ops):
@@ -49,11 +55,13 @@ def _tensors(ops):
 
 
 class HiFiGANGenerator(nn.Module):
-    def __init__(self, cfg: HiFiGANConfig, in_channels: int = 80, weight_norm: bool = False):
+    def __init__(self, cfg: HiFiGANConfig, in_channels: int = 80, weight_norm: bool = False,
+                 compute_dtype=None):
         super().__init__()
         self.cfg = cfg
         self.weight_norm = weight_norm
-        kw = dict(bias=cfg.bias, weight_norm=weight_norm)
+        self.compute_dtype = check_compute_dtype(compute_dtype)
+        kw = dict(bias=cfg.bias, weight_norm=weight_norm, compute_dtype=compute_dtype)
         ch = cfg.upsample_initial_channel
         self.conv_pre = Conv1d(in_channels, ch, 7, padding=3, **kw)
         resblock = ResBlock1 if cfg.resblock_type == "1" else ResBlock2
@@ -88,14 +96,15 @@ class HiFiGANGenerator(nn.Module):
         return (k_up, b_up, up.stride, up.padding,
                 [b.mrf_operands() for b in self.mrfs[-1]], k_post, b_post)
 
-    def tail_table(self, device: torch.device) -> TailTable:
-        """The tail's `TailTable` on `device`, kept on the model until one
-        of the tail's operands is rebuilt (a weight written or moved: the
-        convs' caches key on each parameter's storage and version)."""
+    def tail_table(self, device: torch.device, dtype: torch.dtype = torch.float32) -> TailTable:
+        """The tail's `TailTable` on `device` for the kernel's form of
+        `dtype`, kept on the model until one of the tail's operands is
+        rebuilt (a weight written or moved: the convs' caches key on each
+        parameter's storage and version) or another form asks."""
         ops = self.tail_operands()
-        key = (device, *(id(t) for t in _tensors(ops)))
+        key = (device, dtype, *(id(t) for t in _tensors(ops)))
         if key != getattr(self, "_tail_key", None):
-            self._tail_table = TailTable(*ops, device)
+            self._tail_table = TailTable(*ops, device, dtype)
             self._tail_key = key
         return self._tail_table
 
@@ -106,8 +115,10 @@ class HiFiGANGenerator(nn.Module):
         for i, (up, blocks) in enumerate(zip(self.ups, self.mrfs)):
             if i == last and x.is_cuda and self.tail_fusable:
                 refuse_autograd("fused_tail", self.parameters())
-                table = self.tail_table(x.device)
-                return fused_hifigan_tail_cuda(x.contiguous(), *table.keep, table=table)
+                if self.compute_dtype is not None:  # the kernel's bf16 form
+                    x = x.to(self.compute_dtype)
+                table = self.tail_table(x.device, x.dtype)
+                return fused_hifigan_tail(x.contiguous(), *table.keep, table=table)
             x = leaky_relu(x, LRELU_SLOPE)
             x = up(x)
             x = apply_mrf(x, blocks)
@@ -116,8 +127,9 @@ class HiFiGANGenerator(nn.Module):
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         """(B, T, in) -> waveform (B, T * prod(rates)) for one band, else the
-        bands (B, T * prod(rates), out_bands)."""
-        x = self.trunk(mel)
+        bands (B, T * prod(rates), out_bands); float32 in every compute
+        type."""
+        x = self.trunk(mel).float()
         return x[..., 0] if self.cfg.out_bands == 1 else x
 
     def inference(self, mel: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,14 @@ gradient is asked for, attached to the graph and built anew where one is.
 `ResBlock1.mrf_swapped` hands the MRF kernels the same kernels as
 (tap, c_out, c_in), the tensor cores' B operand of a forward conv, cached
 the same way.
+
+`compute_dtype` (None, or torch.bfloat16 for bf16 inference) is the JAX
+package's (`fastvocoder_tpu/models/layers.py:66-72,174-177`): a conv casts
+its input, kernel and bias to it and runs the library conv (cuDNN on the
+card) in that type; parameters stay float32 (the cast copies are kept until
+a parameter is written).  `apply_residual_stacks`, `apply_mrf` and
+`BasisSignalLayer` hand the kernels' bf16 forms bf16 activations, as the
+JAX package casts before its Pallas calls.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from fastvocoder_tpu_torch.ops.fused_resstack import (
     leaky_relu,
     stack_margin,
 )
+from fastvocoder_tpu_torch.ops.precision import check_compute_dtype
 
 
 def _uniform_(t: torch.Tensor, fan_in: int) -> None:
@@ -65,6 +74,19 @@ def _operands(module: nn.Module, build, slot: str = "_cache"):
     return _cached(module, build, slot)
 
 
+def _in_compute_dtype(module: nn.Module, weight_fn, x: torch.Tensor):
+    """(x, weight, bias) for a conv module's call: cast to its
+    `compute_dtype` where it has one (weight and bias kept, `_operands`),
+    else as they are."""
+    dt = module.compute_dtype
+    if dt is None:
+        return x, weight_fn(), module.bias
+    bias = module.bias
+    w, b = _operands(module, lambda: (weight_fn().to(dt), None if bias is None else bias.to(dt)),
+                     slot="_cast")
+    return x.to(dt), w, b
+
+
 def _bias_or_zeros(m: nn.Module, n: int) -> torch.Tensor:
     if m.bias is not None:
         return m.bias.contiguous()
@@ -85,8 +107,9 @@ class Conv1d(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel_size: int, dilation: int = 1,
                  bias: bool = True, padding: int = 0, stride: int = 1, groups: int = 1,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = check_compute_dtype(compute_dtype)
         self.dilation = dilation
         self.padding = padding
         self.stride = stride
@@ -107,8 +130,9 @@ class Conv1d(nn.Module):
         return self.weight * (self.g[:, None, None] / _norm_except(self.weight, 0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1d(x, self.effective_weight(), self.bias, stride=self.stride,
-                      padding=self.padding, dilation=self.dilation, groups=self.groups)
+        x, w, b = _in_compute_dtype(self, self.effective_weight, x)
+        return conv1d(x, w, b, stride=self.stride, padding=self.padding,
+                      dilation=self.dilation, groups=self.groups)
 
     def tap_major(self):
         """(kernel (K, Cin, Cout), bias (Cout,), zeros without one): the
@@ -133,8 +157,9 @@ class ConvTranspose1d(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int,
                  padding: int = 0, output_padding: int = 0, bias: bool = True,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = check_compute_dtype(compute_dtype)
         self.stride = stride
         self.padding = padding
         self.output_padding = output_padding
@@ -154,8 +179,8 @@ class ConvTranspose1d(nn.Module):
         return self.weight * (self.gt[:, None, None] / _norm_except(self.weight, 0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose1d(x, self.effective_weight(), self.bias, stride=self.stride,
-                                padding=self.padding,
+        x, w, b = _in_compute_dtype(self, self.effective_weight, x)
+        return conv_transpose1d(x, w, b, stride=self.stride, padding=self.padding,
                                 output_padding=self.output_padding)
 
     def tap_major(self):
@@ -170,11 +195,11 @@ class UpsampleLayer(nn.Module):
     conv's alternative (reference modules.py:135-177)."""
 
     def __init__(self, cin: int, cout: int, upsample_rate: int, kernel_size: int,
-                 bias: bool = True, weight_norm: bool = False):
+                 bias: bool = True, weight_norm: bool = False, compute_dtype=None):
         super().__init__()
         self.upsample_rate = upsample_rate
         self.conv = Conv1d(cin, cout, kernel_size, bias=bias, padding=kernel_size // 2,
-                           weight_norm=weight_norm)
+                           weight_norm=weight_norm, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.repeat_interleave(self.upsample_rate, dim=1))
@@ -185,9 +210,10 @@ class LastLayer(nn.Module):
     reflect pad of (K - 1) // 2, then the conv (the child `conv`)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, bias: bool = True,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, compute_dtype=None):
         super().__init__()
-        self.conv = Conv1d(cin, cout, kernel_size, bias=bias, weight_norm=weight_norm)
+        self.conv = Conv1d(cin, cout, kernel_size, bias=bias, weight_norm=weight_norm,
+                           compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pad = (self.conv.weight.shape[-1] - 1) // 2
@@ -203,11 +229,11 @@ class CausalConv1d(nn.Module):
     tree's `conv_dilated/conv/kernel`."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, dilation: int = 1,
-                 bias: bool = True, weight_norm: bool = False):
+                 bias: bool = True, weight_norm: bool = False, compute_dtype=None):
         super().__init__()
         self.pad = (kernel_size - 1) * dilation
         self.conv = Conv1d(cin, cout, kernel_size, dilation=dilation, bias=bias,
-                           weight_norm=weight_norm)
+                           weight_norm=weight_norm, compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(reflect_pad1d(x, (self.pad, 0)))
@@ -220,12 +246,14 @@ class ResidualStack(nn.Module):
     `CausalConv1d` (left-only reflect pad)."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilation: int = 1,
-                 bias: bool = True, weight_norm: bool = False, use_causal_conv: bool = False):
+                 bias: bool = True, weight_norm: bool = False, use_causal_conv: bool = False,
+                 compute_dtype=None):
         super().__init__()
         self.kernel_size = kernel_size
         self.dilation = dilation
         self.causal = use_causal_conv
-        kw = dict(bias=bias, weight_norm=weight_norm)
+        self.compute_dtype = check_compute_dtype(compute_dtype)
+        kw = dict(bias=bias, weight_norm=weight_norm, compute_dtype=compute_dtype)
         if use_causal_conv:
             self.conv_dilated = CausalConv1d(channels, channels, kernel_size, dilation=dilation,
                                              **kw)
@@ -265,15 +293,17 @@ def apply_residual_stacks(x: torch.Tensor, stacks: Sequence[ResidualStack]) -> t
         for m in stacks:
             x = m(x)
         return x
+    if stacks[0].compute_dtype is not None:  # the kernel's bf16 form
+        x = x.to(stacks[0].compute_dtype)
     operands = [m.chain_operands() for m in stacks]
     if torch.is_grad_enabled() and any(p.requires_grad for m in stacks for p in m.parameters()):
         return fused_residual_stacks(x.contiguous(), operands)  # built anew: nothing is kept
     # a served model: the chain's checked and packed operands are kept on its
-    # first stack until a stack's operands are rebuilt
-    key = (x.device, *(id(ops) for ops in operands))
+    # first stack until a stack's operands are rebuilt, one table a type
+    key = (x.device, x.dtype, *(id(ops) for ops in operands))
     first = stacks[0]
     if key != getattr(first, "_chain_key", None):
-        first._chain_table = ChainTable(operands, x.device)
+        first._chain_table = ChainTable(operands, x.device, x.dtype)
         first._chain_key = key
     table = first._chain_table
     return fused_residual_stacks(x.contiguous(), table.keep, table)
@@ -285,15 +315,18 @@ class ResBlock1(nn.Module):
     leaky slope 0.1, zero "same" padding."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3, 5),
-                 bias: bool = True, weight_norm: bool = False):
+                 bias: bool = True, weight_norm: bool = False, compute_dtype=None):
         super().__init__()
         self.dilations = tuple(dilations)
+        self.compute_dtype = check_compute_dtype(compute_dtype)
         self.convs1, self.convs2 = [], []
         for i, d in enumerate(self.dilations):
             c1 = Conv1d(channels, channels, kernel_size, dilation=d, bias=bias,
-                        padding=(kernel_size * d - d) // 2, weight_norm=weight_norm)
+                        padding=(kernel_size * d - d) // 2, weight_norm=weight_norm,
+                        compute_dtype=compute_dtype)
             c2 = Conv1d(channels, channels, kernel_size, bias=bias,
-                        padding=(kernel_size - 1) // 2, weight_norm=weight_norm)
+                        padding=(kernel_size - 1) // 2, weight_norm=weight_norm,
+                        compute_dtype=compute_dtype)
             self.add_module(f"conv1_{i}", c1)
             self.add_module(f"conv2_{i}", c2)
             self.convs1.append(c1)
@@ -343,12 +376,13 @@ class ResBlock2(nn.Module):
     neither; it runs as modules on every device."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3),
-                 bias: bool = True, weight_norm: bool = False):
+                 bias: bool = True, weight_norm: bool = False, compute_dtype=None):
         super().__init__()
         self.convs = []
         for i, d in enumerate(dilations):
             c = Conv1d(channels, channels, kernel_size, dilation=d, bias=bias,
-                       padding=(kernel_size * d - d) // 2, weight_norm=weight_norm)
+                       padding=(kernel_size * d - d) // 2, weight_norm=weight_norm,
+                       compute_dtype=compute_dtype)
             self.add_module(f"conv_{i}", c)
             self.convs.append(c)
 
@@ -363,15 +397,17 @@ def apply_mrf(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
     ResBlock1 stages (its backward kernel under autograd), the modules
     otherwise."""
     if x.is_cuda and all(isinstance(b, ResBlock1) for b in blocks):
+        if blocks[0].compute_dtype is not None:  # the kernel's bf16 form
+            x = x.to(blocks[0].compute_dtype)
         operands, swapped = zip(*(b.kernel_operands() for b in blocks))
         if any(sw is None for sw in swapped):  # autograd follows the weights: nothing is kept
             return fused_mrf_stage(x.contiguous(), list(operands))
         # a served model: the stage's checked table is kept on its first block
-        # until a block's operands are rebuilt
-        key = (x.device, *(id(ops) for ops in operands))
+        # until a block's operands are rebuilt, one table a type
+        key = (x.device, x.dtype, *(id(ops) for ops in operands))
         first = blocks[0]
         if key != getattr(first, "_stage_key", None):
-            first._stage_table = StageTable(list(operands), list(swapped), x.device)
+            first._stage_table = StageTable(list(operands), list(swapped), x.device, x.dtype)
             first._stage_key = key
         table = first._stage_table
         return fused_mrf_stage(x.contiguous(), *table.keep, table)
@@ -394,4 +430,9 @@ class BasisSignalLayer(nn.Module):
         self.basis = nn.Parameter(torch.zeros(L, in_features))
 
     def forward(self, weight: torch.Tensor) -> torch.Tensor:
-        return basis_decode(weight.contiguous(), self.basis)
+        """-> float32 waveform; bf16 weights (a bf16 model's) are decoded
+        with the basis in bf16, kept until the basis is written."""
+        basis = self.basis
+        if weight.dtype != basis.dtype:
+            basis = _cached(self, lambda: self.basis.to(weight.dtype), slot="_cast")
+        return basis_decode(weight.contiguous(), basis)

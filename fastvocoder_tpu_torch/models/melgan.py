@@ -10,8 +10,11 @@ and tanh: mel (B, T, 80) -> waveform (B, T * prod(scales)).
 The stacks of a stage run the residual-stack chain kernels on CUDA (forward,
 and backward under autograd) at every width of `conf/melgan/original.yaml`
 (256, 128, 64, 32); causal stacks run as library convs
-(`models.layers.apply_residual_stacks`).  Submodules are named as in the JAX
-package, so a parameter's path there is its `state_dict` key here.
+(`models.layers.apply_residual_stacks`).  With `compute_dtype=torch.bfloat16`
+it computes in bf16 as the JAX package's does (library convs, the chain
+kernel's bf16 form, tanh in bf16), the waveform float32.  Submodules are
+named as in the JAX package, so a parameter's path there is its
+`state_dict` key here.
 """
 
 from __future__ import annotations
@@ -32,10 +35,10 @@ from fastvocoder_tpu_torch.ops.fused_resstack import leaky_relu
 
 
 class MelGANGenerator(nn.Module):
-    def __init__(self, cfg: MelGANConfig, weight_norm: bool = False):
+    def __init__(self, cfg: MelGANConfig, weight_norm: bool = False, compute_dtype=None):
         super().__init__()
         self.cfg = cfg
-        kw = dict(bias=cfg.bias, weight_norm=weight_norm)
+        kw = dict(bias=cfg.bias, weight_norm=weight_norm, compute_dtype=compute_dtype)
         self.conv_pre = Conv1d(cfg.in_channels, cfg.channels[0], cfg.kernel_size, **kw)
         self.ups, self.stacks = [], []
         ch = cfg.channels[0]
@@ -60,7 +63,7 @@ class MelGANGenerator(nn.Module):
         x = self.conv_pre(reflect_pad1d(mel, (self.cfg.kernel_size - 1) // 2))
         for up, group in zip(self.ups, self.stacks):
             x = apply_residual_stacks(up(leaky_relu(x)), group)
-        return torch.tanh(self.conv_post(x))[..., 0]
+        return torch.tanh(self.conv_post(x))[..., 0].float()
 
     def inference(self, mel: torch.Tensor) -> torch.Tensor:
         """The waveform: the plain call, as the JAX package serves MelGAN."""

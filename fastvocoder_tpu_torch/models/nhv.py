@@ -15,6 +15,9 @@ and f0 in Hz on channel 80 (0 = unvoiced; `dsp.f0.f0_to_condition`).
 
 The JAX package runs all of it as XLA (convs, FFTs, pads and adds), no
 Pallas kernel, and so does the port: cuDNN convs and cuFFT on the card.
+With `compute_dtype=torch.bfloat16` only the filter estimator's convs run in
+bf16; its cepstra, the sources, the FFTs and the filter stay float32
+(`fastvocoder_tpu/models/nhv.py:67,95,119`).
 
 Where the port differs from the JAX package by design:
 
@@ -101,23 +104,25 @@ class FilterEstimator(nn.Module):
     (near unity gain at init)."""
 
     def __init__(self, in_channels: int, channels: int = 256, n_layers: int = 3,
-                 kernel_size: int = 3, ccep_size: int = 222, weight_norm: bool = False):
+                 kernel_size: int = 3, ccep_size: int = 222, weight_norm: bool = False,
+                 compute_dtype=None):
         super().__init__()
         self.convs = []
         cin = in_channels
         for i in range(n_layers):
             conv = Conv1d(cin, channels, kernel_size, padding=(kernel_size - 1) // 2,
-                          weight_norm=weight_norm)
+                          weight_norm=weight_norm, compute_dtype=compute_dtype)
             self.add_module(f"conv_{i}", conv)
             self.convs.append(conv)
             cin = channels
-        self.conv_out = Conv1d(cin, 2 * ccep_size, 1, weight_norm=weight_norm)
+        self.conv_out = Conv1d(cin, 2 * ccep_size, 1, weight_norm=weight_norm,
+                               compute_dtype=compute_dtype)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         h = mel
         for conv in self.convs:
             h = leaky_relu(conv(h))
-        return 0.1 * self.conv_out(h)
+        return 0.1 * self.conv_out(h).float()
 
 
 class NHVGenerator(nn.Module):
@@ -125,11 +130,12 @@ class NHVGenerator(nn.Module):
     Submodules and parameters are named as in the JAX package
     (`filter_estimator/conv_<i>`, `conv_out`, the root `fir`)."""
 
-    def __init__(self, cfg: NHVConfig, weight_norm: bool = False):
+    def __init__(self, cfg: NHVConfig, weight_norm: bool = False, compute_dtype=None):
         super().__init__()
         self.cfg = cfg
         self.filter_estimator = FilterEstimator(cfg.in_channels, cfg.channels, cfg.n_layers,
-                                                cfg.kernel_size, cfg.ccep_size, weight_norm)
+                                                cfg.kernel_size, cfg.ccep_size, weight_norm,
+                                                compute_dtype)
         delta = torch.zeros(cfg.fir_taps, 1, 1)
         delta[cfg.fir_taps // 2] = 1.0
         self.fir = nn.Parameter(delta)

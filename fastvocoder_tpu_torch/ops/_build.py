@@ -131,40 +131,64 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_operand(op: str, name: str, t: torch.Tensor, device: torch.device) -> None:
-    """Raise unless `t` is a contiguous, 16-byte aligned float32 tensor on
-    `device`: what every kernel's C entry point assumes of its pointers."""
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+def check_operand(op: str, name: str, t: torch.Tensor, device: torch.device,
+                  dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless `t` is a contiguous, 16-byte aligned tensor of `dtype`
+    on `device`: what every kernel's C entry point assumes of its pointers."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(
-            f"{op}: {name} must be a contiguous float32 tensor on {device}, "
+            f"{op}: {name} must be a contiguous {dtype} tensor on {device}, "
             f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
         )
     if t.data_ptr() % 16:
         raise ValueError(f"{op}: {name} must be 16-byte aligned")
 
 
-def check_x(op: str, x: torch.Tensor, widths) -> Tuple[int, int, int]:
-    """-> (B, T, C) after checking that x is a (B, T, C) operand on a CUDA
-    device with C in `widths`."""
+def check_form(op: str, x: torch.Tensor, dtype: torch.dtype) -> None:
+    """Raise unless x has the type of the kernel form `op` (its float32 form
+    or its bf16 form): a form never casts its input to the other's type."""
+    if x.dtype != dtype:
+        raise ValueError(f"{op}: this form of the kernel takes {dtype} x, got {x.dtype}; "
+                         "the other type has a form of its own")
+
+
+def check_x(op: str, x: torch.Tensor, widths,
+            dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
+    """-> (B, T, C) after checking that x is a (B, T, C) operand of `dtype`
+    on a CUDA device with C in `widths`."""
+    check_form(op, x, dtype)
     if not x.is_cuda:
         raise ValueError(f"{op}: x must be a CUDA tensor, got {x.device}")
     if x.dim() != 3:
         raise ValueError(f"{op}: want x (B, T, C), got {tuple(x.shape)}")
     if x.shape[2] not in widths:
         raise ValueError(f"{op}: C={x.shape[2]} not in {widths}")
-    check_operand(op, "x", x, x.device)
+    check_operand(op, "x", x, x.device, dtype)
     return tuple(x.shape)
 
 
-def refuse_autograd(op: str, tensors: Iterable[torch.Tensor]) -> None:
+def check_table(op: str, table, x: torch.Tensor) -> None:
+    """Raise unless a kept operand table (`ChainTable`, `StageTable`,
+    `TailTable`) was packed for x's type: a float32 table read by the bf16
+    form, or the reverse, would be a silent wrong answer."""
+    if table.dtype != x.dtype:
+        raise ValueError(f"{op}: the table was packed for {table.dtype}, x is {x.dtype}")
+
+
+TAIL_INFERENCE_ONLY = ("this CUDA kernel is inference only, in the JAX package too "
+                       "(training runs the stage through its modules and the MRF kernel)")
+BF16_INFERENCE_ONLY = ("the bf16 forms of the kernels are inference only: training in bf16 "
+                       "(--mixprecision) waits for the bf16 forms of the backward kernels")
+
+
+def refuse_autograd(op: str, tensors: Iterable[torch.Tensor],
+                    why: str = TAIL_INFERENCE_ONLY) -> None:
     """Raise if autograd would have to differentiate through an
-    inference-only kernel (the HiFiGAN tail): grad mode is on and one of
-    `tensors` requires a gradient."""
+    inference-only kernel (the HiFiGAN tail, every bf16 form): grad mode is
+    on and one of `tensors` requires a gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{op}: this CUDA kernel is inference only, in the JAX package too "
-            "(training runs the stage through its modules and the MRF kernel): "
-            "call it under torch.inference_mode() or torch.no_grad()"
+            f"{op}: {why}: call it under torch.inference_mode() or torch.no_grad()"
         )
 
 

@@ -22,6 +22,15 @@ Both kernels contract on the tensor cores in 3xTF32 (`csrc/mma_common.cuh`;
 `ops/tf32.py` models the arithmetic): operands split into two TF32 halves,
 three products, float32 sums, which keeps float32 accuracy.
 
+The forward has a bf16 form (`fused_mrf_stage_bf16_cuda`, counted as
+`NAME_BF16`): bf16 x and y, the float32 kernels packed as bf16 once, in a
+`StageTable` of that type, one bf16 product a depth step with float32 sums,
+rounded to bf16 where the JAX package's Pallas body rounds in bf16
+(`fused_mrf.py:162-172`: each conv's output after its bias, each
+leaky-relu, each residual sum, the branches' sum and their mean).  Its
+plain version is `fused_mrf_stage_plain` given bf16 x.  It is inference
+only; each form refuses the other's x and the other's table.
+
 Branches are given as in the JAX package: per branch a list of pairs
 (k1 (K1, C, C), b1 (C,), dilation, k2 (K2, C, C), b2 (C,)), kernels laid
 out (tap, c_in, c_out).  The kernels' B operand wants the contracted channel
@@ -41,8 +50,10 @@ import torch
 from fastvocoder_tpu_torch.ops import _build
 from fastvocoder_tpu_torch.ops.conv import conv1d
 from fastvocoder_tpu_torch.ops.fused_resstack import leaf_copy, leaky_relu
+from fastvocoder_tpu_torch.ops.precision import fit, widen
 
 NAME = "fused_mrf"
+NAME_BF16 = "fused_mrf_bf16"
 BWD_NAME = "fused_mrf_bwd"
 KERNEL_WIDTHS = (16, 32, 64, 128, 256)
 LRELU_SLOPE = 0.1  # HiFiGAN's resblocks (reference modules.py:9)
@@ -55,26 +66,32 @@ def tap_major_to_torch(k: torch.Tensor) -> torch.Tensor:
     return k.permute(2, 1, 0)
 
 
-def resblock1_plain(x: torch.Tensor, pairs: Sequence[Pair]) -> torch.Tensor:
-    """One ResBlock1 branch: its pairs in turn, zero "same" padding."""
+def resblock1_plain(x: torch.Tensor, pairs: Sequence[Pair],
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One ResBlock1 branch: its pairs in turn, zero "same" padding.  With
+    `dtype` bf16, x holds bf16 values in float32 and the arithmetic is the
+    bf16 form's (`precision.fit` where the kernel rounds)."""
     h = x
     for k1, b1, d, k2, b2 in pairs:
-        t = leaky_relu(h, LRELU_SLOPE)
+        k1, b1, k2, b2 = (fit(w, dtype) for w in (k1, b1, k2, b2))
+        t = fit(leaky_relu(h, LRELU_SLOPE), dtype)
         t = conv1d(t, tap_major_to_torch(k1), b1, padding=(k1.shape[0] - 1) * d // 2, dilation=d)
-        t = leaky_relu(t, LRELU_SLOPE)
-        t = conv1d(t, tap_major_to_torch(k2), b2, padding=(k2.shape[0] - 1) // 2)
-        h = h + t
+        t = fit(leaky_relu(fit(t, dtype), LRELU_SLOPE), dtype)
+        t = fit(conv1d(t, tap_major_to_torch(k2), b2, padding=(k2.shape[0] - 1) // 2), dtype)
+        h = fit(h + t, dtype)
     return h
 
 
 def fused_mrf_stage_plain(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]]) -> torch.Tensor:
-    """The stage with module semantics: sum of the branches in order,
-    divided by their count."""
+    """The stage with module semantics, in x's type: sum of the branches
+    in order, divided by their count (for bf16 x each sum and the quotient
+    rounded, as the bf16 form rounds)."""
+    dt = x.dtype
     acc = None
     for pairs in resblocks:
-        h = resblock1_plain(x, pairs)
-        acc = h if acc is None else acc + h
-    return acc / len(resblocks)
+        h = resblock1_plain(widen(x), pairs, dt)
+        acc = h if acc is None else fit(acc + h, dt)
+    return fit(acc / len(resblocks), dt).to(dt)
 
 
 def mrf_table(op: str, resblocks: Sequence[Sequence[Pair]], C: int, device: torch.device,
@@ -139,12 +156,16 @@ class StageTable:
     (tap, c_out, c_in), b1, k2 as (tap, c_out, c_in), b2) per pair.  It keeps
     the tensors alive.  A caller whose operands stay (a served model: 0.2 ms
     of host time a stage to check 54 tensors) builds it once and hands it to
-    `fused_mrf_stage_cuda` with them."""
+    the form of its `dtype` with them.  The float32 form packs the kernels
+    on every call; a bf16 table holds them packed as bf16 (one launch,
+    here)."""
 
     def __init__(self, resblocks: Sequence[Sequence[Pair]], swapped: Optional[Swapped],
-                 device: torch.device):
+                 device: torch.device, dtype: torch.dtype = torch.float32):
         lib = _build.library(NAME)
-        self.C, self.device = resblocks[0][0][0].shape[1], device
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{NAME}: no kernel form for {dtype}")
+        self.C, self.device, self.dtype = resblocks[0][0][0].shape[1], device, dtype
         self.nb, self.np_, self.ints, _ = mrf_table(
             NAME, resblocks, self.C, device, lib.fvt_fused_mrf_max_branches(),
             lib.fvt_fused_mrf_max_pairs())
@@ -156,6 +177,41 @@ class StageTable:
                 for (_, b1, _, _, b2), (k1t, k2t) in zip(pairs, sw)
                 for p in (k1t.data_ptr(), b1.data_ptr(), k2t.data_ptr(), b2.data_ptr())]
         self.ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        self.packed = None
+        if dtype == torch.bfloat16:
+            size_fn = lib.fvt_fused_mrf_bf16_packed_elems
+            size_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            size_fn.restype = ctypes.c_longlong
+            n_packed = size_fn(self.C, self.nb, self.np_, ctypes.addressof(self.ints))
+            if n_packed < 0:
+                raise ValueError(f"{NAME_BF16}: the kernel refuses this stage")
+            self.packed = torch.empty(n_packed, dtype=dtype, device=device)
+            fn = lib.fvt_fused_mrf_bf16_pack
+            fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+            fn.restype = ctypes.c_int
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream().cuda_stream
+                err = fn(self.packed.data_ptr(), self.C, self.nb, self.np_,
+                         ctypes.addressof(self.ints), ctypes.addressof(self.ptrs), stream)
+            if err != 0:
+                raise RuntimeError(f"{NAME_BF16} kernel packing failed: CUDA error {err}")
+
+
+def _stage_table(op: str, dtype: torch.dtype, x: torch.Tensor,
+                 resblocks: Sequence[Sequence[Pair]], swapped: Optional[Swapped],
+                 table: Optional[StageTable]):
+    """-> (B, T, C, table) for the form of `dtype` (named `op`) on x."""
+    if table is not None:
+        _build.check_table(op, table, x)
+    B, T, C = _build.check_x(op, x, KERNEL_WIDTHS, dtype)
+    if table is None:
+        if not resblocks or not resblocks[0]:
+            raise ValueError(f"{op}: want at least one branch of at least one pair")
+        table = StageTable(resblocks, swapped, x.device, dtype)
+    if table.C != C or table.device != x.device:
+        raise ValueError(f"{op}: the stage's operands are for C={table.C} on {table.device}, "
+                         f"x is (B, T, {C}) on {x.device}")
+    return B, T, C, table
 
 
 def fused_mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
@@ -166,15 +222,8 @@ def fused_mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
     where the caller keeps it; `table`: `StageTable(resblocks, swapped,
     x.device)` where the caller keeps that too.  Records no graph: gradients
     come through `fused_mrf_stage`."""
-    B, T, C = _build.check_x(NAME, x, KERNEL_WIDTHS)
+    B, T, C, table = _stage_table(NAME, torch.float32, x, resblocks, swapped, table)
     lib = _build.library(NAME)
-    if table is None:
-        if not resblocks or not resblocks[0]:
-            raise ValueError(f"{NAME}: want at least one branch of at least one pair")
-        table = StageTable(resblocks, swapped, x.device)
-    if table.C != C or table.device != x.device:
-        raise ValueError(f"{NAME}: the stage's operands are for C={table.C} on {table.device}, "
-                         f"x is (B, T, {C}) on {x.device}")
     nb, np_, ints, ptrs = table.nb, table.np_, table.ints, table.ptrs
     y = torch.empty_like(x)
     if B == 0 or T == 0:
@@ -194,6 +243,36 @@ def fused_mrf_stage_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
         err = fn(x.data_ptr(), y.data_ptr(), scratch.data_ptr(), B, T, C, nb, np_,
                  ctypes.addressof(ints), ctypes.addressof(ptrs), stream)
     _build.check_launch(NAME, err)
+    return y
+
+
+def fused_mrf_stage_bf16_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
+                              swapped: Optional[Swapped] = None,
+                              table: Optional[StageTable] = None) -> torch.Tensor:
+    """The forward kernel's bf16 form on x (B, T, C) bf16, contiguous, on a
+    CUDA device: y bf16.  The operands are float32, as a model's
+    parameters; `table`: `StageTable(resblocks, swapped, x.device,
+    torch.bfloat16)` where the caller keeps it (its kernels packed as bf16
+    once).  Inference only."""
+    _build.refuse_autograd(NAME_BF16, [x] + [w for pairs in resblocks for p in pairs for w in p
+                                             if isinstance(w, torch.Tensor)],
+                           _build.BF16_INFERENCE_ONLY)
+    B, T, C, table = _stage_table(NAME_BF16, torch.bfloat16, x, resblocks, swapped, table)
+    lib = _build.library(NAME)
+    y = torch.empty_like(x)
+    if B == 0 or T == 0:
+        return y
+    # the caching allocator hands the same block back on every call
+    scratch = torch.empty(2 * table.nb * B * T * C, dtype=torch.bfloat16, device=x.device)
+    fn = lib.fvt_fused_mrf_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), y.data_ptr(), scratch.data_ptr(), table.packed.data_ptr(), B, T,
+                 C, table.nb, table.np_, ctypes.addressof(table.ints),
+                 ctypes.addressof(table.ptrs), stream)
+    _build.check_launch(NAME_BF16, err)
     return y
 
 
@@ -306,8 +385,11 @@ def fused_mrf_stage(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
     """Apply an MRF stage to x (B, T, C): the kernels on CUDA tensors (with
     their own backward), the plain version on CPU tensors.  `swapped`:
     `swap_channels(resblocks)` where the caller keeps it (the values only: no
-    gradient flows through it); `table`: the `StageTable` of both, used
-    where nothing needs a gradient."""
+    gradient flows through it); `table`: the `StageTable` of both in x's
+    type, used where nothing needs a gradient.  bf16 x takes the bf16 form
+    (inference only)."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return fused_mrf_stage_bf16_cuda(x, resblocks, swapped, table)
     if x.is_cuda:
         tensors = [w for pairs in resblocks for p in pairs for w in p
                    if isinstance(w, torch.Tensor)]

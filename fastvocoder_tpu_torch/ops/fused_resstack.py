@@ -22,6 +22,15 @@ float32 accuracy.  They read the kernels packed by a launch of their own,
 from the layout given here; the forward takes them from a `ChainTable`,
 which a served model keeps (`models/layers.py`).
 
+The forward has a bf16 form (`fused_residual_stacks_bf16_cuda`, counted as
+`NAME_BF16`): bf16 x and y, the float32 kernels packed as bf16 in a
+`ChainTable` of that type, one bf16 product a depth step with float32 sums,
+rounded to bf16 where the JAX package's Pallas body rounds in bf16
+(`fused_resstack.py:182-192`: every conv's output, each leaky-relu, the
+bias cast before it is added, the stack's sum).  Its plain version is
+`fused_residual_stacks_plain` given bf16 x.  It is inference only; each
+form refuses the other's x and the other's table.
+
 Stacks are given as in the JAX package: per stack the tuple
 (k_dilated (K, C, C), b_d (C,), dilation, k_1x1 (1, C, C), b_1 (C,),
 k_skip (1, C, C), b_s (C,)), kernels laid out (tap, c_in, c_out).
@@ -36,8 +45,10 @@ import torch
 
 from fastvocoder_tpu_torch.ops import _build
 from fastvocoder_tpu_torch.ops.conv import conv1d, reflect_pad1d
+from fastvocoder_tpu_torch.ops.precision import fit, widen
 
 NAME = "fused_resstack"
+NAME_BF16 = "fused_resstack_bf16"
 BWD_NAME = "fused_resstack_bwd"
 KERNEL_WIDTHS = (32, 64, 128, 256)
 SLOPE = 0.2  # leaky-relu slope of MelGAN's stacks (reference modules.py:320-382)
@@ -66,16 +77,20 @@ def _conv_weight(k: torch.Tensor) -> torch.Tensor:
 
 
 def fused_residual_stacks_plain(x: torch.Tensor, stacks: Sequence[Stack]) -> torch.Tensor:
-    """The chain with module semantics (reflect pads per stack)."""
-    h = x
-    for kd, bd, d, k1, b1, ks, bs in stacks:
-        t = leaky_relu(h)
+    """The chain with module semantics (reflect pads per stack), in x's
+    type: for bf16 x the bf16 form's arithmetic, float32 sums of bf16
+    operands rounded to bf16 where the kernel rounds."""
+    dt = x.dtype
+    h = widen(x)
+    for stack in stacks:
+        kd, bd, d, k1, b1, ks, bs = (w if isinstance(w, int) else fit(w, dt) for w in stack)
+        t = fit(leaky_relu(h), dt)
         t = reflect_pad1d(t, stack_margin(kd.shape[0], d))
-        t = conv1d(t, _conv_weight(kd), bd, dilation=d)
-        t = leaky_relu(t)
-        t = conv1d(t, _conv_weight(k1), b1)
-        h = t + conv1d(h, _conv_weight(ks), bs)
-    return h
+        t = fit(conv1d(t, _conv_weight(kd), bd, dilation=d), dt)
+        t = fit(leaky_relu(t), dt)
+        t = fit(conv1d(t, _conv_weight(k1), b1), dt)
+        h = fit(t + fit(conv1d(h, _conv_weight(ks), bs), dt), dt)
+    return h.to(dt)
 
 
 def _check_stacks(op: str, stacks: Sequence[Stack], C: int, device: torch.device,
@@ -109,20 +124,23 @@ def _pointers(values) -> ctypes.Array:
 class ChainTable:
     """What the forward's C entry point takes of a chain's operands, checked
     once: the dilations, the bias pointers, and every kernel packed for the
-    tensor cores (split into TF32 halves in the order the kernel reads them,
-    by one launch).  It keeps the operands alive.  A caller whose operands
-    stay (a served model) builds it once and hands it to
-    `fused_residual_stacks_cuda` with them; built on every call, it costs
-    the checks of 3 n + 3 n tensors and one launch."""
+    tensor cores (split into TF32 halves, or with `dtype` bf16 rounded to
+    bf16, in the order the kernel reads them, by one launch).  It keeps the
+    operands alive.  A caller whose operands stay (a served model) builds it
+    once and hands it to the form of its `dtype` with them; built on every
+    call, it costs the checks of 3 n + 3 n tensors and one launch."""
 
-    def __init__(self, stacks: Sequence[Stack], device: torch.device):
+    def __init__(self, stacks: Sequence[Stack], device: torch.device,
+                 dtype: torch.dtype = torch.float32):
         lib = _build.library(NAME)
         if not stacks:
             raise ValueError(f"{NAME}: want at least one stack")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"{NAME}: no kernel form for {dtype}")
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        self.C, self.device = stacks[0][0].shape[1], device
+        self.C, self.device, self.dtype = stacks[0][0].shape[1], device, dtype
         if self.C not in KERNEL_WIDTHS:
             raise ValueError(f"{NAME}: C={self.C} not in {KERNEL_WIDTHS}")
         self.n = len(stacks)
@@ -131,14 +149,15 @@ class ChainTable:
         self.dils = (ctypes.c_int * self.n)(*[int(s[2]) for s in stacks])
         self.biases = _pointers(w.data_ptr() for kd, bd, d, k1, b1, ks, bs in stacks
                                 for w in (bd, b1, bs))
-        size_fn = lib.fvt_fused_resstacks_packed_floats
+        bf16 = dtype == torch.bfloat16
+        size_fn = (lib.fvt_fused_resstacks_bf16_packed_elems if bf16
+                   else lib.fvt_fused_resstacks_packed_floats)
         size_fn.argtypes = [ctypes.c_int] * 3
         size_fn.restype = ctypes.c_longlong
-        self.packed = torch.empty(size_fn(self.C, self.n, self.K), dtype=torch.float32,
-                                  device=device)
+        self.packed = torch.empty(size_fn(self.C, self.n, self.K), dtype=dtype, device=device)
         kernels = _pointers(w.data_ptr() for kd, bd, d, k1, b1, ks, bs in stacks
                             for w in (kd, k1, ks))
-        fn = lib.fvt_fused_resstacks_pack
+        fn = lib.fvt_fused_resstacks_bf16_pack if bf16 else lib.fvt_fused_resstacks_pack
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         with torch.cuda.device(device):
@@ -149,18 +168,17 @@ class ChainTable:
             raise RuntimeError(f"{NAME} kernel packing failed: CUDA error {err}")
 
 
-def fused_residual_stacks_cuda(x: torch.Tensor, stacks: Sequence[Stack],
-                               table: Optional[ChainTable] = None) -> torch.Tensor:
-    """Launch the forward kernel on x (B, T, C) float32, contiguous, on a
-    CUDA device, C in `KERNEL_WIDTHS`.  `table`: `ChainTable(stacks,
-    x.device)` where the caller keeps it.  Records no graph: gradients come
-    through `fused_residual_stacks`."""
-    B, T, C = _build.check_x(NAME, x, KERNEL_WIDTHS)
+def _run_forward(op: str, dtype: torch.dtype, x: torch.Tensor, stacks: Sequence[Stack],
+                 table: Optional[ChainTable]) -> torch.Tensor:
+    """The forward kernel's form of `dtype` (named `op`) on x."""
+    if table is not None:
+        _build.check_table(op, table, x)
+    B, T, C = _build.check_x(op, x, KERNEL_WIDTHS, dtype)
     lib = _build.library(NAME)
     if table is None:
-        table = ChainTable(stacks, x.device)
+        table = ChainTable(stacks, x.device, dtype)
     if table.C != C or table.device != x.device:
-        raise ValueError(f"{NAME}: the chain's operands are for C={table.C} on {table.device}, "
+        raise ValueError(f"{op}: the chain's operands are for C={table.C} on {table.device}, "
                          f"x is (B, T, {C}) on {x.device}")
     y = torch.empty_like(x)
     if B == 0 or T == 0:
@@ -169,8 +187,8 @@ def fused_residual_stacks_cuda(x: torch.Tensor, stacks: Sequence[Stack],
     size_fn.argtypes = [ctypes.c_int] * 4
     size_fn.restype = ctypes.c_longlong
     # the caching allocator hands the same block back on every call
-    scratch = torch.empty(size_fn(B, T, C, table.n), dtype=torch.float32, device=x.device)
-    fn = lib.fvt_fused_resstacks
+    scratch = torch.empty(size_fn(B, T, C, table.n), dtype=dtype, device=x.device)
+    fn = lib.fvt_fused_resstacks_bf16 if dtype == torch.bfloat16 else lib.fvt_fused_resstacks
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
@@ -178,8 +196,29 @@ def fused_residual_stacks_cuda(x: torch.Tensor, stacks: Sequence[Stack],
         err = fn(x.data_ptr(), y.data_ptr(), scratch.data_ptr(), table.packed.data_ptr(), B, T,
                  C, table.n, table.K, ctypes.addressof(table.dils),
                  ctypes.addressof(table.biases), stream)
-    _build.check_launch(NAME, err)
+    _build.check_launch(op, err)
     return y
+
+
+def fused_residual_stacks_cuda(x: torch.Tensor, stacks: Sequence[Stack],
+                               table: Optional[ChainTable] = None) -> torch.Tensor:
+    """Launch the forward kernel on x (B, T, C) float32, contiguous, on a
+    CUDA device, C in `KERNEL_WIDTHS`.  `table`: `ChainTable(stacks,
+    x.device)` where the caller keeps it.  Records no graph: gradients come
+    through `fused_residual_stacks`."""
+    return _run_forward(NAME, torch.float32, x, stacks, table)
+
+
+def fused_residual_stacks_bf16_cuda(x: torch.Tensor, stacks: Sequence[Stack],
+                                    table: Optional[ChainTable] = None) -> torch.Tensor:
+    """The forward kernel's bf16 form on x (B, T, C) bf16, contiguous, on a
+    CUDA device: y bf16.  `stacks` are float32, as a model's parameters;
+    `table`: `ChainTable(stacks, x.device, torch.bfloat16)` where the caller
+    keeps it.  Inference only."""
+    _build.refuse_autograd(NAME_BF16, [x] + [w for s in stacks for w in s
+                                             if isinstance(w, torch.Tensor)],
+                           _build.BF16_INFERENCE_ONLY)
+    return _run_forward(NAME_BF16, torch.bfloat16, x, stacks, table)
 
 
 Grads = List[Tuple[torch.Tensor, ...]]
@@ -276,9 +315,11 @@ class _FusedResidualStacks(torch.autograd.Function):
 def fused_residual_stacks(x: torch.Tensor, stacks: Sequence[Stack],
                           table: Optional[ChainTable] = None) -> torch.Tensor:
     """Apply a ResidualStack chain to x (B, T, C): the kernels on CUDA
-    tensors (with their own backward), the plain version on CPU tensors.
-    `table`: the chain's `ChainTable`, used where nothing needs a
-    gradient."""
+    tensors (with their own backward; the bf16 form, inference only, for
+    bf16 x), the plain version on CPU tensors.  `table`: the chain's
+    `ChainTable` of x's type, used where nothing needs a gradient."""
+    if x.is_cuda and x.dtype == torch.bfloat16:
+        return fused_residual_stacks_bf16_cuda(x, stacks, table)
     if x.is_cuda:
         tensors = [w for s in stacks for w in s if isinstance(w, torch.Tensor)]
         if not (torch.is_grad_enabled() and any(t.requires_grad for t in [x] + tensors)):

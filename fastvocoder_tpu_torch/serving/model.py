@@ -10,6 +10,8 @@ zero-mel response) from each utterance after the `T * hop` trim, as the
 reference's test harness does (reference bin/test.py:85-88).  The other
 families' checkpoints carry no pattern and are served as they come.  NHV
 takes its conditioning (T, 81), the mel and f0 (`dsp.f0.f0_to_condition`).
+`compute_dtype=torch.bfloat16` serves in bf16 (`models/factory.py`), as the
+JAX package's `compute_dtype` (`bin/serve.py --bf16`).
 """
 
 from __future__ import annotations
@@ -40,13 +42,14 @@ class ServingModel:
         max_batch: int = 32,
         batch_pad: str = "pow2",
         device: str | torch.device = "cuda",
+        compute_dtype=None,
     ):
         self.device = resolve_device(device)
         self.hp = hp
         self.model_name = model_name
         self.cfg = load_model_config(model_name, config_path)
         self.generator, self.pattern = load_generator(
-            checkpoint_path, self.cfg, self.device
+            checkpoint_path, self.cfg, self.device, compute_dtype=compute_dtype
         )
         self.batched = BatchedSynthesizer(
             self.generator.inference,

@@ -14,6 +14,10 @@ their gain normalising each output channel over (kh, kw, Cin), fused as the
 JAX package's `fuse_weight_norm` fuses them (within 1e-6; measured: the
 same bits) or kept.  Any
 other leaf is refused by name.  Both new release checkpoints load.
+
+A checkpoint loads the same with `compute_dtype=torch.bfloat16`: every
+release checkpoint and a checkpoint of the port's trainer, the same
+float32 parameters and a model that computes in bf16.
 """
 
 import jax
@@ -221,3 +225,51 @@ def test_release_checkpoints_of_melgan_and_nhv_load(name, tensors):
     gen = build_generator(thp.load_model_config(name, os.path.join(root, ckpt["config"])))
     gen.load_state_dict(ckpt["state_dict"])  # strict: every key carried, every key used
     assert len(ckpt["state_dict"]) == tensors  # weights and biases, gains folded; NHV's fir
+
+
+@pytest.mark.parametrize("name,npz", [("basis-melgan", "basis_melgan_clean2"),
+                                      ("hifigan", "hifigan_light_clean2"),
+                                      ("multiband-hifigan", "mb_hifigan_light_clean"),
+                                      ("melgan", "melgan_clean"), ("nhv", "nhv_clean")])
+def test_release_checkpoints_load_to_compute_in_bf16(name, npz):
+    """`load_generator(..., compute_dtype=bf16)`: the same float32 parameters,
+    bit for bit, as the float32 load, in a model whose convs compute in
+    bf16."""
+    import os
+
+    from fastvocoder_tpu_torch.models.factory import load_generator
+    from fastvocoder_tpu_torch.models.layers import Conv1d
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    path = os.path.join(root, "docs", "checkpoints", f"{npz}.npz")
+    cfg = thp.load_model_config(name, os.path.join(root, load_release_npz(path)["config"]))
+    f32, _ = load_generator(path, cfg, torch.device("cpu"))
+    bf16, _ = load_generator(path, cfg, torch.device("cpu"), compute_dtype=torch.bfloat16)
+    a, b = f32.state_dict(), bf16.state_dict()
+    assert a.keys() == b.keys()
+    assert all(b[k].dtype == torch.float32 and torch.equal(a[k], b[k]) for k in a)
+    convs = [m for m in bf16.modules() if isinstance(m, Conv1d)]
+    assert convs and all(m.compute_dtype == torch.bfloat16 for m in convs)
+
+
+def test_a_trained_checkpoint_loads_to_compute_in_bf16(tmp_path):
+    """A checkpoint of the port's trainer loads with `compute_dtype` as a
+    release checkpoint does: weight norm fused in float32, the model in
+    bf16."""
+    from fastvocoder_tpu_torch.checkpoint import TRAIN_FORMAT
+    from fastvocoder_tpu_torch.models.factory import load_generator
+
+    cfg = thp.ModelConfig("hifigan", thp.HiFiGANConfig(**HIFI_ARCH))
+    torch.manual_seed(0)
+    trained = build_generator(cfg, weight_norm=True)
+    path = str(tmp_path / "checkpoint_1.pth.tar")
+    torch.save({"format": TRAIN_FORMAT, "model_name": "hifigan",
+                "generator": trained.state_dict()}, path)
+    f32, _ = load_generator(path, cfg, torch.device("cpu"))
+    bf16, _ = load_generator(path, cfg, torch.device("cpu"), compute_dtype=torch.bfloat16)
+    mel = torch.rand(1, 10, 80)
+    with torch.inference_mode():
+        want, got = f32(mel), bf16(mel)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= max(2e-3, 0.01 * want.abs().max().item())
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())

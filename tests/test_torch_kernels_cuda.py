@@ -35,6 +35,16 @@ all B T rows, agrees within 2e-4 of its own peak, and 99.5 % of dx's rows
 within 1e-4 of dx's peak.  From 1000 rows on a flip or two occur: dW and db
 within 3e-2, 90 % of the rows.  Every row of dx is within 5e-2 of the peak
 throughout.
+
+The bf16 forms (kernels 1, 2, 4 and 6; the last section) are held against
+the plain versions of the same bf16 arithmetic (bf16 operands, float32
+sums, rounded to bf16 at the same points) on the same inputs.  The two sum
+in other orders, so an element that sits within float32 rounding of a bf16
+rounding boundary or of the leaky-relu kink rounds the other way, and the
+difference travels through the later convs: they are held within 1 % of the
+plain output's peak, and the share of elements more than one bf16 ulp apart
+is printed.  The decode rounds nothing after its float32 sums and keeps the
+float32 form's bound.
 """
 
 import os
@@ -727,3 +737,238 @@ def test_mrf_and_tail_kernels_are_forward_only(cuda):
 def test_mrf_kernel_refuses_other_widths(cuda):
     with pytest.raises(ValueError, match="not in"):
         fused_mrf_stage_cuda(torch.zeros(1, 8, 48, device=cuda), _resblocks(48, cuda, 0))
+
+
+# ---- the bf16 forms ----
+
+BF16 = torch.bfloat16
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at each element of v (float32): 2^(e - 7), e its binade."""
+    e = torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _assert_bf16_close(got, want):
+    """The bf16 form against its plain version: within 1 % of the plain
+    output's peak; -> the share of elements more than one bf16 ulp apart."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert err.max().item() <= 0.01 * want.abs().max().item()
+    share = (err > _bf16_ulp(want)).float().mean().item()
+    print(f"max {err.max().item():.3e} of peak {want.abs().max().item():.3e}, "
+          f"{share:.4f} of elements more than one ulp apart")
+    return share
+
+
+@pytest.mark.parametrize("B,F,C,L", [(1, 9360, 256, 30), (32, 2240, 256, 30), (3, 77, 256, 30),
+                                     (1, 1, 256, 30), (1, 15, 256, 30), (1, 16, 256, 30),
+                                     (5, 63, 256, 30), (2, 40, 16, 40), (2, 5, 64, 12)])
+def test_basis_decode_bf16_kernel_matches_plain(cuda, B, F, C, L):
+    from fastvocoder_tpu_torch.ops.basis_decode import basis_decode_bf16_cuda
+
+    g = torch.Generator().manual_seed(B + F)
+    w = torch.relu(torch.randn(B, F, C, generator=g)).to(cuda).to(BF16)
+    basis = (0.1 * torch.randn(L, C, generator=g)).to(cuda).to(BF16)
+    before = _build.launch_counts["basis_decode_bf16"]
+    got = basis_decode(w, basis)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["basis_decode_bf16"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (B, (F + 1) * (L // 2))
+    want = basis_decode_plain(w, basis)
+    bound = 4 * C * EPS * basis_decode_plain(w.abs(), basis.abs())
+    assert torch.all((got - want).abs() <= bound)
+    with pytest.raises(ValueError, match="takes torch.bfloat16 x"):
+        basis_decode_bf16_cuda(w.float(), basis)
+
+
+# Basis-MelGAN light's two stages and MelGAN original's four, at batch 1 of
+# a 585-frame utterance, and the training crops' batch of 32
+@pytest.mark.parametrize("B,T,C", [(1, 2340, 256), (1, 9360, 256), (1, 5850, 256), (1, 35100, 128),
+                                   (1, 70200, 64), (1, 140400, 32), (32, 2240, 256), (4, 97, 128)])
+def test_fused_resstack_bf16_kernel_matches_plain(cuda, B, T, C):
+    g = torch.Generator().manual_seed(T + C)
+    x = (0.3 * torch.randn(B, T, C, generator=g)).to(cuda).to(BF16)
+    stacks = _stacks(C, cuda, seed=T)
+    before = _build.launch_counts["fused_resstack_bf16"]
+    got = fused_residual_stacks(x, stacks)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_resstack_bf16"] == before + 1
+    assert got.dtype == BF16
+    _assert_bf16_close(got, fused_residual_stacks_plain(x, stacks))
+
+
+@pytest.mark.parametrize("B,T,C", _chain_edge_cases(1))
+def test_fused_resstack_bf16_kernel_matches_plain_at_tile_edges(cuda, B, T, C):
+    g = torch.Generator().manual_seed(T + C + B)
+    x = (0.3 * torch.randn(B, T, C, generator=g)).to(cuda).to(BF16)
+    stacks = _stacks(C, cuda, seed=C + 1)
+    _assert_bf16_close(fused_residual_stacks(x, stacks), fused_residual_stacks_plain(x, stacks))
+
+
+@pytest.mark.parametrize("stage,T", [(0, 5850), (1, 35100), (2, 70200), (3, 140400)])
+def test_fused_resstack_bf16_kernel_matches_plain_melgan_stages(cuda, melgan_original, stage, T):
+    stacks = [m.chain_operands() for m in melgan_original.stacks[stage]]
+    C = stacks[0][0].shape[1]
+    g = torch.Generator().manual_seed(stage)
+    x = (0.3 * torch.randn(1, T, C, generator=g)).to(cuda).to(BF16)
+    _assert_bf16_close(fused_residual_stacks(x, stacks), fused_residual_stacks_plain(x, stacks))
+
+
+@pytest.mark.parametrize("stage,B,T", [(0, 1, 4680), (1, 1, 23400), (2, 1, 70200), (2, 4, 70200),
+                                       (0, 1, 1), (1, 2, 7)])
+def test_fused_mrf_bf16_kernel_matches_plain_release_weights(cuda, hifigan_light, stage, B, T):
+    blocks = [b.mrf_operands() for b in hifigan_light.mrfs[stage]]
+    C = blocks[0][0][0].shape[1]
+    g = torch.Generator().manual_seed(B * T + stage)
+    x = (0.3 * torch.randn(B, T, C, generator=g)).to(cuda).to(BF16)
+    before = _build.launch_counts["fused_mrf_bf16"]
+    got = fused_mrf_stage(x, blocks)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_mrf_bf16"] == before + 1
+    assert got.dtype == BF16
+    _assert_bf16_close(got, fused_mrf_stage_plain(x, blocks))
+
+
+@pytest.mark.parametrize("B,T,C", _edge_cases())
+def test_fused_mrf_bf16_kernel_matches_plain_at_tile_edges(cuda, B, T, C):
+    g = torch.Generator().manual_seed(T + C)
+    x = (0.3 * torch.randn(B, T, C, generator=g)).to(cuda).to(BF16)
+    blocks = _resblocks(C, cuda, seed=C + 1)
+    _assert_bf16_close(fused_mrf_stage(x, blocks), fused_mrf_stage_plain(x, blocks))
+
+
+@pytest.mark.parametrize("B,T_in", [(1, 70200), (2, 35), (1, 1), (3, 4)])
+def test_fused_tail_bf16_kernel_matches_plain_release_weights(cuda, hifigan_light, B, T_in):
+    from fastvocoder_tpu_torch.ops.fused_tail import fused_hifigan_tail_bf16_cuda
+
+    ops = hifigan_light.tail_operands()
+    g = torch.Generator().manual_seed(T_in)
+    x = (0.3 * torch.randn(B, T_in, 32, generator=g)).to(cuda).to(BF16)
+    before = _build.launch_counts["fused_tail_bf16"]
+    with torch.no_grad():
+        got = fused_hifigan_tail_bf16_cuda(x, *ops)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_tail_bf16"] == before + 1
+    assert got.shape == (B, 2 * T_in, 1) and got.dtype == BF16
+    _assert_bf16_close(got, fused_hifigan_tail_plain(x, *ops))
+
+
+@pytest.mark.parametrize("B,T_in,cin,cout", _tail_edge_cases() + [(2, 9, 64, 32)])
+def test_fused_tail_bf16_kernel_matches_plain_at_tile_edges(cuda, B, T_in, cin, cout):
+    from fastvocoder_tpu_torch.ops.fused_tail import fused_hifigan_tail_bf16_cuda
+
+    ops = _tail_operands(cin, cout, cuda, seed=cout + T_in, bands=4 if T_in == 9 else 1)
+    g = torch.Generator().manual_seed(T_in + 1)
+    x = (0.3 * torch.randn(B, T_in, cin, generator=g)).to(cuda).to(BF16)
+    _assert_bf16_close(fused_hifigan_tail_bf16_cuda(x, *ops), fused_hifigan_tail_plain(x, *ops))
+
+
+def test_each_form_refuses_the_other_type_and_the_other_tables(cuda):
+    """A form never casts: bf16 x to a float32 form, or float32 x to a bf16
+    form, raises, and so does a kept table packed for the other type."""
+    from fastvocoder_tpu_torch.ops.fused_mrf import StageTable, fused_mrf_stage_bf16_cuda
+    from fastvocoder_tpu_torch.ops.fused_resstack import (
+        ChainTable,
+        fused_residual_stacks_bf16_cuda,
+    )
+    from fastvocoder_tpu_torch.ops.fused_tail import TailTable, fused_hifigan_tail_bf16_cuda
+
+    g = torch.Generator().manual_seed(9)
+    x = (0.3 * torch.randn(1, 80, 32, generator=g)).to(cuda)
+    xb = x.to(BF16)
+    stacks = _stacks(32, cuda, seed=3)
+    blocks = _resblocks(32, cuda, seed=3)
+    ops = _tail_operands(32, 16, cuda, seed=3)
+    chains = {dt: ChainTable(stacks, cuda, dt) for dt in (torch.float32, BF16)}
+    stages = {dt: StageTable(blocks, None, x.device, dt) for dt in (torch.float32, BF16)}
+    tails = {dt: TailTable(*ops, cuda, dt) for dt in (torch.float32, BF16)}
+    with pytest.raises(ValueError, match="takes torch.float32 x"):
+        fused_residual_stacks_cuda(xb, stacks)
+    with pytest.raises(ValueError, match="takes torch.bfloat16 x"):
+        fused_residual_stacks_bf16_cuda(x, stacks)
+    with pytest.raises(ValueError, match="packed for torch.float32"):
+        fused_residual_stacks_bf16_cuda(xb, stacks, chains[torch.float32])
+    with pytest.raises(ValueError, match="packed for torch.bfloat16"):
+        fused_residual_stacks_cuda(x, stacks, chains[BF16])
+    with pytest.raises(ValueError, match="takes torch.float32 x"):
+        fused_mrf_stage_cuda(xb, blocks)
+    with pytest.raises(ValueError, match="takes torch.bfloat16 x"):
+        fused_mrf_stage_bf16_cuda(x, blocks)
+    with pytest.raises(ValueError, match="packed for torch.float32"):
+        fused_mrf_stage_bf16_cuda(xb, blocks, None, stages[torch.float32])
+    with pytest.raises(ValueError, match="packed for torch.bfloat16"):
+        fused_mrf_stage_cuda(x, blocks, None, stages[BF16])
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="takes torch.float32 x"):
+            fused_hifigan_tail_cuda(xb, *ops)
+        with pytest.raises(ValueError, match="takes torch.bfloat16 x"):
+            fused_hifigan_tail_bf16_cuda(x, *ops)
+        with pytest.raises(ValueError, match="packed for torch.float32"):
+            fused_hifigan_tail_bf16_cuda(xb, *ops, table=tails[torch.float32])
+        with pytest.raises(ValueError, match="packed for torch.bfloat16"):
+            fused_hifigan_tail_cuda(x, *ops, table=tails[BF16])
+        # each kept table gives the bits of a table built for the call
+        assert torch.equal(fused_residual_stacks_bf16_cuda(xb, stacks, chains[BF16]),
+                           fused_residual_stacks_bf16_cuda(xb, stacks))
+        assert torch.equal(fused_mrf_stage_bf16_cuda(xb, blocks, None, stages[BF16]),
+                           fused_mrf_stage_bf16_cuda(xb, blocks))
+        assert torch.equal(fused_hifigan_tail_bf16_cuda(xb, *ops, table=tails[BF16]),
+                           fused_hifigan_tail_bf16_cuda(xb, *ops))
+
+
+def test_bf16_forms_are_inference_only(cuda):
+    from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage_bf16_cuda
+
+    x = torch.randn(1, 64, 32, device=cuda, dtype=BF16, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fused_residual_stacks(x, _stacks(32, cuda))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fused_mrf_stage_bf16_cuda(x, _resblocks(32, cuda, 0))
+
+
+@pytest.mark.parametrize("family", ["basis-melgan", "hifigan", "melgan"])
+def test_bf16_generators_run_the_bf16_forms_and_keep_float32_weights(cuda, family):
+    """A generator built with compute_dtype bf16 on the card launches the
+    bf16 forms of its kernels and no float32 form, keeps its parameters in
+    float32, and writes a float32 waveform whose deviation from its float32
+    self is the bf16 arithmetic's: on these trained weights more than the
+    JAX package's gate, on every implementation (`tests/test_torch_bf16_models.py`),
+    so held by the root mean square to twice the CPU's bf16 path's (6 dB of
+    SNR; a fault of layout or rounding point shows at the signal's scale)."""
+    from fastvocoder_tpu_torch.hparams import load_model_config
+    from fastvocoder_tpu_torch.models.factory import load_generator
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    conf, npz = {"basis-melgan": ("basis-melgan/light.yaml", "basis_melgan_clean2.npz"),
+                 "hifigan": ("hifigan/light.yaml", "hifigan_light_clean2.npz"),
+                 "melgan": ("melgan/original.yaml", "melgan_clean.npz")}[family]
+    cfg = load_model_config(family, os.path.join(root, "conf", conf))
+    path = os.path.join(root, "docs", "checkpoints", npz)
+    g = torch.Generator().manual_seed(1)
+    mel = torch.clamp(0.5 + 0.25 * torch.randn(1, 100, 80, generator=g), 0, 1)
+    names = {"basis-melgan": ("fused_resstack", "basis_decode"),
+             "hifigan": ("fused_mrf", "fused_tail"), "melgan": ("fused_resstack",)}[family]
+    out = {}
+    for where in (cuda, torch.device("cpu")):
+        for dtype in (BF16, None):
+            gen, _ = load_generator(path, cfg, where, compute_dtype=dtype)
+            before = dict(_build.launch_counts)
+            with torch.inference_mode():
+                out[(where.type, dtype)] = gen.inference(mel.to(where)).cpu()
+            if where.type == "cuda" and dtype == BF16:
+                torch.cuda.synchronize()
+                for name in names:
+                    assert _build.launch_counts[name + "_bf16"] > before.get(name + "_bf16", 0)
+                    assert _build.launch_counts[name] == before.get(name, 0)
+                assert all(p.dtype == torch.float32 for p in gen.parameters())
+    got, want = out[("cuda", BF16)], out[("cuda", None)]
+    assert got.dtype == torch.float32 and got.shape == want.shape and torch.isfinite(got).all()
+
+    def rms(d):
+        return d.double().pow(2).mean().sqrt().item()
+
+    assert rms(got - want) <= 2 * rms(out[("cpu", BF16)] - out[("cpu", None)])

@@ -4,7 +4,11 @@
   `ServingModel` on the same weights, restored to a `.pth.tar` by
   `tools/export_release_checkpoint.py restore`: max abs 1e-4 (float32
   summation order only; waveforms peak near 3.4).
-* The HTTP round trip of `bin/serve.py` against the port's `ServingModel`.
+* The HTTP round trip of `bin/serve.py` against the port's `ServingModel`,
+  and with `--bf16 1` against a `ServingModel(compute_dtype=bf16)`, whose
+  parameters stay float32 (bf16 serving; the bound is the JAX package's
+  bf16 gate, max(2e-3, 1 % of the peak), as a bucket's batch may run other
+  library algorithms).
 * `bin/test.py` (RTF protocol) and `bin/synthesize.py` end to end.
 * Entry points refuse to run without CUDA unless given `device="cpu"`.
 * The port's copies of the batcher and server, with stub synthesizers.
@@ -119,6 +123,41 @@ def test_http_round_trip(port_model):
         batcher.close()
 
 
+def test_bf16_http_round_trip():
+    httpd, batcher = run_serve(
+        ["--checkpoint_path", NPZ, "--config", CONF, "--port", "0", "--max_batch", "4",
+         "--bf16", "1", "--device", "cpu"],
+        block=False,
+    )
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        mels = _mels()
+        results = [None] * len(mels)
+
+        def one(i):
+            results[i] = _post(url + "/synthesize", _npy(mels[i]))
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(mels))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    model = ServingModel(NPZ, CONF, "basis-melgan", bucket_frames=64, max_batch=4, device="cpu",
+                         compute_dtype=torch.bfloat16)
+    assert all(p.dtype == torch.float32 for p in model.generator.parameters())
+    assert model.generator.conv_pre.compute_dtype == torch.bfloat16
+    for (status, body), w, m in zip(results, model(mels), mels):
+        assert status == 200
+        got = np.load(io.BytesIO(body))
+        assert got.dtype == np.float32 and got.shape == w.shape == (m.shape[0] * 240,)
+        assert np.abs(got - w).max() <= max(2e-3, 0.01 * np.abs(w).max())
+
+
 def test_rtf_protocol_and_synthesize_cli(tmp_path):
     mel = _mels()[0]
     np.save(tmp_path / "utt.npy", mel.T)
@@ -155,6 +194,18 @@ def test_entry_points_need_cuda_unless_told_cpu(tmp_path):
         run_test(["--checkpoint_path", NPZ, "--file_path", str(tmp_path), "--config", CONF])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_serve(["--checkpoint_path", NPZ, "--config", CONF, "--port", "0"], block=False)
+
+
+def test_bf16_entry_points_need_cuda_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA; the refusal only shows without it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Synthesizer(NPZ, CONF, "basis-melgan", compute_dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingModel(NPZ, CONF, "basis-melgan", compute_dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_serve(["--checkpoint_path", NPZ, "--config", CONF, "--port", "0", "--bf16", "1"],
+                  block=False)
 
 
 @pytest.mark.parametrize("batch_pad", ["exact", "pow2"])
