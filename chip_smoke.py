@@ -65,7 +65,20 @@ the data pipeline reads:
   * NHV: `run_train` for 2 pre-adversarial steps on the corpus's f0 files;
   * ms a step of each step kind, and a profile of one HiFiGAN GAN step, of
     one Basis-MelGAN pre-adversarial step and of one MelGAN GAN step with
-    the MPD.
+    the MPD;
+  * bf16 mixed-precision training (`--mixprecision 1`), after the bf16
+    forms of the backward kernels (3b, 5b) are held against their plain
+    versions at the training stages' shapes and on the edges of their tiles
+    (each one's error against float64 beside its plain version's) and timed
+    against their bounds: `run_train` for HiFiGAN light (2 + 4 steps;
+    kernels fused_mrf_bf16, fused_mrf_bwd_bf16), Basis-MelGAN light (4
+    steps; fused_resstack_bf16, fused_resstack_bwd_bf16, basis_decode_bf16)
+    and MelGAN original with the MPD (1 + 2 steps), launching no float32
+    form, each checkpoint synthesized in bf16; one step of each in bf16
+    against float32 on the card and on the CPU (the card's gradients may
+    deviate from float32 by at most twice the CPU's), ms a step in bf16
+    beside float32 of the same call, and a profile of one bf16 HiFiGAN GAN
+    step.
 
 Launch counts are zeroed before each path and read right after it; the run
 fails if a kernel of the path was not launched.  A profile of one batch-1
@@ -155,6 +168,21 @@ TRAIN_BATCH, TRAIN_FRAMES = 32, 140  # the reference's batch (hparams.py:50,72)
 # (tests/test_torch_bf16_models.py), so there the card is held to what the
 # same arithmetic costs on the CPU (`bf16_release_phase`).
 BF16_TOL = 1e-2
+# the bf16 backward forms against their plain versions, both the float32 VJP
+# of the bf16 inputs rounded to bf16 once: every element of a row of dx within
+# one bf16 ulp of its own value plus the float32 forms' row tolerance, but for
+# the rows a leaky-relu flip reaches (the float32 forms' share), dx, dW and db
+# within the float32 forms' bounds; at the tiles' edges, against the plain
+# version in float64, every element so near but those that taking the other
+# slope at the pre-activations within KINK_BAND of their peak of the kink
+# moves (`bf16_grads_against_f64`: the flips are found, not assumed)
+BF16_BWD_ROWS, KINK_BAND = 0.9, 1e-5
+# bf16 training: a step's gradients deviate from the float32 step's (same
+# weights, same batch) on the card by at most BF16_STEP_RATIO times what the
+# CPU's bf16 step deviates from the CPU's float32 step (relative RMS over all
+# of the generator's or the discriminator's gradients), on BF16_CPU_BATCH
+# crops (a CPU step of 32 takes minutes in bf16)
+BF16_STEP_RATIO, BF16_CPU_BATCH = 2.0, 4
 
 
 def log(msg: str) -> None:
@@ -1029,6 +1057,251 @@ def against_f64(torch, name, x, args, bf16_form, f32_kernel, plain) -> None:
         f"{rel(f32_kernel(xb.float(), *args)):.3e} of the peak {peak:.3e}")
 
 
+def bf16_grads_close(torch, dx, dx_ref, grads, grads_ref):
+    """A bf16 backward form against its plain version, both the float32 VJP
+    rounded to bf16 once: (share of dx's rows whose every element lies
+    within one bf16 ulp of its own value of the plain version's plus the
+    float32 forms' row tolerance, BWD_DX_ROW_TOL of the peak, dx's worst
+    error of its peak, the worst dW or db error of its own peak, the largest
+    share of a dW's or db's elements beyond one ulp and BWD_DX_ROW_TOL of
+    its peak, ok)."""
+    def beyond(got, want, peak):
+        got, want = got.double(), want.double()
+        return (got - want).abs() > (bf16_ulp(torch, torch.maximum(got.abs(), want.abs()))
+                                     + BWD_DX_ROW_TOL * peak)
+
+    peak = dx_ref.abs().max().item()
+    rows_ok = 1 - beyond(dx, dx_ref, peak).any(dim=2).float().mean().item()
+    dx_rel = (dx.double() - dx_ref.double()).abs().max().item() / peak
+    w_rel, w_far = 0.0, 0.0
+    for g_, w in zip(grads, grads_ref):
+        w_peak = w.abs().max().item()
+        w_rel = max(w_rel, (g_.double() - w.double()).abs().max().item() / w_peak)
+        w_far = max(w_far, beyond(g_, w, w_peak).float().mean().item())
+    ok = (dx.dtype == torch.bfloat16 and all(g_.dtype == torch.bfloat16 for g_ in grads)
+          and dx_rel <= BWD_DX_TOL and rows_ok >= BF16_BWD_ROWS and w_rel <= BWD_W_TOL)
+    return rows_ok, dx_rel, w_rel, w_far, ok
+
+
+def vjp_switching_at(torch, vjp_plain, args, shift: int, near) -> list:
+    """vjp_plain(*args), flattened, with every leaky-relu's derivative
+    switching to 1 at `shift` KINK_BAND of its input's peak instead of at 0
+    (the forward unchanged); `near`, if a list, gets per leaky-relu the
+    number of its inputs within the band."""
+    from fastvocoder_tpu_torch.ops import fused_mrf as fm
+    from fastvocoder_tpu_torch.ops import fused_resstack as fr
+
+    plain_leaky = fr.leaky_relu
+
+    def leaky(v, slope=fr.SLOPE):
+        y = plain_leaky(v, slope)
+        if not v.requires_grad:
+            return y
+        d = v.detach()
+        band = KINK_BAND * d.abs().max()
+        if near is not None:
+            near.append(int((d.abs() <= band).sum()))
+        slopes = torch.full_like(d, slope).masked_fill_(d >= shift * band, 1.0)
+        return y.detach() + (v - d) * slopes  # the value y, the derivative `slopes`
+
+    saved = fr.leaky_relu, fm.leaky_relu
+    fr.leaky_relu = fm.leaky_relu = leaky
+    try:
+        dx, grads = vjp_plain(*args)
+    finally:
+        fr.leaky_relu, fm.leaky_relu = saved
+    return [dx] + list(_flat_tensors(grads))
+
+
+def bf16_grads_against_f64(torch, got, vjp_plain, args64):
+    """A bf16 backward form's flat (dx, dW and db ...) against its plain
+    version run in float64 (`args64`): (worst error beyond one bf16 ulp and
+    the tight tolerance, of dx's peak, and of a dW's or db's peak, the
+    pre-activations within KINK_BAND of the kink, whether taking their other
+    slope explains every element, ok).  Tight: one ulp plus BWD_DX_ROW_TOL
+    of the peak (dx) or twice it (dW, db).  An element farther must be one
+    that the other slope at those pre-activations moves, by no more than it
+    moves it or than the float32 forms' bounds (BWD_DX_TOL, BWD_W_TOL);
+    90 % of dx's rows tight, every element of dx within BWD_DX_TOL."""
+    want = vjp_switching_at(torch, vjp_plain, args64, 0, None)
+    tols = [BWD_DX_ROW_TOL] + [2 * BWD_DX_ROW_TOL] * (len(got) - 1)
+    caps = [BWD_DX_TOL] + [BWD_W_TOL] * (len(got) - 1)
+    peaks = [max(w.abs().max().item(), 1e-30) for w in want]
+    ok = len(got) == len(want) and all(a.dtype == torch.bfloat16 and a.shape == w.shape
+                                       for a, w in zip(got, want))
+    errs = [(a.double() - w).abs() - bf16_ulp(torch, torch.maximum(a.double().abs(), w.abs()))
+            - tol * peak for a, w, tol, peak in zip(got, want, tols, peaks)]
+    beyond = [e.max().item() / p for e, p in zip(errs, peaks)]
+    rows_ok = (errs[0] <= 0).all(dim=2).float().mean().item()
+    ok = ok and rows_ok >= BF16_BWD_ROWS and (
+        (got[0].double() - want[0]).abs().max().item() <= BWD_DX_TOL * peaks[0])
+    near, explained = [], True
+    if max(beyond) > 0:
+        hi = vjp_switching_at(torch, vjp_plain, args64, -1, near)
+        lo = vjp_switching_at(torch, vjp_plain, args64, 1, None)
+        reach = [(h - w).abs() + (lo_ - w).abs() for h, lo_, w in zip(hi, lo, want)]
+        moved = [r > 1e-6 * peak for r, peak in zip(reach, peaks)]
+        explained = all(bool((e <= r).all()) for e, r in zip(errs, reach))
+        ok = ok and all(bool((e <= torch.where(m, r.clamp_min(cap * peak), 0.0)).all())
+                        for e, r, m, cap, peak in zip(errs, reach, moved, caps, peaks))
+        log(f"    beyond one bf16 ulp: dx {beyond[0]:.3e}, dW/db {max(beyond[1:]):.3e} of the "
+            f"peak, {rows_ok:.4f} of dx's rows within; {sum(near)} pre-activations within "
+            f"{KINK_BAND} of their peak of the kink, whose other slope moves "
+            f"{moved[0].any(dim=2).float().mean().item():.4f} of dx's rows and explains every "
+            f"element: {explained}")
+    return beyond[0], max(beyond[1:]), sum(near), explained, ok
+
+
+def check_bf16_backward(torch, name, vjp_cuda, vjp_f32, vjp_plain, stages, fwd_work, replaces,
+                        what, edges):
+    """A bf16 backward form (kernel 3b or 5b) against its plain version:
+    at `edges` ((operands, C, B, T), seeded per shape, untimed) against the
+    plain version run in float64 on the same bf16 inputs (so that only the
+    kernel's float32 rounding can flip a leaky-relu slope;
+    `bf16_grads_against_f64`), with each one's error against it beside the
+    plain bf16 version's, and bit for bit
+    against the float32 form (`vjp_f32`) on the widened inputs, rounded;
+    at the training path's `stages` ((operands, C, T), batch TRAIN_BATCH)
+    against the plain bf16 version, timed against it and the bounds.
+    Operands are float32 and cast to bf16 here, as training casts them.
+    -> the kernels line's entry."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    cast = lambda ops: [cast(o) for o in ops] if isinstance(ops, (list, tuple)) else (
+        ops.to(bf16) if hasattr(ops, "dtype") else ops)
+    cast32 = lambda ops: [cast32(o) for o in ops] if isinstance(ops, (list, tuple)) else (
+        ops.float() if hasattr(ops, "dtype") else ops)
+    flat = lambda grads: [t for group in grads for t in (
+        group if isinstance(group[0], torch.Tensor) else [u for p in group for u in p])]
+    worst_f64 = (0.0, 0.0)
+    for ops, C, B, T in edges:
+        ge = torch.Generator().manual_seed(1000 * C + 10 * T + B)
+        x = (0.3 * torch.randn(B, T, C, generator=ge)).to(dev).to(bf16)
+        cot = torch.randn(B, T, C, generator=ge).to(dev).to(bf16)
+        ops_b = cast(ops)
+        dx, grads = vjp_cuda(x, ops_b, cot)
+        dx_ref, grads_ref = vjp_plain(x, ops_b, cot)
+        args64 = to_f64(torch, (x, ops_b, cot))
+        dx64, _ = vjp_plain(*args64)
+        dx32, grads32 = vjp_f32(x.float(), cast32(ops_b), cot.float())
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, dx32.to(bf16)) and all(
+                torch.equal(a, b.to(bf16)) for a, b in zip(flat(grads), flat(grads32)))):
+            raise AssertionError(f"{name} at ({B}, {T}, {C}) is not the float32 form on the "
+                                 f"widened inputs, rounded once")
+        dx_far, w_far, near, explained, ok = bf16_grads_against_f64(
+            torch, [dx] + flat(grads), vjp_plain, args64)
+        peak = dx64.abs().max().item()
+        k_err = (dx.double() - dx64).abs().max().item() / peak
+        p_err = (dx_ref.double() - dx64).abs().max().item() / peak
+        worst_f64 = max(worst_f64, (k_err, p_err))
+        # (where a flip was shown, it moves dx off the plain version's error)
+        if not ok or (near == 0 and k_err > 2 * p_err + 1e-7):
+            raise AssertionError(
+                f"{name} disagrees with its plain version at ({B}, {T}, {C}): beyond one bf16 "
+                f"ulp and what a flip explains, dx {dx_far:.3e}, dW/db {w_far:.3e} of the peak "
+                f"({near} pre-activations near the kink); against float64 {k_err:.3e}, its "
+                f"plain version {p_err:.3e}")
+    log(f"  {name}: {len(edges)} shapes on the edges of its tiles agree (each the float32 form "
+        f"on the widened inputs rounded once, bit for bit); dx against float64: "
+        f"worst {worst_f64[0]:.3e} of the peak, the plain bf16 version's {worst_f64[1]:.3e} "
+        f"there (one rounding to bf16 each)")
+    g = torch.Generator().manual_seed(len(name))
+    worst, per_stage = 0.0, []
+    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
+    for ops, C, T in stages:
+        B = TRAIN_BATCH
+        x = (0.3 * torch.randn(B, T, C, generator=g)).to(dev).to(bf16)
+        cot = torch.randn(B, T, C, generator=g).to(dev).to(bf16)
+        ops_b = cast(ops)
+        dx, grads = vjp_cuda(x, ops_b, cot)
+        dx_ref, grads_ref = vjp_plain(x, ops_b, cot)
+        torch.cuda.synchronize()
+        rows_ok, dx_rel, w_rel, w_far, ok = bf16_grads_close(torch, dx, dx_ref, flat(grads),
+                                                             flat(grads_ref))
+        log(f"  {name} ({B}, {T}, {C}): rows within one bf16 ulp {rows_ok:.4f} (at least "
+            f"{BF16_BWD_ROWS}), dx {dx_rel:.3e} of its peak, worst dW/db {w_rel:.3e} of its peak, "
+            f"{w_far:.4f} of a dW's elements beyond one ulp")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version at ({B}, {T}, {C})")
+        worst = max(worst, (dx.float() - dx_ref.float()).abs().max().item())
+        ms = cuda_ms(lambda: vjp_cuda(x, ops_b, cot), iters=5, warmup=2)
+        plain = cuda_ms(lambda: vjp_plain(x, ops_b, cot), iters=5, warmup=2)
+        fbytes, fflops = fwd_work(B, T, ops)
+        weights = fbytes / 4 - 2 * B * T * C
+        # bf16 x and g read, dx written, every weight read and its gradient
+        # written; the forward again plus twice its operations, in float32
+        nbytes, flops = 2 * 3 * B * T * C + 2 * 2 * weights, 3 * fflops
+        bms, by = bound_ms(nbytes, flops)
+        b3, by3 = bound_3xtf32_ms(nbytes, flops)
+        log(f"  {name} ({B}, {T}, {C}): kernel {ms:.3f} ms, plain {plain:.3f} ms, float32 bound "
+            f"{bms:.3f} ms ({by}), 3xTF32 bound {b3:.3f} ms ({by3}): {share(b3, ms)} of it")
+        per_stage.append({"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                          "bound_3xtf32_ms": b3})
+        for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
+            total[k] += v
+        del x, cot, dx, grads, dx_ref, grads_ref
+        torch.cuda.empty_cache()
+    bms, by = bound_ms(total["bytes"], total["flops"])
+    entry = {
+        "name": name, "route": "cuda", "form": "bf16",
+        "source": f"fastvocoder_tpu_torch/csrc/{name[:-len('_bf16')]}.cu", "replaces": replaces,
+        "shape": what + ", summed: " + ", ".join(str(tuple(s_["shape"])) for s_ in per_stage),
+        "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": bms, "bound_by": by, "library_ms": None, "stages": per_stage,
+    }
+    entry["bound_3xtf32_ms"], _ = bound_3xtf32_ms(total["bytes"], total["flops"])
+    return entry
+
+
+def check_bf16_chain_bwd(torch, basis_gen, melgan_gen):
+    """Kernel 3b with the release weights of Basis-MelGAN light's two
+    training stages and MelGAN original's four, and with seeded weights at
+    every width on the edges of its tiles."""
+    from fastvocoder_tpu_torch.ops import fused_resstack as r
+
+    stages = []
+    for gen in (basis_gen, melgan_gen):
+        T = TRAIN_FRAMES
+        for i, scale in enumerate(gen.cfg.upsample_scales):
+            T *= scale
+            ops = [s_.chain_operands() for s_ in gen.stacks[i]]
+            stages.append((ops, ops[0][0].shape[1], T))
+    edges = []
+    for C in r.KERNEL_WIDTHS:
+        ops = seeded_stacks(torch, C, torch.device("cuda"), 80 + C)
+        edges += [(ops, C, B, T) for B, T in chain_edge_shapes(C, 10)]
+    return check_bf16_backward(
+        torch, "fused_resstack_bwd_bf16", r.fused_residual_stacks_vjp_bf16_cuda,
+        r.fused_residual_stacks_vjp_cuda, r.fused_residual_stacks_vjp_plain, stages, chain_work,
+        "fastvocoder_tpu/ops/fused_resstack.py:241 (bf16)",
+        f"Basis-MelGAN light's 2 and MelGAN original's 4 stages of {TRAIN_BATCH} crops of "
+        f"{TRAIN_FRAMES} frames, bf16", edges)
+
+
+def check_bf16_mrf_bwd(torch, gen):
+    """Kernel 5b with the release weights of HiFiGAN light's four MRF stages
+    at the training crop's lengths, and seeded weights at every width on the
+    edges of its tiles."""
+    from fastvocoder_tpu_torch.ops import fused_mrf as m
+
+    rates = gen.cfg.upsample_rates
+    stages = []
+    for i, blocks in enumerate(gen.mrfs):
+        ops = [b.mrf_operands() for b in blocks]
+        stages.append((ops, ops[0][0][0].shape[1], TRAIN_FRAMES * int(np.prod(rates[: i + 1]))))
+    edges = []
+    for C in m.KERNEL_WIDTHS:
+        ops = seeded_resblocks(torch, C, torch.device("cuda"), 50 + C)
+        edges += [(ops, C, B, T) for B, T in mrf_edge_shapes(C)]
+    return check_bf16_backward(
+        torch, "fused_mrf_bwd_bf16", m.fused_mrf_stage_vjp_bf16_cuda, m.fused_mrf_stage_vjp_cuda,
+        m.fused_mrf_stage_vjp_plain, stages, mrf_work,
+        "fastvocoder_tpu/ops/fused_mrf.py:227 (bf16)",
+        f"HiFiGAN light's 4 MRF stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames, bf16",
+        edges)
+
+
 def check_bf16_decode(torch, F, basis):
     """Kernel 1's bf16 form against its plain version at the main path's
     shape, the training batch's and lengths on both sides of its tiles;
@@ -1389,7 +1662,9 @@ def bf16_rtf(torch, model: str, ckpt: str, conf: str) -> float:
 
 
 def kernel_class(name: str) -> str:
-    for key, label in (("resstack_bf16_kernel", "fused_resstack_bf16 kernel"),
+    for key, label in (("resstack_bwd_bf16_", "fused_resstack_bwd_bf16 kernel: bf16 conversions"),
+                       ("mrf_bwd_bf16_", "fused_mrf_bwd_bf16 kernel: bf16 conversions"),
+                       ("resstack_bf16_kernel", "fused_resstack_bf16 kernel"),
                        ("basis_decode_bf16_kernel", "basis_decode_bf16 kernel"),
                        ("mrf_pair_bf16_kernel", "fused_mrf_bf16 kernel"),
                        ("mrf_mean_bf16_kernel", "fused_mrf_bf16 kernel"),
@@ -1693,10 +1968,13 @@ def write_corpus(root: str, n: int = 64, seed: int = 0, weight_channels: int = 0
 
 
 def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, steps: int,
-                start_steps: int, kernels, basis_dir: str = "", use_mpd: bool = False):
+                start_steps: int, kernels, basis_dir: str = "", use_mpd: bool = False,
+                mixprecision: bool = False, absent=()):
     """`run_train` as a user calls it, at full width on the card (with
-    `use_mpd`, `--use_mpd 1`); checks the losses, that the weights moved,
-    and that the checkpoint loads back."""
+    `use_mpd`, `--use_mpd 1`; with `mixprecision`, `--mixprecision 1`,
+    launching none of `absent`); checks the losses, that the weights moved,
+    and that the checkpoint loads back (a bf16 run's also in `Synthesizer`
+    in bf16)."""
     import dataclasses
 
     from fastvocoder_tpu_torch.bin.train import run_train
@@ -1704,8 +1982,10 @@ def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, st
     from fastvocoder_tpu_torch.train.trainer import make_trainer
     from fastvocoder_tpu_torch.hparams import load_model_config
 
-    log(f"[{model}: training (bin/train.py), {steps} steps of {TRAIN_BATCH} x {TRAIN_FRAMES} frames]")
-    run_dir = os.path.join(corpus, f"run_{model}")
+    kind = "bf16 mixed-precision training (bin/train.py --mixprecision 1)" if mixprecision \
+        else "training (bin/train.py)"
+    log(f"[{model}: {kind}, {steps} steps of {TRAIN_BATCH} x {TRAIN_FRAMES} frames]")
+    run_dir = os.path.join(corpus, f"run_{model}" + ("_bf16" if mixprecision else ""))
     argv = ["--audio_index_path", index[0], "--mel_index_path", index[1],
             "--audio_index_valid_path", index[0], "--mel_index_valid_path", index[1],
             "--model_name", model, "--config", conf, "--run_dir", run_dir, "--seed", "0",
@@ -1717,8 +1997,10 @@ def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, st
         argv += ["--basis_dataset_path", basis_dir]
     if use_mpd:
         argv += ["--use_mpd", "1"]
+    if mixprecision:
+        argv += ["--mixprecision", "1"]
     t0 = time.perf_counter()
-    state = count_path(f"{model} training", lambda: run_train(argv), kernels)
+    state = count_path(f"{model} {kind}", lambda: run_train(argv), kernels, absent)
     log(f"  {steps} steps, a validation pass and a checkpoint in {time.perf_counter() - t0:.2f} s")
     for step, metrics in state.history:
         log(f"  step {step}: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(metrics.items())))
@@ -1757,6 +2039,15 @@ def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, st
     log(f"  {os.path.basename(ckpt)} loads back: step {fresh.step}, max difference {back:.1e}")
     if fresh.step != steps or back != 0.0:
         raise AssertionError(f"{model}: the checkpoint does not hold the trained state")
+    if mixprecision:
+        from fastvocoder_tpu_torch.bin.synthesize import Synthesizer
+
+        wav = Synthesizer(ckpt, conf, model, compute_dtype=torch.bfloat16)._run(
+            mel_like_bench(100, 3))
+        log(f"  the checkpoint synthesizes in bf16: {wav.shape[0]} samples, peak "
+            f"{np.abs(wav).max():.3e}")
+        if wav.dtype != np.float32 or not np.all(np.isfinite(wav)):
+            raise AssertionError(f"{model}: the bf16 run's checkpoint does not synthesize")
     return cfg, basis
 
 
@@ -1817,13 +2108,75 @@ def step_against_cpu(torch, cfg, basis, step: str, batch) -> None:
             raise AssertionError(f"{cfg.model_name} {step}: {who} gradients disagree with the CPU")
 
 
-def time_steps(torch, cfg, basis, step: str, batch, n: int = 5, profile: bool = False) -> float:
-    """Median ms of steps 2..n of `step` on the card on one batch, each
-    window closed by torch.cuda.synchronize(); with `profile`, one more step
-    under torch.profiler."""
+def rel_rms(got: dict, want: dict) -> float:
+    """|got - want| / |want| over every tensor of both (by name)."""
+    num = sum(float((got[k].double() - want[k].double()).pow(2).sum()) for k in want)
+    return float(np.sqrt(num / sum(float(want[k].double().pow(2).sum()) for k in want)))
+
+
+def release_generator_state(path: str) -> dict:
+    """A release checkpoint's generator in its weight-norm form, the state
+    dict of a trainer's generator."""
+    from fastvocoder_tpu_torch.checkpoint import state_dict_from_jax
+
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k[len("param:"):]: z[k] for k in z.files if k.startswith("param:")}
+    return state_dict_from_jax(flat, fuse=False)
+
+
+def bf16_step_against_float32(torch, cfg, basis, step: str, batch, release: str = "") -> None:
+    """One bf16 step against the float32 step from the same initial weights
+    on the same BF16_CPU_BATCH crops, on the card and on the CPU: the
+    card's gradients may deviate from its float32 step's by at most
+    BF16_STEP_RATIO times the CPU's (the CPU runs the module paths in bf16,
+    the card the kernels' bf16 forms: another arithmetic, so the two bf16
+    steps are not held to each other).  The generator starts from seed 0's
+    init or, given `release`, from that release checkpoint's weights (where
+    a random init's bf16 gradient is rounding noise on every
+    implementation, as Basis-MelGAN's is: tests/test_torch_bf16_train.py)."""
     from fastvocoder_tpu_torch.train.trainer import make_trainer
 
-    trainer = make_trainer(cfg, basis_signal_weight=basis)
+    start = release_generator_state(release) if release else None
+    log(f"[{cfg.model_name}: one {step} in bf16 against float32, on the card and on the CPU, "
+        f"{BF16_CPU_BATCH} crops, from {os.path.basename(release) if release else 'seed 0'}]")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for dt in (None, torch.bfloat16):
+            trainer = make_trainer(cfg, basis_signal_weight=basis, device=dev, keep_grads=True,
+                                   compute_dtype=dt)
+            state = trainer.init_state(0)
+            if start is not None:
+                state.generator.load_state_dict(start)
+            args = [torch.from_numpy(batch[k][:BF16_CPU_BATCH]).to(dev) if k in batch else None
+                    for k in ("mel", "wav", "weight")]
+            t0 = time.perf_counter()
+            _, metrics = getattr(trainer, step)(state, *args)
+            out[(dev, dt)] = ({k: float(v) for k, v in metrics.items()},
+                              {who: {n: g_.cpu() for n, g_ in grads.items()}
+                               for who, grads in trainer.last_grads.items()})
+            log(f"  {dev} {'bf16' if dt else 'float32'}: {time.perf_counter() - t0:.2f} s, "
+                + " ".join(f"{k}={v:.5f}" for k, v in sorted(out[(dev, dt)][0].items())))
+            if not all(np.isfinite(v) for v in out[(dev, dt)][0].values()):
+                raise AssertionError(f"{cfg.model_name} {step}: a loss is not finite")
+    bf = torch.bfloat16
+    for who in out[("cuda", bf)][1]:
+        card = rel_rms(out[("cuda", bf)][1][who], out[("cuda", None)][1][who])
+        cpu = rel_rms(out[("cpu", bf)][1][who], out[("cpu", None)][1][who])
+        log(f"  {who} gradients, relative RMS deviation of bf16 from float32: card {card:.3e}, "
+            f"CPU {cpu:.3e} (card at most {BF16_STEP_RATIO} x the CPU's)")
+        if not card <= BF16_STEP_RATIO * cpu:
+            raise AssertionError(f"{cfg.model_name} {step}: the card's bf16 {who} gradients "
+                                 f"deviate more than the rule allows")
+
+
+def time_steps(torch, cfg, basis, step: str, batch, n: int = 5, profile: bool = False,
+               compute_dtype=None) -> float:
+    """Median ms of steps 2..n of `step` on the card on one batch, each
+    window closed by torch.cuda.synchronize(), in `compute_dtype` (bf16:
+    mixed precision); with `profile`, one more step under torch.profiler."""
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    trainer = make_trainer(cfg, basis_signal_weight=basis, compute_dtype=compute_dtype)
     state = trainer.init_state(0)
     args = [torch.from_numpy(batch[k]).cuda() if k in batch else None
             for k in ("mel", "wav", "weight")]
@@ -1836,11 +2189,12 @@ def time_steps(torch, cfg, basis, step: str, batch, n: int = 5, profile: bool = 
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     ms = float(np.median(times[1:]))
-    log(f"  {cfg.model_name} {step}: {ms:.2f} ms a step (median of steps 2..{n}: "
+    kind = " in bf16" if compute_dtype else ""
+    log(f"  {cfg.model_name} {step}{kind}: {ms:.2f} ms a step (median of steps 2..{n}: "
         f"{', '.join(f'{t:.1f}' for t in times[1:])}; first {times[0]:.1f}), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if profile:
-        log(f"[profile: one {cfg.model_name} {step} on the device]")
+        log(f"[profile: one {cfg.model_name} {step}{kind} on the device]")
         profile_device(torch, lambda: getattr(trainer, step)(state, *args), 1, step)
     return ms
 
@@ -1902,6 +2256,9 @@ def main() -> int:
                     check_bf16_chain(torch, basis_gen, melgan_gen, F_main),
                     check_bf16_mrf(torch, hifi_gen, MEL_FRAMES),
                     check_bf16_tail(torch, hifi_gen, MEL_FRAMES)]
+    log("[bf16 forms of the backward kernels against their plain versions]")
+    entries += [check_bf16_chain_bwd(torch, basis_gen, melgan_gen),
+                check_bf16_mrf_bwd(torch, hifi_gen)]
     log("[the MRF kernels' 3xTF32 against float64]")
     mrf_errors_against_f64(torch, torch.device("cuda"))
     log("[the chain kernels' 3xTF32 against float64]")
@@ -2048,6 +2405,55 @@ def main() -> int:
         log("[ms a step on the card]")
         step_ms["nhv pre_adv_step"] = time_steps(torch, nhv_cfg, None, "pre_adv_step",
                                                  fixed_batch(nhv_cfg, index))
+        torch.cuda.empty_cache()
+
+        # bf16 mixed-precision training (--mixprecision 1): the bf16 forms,
+        # forward and backward, and no float32 form of any kernel
+        bf16 = torch.bfloat16
+        f32_kernels = ("basis_decode", "fused_resstack", "fused_resstack_bwd", "fused_mrf",
+                       "fused_mrf_bwd")
+        seen = dict(launches)
+        train_phase(torch, count_path, "hifigan", HIFI_CONF, corpus, index, steps=6,
+                    start_steps=2, kernels=("fused_mrf_bf16", "fused_mrf_bwd_bf16"),
+                    mixprecision=True, absent=f32_kernels)
+        if launches["fused_mrf_bwd_bf16"] - seen["fused_mrf_bwd_bf16"] != 4 * 6:
+            raise AssertionError("6 bf16 HiFiGAN steps did not launch fused_mrf_bwd_bf16 24 times")
+        batch = fixed_batch(hifi_cfg, index)
+        bf16_step_against_float32(torch, hifi_cfg, None, "gan_step", batch)
+        log("[ms a step on the card, bf16 beside float32 in this call]")
+        step_ms["hifigan gan_step bf16"] = time_steps(torch, hifi_cfg, None, "gan_step", batch,
+                                                      profile=True, compute_dtype=bf16)
+        step_ms["hifigan pre_adv_step bf16"] = time_steps(torch, hifi_cfg, None, "pre_adv_step",
+                                                          batch, profile=True, compute_dtype=bf16)
+        torch.cuda.empty_cache()
+
+        seen = dict(launches)
+        train_phase(torch, count_path, "basis-melgan", CONF, corpus, index, steps=4, start_steps=4,
+                    kernels=("fused_resstack_bf16", "fused_resstack_bwd_bf16",
+                             "basis_decode_bf16"),
+                    basis_dir=corpus, mixprecision=True, absent=f32_kernels)
+        if launches["fused_resstack_bwd_bf16"] - seen["fused_resstack_bwd_bf16"] != 4 * 4:
+            raise AssertionError("4 bf16 Basis-MelGAN steps did not launch fused_resstack_bwd_bf16 "
+                                 "16 times")
+        batch = fixed_batch(basis_cfg, index, basis_dir=corpus)
+        bf16_step_against_float32(torch, basis_cfg, basis, "pre_adv_step", batch, release=CKPT)
+        log("[ms a step on the card, bf16 beside float32 in this call]")
+        step_ms["basis-melgan pre_adv_step bf16"] = time_steps(
+            torch, basis_cfg, basis, "pre_adv_step", batch, compute_dtype=bf16)
+        torch.cuda.empty_cache()
+
+        seen = dict(launches)
+        train_phase(torch, count_path, "melgan", MELGAN_CONF, corpus, index, steps=3,
+                    start_steps=1, kernels=("fused_resstack_bf16", "fused_resstack_bwd_bf16"),
+                    use_mpd=True, mixprecision=True, absent=f32_kernels)
+        if launches["fused_resstack_bwd_bf16"] - seen["fused_resstack_bwd_bf16"] != 4 * 3:
+            raise AssertionError("3 bf16 MelGAN steps did not launch fused_resstack_bwd_bf16 "
+                                 "12 times")
+        batch = fixed_batch(melgan_cfg, index)
+        bf16_step_against_float32(torch, melgan_cfg, None, "gan_step", batch)
+        log("[ms a step on the card, bf16 beside float32 in this call]")
+        step_ms["melgan gan_step (MSD + MFD + MPD) bf16"] = time_steps(
+            torch, melgan_cfg, None, "gan_step", batch, compute_dtype=bf16)
     log(f"  ms a step: {step_ms}")
 
     for model, synth in (("basis-melgan", basis_synth), ("hifigan", hifi_synth)):

@@ -99,10 +99,9 @@ def main(argv=None) -> int:
         blocks = [[(_seeded(torch, gm, K, Cm, Cm, fan_in=Cm * K), _seeded(torch, gm, Cm, fan_in=Cm * K),
                     d, _seeded(torch, gm, K, Cm, Cm, fan_in=Cm * K),
                     _seeded(torch, gm, Cm, fan_in=Cm * K)) for d in (1, 3, 5)] for K in (3, 7, 11)]
-        swapped = fm.swap_channels(blocks)
         x = 0.3 * torch.randn(B, T, Cm, device="cuda")
         cot = torch.randn(B, T, Cm, device="cuda")
-        t = ms(lambda: fm.fused_mrf_stage_vjp_cuda(x, blocks, cot, swapped), 3, 1)
+        t = ms(lambda: fm.fused_mrf_stage_vjp_cuda(x, blocks, cot), 3, 1)
         print(f"{args.label} mrf backward ({B}, {T}, {Cm}): {t:.3f} ms", flush=True)
     return 0
 

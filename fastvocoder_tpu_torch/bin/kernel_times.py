@@ -103,7 +103,7 @@ def main(argv=None) -> int:
         ms = cuda_ms(torch, lambda: fused_mrf_stage_cuda(x, blocks, swapped), 10, 2)
         line = f"({B}, {T}, {C}): forward {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s"
         if B > 1:
-            ms = cuda_ms(torch, lambda: fused_mrf_stage_vjp_cuda(x, blocks, g, swapped), 3, 1)
+            ms = cuda_ms(torch, lambda: fused_mrf_stage_vjp_cuda(x, blocks, g), 3, 1)
             line += f"; backward {ms:.3f} ms, {3 * flops / ms / 1e9:.1f} TFLOP/s"
         print(line, flush=True)
     for B, T, C in CHAIN_SHAPES if args.only != "mrf" else ():

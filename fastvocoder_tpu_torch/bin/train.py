@@ -17,9 +17,11 @@ it raises.  Metrics stay on the device between log points, so steps queue
 without a host sync.  `--use_mpd 1` adds the multi-period discriminator
 (`-1`, the default, takes the YAML's `use_mpd` key).  NHV reads each
 utterance's `<name>.f0.npy` beside its `<name>.mel.npy` (training and
-validation) and conditions on the mel and f0.  Arguments of the JAX script
-whose features are not ported yet (`--mixprecision`, `--remat`,
-`--device_cache`) raise when set.
+validation) and conditions on the mel and f0.  `--mixprecision 1` trains
+in bf16 as the JAX script does (`make_trainer(compute_dtype=
+torch.bfloat16)`: float32 parameters, optimiser state and losses, bf16
+convs and kernels).  Arguments of the JAX script whose features are not
+ported yet (`--remat`, `--device_cache`) raise when set.
 """
 
 from __future__ import annotations
@@ -56,8 +58,6 @@ logger = logging.getLogger(__name__)
 # arguments of the JAX script that this package accepts only at their
 # "off" value: name -> (off value, what waits)
 WAITING = {
-    "mixprecision": (0, "bf16 mixed precision (bf16 inference is ported; bf16 training "
-                        "waits for the bf16 forms of the backward kernels, the next slice)"),
     "remat": (0, "rematerialisation of the generator forward"),
     "device_cache": (0, "the on-device corpus cache"),
 }
@@ -97,11 +97,16 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
     if is_basis:
         basis_signal_weight = np.load(
             os.path.join(args.basis_dataset_path, "basis_signal_weight.npy")).astype(np.float32)
+    compute_dtype = None
+    if args.mixprecision:
+        logger.info("Start bf16 mixed precision training...")
+        compute_dtype = torch.bfloat16
     trainer = make_trainer(
         cfg, hp=hp, basis_signal_weight=basis_signal_weight,
         use_scheduler=bool(args.use_scheduler), learning_rate=args.learning_rate,
         learning_rate_discriminator=args.learning_rate_discriminator,
         disc_cfg=disc_cfg, device=args.device or None, seed=args.seed,
+        compute_dtype=compute_dtype,
     )
     device = trainer.device
     state = trainer.init_state(args.seed)
@@ -308,6 +313,9 @@ def build_parser() -> argparse.ArgumentParser:
                         default=HP.discriminator_train_start_steps)
     parser.add_argument("--device", type=str, default="",
                         help="cuda (default; raises without a GPU) or cpu")
+    parser.add_argument("--mixprecision", type=int, default=0,
+                        help="1 trains in bf16 mixed precision (float32 parameters and "
+                             "optimiser state, bf16 compute)")
     parser.add_argument("--use_mpd", type=int, default=-1,
                         help="1 adds the multi-period discriminator, 0 leaves it out; -1 "
                              "takes the YAML's use_mpd key (off, as in the reference)")

@@ -11,9 +11,17 @@
 //     run.
 //   * `divide_kernel`, `sum_kernel`: the elementwise passes around an MRF
 //     stage's branches (g / n_branches in, the branches' dx summed out).
+//   * `widen_body`, `narrow_body`: the conversions of the bf16 forms of
+//     both backward kernels.  A bf16 form widens its bf16 x, g, weights and
+//     biases into float32 scratch (exact), runs the float32 form's passes
+//     on them, and rounds dx and every dW and db to bf16 once, to nearest
+//     even.  Each library names its own conversion kernels
+//     (`FVT_BWD_WIDEN_KERNEL`, `FVT_BWD_NARROW_KERNEL`), so that a profile
+//     files them under their kernel.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fvt_bwd {
@@ -97,6 +105,79 @@ sum_kernel(SumArgs a, int nz, size_t n, float* __restrict__ y) {
 inline unsigned elementwise_blocks(size_t n) {
   const size_t blocks = (n / 4 + kThreads - 1) / kThreads;
   return static_cast<unsigned>(blocks < 1056 ? (blocks < 1 ? 1 : blocks) : 1056);
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 forms' conversions
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxConvert = 32;  // buffers of one conversion launch: blockIdx.y
+
+// buffer z: n[z] elements from src[z] to dst[z]
+struct ConvertArgs {
+  const void* src[kMaxConvert];
+  void* dst[kMaxConvert];
+  long long n[kMaxConvert];
+};
+
+// bf16 -> float32, exact
+__device__ __forceinline__ void widen_body(const ConvertArgs& a) {
+  const int z = blockIdx.y;
+  const __nv_bfloat16* __restrict__ src = static_cast<const __nv_bfloat16*>(a.src[z]);
+  float* __restrict__ dst = static_cast<float*>(a.dst[z]);
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < a.n[z];
+       i += stride) {
+    dst[i] = __bfloat162float(src[i]);
+  }
+}
+
+// float32 -> bf16, rounded to nearest even
+__device__ __forceinline__ void narrow_body(const ConvertArgs& a) {
+  const int z = blockIdx.y;
+  const float* __restrict__ src = static_cast<const float*>(a.src[z]);
+  __nv_bfloat16* __restrict__ dst = static_cast<__nv_bfloat16*>(a.dst[z]);
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < a.n[z];
+       i += stride) {
+    dst[i] = __float2bfloat16_rn(src[i]);
+  }
+}
+
+#define FVT_BWD_WIDEN_KERNEL(name)                                                 \
+  __global__ void __launch_bounds__(fvt_bwd::kThreads) name(fvt_bwd::ConvertArgs a) { \
+    fvt_bwd::widen_body(a);                                                        \
+  }
+
+#define FVT_BWD_NARROW_KERNEL(name)                                                \
+  __global__ void __launch_bounds__(fvt_bwd::kThreads) name(fvt_bwd::ConvertArgs a) { \
+    fvt_bwd::narrow_body(a);                                                       \
+  }
+
+typedef void (*ConvertKernel)(ConvertArgs);
+
+// `kernel` (a FVT_BWD_WIDEN_KERNEL or FVT_BWD_NARROW_KERNEL) over `count`
+// buffers, kMaxConvert a launch
+inline cudaError_t launch_convert(ConvertKernel kernel, const void* const* src,
+                                  void* const* dst, const long long* n, int count,
+                                  cudaStream_t stream) {
+  for (int first = 0; first < count; first += kMaxConvert) {
+    ConvertArgs a;
+    const int m = count - first < kMaxConvert ? count - first : kMaxConvert;
+    long long most = 1;
+    for (int i = 0; i < m; ++i) {
+      a.src[i] = src[first + i];
+      a.dst[i] = dst[first + i];
+      a.n[i] = n[first + i];
+      most = most > a.n[i] ? most : a.n[i];
+    }
+    const long long blocks = (most + kThreads - 1) / kThreads;
+    kernel<<<dim3(static_cast<unsigned>(blocks < 1024 ? blocks : 1024), m), kThreads, 0,
+             stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace fvt_bwd

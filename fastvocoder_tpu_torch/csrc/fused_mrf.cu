@@ -35,11 +35,12 @@
 //
 // The bf16 form (`fvt_fused_mrf_bf16`: `mrf_pair_bf16_kernel`,
 // `mrf_mean_bf16_kernel`): x, y and the intermediates in bf16, the stage's
-// kernels packed as bf16 once, by `fvt_fused_mrf_bf16_pack`, for a kept
-// table (ops/fused_mrf.py's StageTable in bf16), biases float32 rounded to
-// bf16 on load; one bf16 wgmma a depth step of 16 with float32 sums, rounded
-// where fused_mrf.py's Pallas body rounds (`fvt_mma::pair_body`,
-// `fvt_mrf::branch_mean4`).  Bound: the same operations at 989 TFLOP/s.
+// kernels packed as bf16 once, by `fvt_fused_mrf_bf16_pack` from the
+// module's layout, for a kept table (ops/fused_mrf.py's StageTable in
+// bf16), biases float32 rounded to bf16 on load; one bf16 wgmma a depth
+// step of 16 with float32 sums, rounded where fused_mrf.py's Pallas body
+// rounds (`fvt_mma::pair_body`, `fvt_mrf::branch_mean4`).  Bound: the same
+// operations at 989 TFLOP/s.
 
 #include "mma_common.cuh"
 #include "mrf_common.cuh"
@@ -193,8 +194,10 @@ extern "C" long long fvt_fused_mrf_bf16_packed_elems(int C, int nb, int np, cons
 }
 
 // packed (`fvt_fused_mrf_bf16_packed_elems` bf16, 16-byte aligned) = the
-// stage's float32 kernels, as `fvt_fused_mrf` takes them, rounded to bf16
-// in the order the pair launches read them, in one launch on `stream`.
+// stage's float32 kernels rounded to bf16 in the order the pair launches
+// read them, in one launch on `stream`.  ints and weights as `fvt_fused_mrf`
+// takes them, but for the kernels' layout: (tap, c_in, c_out), as the
+// module holds them (the launch swaps their channel axes).
 extern "C" int fvt_fused_mrf_bf16_pack(bf16* packed, int C, int nb, int np, const int* ints,
                                        const float* const* weights, void* stream) {
   fvt_mrf::PairArgs steps[kMaxPairs];
@@ -202,20 +205,20 @@ extern "C" int fvt_fused_mrf_bf16_pack(bf16* packed, int C, int nb, int np, cons
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 16: return static_cast<int>(fvt_mrf::pack_stage<16>(packed, steps, nb, np, false, s));
-    case 32: return static_cast<int>(fvt_mrf::pack_stage<32>(packed, steps, nb, np, false, s));
-    case 64: return static_cast<int>(fvt_mrf::pack_stage<64>(packed, steps, nb, np, false, s));
-    case 128: return static_cast<int>(fvt_mrf::pack_stage<128>(packed, steps, nb, np, false, s));
-    case 256: return static_cast<int>(fvt_mrf::pack_stage<256>(packed, steps, nb, np, false, s));
+    case 16: return static_cast<int>(fvt_mrf::pack_stage<16>(packed, steps, nb, np, true, s));
+    case 32: return static_cast<int>(fvt_mrf::pack_stage<32>(packed, steps, nb, np, true, s));
+    case 64: return static_cast<int>(fvt_mrf::pack_stage<64>(packed, steps, nb, np, true, s));
+    case 128: return static_cast<int>(fvt_mrf::pack_stage<128>(packed, steps, nb, np, true, s));
+    case 256: return static_cast<int>(fvt_mrf::pack_stage<256>(packed, steps, nb, np, true, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // x, y (B, T, C) bf16 contiguous, C in {16, 32, 64, 128, 256}; scratch
 // 2 nb B T C bf16; packed as `fvt_fused_mrf_bf16_pack` wrote it from the
-// same table; ints and weights as `fvt_fused_mrf` takes them, of which this
-// call reads the biases (float32).  Returns the first CUDA error of the
-// launches (0 = ok).
+// same table; ints and weights as `fvt_fused_mrf_bf16_pack` takes them, of
+// which this call reads the biases (float32).  Returns the first CUDA error
+// of the launches (0 = ok).
 extern "C" int fvt_fused_mrf_bf16(const bf16* x, bf16* y, bf16* scratch, const bf16* packed,
                                   int B, int T, int C, int nb, int np, const int* ints,
                                   const float* const* weights, void* stream) {

@@ -42,10 +42,26 @@
 //   * a weight gradient is a split-K GEMM on wgmma (`mrf_bwd_wgrad_kernel`,
 //     `fvt_mma::wgrad_body` says how), summed over blocks in a fixed order:
 //     no atomics, the same bits from run to run.
+//   * the kernels are taken as the module holds them, (tap, c_in, c_out),
+//     and packed for the tensor cores by one launch in both orientations:
+//     as the recompute's forward convs read them (channel axes swapped by
+//     the pack) and as the adjoints do.
 // Scratch, in floats, n = B T C: n (g / n_branches) + per branch
 // (2 np + 2) n (h of pairs 1.., u of every pair, dt1, two dh used in turn)
 // + the kernels packed for the tensor cores, as the forward convs and as the
 // adjoints read them + the weight gradients' partials.
+//
+// The bf16 form (`fvt_fused_mrf_bwd_bf16`, kernel 5b: bf16 x, g, weights
+// and biases, as a model trained with compute_dtype bf16 hands them)
+// computes what the Pallas body does with bf16 inputs (`_mrf_bwd_kernel`
+// upcasts them and recomputes in float32; dx and dW are cast back): one
+// launch widens the inputs into float32 scratch (exact), the float32 passes
+// above run on them unchanged, and one launch rounds dx and every dW and db
+// to bf16, once.  The TPU path summed the branches' dx in bf16 and, below
+// C = 128, the VJP of its blocked weights summed bf16 partials; here both
+// sums stay float32 until the one rounding.  A bf16 weight is exact in TF32 (its lo half is
+// zero); this form still runs all three products.  Extra scratch: 3 n (x,
+// g and dx in float32) + twice the weights' floats.
 
 #include "bwd_common.cuh"
 #include "mma_common.cuh"
@@ -70,6 +86,8 @@ static_assert(2 * kMaxBranches * kMaxPairs <= fvt_mma::kMaxPack, "one pack launc
 FVT_MMA_PAIR_KERNEL(mrf_bwd_pair_kernel)
 FVT_MMA_CONV_KERNEL(mrf_bwd_conv_kernel)
 FVT_MMA_WGRAD_KERNEL(mrf_bwd_wgrad_kernel)
+FVT_BWD_WIDEN_KERNEL(mrf_bwd_bf16_widen_kernel)
+FVT_BWD_NARROW_KERNEL(mrf_bwd_bf16_narrow_kernel)
 
 // ---------------------------------------------------------------------------
 // the stage
@@ -77,8 +95,8 @@ FVT_MMA_WGRAD_KERNEL(mrf_bwd_wgrad_kernel)
 
 struct Pair {
   int K1, d, K2;
-  // w (tap, c_in, c_out) as the module holds it, wt (tap, c_out, c_in)
-  const float *w1, *b1, *w2, *b2, *w1t, *w2t;
+  // w (tap, c_in, c_out) as the module holds it
+  const float *w1, *b1, *w2, *b2;
   float *dw1, *db1, *dw2, *db2;
 };
 
@@ -111,8 +129,8 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
   const size_t branch_floats = static_cast<size_t>(2 * np + 2) * n;
   float* packed = per_branch + nb * branch_floats;
   // the kernels packed for the tensor cores: per (branch, pair) conv1 and
-  // conv2 as the forward reads them ([0], from wt), then as the adjoints do
-  // ([1], from w)
+  // conv2 as the forward reads them ([0], channel axes swapped), then as the
+  // adjoints do ([1])
   const float* pk[2][kMaxBranches][kMaxPairs][2];
   for (int side = 0; side < 2; ++side) {
     fvt_mma::PackArgs pack;
@@ -120,13 +138,13 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
     for (int br = 0; br < nb; ++br) {
       for (int p = 0; p < np; ++p) {
         const Pair& q = pairs[br][p];
-        const float* src[2] = {side == 0 ? q.w1t : q.w1, side == 0 ? q.w2t : q.w2};
+        const float* src[2] = {q.w1, q.w2};
         const int K[2] = {q.K1, q.K2};
         for (int c = 0; c < 2; ++c, ++i) {
           pack.src[i] = src[c];
           pack.dst[i] = packed;
           pack.K[i] = K[c];
-          pack.swap[i] = 0;
+          pack.swap[i] = side == 0;
           pk[side][br][p][c] = packed;
           packed += fvt_mma::packed_floats<C>(K[c]);
         }
@@ -246,6 +264,59 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
   return cudaGetLastError();
 }
 
+// elements of pair i's (w1, b1, w2, b2)
+void pair_sizes(int C, const int* ints, int i, long long* n) {
+  const long long cc = static_cast<long long>(C) * C;
+  n[0] = ints[3 * i] * cc;
+  n[1] = C;
+  n[2] = ints[3 * i + 2] * cc;
+  n[3] = C;
+}
+
+// the float32 scratch the bf16 form needs beyond the float32 form's
+size_t bf16_extra_floats(int B, int T, int C, int nb, int np, const int* ints) {
+  size_t weights = 0;
+  for (int i = 0; i < nb * np; ++i) {
+    long long n[4];
+    pair_sizes(C, ints, i, n);
+    weights += static_cast<size_t>(n[0] + n[1] + n[2] + n[3]);
+  }
+  return static_cast<size_t>(3) * B * T * C + 2 * weights;
+}
+
+// the float32 form on float32 operands: per pair 4 weight pointers and 4
+// gradient pointers, as the C entry takes them
+cudaError_t run_stage(const float* x, const float* g, float* dx, float* scratch, int B, int T,
+                      int C, int nb, int np, const int* ints, const float* const* weights,
+                      float* const* grads, cudaStream_t s) {
+  Pair pairs[kMaxBranches][kMaxPairs];
+  for (int br = 0; br < nb; ++br) {
+    for (int p = 0; p < np; ++p) {
+      const int i = br * np + p;
+      Pair& q = pairs[br][p];
+      q.K1 = ints[3 * i];
+      q.d = ints[3 * i + 1];
+      q.K2 = ints[3 * i + 2];
+      q.w1 = weights[4 * i];
+      q.b1 = weights[4 * i + 1];
+      q.w2 = weights[4 * i + 2];
+      q.b2 = weights[4 * i + 3];
+      q.dw1 = grads[4 * i];
+      q.db1 = grads[4 * i + 1];
+      q.dw2 = grads[4 * i + 2];
+      q.db2 = grads[4 * i + 3];
+    }
+  }
+  switch (C) {
+    case 16: return run_bwd<16>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    case 32: return run_bwd<32>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    case 64: return run_bwd<64>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    case 128: return run_bwd<128>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    case 256: return run_bwd<256>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 bool table_ok(int nb, int np, const int* ints) {
   if (nb < 1 || nb > kMaxBranches || np < 1 || np > kMaxPairs) return false;
   for (int i = 0; i < nb * np; ++i) {
@@ -280,8 +351,7 @@ extern "C" long long fvt_fused_mrf_bwd_scratch_floats(int B, int T, int C, int n
 // x, g, dx (B, T, C) float32 contiguous, C in {16, 32, 64, 128, 256}.
 // ints: per (branch, pair), branch-major, (K1, dilation, K2).  weights: per
 // (branch, pair) the device pointers (w1 (K1, C, C), b1 (C,), w2 (K2, C, C),
-// b2 (C,), w1t, w2t): w (tap, c_in, c_out) as the module holds it, and wt
-// the same with its channel axes swapped (tap, c_out, c_in).  grads: per
+// b2 (C,)), w (tap, c_in, c_out) as the module holds it.  grads: per
 // (branch, pair) the outputs (dw1 (K1, C, C), db1 (C,), dw2 (K2, C, C),
 // db2 (C,)), (tap, c_in, c_out).  scratch: `fvt_fused_mrf_bwd_scratch_floats`
 // floats.  Every pointer 16-byte aligned.  Returns the first CUDA error of
@@ -291,35 +361,66 @@ extern "C" int fvt_fused_mrf_bwd(const float* x, const float* g, float* dx, floa
                                  const float* const* weights, float* const* grads,
                                  void* stream) {
   if (B < 1 || T < 1 || !table_ok(nb, np, ints)) return static_cast<int>(cudaErrorInvalidValue);
-  Pair pairs[kMaxBranches][kMaxPairs];
-  for (int br = 0; br < nb; ++br) {
-    for (int p = 0; p < np; ++p) {
-      const int i = br * np + p;
-      Pair& q = pairs[br][p];
-      q.K1 = ints[3 * i];
-      q.d = ints[3 * i + 1];
-      q.K2 = ints[3 * i + 2];
-      q.w1 = weights[6 * i];
-      q.b1 = weights[6 * i + 1];
-      q.w2 = weights[6 * i + 2];
-      q.b2 = weights[6 * i + 3];
-      q.w1t = weights[6 * i + 4];
-      q.w2t = weights[6 * i + 5];
-      q.dw1 = grads[4 * i];
-      q.db1 = grads[4 * i + 1];
-      q.dw2 = grads[4 * i + 2];
-      q.db2 = grads[4 * i + 3];
-    }
+  return static_cast<int>(run_stage(x, g, dx, scratch, B, T, C, nb, np, ints, weights, grads,
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+// floats of scratch `fvt_fused_mrf_bwd_bf16` needs; -1 as above
+extern "C" long long fvt_fused_mrf_bwd_bf16_scratch_floats(int B, int T, int C, int nb, int np,
+                                                           const int* ints) {
+  const long long base = fvt_fused_mrf_bwd_scratch_floats(B, T, C, nb, np, ints);
+  if (base < 0) return -1;
+  return base + static_cast<long long>(bf16_extra_floats(B, T, C, nb, np, ints));
+}
+
+// x, g, dx (B, T, C) bf16 contiguous; ints as `fvt_fused_mrf_bwd` takes
+// them; weights: per (branch, pair) the device pointers (w1, b1, w2, b2),
+// bf16, w (tap, c_in, c_out); grads: per (branch, pair)
+// (dw1, db1, dw2, db2), bf16.  scratch: `fvt_fused_mrf_bwd_bf16_scratch_floats`
+// floats.  dx and every dW and db are the float32 form's on the widened
+// inputs, rounded to bf16 once.
+extern "C" int fvt_fused_mrf_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                                      __nv_bfloat16* dx, float* scratch, int B, int T, int C,
+                                      int nb, int np, const int* ints,
+                                      const __nv_bfloat16* const* weights,
+                                      __nv_bfloat16* const* grads, void* stream) {
+  if (B < 1 || T < 1 || !table_ok(nb, np, ints)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kMost = 2 + 4 * kMaxBranches * kMaxPairs;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n_el = static_cast<long long>(B) * T * C;
+  const int n_pairs = nb * np;
+  // float32 x, g, dx, then the weights' copies, then their gradients
+  float* x32 = scratch;
+  float* g32 = x32 + n_el;
+  float* dx32 = g32 + n_el;
+  float* at = dx32 + n_el;
+  const void* src[kMost];
+  void* dst[kMost];
+  long long count[kMost];
+  long long sizes[4 * kMaxBranches * kMaxPairs];
+  const float* w32[4 * kMaxBranches * kMaxPairs];
+  float* d32[4 * kMaxBranches * kMaxPairs];
+  for (int i = 0; i < n_pairs; ++i) pair_sizes(C, ints, i, sizes + 4 * i);
+  src[0] = x, dst[0] = x32, count[0] = n_el;
+  src[1] = g, dst[1] = g32, count[1] = n_el;
+  for (int i = 0; i < 4 * n_pairs; ++i) {
+    src[2 + i] = weights[i], dst[2 + i] = at, count[2 + i] = sizes[i];
+    w32[i] = at;
+    at += sizes[i];
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (C) {
-    case 16: err = run_bwd<16>(x, g, dx, scratch, B, T, nb, np, pairs, s); break;
-    case 32: err = run_bwd<32>(x, g, dx, scratch, B, T, nb, np, pairs, s); break;
-    case 64: err = run_bwd<64>(x, g, dx, scratch, B, T, nb, np, pairs, s); break;
-    case 128: err = run_bwd<128>(x, g, dx, scratch, B, T, nb, np, pairs, s); break;
-    case 256: err = run_bwd<256>(x, g, dx, scratch, B, T, nb, np, pairs, s); break;
-    default: err = cudaErrorInvalidValue;
+  for (int i = 0; i < 4 * n_pairs; ++i) {
+    d32[i] = at;
+    at += sizes[i];
   }
-  return static_cast<int>(err);
+  cudaError_t err = fvt_bwd::launch_convert(mrf_bwd_bf16_widen_kernel, src, dst, count,
+                                            2 + 4 * n_pairs, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = run_stage(x32, g32, dx32, at, B, T, C, nb, np, ints, w32, d32, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  src[0] = dx32, dst[0] = dx, count[0] = n_el;
+  for (int i = 0; i < 4 * n_pairs; ++i) {
+    src[1 + i] = d32[i], dst[1 + i] = grads[i], count[1 + i] = sizes[i];
+  }
+  return static_cast<int>(fvt_bwd::launch_convert(mrf_bwd_bf16_narrow_kernel, src, dst, count,
+                                                  1 + 4 * n_pairs, st));
 }

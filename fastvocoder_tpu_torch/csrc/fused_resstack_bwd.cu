@@ -47,6 +47,22 @@
 // Scratch, in floats, n_el = B T C: (2 n + 2) n_el (h of stacks 1.., u of
 // every stack, dt, two dh used in turn) + the packed kernels (2 (K + 2) C^2
 // a stack and form) + the weight gradients' partials.
+//
+// The bf16 form (`fvt_fused_resstacks_bwd_bf16`, kernel 3b: bf16 x, g,
+// weights and biases, as a model trained with compute_dtype bf16 hands
+// them) computes what the Pallas body does with bf16 inputs
+// (`_chain_bwd_kernel` upcasts x, g and the weights, recomputes the chain
+// and its adjoint in float32 and `_run_interior_bwd` casts dx and dW back):
+// one launch widens the inputs into float32 scratch (exact), the float32
+// passes above run on them unchanged, and one launch rounds dx and every dW
+// and db to bf16, once.  Unlike the TPU kernel, which left the mirrored
+// edges to XLA's bf16 autograd, it takes the edges in float32 too.  A bf16
+// weight is exact in TF32, so the lo half of its split is zero and one of
+// the three products of each depth step against a weight adds nothing;
+// this form does not skip it (the weight gradients, which contract two
+// float32 intermediates, need all three).  Extra scratch: 3 n_el (x, g and
+// dx in float32) + twice the weights' floats (their float32 copies and the
+// float32 gradients).
 
 #include "bwd_common.cuh"
 #include "mma_common.cuh"
@@ -62,6 +78,8 @@ FVT_MMA_STACK_KERNEL(resstack_bwd_stack_kernel)
 FVT_MMA_CONV_KERNEL(resstack_bwd_conv_kernel)
 FVT_MMA_FOLD_KERNEL(resstack_bwd_fold_kernel)
 FVT_MMA_WGRAD_KERNEL(resstack_bwd_wgrad_kernel)
+FVT_BWD_WIDEN_KERNEL(resstack_bwd_bf16_widen_kernel)
+FVT_BWD_NARROW_KERNEL(resstack_bwd_bf16_narrow_kernel)
 
 struct Stack {
   int d;
@@ -71,6 +89,22 @@ struct Stack {
 
 size_t packed_stack_floats(int C, int K) {
   return static_cast<size_t>(2) * (K + 2) * C * C;
+}
+
+// elements of a stack's six weights and biases (wd, bd, w1, b1, ws, bs)
+void stack_sizes(int C, int K, long long* n) {
+  const long long cc = static_cast<long long>(C) * C;
+  const long long sizes[6] = {K * cc, C, cc, C, cc, C};
+  for (int i = 0; i < 6; ++i) n[i] = sizes[i];
+}
+
+// the float32 scratch the bf16 form needs beyond the float32 form's
+size_t bf16_extra_floats(int B, int T, int C, int n, int K) {
+  long long sizes[6];
+  stack_sizes(C, K, sizes);
+  size_t weights = 0;
+  for (int i = 0; i < 6; ++i) weights += static_cast<size_t>(sizes[i]);
+  return static_cast<size_t>(3) * B * T * C + static_cast<size_t>(2) * n * weights;
 }
 
 template <int C>
@@ -201,6 +235,37 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
   return cudaSuccess;
 }
 
+// the float32 form on float32 operands, laid out as the C entry takes them
+cudaError_t run_chain(const float* x, const float* g, float* dx, float* scratch, int B, int T,
+                      int C, int n, int K, const int* dil, const float* const* weights,
+                      float* const* grads, cudaStream_t st) {
+  Stack stacks[kMaxStacks];
+  for (int s = 0; s < n; ++s) {
+    Stack& q = stacks[s];
+    const float* const* w = weights + 6 * s;
+    float* const* d = grads + 6 * s;
+    q.d = dil[s];
+    q.wd = w[0];
+    q.bd = w[1];
+    q.w1 = w[2];
+    q.b1 = w[3];
+    q.ws = w[4];
+    q.bs = w[5];
+    q.dwd = d[0];
+    q.dbd = d[1];
+    q.dw1 = d[2];
+    q.db1 = d[3];
+    q.dws = d[4];
+    q.dbs = d[5];
+  }
+  switch (C) {
+    case 32: return run_bwd<32>(x, g, dx, scratch, B, T, n, K, stacks, st);
+    case 64: return run_bwd<64>(x, g, dx, scratch, B, T, n, K, stacks, st);
+    case 128: return run_bwd<128>(x, g, dx, scratch, B, T, n, K, stacks, st);
+    default: return run_bwd<256>(x, g, dx, scratch, B, T, n, K, stacks, st);
+  }
+}
+
 bool chain_ok(int B, int T, int C, int n, int K, const int* dil) {
   if (B < 1 || T < 1 || n < 1 || n > kMaxStacks || K < 1 || K % 2 == 0 ||
       !(C == 32 || C == 64 || C == 128 || C == 256)) {
@@ -233,6 +298,14 @@ extern "C" long long fvt_fused_resstacks_bwd_scratch_floats(int B, int T, int C,
                                 2 * n * packed_stack_floats(C, K) + partials);
 }
 
+// floats of scratch `fvt_fused_resstacks_bwd_bf16` needs; -1 as above
+extern "C" long long fvt_fused_resstacks_bwd_bf16_scratch_floats(int B, int T, int C, int n,
+                                                                 int K, const int* dil) {
+  const long long base = fvt_fused_resstacks_bwd_scratch_floats(B, T, C, n, K, dil);
+  if (base < 0) return -1;
+  return base + static_cast<long long>(bf16_extra_floats(B, T, C, n, K));
+}
+
 // x, g, dx (B, T, C) float32 contiguous, C in {32, 64, 128, 256}.  dil: n
 // host ints.  weights: 6 n host pointers to device float32 arrays, per stack
 // (wd (K, C, C), bd (C,), w1 (1, C, C), b1 (C,), ws (1, C, C), bs (C,)),
@@ -246,32 +319,54 @@ extern "C" int fvt_fused_resstacks_bwd(const float* x, const float* g, float* dx
                                        const int* dil, const float* const* weights,
                                        float* const* grads, void* stream) {
   if (!chain_ok(B, T, C, n, K, dil)) return static_cast<int>(cudaErrorInvalidValue);
-  Stack stacks[kMaxStacks];
-  for (int s = 0; s < n; ++s) {
-    Stack& q = stacks[s];
-    const float* const* w = weights + 6 * s;
-    float* const* d = grads + 6 * s;
-    q.d = dil[s];
-    q.wd = w[0];
-    q.bd = w[1];
-    q.w1 = w[2];
-    q.b1 = w[3];
-    q.ws = w[4];
-    q.bs = w[5];
-    q.dwd = d[0];
-    q.dbd = d[1];
-    q.dw1 = d[2];
-    q.db1 = d[3];
-    q.dws = d[4];
-    q.dbs = d[5];
-  }
+  return static_cast<int>(run_chain(x, g, dx, scratch, B, T, C, n, K, dil, weights, grads,
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+// x, g, dx (B, T, C) bf16 contiguous; weights and grads as
+// `fvt_fused_resstacks_bwd` takes them, bf16.  scratch:
+// `fvt_fused_resstacks_bwd_bf16_scratch_floats` floats.  dx and every dW and
+// db are the float32 form's on the widened inputs, rounded to bf16 once.
+extern "C" int fvt_fused_resstacks_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                                            __nv_bfloat16* dx, float* scratch, int B, int T,
+                                            int C, int n, int K, const int* dil,
+                                            const __nv_bfloat16* const* weights,
+                                            __nv_bfloat16* const* grads, void* stream) {
+  if (!chain_ok(B, T, C, n, K, dil)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (C) {
-    case 32: err = run_bwd<32>(x, g, dx, scratch, B, T, n, K, stacks, st); break;
-    case 64: err = run_bwd<64>(x, g, dx, scratch, B, T, n, K, stacks, st); break;
-    case 128: err = run_bwd<128>(x, g, dx, scratch, B, T, n, K, stacks, st); break;
-    default: err = run_bwd<256>(x, g, dx, scratch, B, T, n, K, stacks, st);
+  const long long n_el = static_cast<long long>(B) * T * C;
+  long long sizes[6];
+  stack_sizes(C, K, sizes);
+  // float32 x, g, dx, then the weights' copies, then their gradients
+  float* x32 = scratch;
+  float* g32 = x32 + n_el;
+  float* dx32 = g32 + n_el;
+  float* at = dx32 + n_el;
+  const void* src[2 + 6 * kMaxStacks];
+  void* dst[2 + 6 * kMaxStacks];
+  long long count[2 + 6 * kMaxStacks];
+  const float* w32[6 * kMaxStacks];
+  float* d32[6 * kMaxStacks];
+  src[0] = x, dst[0] = x32, count[0] = n_el;
+  src[1] = g, dst[1] = g32, count[1] = n_el;
+  for (int i = 0; i < 6 * n; ++i) {
+    src[2 + i] = weights[i], dst[2 + i] = at, count[2 + i] = sizes[i % 6];
+    w32[i] = at;
+    at += sizes[i % 6];
   }
-  return static_cast<int>(err);
+  for (int i = 0; i < 6 * n; ++i) {
+    d32[i] = at;
+    at += sizes[i % 6];
+  }
+  cudaError_t err = fvt_bwd::launch_convert(resstack_bwd_bf16_widen_kernel, src, dst, count,
+                                            2 + 6 * n, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = run_chain(x32, g32, dx32, at, B, T, C, n, K, dil, w32, d32, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  src[0] = dx32, dst[0] = dx, count[0] = n_el;
+  for (int i = 0; i < 6 * n; ++i) {
+    src[1 + i] = d32[i], dst[1 + i] = grads[i], count[1 + i] = sizes[i % 6];
+  }
+  return static_cast<int>(fvt_bwd::launch_convert(resstack_bwd_bf16_narrow_kernel, src, dst,
+                                                  count, 1 + 6 * n, st));
 }

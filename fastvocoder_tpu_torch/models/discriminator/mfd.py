@@ -6,7 +6,8 @@ model/discriminator/mfd.py:44-183): one STFT discriminator per resolution.
 Each computes an in-graph magnitude STFT of the waveform (clamped at 1e-7),
 then runs the conv stack over (B, frames, bins) with the bins as channels:
 a conv of K = 15, grouped stride-4 downsample convs of K = 6 ds + 1, two
-head convs; every layer's output is returned.
+head convs; every layer's output is returned.  With `compute_dtype` the
+STFT stays float32 and every conv casts to it, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ from fastvocoder_tpu_torch.models.discriminator.msd import ConvStackDiscriminato
 class STFTDiscriminator(ConvStackDiscriminator):
     def __init__(self, fft_size: int = 1024, shift_size: int = 120, win_length: int = 600,
                  channels: int = 64, max_downsample_channels: int = 1024,
-                 downsample_scales: Sequence[int] = (4, 4)):
+                 downsample_scales: Sequence[int] = (4, 4), compute_dtype=None):
         super().__init__(fft_size // 2 + 1, channels, max_downsample_channels,
-                         downsample_scales, down_taps=6)
+                         downsample_scales, down_taps=6, compute_dtype=compute_dtype)
         self.fft_size, self.shift_size, self.win_length = fft_size, shift_size, win_length
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -37,12 +38,13 @@ class MultiResolutionSTFTDiscriminator(nn.Module):
     def __init__(self, fft_sizes: Sequence[int] = (2048, 1024, 512),
                  hop_sizes: Sequence[int] = (240, 120, 50),
                  win_lengths: Sequence[int] = (1200, 600, 240), channels: int = 64,
-                 max_downsample_channels: int = 1024, downsample_scales: Sequence[int] = (4, 4)):
+                 max_downsample_channels: int = 1024, downsample_scales: Sequence[int] = (4, 4),
+                 compute_dtype=None):
         super().__init__()
         self.discs = []
         for i, (fs, ss, wl) in enumerate(zip(fft_sizes, hop_sizes, win_lengths)):
             disc = STFTDiscriminator(fs, ss, wl, channels, max_downsample_channels,
-                                     downsample_scales)
+                                     downsample_scales, compute_dtype)
             self.add_module(f"disc_{i}", disc)
             self.discs.append(disc)
 

@@ -10,7 +10,8 @@ channel.  Outputs, as the JAX package's: the five activations, the
 `conv_post` map, then that map flattened to (B, H * P, 1), the score.  Maps
 are channels last (B, H, P, C), the JAX package's layout; the convs are
 cuDNN's.  Submodules are named as in the JAX package (`disc_<i>`,
-`conv_<j>`, `conv_post`).
+`conv_<j>`, `conv_post`).  With `compute_dtype` every conv casts its input,
+kernel and bias to it (`fastvocoder_tpu/models/discriminator/mpd.py:54-57`).
 """
 
 from __future__ import annotations
@@ -21,21 +22,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fastvocoder_tpu_torch.models.layers import _norm_except, _uniform_
+from fastvocoder_tpu_torch.models.layers import _in_compute_dtype, _norm_except, _uniform_
 from fastvocoder_tpu_torch.ops.conv import reflect_pad1d
 from fastvocoder_tpu_torch.ops.fused_mrf import LRELU_SLOPE
 from fastvocoder_tpu_torch.ops.fused_resstack import leaky_relu
+from fastvocoder_tpu_torch.ops.precision import check_compute_dtype
 
 
 class Conv2d(nn.Module):
     """`_WNConv2d`: weight (Cout, Cin, kh, kw), a bias, zero `padding`
     (ph, pw).  With `weight_norm`, `g` (Cout,) scales each output channel
-    normalised over (Cin, kh, kw), starting at the norm."""
+    normalised over (Cin, kh, kw), starting at the norm.  `compute_dtype`:
+    the type x, kernel and bias are cast to, as `layers.Conv1d`'s."""
 
     def __init__(self, cin: int, cout: int, kernel_size: Tuple[int, int],
                  stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0),
-                 weight_norm: bool = True):
+                 weight_norm: bool = True, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = check_compute_dtype(compute_dtype)
         self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(torch.empty(cout, cin, *kernel_size))
         self.bias = nn.Parameter(torch.empty(cout))
@@ -53,27 +57,28 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, Cin, H, W) -> (B, Cout, H', W')."""
-        return F.conv2d(x, self.effective_weight(), self.bias, stride=self.stride,
-                        padding=self.padding)
+        x, w, b = _in_compute_dtype(self, self.effective_weight, x)
+        return F.conv2d(x, w, b, stride=self.stride, padding=self.padding)
 
 
 class PeriodDiscriminator(nn.Module):
     def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
-                 channels: Sequence[int] = (32, 128, 512, 1024)):
+                 channels: Sequence[int] = (32, 128, 512, 1024), compute_dtype=None):
         super().__init__()
         self.period = period
         pad = (kernel_size - 1) // 2
+        kw = dict(compute_dtype=compute_dtype)
         self.convs = []
         cin = 1
         for i, ch in enumerate(channels):
-            conv = Conv2d(cin, ch, (kernel_size, 1), (stride, 1), (pad, 0))
+            conv = Conv2d(cin, ch, (kernel_size, 1), (stride, 1), (pad, 0), **kw)
             self.add_module(f"conv_{i}", conv)
             self.convs.append(conv)
             cin = ch
-        conv = Conv2d(cin, channels[-1], (kernel_size, 1), (1, 1), (pad, 0))
+        conv = Conv2d(cin, channels[-1], (kernel_size, 1), (1, 1), (pad, 0), **kw)
         self.add_module(f"conv_{len(channels)}", conv)
         self.convs.append(conv)
-        self.conv_post = Conv2d(channels[-1], 1, (3, 1), (1, 1), (1, 0))
+        self.conv_post = Conv2d(channels[-1], 1, (3, 1), (1, 1), (1, 0), **kw)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """x (B, T, 1) -> the five activations and the `conv_post` map, each
@@ -94,11 +99,11 @@ class PeriodDiscriminator(nn.Module):
 
 class MultiPeriodDiscriminator(nn.Module):
     def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
-                 channels: Sequence[int] = (32, 128, 512, 1024)):
+                 channels: Sequence[int] = (32, 128, 512, 1024), compute_dtype=None):
         super().__init__()
         self.discs = []
         for i, p in enumerate(periods):
-            disc = PeriodDiscriminator(p, channels=channels)
+            disc = PeriodDiscriminator(p, channels=channels, compute_dtype=compute_dtype)
             self.add_module(f"disc_{i}", disc)
             self.discs.append(disc)
 

@@ -7,6 +7,12 @@ reflect pad and a conv of K = 15, grouped strided downsample convs (stride
 and K from the scale, groups = in / 4), two head convs; every layer's
 activation is returned.  Submodules are named as in the JAX package
 (`disc_<s>`, `conv_first`, `conv_down_<i>`, `conv_head`, `conv_out`).
+
+`compute_dtype` (None, or torch.bfloat16 for bf16 mixed-precision training)
+is the JAX package's: every conv casts its input, kernel and bias to it
+(`fastvocoder_tpu/models/discriminator/msd.py:33-37`, through `WNConv1d`),
+so the features come out in it; the pooling between scales stays on the
+float32 waveform, and the losses upcast the features.
 """
 
 from __future__ import annotations
@@ -31,10 +37,10 @@ class ConvStackDiscriminator(nn.Module):
     def __init__(self, in_channels: int, channels: int, max_downsample_channels: int,
                  downsample_scales: Sequence[int], down_taps: int, out_channels: int = 1,
                  kernel_sizes: Sequence[int] = (5, 3), bias: bool = True,
-                 negative_slope: float = 0.2, weight_norm: bool = True):
+                 negative_slope: float = 0.2, weight_norm: bool = True, compute_dtype=None):
         super().__init__()
         self.negative_slope = negative_slope
-        kw = dict(bias=bias, weight_norm=weight_norm)
+        kw = dict(bias=bias, weight_norm=weight_norm, compute_dtype=compute_dtype)
         k0 = kernel_sizes[0] * kernel_sizes[1]
         self.first_pad = (k0 - 1) // 2
         self.conv_first = Conv1d(in_channels, channels, k0, **kw)
@@ -71,17 +77,19 @@ class MelGANDiscriminator(ConvStackDiscriminator):
     K = 10 ds + 1, padding 5 ds."""
 
     def __init__(self, channels: int = 16, max_downsample_channels: int = 1024,
-                 downsample_scales: Sequence[int] = (4, 4, 4, 4)):
-        super().__init__(1, channels, max_downsample_channels, downsample_scales, down_taps=10)
+                 downsample_scales: Sequence[int] = (4, 4, 4, 4), compute_dtype=None):
+        super().__init__(1, channels, max_downsample_channels, downsample_scales, down_taps=10,
+                         compute_dtype=compute_dtype)
 
 
 class MelGANMultiScaleDiscriminator(nn.Module):
     def __init__(self, scales: int = 3, channels: int = 16, max_downsample_channels: int = 1024,
-                 downsample_scales: Sequence[int] = (4, 4, 4, 4)):
+                 downsample_scales: Sequence[int] = (4, 4, 4, 4), compute_dtype=None):
         super().__init__()
         self.discs = []
         for s in range(scales):
-            disc = MelGANDiscriminator(channels, max_downsample_channels, downsample_scales)
+            disc = MelGANDiscriminator(channels, max_downsample_channels, downsample_scales,
+                                       compute_dtype)
             self.add_module(f"disc_{s}", disc)
             self.discs.append(disc)
 

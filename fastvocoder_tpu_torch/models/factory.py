@@ -53,11 +53,13 @@ def build_generator(cfg: ModelConfig, weight_norm: bool = False,
     raise ValueError(f"no model {cfg.model_name!r}")
 
 
-def build_discriminator(disc_cfg: DiscriminatorConfig = DISC, use_mpd: bool = False
-                        ) -> Discriminator:
+def build_discriminator(disc_cfg: DiscriminatorConfig = DISC, use_mpd: bool = False,
+                        compute_dtype=None) -> Discriminator:
     """The composite discriminator (MSD + MFD, and the MPD with `use_mpd` or
-    `disc_cfg.use_mpd`) at `disc_cfg`'s sizes."""
-    return Discriminator(disc_cfg, use_mpd=use_mpd)
+    `disc_cfg.use_mpd`) at `disc_cfg`'s sizes, its convs computing in
+    `compute_dtype` (None, or torch.bfloat16 for bf16 training)."""
+    return Discriminator(disc_cfg, use_mpd=use_mpd,
+                         compute_dtype=check_compute_dtype(compute_dtype))
 
 
 def load_generator(checkpoint_path: str, cfg: ModelConfig, device: torch.device,

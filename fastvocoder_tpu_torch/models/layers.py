@@ -16,13 +16,16 @@ gradient is asked for, attached to the graph and built anew where one is.
 (tap, c_out, c_in), the tensor cores' B operand of a forward conv, cached
 the same way.
 
-`compute_dtype` (None, or torch.bfloat16 for bf16 inference) is the JAX
-package's (`fastvocoder_tpu/models/layers.py:66-72,174-177`): a conv casts
-its input, kernel and bias to it and runs the library conv (cuDNN on the
-card) in that type; parameters stay float32 (the cast copies are kept until
-a parameter is written).  `apply_residual_stacks`, `apply_mrf` and
-`BasisSignalLayer` hand the kernels' bf16 forms bf16 activations, as the
-JAX package casts before its Pallas calls.
+`compute_dtype` (None, or torch.bfloat16 for bf16 inference and bf16
+mixed-precision training) is the JAX package's
+(`fastvocoder_tpu/models/layers.py:66-72,174-177`): a conv casts its input,
+kernel and bias to it and runs the library conv (cuDNN on the card) in that
+type; parameters stay float32 (the cast copies are kept until a parameter
+is written, and built on the graph while autograd follows the parameters,
+so that their gradients reach the float32 parameters through the casts).
+`apply_residual_stacks`, `apply_mrf` and `BasisSignalLayer` hand the
+kernels' bf16 forms bf16 activations, as the JAX package casts before its
+Pallas calls.
 """
 
 from __future__ import annotations
@@ -407,7 +410,9 @@ def apply_mrf(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
         key = (x.device, x.dtype, *(id(ops) for ops in operands))
         first = blocks[0]
         if key != getattr(first, "_stage_key", None):
-            first._stage_table = StageTable(list(operands), list(swapped), x.device, x.dtype)
+            # (the bf16 form's pack swaps the kernels' channel axes itself)
+            sw = list(swapped) if x.dtype == torch.float32 else None
+            first._stage_table = StageTable(list(operands), sw, x.device, x.dtype)
             first._stage_key = key
         table = first._stage_table
         return fused_mrf_stage(x.contiguous(), *table.keep, table)
@@ -431,8 +436,10 @@ class BasisSignalLayer(nn.Module):
 
     def forward(self, weight: torch.Tensor) -> torch.Tensor:
         """-> float32 waveform; bf16 weights (a bf16 model's) are decoded
-        with the basis in bf16, kept until the basis is written."""
+        with the basis in bf16: a kept copy until the basis is written, or,
+        while autograd follows the basis (training: its gradient counts in
+        the clip norm), a cast on the graph (`_operands`)."""
         basis = self.basis
         if weight.dtype != basis.dtype:
-            basis = _cached(self, lambda: self.basis.to(weight.dtype), slot="_cast")
+            basis = _operands(self, lambda: self.basis.to(weight.dtype), slot="_cast")
         return basis_decode(weight.contiguous(), basis)

@@ -177,15 +177,21 @@ def check_table(op: str, table, x: torch.Tensor) -> None:
 
 TAIL_INFERENCE_ONLY = ("this CUDA kernel is inference only, in the JAX package too "
                        "(training runs the stage through its modules and the MRF kernel)")
-BF16_INFERENCE_ONLY = ("the bf16 forms of the kernels are inference only: training in bf16 "
-                       "(--mixprecision) waits for the bf16 forms of the backward kernels")
+
+
+def no_graph(route: str) -> str:
+    """Why a kernel's bf16 wrapper refuses a graph: its gradient comes
+    through `route`, the op's autograd path."""
+    return f"this wrapper records no graph: differentiate through `{route}`"
+
 
 
 def refuse_autograd(op: str, tensors: Iterable[torch.Tensor],
                     why: str = TAIL_INFERENCE_ONLY) -> None:
-    """Raise if autograd would have to differentiate through an
-    inference-only kernel (the HiFiGAN tail, every bf16 form): grad mode is
-    on and one of `tensors` requires a gradient."""
+    """Raise if autograd would have to differentiate through a kernel
+    wrapper that records no graph (the HiFiGAN tail, inference only; the
+    bf16 forms' wrappers, whose gradients come through their ops' autograd
+    paths): grad mode is on and one of `tensors` requires a gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{op}: {why}: call it under torch.inference_mode() or torch.no_grad()"

@@ -20,7 +20,10 @@ The kernel has a bf16 form (`basis_decode_bf16_cuda`, counted as
 basis in, float32 products and sums, a float32 waveform out, at every size
 (the JAX package's `auto` route sends more than 65,536 rows to an einsum
 that writes bf16; the port follows the kernel).  Its plain version is
-`basis_decode_plain` given bf16 weights.  It is inference only.
+`basis_decode_plain` given bf16 weights.  In training with compute_dtype
+bf16 its gradient is `basis_decode_vjp` in the inputs' type, as the JAX
+package pairs the Pallas forward with XLA's VJP of the bf16 decode
+(`_basis_decode_pallas_ad`).
 """
 
 from __future__ import annotations
@@ -59,10 +62,12 @@ def basis_decode_plain(weight: torch.Tensor, basis: torch.Tensor) -> torch.Tenso
 
 def basis_decode_vjp(weight: torch.Tensor, basis: torch.Tensor, g: torch.Tensor):
     """Cotangents (d weight, d basis) of `basis_decode_plain` for output
-    cotangent g (B, (F + 1) * hop)."""
+    cotangent g (B, (F + 1) * hop), in the weights' type: for bf16 weights
+    g and the basis are rounded to bf16 and each product is a bf16 one
+    (float32 sums, bf16 results), as XLA differentiates the bf16 decode."""
     b1, b2, hop = _halves(basis, weight.dtype)
     B, Fr, C = weight.shape
-    g = g.reshape(B, Fr + 1, hop)
+    g = g.reshape(B, Fr + 1, hop).to(weight.dtype)
     da = g @ b1.t()  # (B, F+1, C)
     db = g @ b2.t()
     dweight = da[:, :Fr] + db[:, 1:]
@@ -127,17 +132,21 @@ def basis_decode_cuda(weight: torch.Tensor, basis: torch.Tensor) -> torch.Tensor
 
 def basis_decode_bf16_cuda(weight: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     """The kernel's bf16 form; weight (B, F, C) and basis (L, C) bf16,
-    contiguous, on one CUDA device -> float32 wav.  Inference only."""
-    _build.refuse_autograd(NAME_BF16, [weight, basis], _build.BF16_INFERENCE_ONLY)
+    contiguous, on one CUDA device -> float32 wav.  Records no graph:
+    gradients come through `basis_decode`."""
+    _build.refuse_autograd(NAME_BF16, [weight, basis], _build.no_graph("basis_decode"))
     return _launch(NAME_BF16, torch.bfloat16, weight, basis)
 
 
 class _BasisDecode(torch.autograd.Function):
-    """Kernel forward, plain-version VJP backward."""
+    """Kernel forward (the form of the weights' type), plain-version VJP
+    backward in the same type."""
 
     @staticmethod
     def forward(ctx, weight, basis):
         ctx.save_for_backward(weight, basis)
+        if weight.dtype == torch.bfloat16:
+            return basis_decode_bf16_cuda(weight, basis)
         return basis_decode_cuda(weight, basis)
 
     @staticmethod
@@ -153,10 +162,8 @@ class _BasisDecode(torch.autograd.Function):
 def basis_decode(weight: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     """weight (B, F, C), basis (L, C) -> wav (B, (F + 1) * L/2), float32.
     The kernel on CUDA tensors (its bf16 form for bf16 weights, which takes
-    the basis in bf16: `BasisSignalLayer` keeps a bf16 copy), the plain
-    version on CPU tensors."""
-    if weight.is_cuda and weight.dtype == torch.bfloat16:
-        return basis_decode_bf16_cuda(weight, basis)
+    the basis in bf16: `BasisSignalLayer` casts it), differentiable through
+    the plain version's VJP; the plain version on CPU tensors."""
     if weight.is_cuda:
         return _BasisDecode.apply(weight, basis)
     return basis_decode_plain(weight, basis)

@@ -28,16 +28,30 @@ The forward has a bf16 form (`fused_mrf_stage_bf16_cuda`, counted as
 rounded to bf16 where the JAX package's Pallas body rounds in bf16
 (`fused_mrf.py:162-172`: each conv's output after its bias, each
 leaky-relu, each residual sum, the branches' sum and their mean).  Its
-plain version is `fused_mrf_stage_plain` given bf16 x.  It is inference
-only; each form refuses the other's x and the other's table.
+plain version is `fused_mrf_stage_plain` given bf16 x.  Each form refuses
+the other's x and the other's table.
+
+So has the backward (`fused_mrf_stage_vjp_bf16_cuda`, counted as
+`BWD_NAME_BF16`): bf16 x, g and weights in, dx and every dW and db out in
+bf16, computed as the Pallas backward body computes them
+(`fused_mrf.py:259-264, 276-279, 452, 461`): the float32 VJP of the
+float32 upcasts, rounded to bf16 once.  The JAX package sums the branches'
+dx in bf16 (`:488-517`) and, below C = 128, the bf16 partials of its
+blocked weights (`:66-90`); here both sums are float32 until the one
+rounding.  Its plain version is `fused_mrf_stage_vjp_plain` given bf16 x.
+Training with compute_dtype bf16 goes through `fused_mrf_stage`, which
+casts the weights to bf16 for the backward form (autograd saves the casts)
+and runs both bf16 forms; the wrappers themselves record no graph.
 
 Branches are given as in the JAX package: per branch a list of pairs
 (k1 (K1, C, C), b1 (C,), dilation, k2 (K2, C, C), b2 (C,)), kernels laid
 out (tap, c_in, c_out).  The kernels' B operand wants the contracted channel
 contiguous: a forward conv reads its kernel as (tap, c_out, c_in)
 (`swap_channels`), the adjoint conv of the backward as it is given.  The
-CUDA wrappers take the swapped copies as `swapped`, so that a caller can
-cache them (`models/layers.py`), and build them when given none.
+float32 forward takes the swapped copies as `swapped`, so that a caller can
+cache them (`models/layers.py`), and builds them when given none; the bf16
+forward's table and both backward forms take the kernels as given, and
+their pack launch swaps the channel axes.
 """
 
 from __future__ import annotations
@@ -55,6 +69,8 @@ from fastvocoder_tpu_torch.ops.precision import fit, widen
 NAME = "fused_mrf"
 NAME_BF16 = "fused_mrf_bf16"
 BWD_NAME = "fused_mrf_bwd"
+BWD_NAME_BF16 = "fused_mrf_bwd_bf16"
+BF16 = torch.bfloat16
 KERNEL_WIDTHS = (16, 32, 64, 128, 256)
 LRELU_SLOPE = 0.1  # HiFiGAN's resblocks (reference modules.py:9)
 
@@ -95,7 +111,7 @@ def fused_mrf_stage_plain(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]]) 
 
 
 def mrf_table(op: str, resblocks: Sequence[Sequence[Pair]], C: int, device: torch.device,
-              max_branches: int, max_pairs: int):
+              max_branches: int, max_pairs: int, dtype: torch.dtype = torch.float32):
     """The (branch, pair) table the C entry points take, branch-major:
     (nb, np, ints (K1, dilation, K2) per pair, device pointers (w1, b1, w2,
     b2) per pair), after checking every operand."""
@@ -122,7 +138,7 @@ def mrf_table(op: str, resblocks: Sequence[Sequence[Pair]], C: int, device: torc
                     raise ValueError(
                         f"{op}: branch {i} pair {j} {name} has shape {tuple(w.shape)}, want {shape}"
                     )
-                _build.check_operand(op, f"branch {i} pair {j} {name}", w, device)
+                _build.check_operand(op, f"branch {i} pair {j} {name}", w, device, dtype)
             ints += [K1, int(d), K2]
             ptrs += [k1.data_ptr(), b1.data_ptr(), k2.data_ptr(), b2.data_ptr()]
     return nb, np_, (ctypes.c_int * len(ints))(*ints), (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -152,13 +168,14 @@ def _check_swapped(op: str, resblocks: Sequence[Sequence[Pair]], swapped: Swappe
 
 class StageTable:
     """What the forward's C entry point takes of a stage's operands, checked
-    once: the (K1, dilation, K2) table and the pointers (k1 as
-    (tap, c_out, c_in), b1, k2 as (tap, c_out, c_in), b2) per pair.  It keeps
-    the tensors alive.  A caller whose operands stay (a served model: 0.2 ms
-    of host time a stage to check 54 tensors) builds it once and hands it to
-    the form of its `dtype` with them.  The float32 form packs the kernels
-    on every call; a bf16 table holds them packed as bf16 (one launch,
-    here)."""
+    once: the (K1, dilation, K2) table and the pointers (k1, b1, k2, b2)
+    per pair.  It keeps the tensors alive.  A caller whose operands stay (a
+    served model: 0.2 ms of host time a stage to check 54 tensors) builds it
+    once and hands it to the form of its `dtype` with them.  The float32
+    form packs the kernels on every call, from their swapped copies
+    (`swapped`, built when None: k as (tap, c_out, c_in)); a bf16 table
+    holds them packed as bf16 by one launch, here, which swaps their
+    channel axes itself and so takes no swapped copies."""
 
     def __init__(self, resblocks: Sequence[Sequence[Pair]], swapped: Optional[Swapped],
                  device: torch.device, dtype: torch.dtype = torch.float32):
@@ -169,13 +186,20 @@ class StageTable:
         self.nb, self.np_, self.ints, _ = mrf_table(
             NAME, resblocks, self.C, device, lib.fvt_fused_mrf_max_branches(),
             lib.fvt_fused_mrf_max_pairs())
-        if swapped is None:
-            swapped = swap_channels(resblocks)
-        _check_swapped(NAME, resblocks, swapped)
+        if dtype == torch.bfloat16:
+            if swapped is not None:
+                raise ValueError(f"{NAME_BF16}: the bf16 form packs the kernels as they are "
+                                 f"given and takes no swapped copies")
+            kernels = [[(k1, k2) for k1, _, _, k2, _ in pairs] for pairs in resblocks]
+        else:
+            if swapped is None:
+                swapped = swap_channels(resblocks)
+            _check_swapped(NAME, resblocks, swapped)
+            kernels = swapped
         self.keep = (resblocks, swapped)
-        ptrs = [p for pairs, sw in zip(resblocks, swapped)
-                for (_, b1, _, _, b2), (k1t, k2t) in zip(pairs, sw)
-                for p in (k1t.data_ptr(), b1.data_ptr(), k2t.data_ptr(), b2.data_ptr())]
+        ptrs = [p for pairs, ks in zip(resblocks, kernels)
+                for (_, b1, _, _, b2), (k1, k2) in zip(pairs, ks)
+                for p in (k1.data_ptr(), b1.data_ptr(), k2.data_ptr(), b2.data_ptr())]
         self.ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
         self.packed = None
         if dtype == torch.bfloat16:
@@ -251,12 +275,13 @@ def fused_mrf_stage_bf16_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair
                               table: Optional[StageTable] = None) -> torch.Tensor:
     """The forward kernel's bf16 form on x (B, T, C) bf16, contiguous, on a
     CUDA device: y bf16.  The operands are float32, as a model's
-    parameters; `table`: `StageTable(resblocks, swapped, x.device,
+    parameters; `swapped` must be None (the form's pack swaps the kernels
+    itself); `table`: `StageTable(resblocks, None, x.device,
     torch.bfloat16)` where the caller keeps it (its kernels packed as bf16
-    once).  Inference only."""
+    once).  Records no graph: gradients come through `fused_mrf_stage`."""
     _build.refuse_autograd(NAME_BF16, [x] + [w for pairs in resblocks for p in pairs for w in p
                                              if isinstance(w, torch.Tensor)],
-                           _build.BF16_INFERENCE_ONLY)
+                           _build.no_graph("fused_mrf_stage"))
     B, T, C, table = _stage_table(NAME_BF16, torch.bfloat16, x, resblocks, swapped, table)
     lib = _build.library(NAME)
     y = torch.empty_like(x)
@@ -283,7 +308,16 @@ def fused_mrf_stage_vjp_plain(x: torch.Tensor, resblocks: Sequence[Sequence[Pair
                               g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
     """The stage's vector-Jacobian product by autograd of the plain
     forward: (dx, per branch per pair (dk1, db1, dk2, db2)), kernels
-    (tap, c_in, c_out) as they were given."""
+    (tap, c_in, c_out) as they were given.  For bf16 x, the backward's bf16
+    form: the float32 VJP of the float32 upcasts of x, g and the weights
+    (float32 weights rounded to bf16 first), every result rounded to bf16
+    once."""
+    if x.dtype == BF16:
+        up = [[tuple(w if isinstance(w, int) else fit(w.float(), BF16) for w in p)
+               for p in pairs] for pairs in resblocks]
+        dx, grads = fused_mrf_stage_vjp_plain(x.float(), up, fit(g.float(), BF16))
+        return dx.to(BF16), [[tuple(t.to(BF16) for t in group) for group in pairs]
+                             for pairs in grads]
     with torch.enable_grad():
         xg = leaf_copy(x)
         leaves = [[(leaf_copy(k1), leaf_copy(b1), d, leaf_copy(k2), leaf_copy(b2))
@@ -296,21 +330,21 @@ def fused_mrf_stage_vjp_plain(x: torch.Tensor, resblocks: Sequence[Sequence[Pair
                     for pairs in resblocks]
 
 
-def fused_mrf_stage_vjp_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
-                             g: torch.Tensor,
-                             swapped: Optional[Swapped] = None) -> Tuple[torch.Tensor, Grads]:
-    """Launch the backward kernel: from x and the cotangent g of the stage's
-    output, (dx, per branch per pair (dk1, db1, dk2, db2)), float32, kernels
-    (tap, c_in, c_out).  The stage is recomputed from x on the card.
-    `swapped`: `swap_channels(resblocks)` where the caller keeps it."""
-    B, T, C = _build.check_x(BWD_NAME, x, KERNEL_WIDTHS)
+def _run_backward(op: str, dtype: torch.dtype, x: torch.Tensor,
+                  resblocks: Sequence[Sequence[Pair]],
+                  g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+    """The backward kernel's form of `dtype` (named `op`): x, g and the
+    stage's tensors of that type, the kernels (tap, c_in, c_out) as given
+    (the recompute's forward convs read them with their channel axes
+    swapped, which the kernel's pack launch does)."""
+    B, T, C = _build.check_x(op, x, KERNEL_WIDTHS, dtype)
     if tuple(g.shape) != (B, T, C):
-        raise ValueError(f"{BWD_NAME}: g has shape {tuple(g.shape)}, want {(B, T, C)}")
-    _build.check_operand(BWD_NAME, "g", g, x.device)
+        raise ValueError(f"{op}: g has shape {tuple(g.shape)}, want {(B, T, C)}")
+    _build.check_operand(op, "g", g, x.device, dtype)
     lib = _build.library(BWD_NAME)
-    nb, np_, ints, _ = mrf_table(BWD_NAME, resblocks, C, x.device,
-                                 lib.fvt_fused_mrf_bwd_max_branches(),
-                                 lib.fvt_fused_mrf_bwd_max_pairs())
+    nb, np_, ints, ptr_arr = mrf_table(op, resblocks, C, x.device,
+                                       lib.fvt_fused_mrf_bwd_max_branches(),
+                                       lib.fvt_fused_mrf_bwd_max_pairs(), dtype)
     dx = torch.empty_like(x)
     grads = [[(torch.empty_like(k1), torch.empty_like(b1), torch.empty_like(k2),
                torch.empty_like(b2)) for k1, b1, _, k2, b2 in pairs] for pairs in resblocks]
@@ -320,37 +354,44 @@ def fused_mrf_stage_vjp_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]
                 for t in group:
                     t.zero_()
         return dx, grads
-    # the recompute's forward convs read each kernel with its channel axes
-    # swapped, the adjoint convs as it is
-    if swapped is None:
-        swapped = swap_channels(resblocks)
-    _check_swapped(BWD_NAME, resblocks, swapped)
-    ptrs: List[int] = []
-    for pairs, sw in zip(resblocks, swapped):
-        for (k1, b1, _, k2, b2), (k1t, k2t) in zip(pairs, sw):
-            ptrs += [k1.data_ptr(), b1.data_ptr(), k2.data_ptr(), b2.data_ptr(),
-                     k1t.data_ptr(), k2t.data_ptr()]
+    bf16 = dtype == BF16
     outs = [t.data_ptr() for pairs in grads for group in pairs for t in group]
-    size_fn = lib.fvt_fused_mrf_bwd_scratch_floats
+    size_fn = (lib.fvt_fused_mrf_bwd_bf16_scratch_floats if bf16
+               else lib.fvt_fused_mrf_bwd_scratch_floats)
     size_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     size_fn.restype = ctypes.c_longlong
     n_scratch = size_fn(B, T, C, nb, np_, ctypes.addressof(ints))
     if n_scratch < 0:
-        raise ValueError(f"{BWD_NAME}: the kernel refuses this stage")
+        raise ValueError(f"{op}: the kernel refuses this stage")
     # the caching allocator hands the same block back on every step
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
-    fn = lib.fvt_fused_mrf_bwd
+    fn = lib.fvt_fused_mrf_bwd_bf16 if bf16 else lib.fvt_fused_mrf_bwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
     out_arr = (ctypes.c_void_p * len(outs))(*outs)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), B, T, C, nb, np_,
                  ctypes.addressof(ints), ctypes.addressof(ptr_arr), ctypes.addressof(out_arr),
                  stream)
-    _build.check_launch(BWD_NAME, err)
+    _build.check_launch(op, err)
     return dx, grads
+
+
+def fused_mrf_stage_vjp_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
+                             g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+    """Launch the backward kernel: from x and the cotangent g of the stage's
+    output, (dx, per branch per pair (dk1, db1, dk2, db2)), float32, kernels
+    (tap, c_in, c_out).  The stage is recomputed from x on the card."""
+    return _run_backward(BWD_NAME, torch.float32, x, resblocks, g)
+
+
+def fused_mrf_stage_vjp_bf16_cuda(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
+                                  g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+    """The backward kernel's bf16 form: x, g (B, T, C) and every weight and
+    bias bf16 (a model's float32 parameters cast, as training in bf16 casts
+    them) -> dx and the gradients, bf16, each the float32 VJP rounded once."""
+    return _run_backward(BWD_NAME_BF16, BF16, x, resblocks, g)
 
 
 def _pack(dilations, tensors) -> List[List[Pair]]:
@@ -359,22 +400,26 @@ def _pack(dilations, tensors) -> List[List[Pair]]:
 
 
 class _FusedMRFStage(torch.autograd.Function):
-    """The MRF stage on CUDA: forward kernel, backward kernel.  Saves x, the
-    weights and their swapped copies; the backward recomputes the rest."""
+    """The MRF stage on CUDA: forward kernel, backward kernel, both in x's
+    type.  `forward_operands`: what the forward form reads, values only:
+    (the stage's float32 operands, their swapped copies for float32 x or
+    None for bf16 x, whose form packs the float32 values as the bf16 casts
+    in `tensors` round them).  Saves x and `tensors` (bf16 for bf16 x); the
+    backward recomputes the rest."""
 
     @staticmethod
-    def forward(ctx, x, dilations, swapped, *tensors):
+    def forward(ctx, x, dilations, forward_operands, *tensors):
         ctx.dilations = dilations
-        ctx.swapped = swapped
         ctx.save_for_backward(x, *tensors)
-        return fused_mrf_stage_cuda(x, _pack(dilations, tensors), swapped)
+        form = fused_mrf_stage_bf16_cuda if x.dtype == BF16 else fused_mrf_stage_cuda
+        return form(x, *forward_operands)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, *tensors = ctx.saved_tensors
-        dx, grads = fused_mrf_stage_vjp_cuda(x, _pack(ctx.dilations, tensors), g.contiguous(),
-                                             ctx.swapped)
+        vjp = fused_mrf_stage_vjp_bf16_cuda if x.dtype == BF16 else fused_mrf_stage_vjp_cuda
+        dx, grads = vjp(x, _pack(ctx.dilations, tensors), g.to(x.dtype).contiguous())
         flat = [t for pairs in grads for group in pairs for t in group]
         return (dx, None, None, *flat)
 
@@ -382,24 +427,31 @@ class _FusedMRFStage(torch.autograd.Function):
 def fused_mrf_stage(x: torch.Tensor, resblocks: Sequence[Sequence[Pair]],
                     swapped: Optional[Swapped] = None,
                     table: Optional[StageTable] = None) -> torch.Tensor:
-    """Apply an MRF stage to x (B, T, C): the kernels on CUDA tensors (with
-    their own backward), the plain version on CPU tensors.  `swapped`:
-    `swap_channels(resblocks)` where the caller keeps it (the values only: no
-    gradient flows through it); `table`: the `StageTable` of both in x's
-    type, used where nothing needs a gradient.  bf16 x takes the bf16 form
-    (inference only)."""
-    if x.is_cuda and x.dtype == torch.bfloat16:
-        return fused_mrf_stage_bf16_cuda(x, resblocks, swapped, table)
+    """Apply an MRF stage to x (B, T, C): the kernels on CUDA tensors, the
+    forms of x's type, with their own backward (for bf16 x the weights are
+    cast to bf16 for the backward form, and autograd carries their
+    gradients back through the casts); the plain version on CPU tensors.
+    `swapped`: for float32 x, `swap_channels(resblocks)` where the caller
+    keeps it (the values only: no gradient flows through it); `table`: the
+    `StageTable` of both in x's type, used where nothing needs a
+    gradient."""
     if x.is_cuda:
+        bf16 = x.dtype == BF16
         tensors = [w for pairs in resblocks for p in pairs for w in p
                    if isinstance(w, torch.Tensor)]
         if not (torch.is_grad_enabled() and any(t.requires_grad for t in [x] + tensors)):
-            return fused_mrf_stage_cuda(x, resblocks, swapped, table)  # nothing to differentiate
+            # nothing to differentiate
+            return (fused_mrf_stage_bf16_cuda if bf16 else
+                    fused_mrf_stage_cuda)(x, resblocks, swapped, table)
         dilations = tuple(tuple(int(p[2]) for p in pairs) for pairs in resblocks)
         tensors = [w.contiguous() for w in tensors]
-        with torch.no_grad():
-            if swapped is None:
-                swapped = swap_channels(_pack(dilations, tensors))
+        values = _pack(dilations, [w.detach().float() for w in tensors])
+        if swapped is not None:
             swapped = [[(k1t.detach(), k2t.detach()) for k1t, k2t in sw] for sw in swapped]
-        return _FusedMRFStage.apply(x, dilations, swapped, *tensors)
+        elif not bf16:
+            with torch.no_grad():
+                swapped = swap_channels(values)
+        if bf16:
+            tensors = [w.to(BF16) for w in tensors]
+        return _FusedMRFStage.apply(x, dilations, (values, swapped), *tensors)
     return fused_mrf_stage_plain(x, resblocks)

@@ -28,8 +28,20 @@ The forward has a bf16 form (`fused_residual_stacks_bf16_cuda`, counted as
 rounded to bf16 where the JAX package's Pallas body rounds in bf16
 (`fused_resstack.py:182-192`: every conv's output, each leaky-relu, the
 bias cast before it is added, the stack's sum).  Its plain version is
-`fused_residual_stacks_plain` given bf16 x.  It is inference only; each
-form refuses the other's x and the other's table.
+`fused_residual_stacks_plain` given bf16 x.  Each form refuses the other's
+x and the other's table.
+
+So has the backward (`fused_residual_stacks_vjp_bf16_cuda`, counted as
+`BWD_NAME_BF16`): bf16 x, g and weights in, dx and every dW and db out in
+bf16, computed as the Pallas backward body computes them
+(`fused_resstack.py:241-360, 419-430`): the float32 VJP of the float32
+upcasts, rounded to bf16 once, on every row (the JAX package leaves the
+mirrored edges to XLA's bf16 autograd; the kernel takes them in float32
+too).  Its plain version is `fused_residual_stacks_vjp_plain` given bf16 x.
+Training with compute_dtype bf16 (`--mixprecision`) goes through
+`fused_residual_stacks`, which casts the float32 weights to bf16 (autograd
+carries their bf16 gradients back through the casts into float32) and runs
+both bf16 forms; the wrappers themselves record no graph.
 
 Stacks are given as in the JAX package: per stack the tuple
 (k_dilated (K, C, C), b_d (C,), dilation, k_1x1 (1, C, C), b_1 (C,),
@@ -50,6 +62,8 @@ from fastvocoder_tpu_torch.ops.precision import fit, widen
 NAME = "fused_resstack"
 NAME_BF16 = "fused_resstack_bf16"
 BWD_NAME = "fused_resstack_bwd"
+BWD_NAME_BF16 = "fused_resstack_bwd_bf16"
+BF16 = torch.bfloat16
 KERNEL_WIDTHS = (32, 64, 128, 256)
 SLOPE = 0.2  # leaky-relu slope of MelGAN's stacks (reference modules.py:320-382)
 
@@ -94,7 +108,7 @@ def fused_residual_stacks_plain(x: torch.Tensor, stacks: Sequence[Stack]) -> tor
 
 
 def _check_stacks(op: str, stacks: Sequence[Stack], C: int, device: torch.device,
-                  max_stacks: int) -> int:
+                  max_stacks: int, dtype: torch.dtype = torch.float32) -> int:
     """-> K after checking every operand of the chain."""
     if not 1 <= len(stacks) <= max_stacks:
         raise ValueError(f"{op}: want 1..{max_stacks} stacks, got {len(stacks)}")
@@ -110,7 +124,7 @@ def _check_stacks(op: str, stacks: Sequence[Stack], C: int, device: torch.device
                 raise ValueError(
                     f"{op}: stack {i} {name} has shape {tuple(w.shape)}, want {shape}"
                 )
-            _build.check_operand(op, f"stack {i} {name}", w, device)
+            _build.check_operand(op, f"stack {i} {name}", w, device, dtype)
     if K % 2 == 0:
         raise ValueError(f"{op}: want an odd kernel size, got {K}")
     return K
@@ -214,11 +228,12 @@ def fused_residual_stacks_bf16_cuda(x: torch.Tensor, stacks: Sequence[Stack],
     """The forward kernel's bf16 form on x (B, T, C) bf16, contiguous, on a
     CUDA device: y bf16.  `stacks` are float32, as a model's parameters;
     `table`: `ChainTable(stacks, x.device, torch.bfloat16)` where the caller
-    keeps it.  Inference only."""
+    keeps it.  Records no graph: gradients come through
+    `fused_residual_stacks`."""
     _build.refuse_autograd(NAME_BF16, [x] + [w for s in stacks for w in s
                                              if isinstance(w, torch.Tensor)],
-                           _build.BF16_INFERENCE_ONLY)
-    return _run_forward(NAME_BF16, torch.bfloat16, x, stacks, table)
+                           _build.no_graph("fused_residual_stacks"))
+    return _run_forward(NAME_BF16, BF16, x, stacks, table)
 
 
 Grads = List[Tuple[torch.Tensor, ...]]
@@ -228,7 +243,15 @@ def fused_residual_stacks_vjp_plain(x: torch.Tensor, stacks: Sequence[Stack],
                                     g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
     """The chain's vector-Jacobian product by autograd of the plain forward:
     (dx, per stack (dk_dilated, db_d, dk_1x1, db_1, dk_skip, db_s)), kernels
-    (tap, c_in, c_out) as they were given."""
+    (tap, c_in, c_out) as they were given.  For bf16 x, the backward's bf16
+    form: the float32 VJP of the float32 upcasts of x, g and the weights
+    (float32 weights rounded to bf16 first), every result rounded to bf16
+    once."""
+    if x.dtype == BF16:
+        up = [tuple(w if isinstance(w, int) else fit(w.float(), BF16) for w in s)
+              for s in stacks]
+        dx, grads = fused_residual_stacks_vjp_plain(x.float(), up, fit(g.float(), BF16))
+        return dx.to(BF16), [tuple(t.to(BF16) for t in group) for group in grads]
     with torch.enable_grad():
         xg = leaf_copy(x)
         leaves = [tuple(w if isinstance(w, int) else leaf_copy(w) for w in s)
@@ -239,18 +262,16 @@ def fused_residual_stacks_vjp_plain(x: torch.Tensor, stacks: Sequence[Stack],
     return got[0], [tuple(got[1 + 6 * i: 7 + 6 * i]) for i in range(len(stacks))]
 
 
-def fused_residual_stacks_vjp_cuda(x: torch.Tensor, stacks: Sequence[Stack],
-                                   g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
-    """Launch the backward kernel: from x and the cotangent g of the chain's
-    output, (dx, per stack (dk_dilated, db_d, dk_1x1, db_1, dk_skip, db_s)),
-    float32.  The chain is recomputed from x on the card; the kernels are
-    packed for the tensor cores, in both orientations, by the same call."""
-    B, T, C = _build.check_x(BWD_NAME, x, KERNEL_WIDTHS)
+def _run_backward(op: str, dtype: torch.dtype, x: torch.Tensor, stacks: Sequence[Stack],
+                  g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+    """The backward kernel's form of `dtype` (named `op`): x, g and the
+    stacks' tensors of that type."""
+    B, T, C = _build.check_x(op, x, KERNEL_WIDTHS, dtype)
     lib = _build.library(BWD_NAME)
-    K = _check_stacks(BWD_NAME, stacks, C, x.device, lib.fvt_fused_resstacks_bwd_max_stacks())
+    K = _check_stacks(op, stacks, C, x.device, lib.fvt_fused_resstacks_bwd_max_stacks(), dtype)
     if tuple(g.shape) != (B, T, C):
-        raise ValueError(f"{BWD_NAME}: g has shape {tuple(g.shape)}, want {(B, T, C)}")
-    _build.check_operand(BWD_NAME, "g", g, x.device)
+        raise ValueError(f"{op}: g has shape {tuple(g.shape)}, want {(B, T, C)}")
+    _build.check_operand(op, "g", g, x.device, dtype)
     dx = torch.empty_like(x)
     grads = [tuple(torch.empty_like(w) for w in s if isinstance(w, torch.Tensor))
              for s in stacks]
@@ -262,19 +283,21 @@ def fused_residual_stacks_vjp_cuda(x: torch.Tensor, stacks: Sequence[Stack],
     margin = max(stack_margin(K, int(s[2])) for s in stacks)
     if margin > T - 1:
         raise ValueError(
-            f"{BWD_NAME}: a stack mirrors {margin} rows at each edge and needs T > {margin}, "
+            f"{op}: a stack mirrors {margin} rows at each edge and needs T > {margin}, "
             f"got T={T}"
         )
+    bf16 = dtype == BF16
     dil_arr = (ctypes.c_int * len(stacks))(*[int(s[2]) for s in stacks])
-    size_fn = lib.fvt_fused_resstacks_bwd_scratch_floats
+    size_fn = (lib.fvt_fused_resstacks_bwd_bf16_scratch_floats if bf16
+               else lib.fvt_fused_resstacks_bwd_scratch_floats)
     size_fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     size_fn.restype = ctypes.c_longlong
     n_scratch = size_fn(B, T, C, len(stacks), K, ctypes.addressof(dil_arr))
     if n_scratch < 0:
-        raise ValueError(f"{BWD_NAME}: the kernel refuses this chain")
+        raise ValueError(f"{op}: the kernel refuses this chain")
     # the caching allocator hands the same block back on every step
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
-    fn = lib.fvt_fused_resstacks_bwd
+    fn = lib.fvt_fused_resstacks_bwd_bf16 if bf16 else lib.fvt_fused_resstacks_bwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     ptr_arr = _pointers(w.data_ptr() for s in stacks for w in s if isinstance(w, torch.Tensor))
@@ -284,8 +307,25 @@ def fused_residual_stacks_vjp_cuda(x: torch.Tensor, stacks: Sequence[Stack],
         err = fn(x.data_ptr(), g.data_ptr(), dx.data_ptr(), scratch.data_ptr(), B, T, C,
                  len(stacks), K, ctypes.addressof(dil_arr), ctypes.addressof(ptr_arr),
                  ctypes.addressof(out_arr), stream)
-    _build.check_launch(BWD_NAME, err)
+    _build.check_launch(op, err)
     return dx, grads
+
+
+def fused_residual_stacks_vjp_cuda(x: torch.Tensor, stacks: Sequence[Stack],
+                                   g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+    """Launch the backward kernel: from x and the cotangent g of the chain's
+    output, (dx, per stack (dk_dilated, db_d, dk_1x1, db_1, dk_skip, db_s)),
+    float32.  The chain is recomputed from x on the card; the kernels are
+    packed for the tensor cores, in both orientations, by the same call."""
+    return _run_backward(BWD_NAME, torch.float32, x, stacks, g)
+
+
+def fused_residual_stacks_vjp_bf16_cuda(x: torch.Tensor, stacks: Sequence[Stack],
+                                        g: torch.Tensor) -> Tuple[torch.Tensor, Grads]:
+    """The backward kernel's bf16 form: x, g (B, T, C) and every weight and
+    bias bf16 (a model's float32 parameters cast, as training in bf16 casts
+    them) -> dx and the gradients, bf16, each the float32 VJP rounded once."""
+    return _run_backward(BWD_NAME_BF16, BF16, x, stacks, g)
 
 
 def _pack(dilations, tensors) -> List[Stack]:
@@ -294,36 +334,48 @@ def _pack(dilations, tensors) -> List[Stack]:
 
 
 class _FusedResidualStacks(torch.autograd.Function):
-    """The chain on CUDA: forward kernel, backward kernel.  Saves x and the
-    weights; the backward recomputes the rest."""
+    """The chain on CUDA: forward kernel, backward kernel, both in x's type.
+    `values`: the chain's float32 operands, values only, which the forward
+    form reads (for bf16 x its pack rounds them as the bf16 casts in
+    `tensors` round them).  Saves x and `tensors` (bf16 for bf16 x); the
+    backward recomputes the rest."""
 
     @staticmethod
-    def forward(ctx, x, dilations, *tensors):
+    def forward(ctx, x, dilations, values, *tensors):
         ctx.dilations = dilations
         ctx.save_for_backward(x, *tensors)
-        return fused_residual_stacks_cuda(x, _pack(dilations, tensors))
+        form = fused_residual_stacks_bf16_cuda if x.dtype == BF16 else fused_residual_stacks_cuda
+        return form(x, values)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, *tensors = ctx.saved_tensors
-        dx, grads = fused_residual_stacks_vjp_cuda(x, _pack(ctx.dilations, tensors),
-                                                   g.contiguous())
-        return (dx, None, *[t for group in grads for t in group])
+        vjp = fused_residual_stacks_vjp_bf16_cuda if x.dtype == BF16 else \
+            fused_residual_stacks_vjp_cuda
+        dx, grads = vjp(x, _pack(ctx.dilations, tensors), g.to(x.dtype).contiguous())
+        return (dx, None, None, *[t for group in grads for t in group])
 
 
 def fused_residual_stacks(x: torch.Tensor, stacks: Sequence[Stack],
                           table: Optional[ChainTable] = None) -> torch.Tensor:
     """Apply a ResidualStack chain to x (B, T, C): the kernels on CUDA
-    tensors (with their own backward; the bf16 form, inference only, for
-    bf16 x), the plain version on CPU tensors.  `table`: the chain's
-    `ChainTable` of x's type, used where nothing needs a gradient."""
-    if x.is_cuda and x.dtype == torch.bfloat16:
-        return fused_residual_stacks_bf16_cuda(x, stacks, table)
+    tensors, the forms of x's type, with their own backward (for bf16 x the
+    weights are cast to bf16 for the backward form, and autograd carries
+    their gradients back through the casts); the plain version on CPU
+    tensors.  `table`: the chain's `ChainTable` of x's type, used where
+    nothing needs a gradient."""
     if x.is_cuda:
+        bf16 = x.dtype == BF16
         tensors = [w for s in stacks for w in s if isinstance(w, torch.Tensor)]
         if not (torch.is_grad_enabled() and any(t.requires_grad for t in [x] + tensors)):
-            return fused_residual_stacks_cuda(x, stacks, table)  # nothing to differentiate
+            # nothing to differentiate
+            return (fused_residual_stacks_bf16_cuda if bf16 else
+                    fused_residual_stacks_cuda)(x, stacks, table)
         dilations = tuple(int(s[2]) for s in stacks)
-        return _FusedResidualStacks.apply(x, dilations, *[w.contiguous() for w in tensors])
+        tensors = [w.contiguous() for w in tensors]
+        values = _pack(dilations, [w.detach().float() for w in tensors])
+        if bf16:
+            tensors = [w.to(BF16) for w in tensors]
+        return _FusedResidualStacks.apply(x, dilations, values, *tensors)
     return fused_residual_stacks_plain(x, stacks)

@@ -1,12 +1,13 @@
-"""The compute types of the port's inference, and bf16 rounding.
+"""The compute types of the port, and bf16 rounding.
 
 A model built with `compute_dtype=torch.bfloat16` keeps its parameters in
 float32 and computes in bf16, as the JAX package's `compute_dtype` does:
 activations, kernels and biases cast to bf16 before every conv, float32
-sums inside, the waveform float32.  Each kernel has a float32 form and a bf16
-form; the plain versions of the bf16 forms carry bf16 values in float32
-tensors and round with `fit` where the kernels (and the JAX package's Pallas
-bodies) round.
+sums inside, the waveform float32.  So does a trainer made with it (bf16
+mixed-precision training: float32 parameters, optimiser state and losses).
+Each kernel has a float32 form and a bf16 form; the plain versions of the
+bf16 forms carry bf16 values in float32 tensors and round with `fit` where
+the kernels (and the JAX package's Pallas bodies) round.
 """
 
 from __future__ import annotations

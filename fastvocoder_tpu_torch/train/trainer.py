@@ -34,6 +34,14 @@ step)` does; its impulse train comes from the f0 channel of the batch.
 The discriminator is the composite of `disc_cfg`, with the multi-period
 discriminator when `disc_cfg.use_mpd` or the model configuration's
 `use_mpd` asks for it.
+
+`compute_dtype=torch.bfloat16` is mixed-precision training, the JAX
+package's `make_trainer(compute_dtype=jnp.bfloat16)` (`--mixprecision`):
+generator and discriminator compute in bf16 (their convs, and the kernels'
+bf16 forms on the card, forward and backward), while the parameters, the
+optimisers' state, the clip and the losses stay float32 (every generator
+output reaches the MR-STFT loss as float32, the GAN losses upcast the
+features).  No loss scaling: bf16 has float32's exponent range.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from fastvocoder_tpu_torch.losses import (
 from fastvocoder_tpu_torch.models.factory import build_discriminator, build_generator
 from fastvocoder_tpu_torch.models.nhv import NOISE_SCALE
 from fastvocoder_tpu_torch.ops.pqmf import PQMF
+from fastvocoder_tpu_torch.ops.precision import check_compute_dtype
 
 Metrics = Dict[str, torch.Tensor]
 Noise = Callable[[int, Sequence[int]], torch.Tensor]
@@ -154,15 +163,19 @@ class Trainer:
     # parameter name, under the same two keys (for comparisons; costs a copy)
     keep_grads: bool = False
     last_grads: dict = dataclasses.field(default_factory=dict, compare=False)
+    compute_dtype: Optional[torch.dtype] = None  # None (float32) or torch.bfloat16
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh modules on the trainer's device, initialised from `seed`
-        (torch's default conv init, gains at the weights' norms)."""
+        (torch's default conv init, gains at the weights' norms), computing
+        in the trainer's `compute_dtype` with float32 parameters."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             generator = build_generator(self.cfg, weight_norm=True,
-                                        basis_signal_weight=self.basis_signal_weight)
-            discriminator = build_discriminator(self.disc_cfg)
+                                        basis_signal_weight=self.basis_signal_weight,
+                                        compute_dtype=self.compute_dtype)
+            discriminator = build_discriminator(self.disc_cfg,
+                                                compute_dtype=self.compute_dtype)
         generator.to(self.device).train()
         discriminator.to(self.device).train()
         return TrainState(
@@ -311,12 +324,15 @@ def make_trainer(
     keep_grads: bool = False,
     seed: int = 0,
     noise: Optional[Noise] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Trainer:
     """The trainer of `cfg` on `device`: the CUDA device by default, and a
     RuntimeError without one unless `device="cpu"` is asked for.  `noise`
     replaces NHV's draw of a step (`seeded_noise(seed, device)`); the
     discriminator takes the MPD where `cfg.use_mpd` or `disc_cfg.use_mpd`
-    says so."""
+    says so.  `compute_dtype=torch.bfloat16` trains in bf16 mixed precision
+    (the module docstring says what stays float32)."""
+    compute_dtype = check_compute_dtype(compute_dtype)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -338,4 +354,5 @@ def make_trainer(
         pqmf=PQMF().to(device) if cfg.multiband else None,
         noise=noise if noise is not None else seeded_noise(seed, device),
         basis_signal_weight=basis_signal_weight, keep_grads=keep_grads,
+        compute_dtype=compute_dtype,
     )

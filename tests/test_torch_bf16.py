@@ -243,9 +243,14 @@ def test_each_form_refuses_the_other_type_before_it_launches():
 
 
 def test_bf16_forms_are_inference_only():
+    """The bf16 forms' wrappers record no graph: given a tensor that wants a
+    gradient they refuse, before anything is built, and name the op whose
+    autograd path trains in bf16."""
     xb = torch.zeros(1, 8, 32, dtype=BF16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="bf16 forms of the kernels are inference only"):
+    with pytest.raises(NotImplementedError, match="records no graph.*`fused_residual_stacks`"):
         fr.fused_residual_stacks_bf16_cuda(xb, _tree(_chain(32, 1)[1], torch.from_numpy))
-    with pytest.raises(NotImplementedError, match="mixprecision"):
+    with pytest.raises(NotImplementedError, match="`fused_mrf_stage`"):
+        fm.fused_mrf_stage_bf16_cuda(xb, _tree(_branches(32, seed=2), torch.from_numpy))
+    with pytest.raises(NotImplementedError, match="`basis_decode`"):
         bd.basis_decode_bf16_cuda(torch.zeros(1, 4, 16, dtype=BF16, requires_grad=True),
                                   torch.ones(30, 16, dtype=BF16))

@@ -45,6 +45,27 @@ difference travels through the later convs: they are held within 1 % of the
 plain output's peak, and the share of elements more than one bf16 ulp apart
 is printed.  The decode rounds nothing after its float32 sums and keeps the
 float32 form's bound.
+
+The bf16 forms of the backward kernels (3b and 5b) widen their bf16
+inputs, run the float32 forms' passes and round every result to bf16
+once: each is held bit for bit against the float32 form on the widened
+inputs, rounded (the float32 forms' arithmetic is held above), and against
+its plain version run in float64 on the same bf16 inputs, element by
+element: every element of dx within one bf16 ulp of its own value plus
+1e-4 of dx's peak, of a dW or db within one ulp plus 2e-4 of its peak (the
+float32 forms' bounds without a flip), but for the elements a leaky-relu
+flip moves.  Those are found, not assumed: the plain version is run again
+with the slope of every pre-activation within KINK_BAND (1e-5) of its
+tensor's peak of the kink taken the other way, once each way, and an
+element may be farther only where those runs move it, by no more than
+they move it or than the float32 forms' bounds (5e-2 of dx's peak, 3e-2
+of a dW's or db's), whichever is larger; 90 % of dx's rows within the
+tight bound and every element of dx within 5e-2 of its peak, as the
+float32 forms.  Whether the other slope alone explains every element is
+printed (where many pre-activations lie near the kink their flips' moves
+may cancel in the two runs, and the bounds stand in).
+Their autograd paths, the differentiable bf16 decode and a bf16 training
+step close the section.
 """
 
 import os
@@ -528,8 +549,10 @@ def test_fused_mrf_kernels_at_the_large_model_and_the_wide_block(cuda, B, T, C):
 
 
 def test_fused_mrf_kernels_take_cached_swapped_weights(cuda):
-    """The wrappers build the (tap, c_out, c_in) copies themselves or take
-    the caller's: the same bits either way; copies of another shape raise."""
+    """The forward wrappers build the (tap, c_out, c_in) copies themselves
+    or take the caller's, under autograd too (where the backward kernel
+    swaps the kernels it is given itself): the same bits either way; copies
+    of another shape raise."""
     from fastvocoder_tpu_torch.ops.fused_mrf import swap_channels
 
     gen = torch.Generator().manual_seed(4)
@@ -538,11 +561,13 @@ def test_fused_mrf_kernels_take_cached_swapped_weights(cuda):
     blocks = _resblocks(32, cuda, seed=2)
     swapped = swap_channels(blocks)
     assert torch.equal(fused_mrf_stage_cuda(x, blocks), fused_mrf_stage_cuda(x, blocks, swapped))
-    dx1, g1 = fused_mrf_stage_vjp_cuda(x, blocks, g)
-    dx2, g2 = fused_mrf_stage_vjp_cuda(x, blocks, g, swapped)
-    assert torch.equal(dx1, dx2)
-    for a, b in zip([t for br in g1 for p in br for t in p], [t for br in g2 for p in br for t in p]):
-        assert torch.equal(a, b)
+    got = []
+    for sw in (None, swapped):
+        xg = x.clone().requires_grad_(True)
+        y = fused_mrf_stage(xg, blocks, sw)
+        y.backward(g)
+        got.append((y.detach(), xg.grad))
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1])
     with pytest.raises(ValueError, match="swapped"):
         fused_mrf_stage_cuda(x, blocks, swapped[:2])
     # and the checked table of both, where the caller keeps that too
@@ -921,12 +946,16 @@ def test_each_form_refuses_the_other_type_and_the_other_tables(cuda):
 
 
 def test_bf16_forms_are_inference_only(cuda):
+    """The bf16 forms' wrappers record no graph and refuse a tensor that
+    wants a gradient; training in bf16 goes through the ops' autograd paths
+    (below)."""
     from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage_bf16_cuda
+    from fastvocoder_tpu_torch.ops.fused_resstack import fused_residual_stacks_bf16_cuda
 
     x = torch.randn(1, 64, 32, device=cuda, dtype=BF16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused_residual_stacks(x, _stacks(32, cuda))
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(NotImplementedError, match="fused_residual_stacks"):
+        fused_residual_stacks_bf16_cuda(x, _stacks(32, cuda))
+    with pytest.raises(NotImplementedError, match="fused_mrf_stage"):
         fused_mrf_stage_bf16_cuda(x, _resblocks(32, cuda, 0))
 
 
@@ -972,3 +1001,282 @@ def test_bf16_generators_run_the_bf16_forms_and_keep_float32_weights(cuda, famil
         return d.double().pow(2).mean().sqrt().item()
 
     assert rms(got - want) <= 2 * rms(out[("cpu", BF16)] - out[("cpu", None)])
+
+
+# ---- the bf16 forms of the backward kernels (3b, 5b) and bf16 training ----
+
+
+KINK_BAND = 1e-5  # of a pre-activation's peak: where float32 rounding may flip its slope
+
+
+def _vjp_switching_at(vjp_plain, args, shift, near):
+    """vjp_plain(*args), flattened, with every leaky-relu's derivative
+    switching to 1 at `shift` KINK_BAND of its input's peak instead of at 0
+    (the forward unchanged): -1 takes the slope of 1 for every input within
+    the band, +1 the leaky slope.  `near`, if a list, gets per leaky-relu
+    the number of its inputs within the band."""
+    from fastvocoder_tpu_torch.ops import fused_mrf as fm
+    from fastvocoder_tpu_torch.ops import fused_resstack as fr
+
+    plain_leaky = fr.leaky_relu
+
+    def leaky(v, slope=fr.SLOPE):
+        y = plain_leaky(v, slope)
+        if not v.requires_grad:
+            return y
+        d = v.detach()
+        band = KINK_BAND * d.abs().max()
+        if near is not None:
+            near.append(int((d.abs() <= band).sum()))
+        slopes = torch.full_like(d, slope).masked_fill_(d >= shift * band, 1.0)
+        return y.detach() + (v - d) * slopes  # the value y, the derivative `slopes`
+
+    saved = fr.leaky_relu, fm.leaky_relu
+    fr.leaky_relu = fm.leaky_relu = leaky
+    try:
+        dx, grads = vjp_plain(*args)
+    finally:
+        fr.leaky_relu, fm.leaky_relu = saved
+    return [dx] + list(_flat(grads))
+
+
+def _assert_bf16_grads_close(dx, grads, vjp_plain, args64):
+    """A bf16 backward form's dx and gradients against its plain version
+    run in float64 on the same bf16 inputs, `args64` (the module
+    docstring's rule)."""
+    want = _vjp_switching_at(vjp_plain, args64, 0, None)  # the plain version's own slopes
+    got = [dx] + list(grads)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == BF16 and a.shape == b.shape and a.is_contiguous()
+    tols = [1e-4] + [2e-4] * (len(got) - 1)
+    caps = [5e-2] + [3e-2] * (len(got) - 1)  # the float32 forms' bounds where a flip acts
+    peaks = [max(w.abs().max().item(), 1e-30) for w in want]
+    # each element's error beyond one bf16 ulp and its tolerance
+    errs = [(a.double() - w).abs() - _bf16_ulp(torch.maximum(a.double().abs(), w.abs()))
+            - tol * peak for a, w, tol, peak in zip(got, want, tols, peaks)]
+    rows_ok = (errs[0] <= 0).all(dim=2).float().mean().item()
+    assert rows_ok >= 0.9
+    assert (dx.double() - want[0]).abs().max().item() <= caps[0] * peaks[0]
+    if all(e.max().item() <= 0 for e in errs):
+        return
+    # the float32 recompute may have put a pre-activation within its
+    # rounding of the kink on the other side: an element farther must be
+    # one that taking the other slope there moves, and by no more than it
+    # moves it or than the float32 forms' bound
+    near = []
+    hi = _vjp_switching_at(vjp_plain, args64, -1, near)
+    lo = _vjp_switching_at(vjp_plain, args64, 1, None)
+    reach = [(h - w).abs() + (lo_ - w).abs() for h, lo_, w in zip(hi, lo, want)]
+    moved = [r > 1e-6 * peak for r, peak in zip(reach, peaks)]
+    explained = all(bool((e <= r).all()) for e, r in zip(errs, reach))
+    print(f"beyond one bf16 ulp: dx {errs[0].max().item() / peaks[0]:.3e}, dW/db "
+          f"{max(e.max().item() / p for e, p in zip(errs[1:], peaks[1:])):.3e} of the peak, "
+          f"{rows_ok:.4f} of dx's rows within; {sum(near)} pre-activations within {KINK_BAND} of "
+          f"their peak of the kink, whose other slope moves {moved[0].any(dim=2).float().mean():.4f}"
+          f" of dx's rows and explains every element: {explained}")
+    for e, r, m, cap, peak in zip(errs, reach, moved, caps, peaks):
+        assert bool((e <= torch.where(m, r.clamp_min(cap * peak), 0.0)).all())
+
+
+def _bf16_inputs(B, T, C, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = (0.3 * torch.randn(B, T, C, generator=gen)).to(BF16)
+    return x, torch.randn(B, T, C, generator=gen).to(BF16)
+
+
+def _to(tree, device, dtype=None):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device=device, dtype=dtype or tree.dtype)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(t, device, dtype) for t in tree)
+    return tree
+
+
+def _check_bwd_bf16(cuda, name, vjp_bf16, vjp_f32, vjp_plain, B, T, tree, seed):
+    """The bf16 backward form `name` on seeded bf16 inputs: its launch, the
+    float32 form's result on the widened inputs rounded once, bit for bit,
+    and the plain version in float64 (the module docstring's rule)."""
+    C = next(iter(_flat(tree))).shape[1]
+    x, g = _to(_bf16_inputs(B, T, C, seed), cuda)
+    tree = _to(tree, cuda, BF16)
+    before = dict(_build.launch_counts)
+    dx, grads = vjp_bf16(x, tree, g)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before.get(name, 0) + 1
+    assert _build.launch_counts[name[:-5]] == before.get(name[:-5], 0)
+    grads = list(_flat(grads))
+    dx32, grads32 = vjp_f32(x.float(), _map(tree, lambda t: t.float()), g.float())
+    assert torch.equal(dx, dx32.to(BF16))
+    assert all(torch.equal(a, b.to(BF16)) for a, b in zip(grads, _flat(grads32)))
+    _assert_bf16_grads_close(dx, grads, vjp_plain, _f64((x, tree, g)))
+
+
+def _check_chain_bwd_bf16(cuda, B, T, stacks, seed):
+    from fastvocoder_tpu_torch.ops.fused_resstack import fused_residual_stacks_vjp_bf16_cuda
+
+    _check_bwd_bf16(cuda, "fused_resstack_bwd_bf16", fused_residual_stacks_vjp_bf16_cuda,
+                    fused_residual_stacks_vjp_cuda, fused_residual_stacks_vjp_plain, B, T, stacks,
+                    seed)
+
+
+def _check_mrf_bwd_bf16(cuda, B, T, blocks, seed):
+    from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage_vjp_bf16_cuda
+
+    _check_bwd_bf16(cuda, "fused_mrf_bwd_bf16", fused_mrf_stage_vjp_bf16_cuda,
+                    fused_mrf_stage_vjp_cuda, fused_mrf_stage_vjp_plain, B, T, blocks, seed)
+
+
+@pytest.mark.parametrize("B,T,C", [(1, 208, 256), (4, 227, 256), (1, 10, 256), (2, 33, 256),
+                                   (1, 2240, 256), (8, 560, 256), (4, 97, 128), (1, 300, 64),
+                                   (2, 500, 32)])
+def test_fused_resstack_bwd_bf16_kernel_matches_plain_vjp(cuda, B, T, C):
+    _check_chain_bwd_bf16(cuda, B, T, _stacks(C, cuda, seed=T), T + C)
+
+
+@pytest.mark.parametrize("B,T,C", _chain_edge_cases(10))
+def test_fused_resstack_bwd_bf16_kernel_matches_plain_vjp_at_tile_edges(cuda, B, T, C):
+    _check_chain_bwd_bf16(cuda, B, T, _stacks(C, cuda, seed=C + 1), T + C + B)
+
+
+@pytest.mark.parametrize("stage,B,T", [(0, 2, 1400), (1, 2, 8400), (2, 1, 16800), (3, 1, 33600)])
+def test_fused_resstack_bwd_bf16_kernel_matches_plain_vjp_melgan_stages(cuda, melgan_original,
+                                                                        stage, B, T):
+    stacks = [m.chain_operands() for m in melgan_original.stacks[stage]]
+    _check_chain_bwd_bf16(cuda, B, T, stacks, 10 * stage + B)
+
+
+@pytest.mark.parametrize("B,T,C", [(1, 1, 128), (2, 7, 64), (1, 50, 32), (4, 50, 16),
+                                   (1, 1120, 128), (4, 333, 64), (1, 1700, 32), (4, 1100, 16),
+                                   (2, 700, 16), (1, 300, 256)])
+def test_fused_mrf_bwd_bf16_kernel_matches_plain_vjp(cuda, B, T, C):
+    _check_mrf_bwd_bf16(cuda, B, T, _resblocks(C, cuda, seed=C), T + C)
+
+
+@pytest.mark.parametrize("B,T,C", _edge_cases())
+def test_fused_mrf_bwd_bf16_kernel_matches_plain_vjp_at_tile_edges(cuda, B, T, C):
+    _check_mrf_bwd_bf16(cuda, B, T, _resblocks(C, cuda, seed=C + 1), T + C)
+
+
+# HiFiGAN light's four training stages (crops of 140 frames, batch 2)
+@pytest.mark.parametrize("stage,T", [(0, 1120), (1, 8960), (2, 17920), (3, 35840)])
+def test_fused_mrf_bwd_bf16_kernel_matches_plain_vjp_release_weights(cuda, hifigan_light, stage,
+                                                                     T):
+    blocks = [b.mrf_operands() for b in hifigan_light.mrfs[stage]]
+    _check_mrf_bwd_bf16(cuda, 2, T, blocks, 20 + stage)
+
+
+def _map(tree, fn):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(t, fn) for t in tree)
+    return tree
+
+
+def _flat(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            yield from _flat(t)
+
+
+@pytest.mark.parametrize("op", ["chain", "mrf"])
+def test_bf16_autograd_runs_both_bf16_forms_into_float32_weights(cuda, op):
+    """bf16 x and float32 weights (non-leaf products, as weight norm makes
+    them) through `fused_residual_stacks` / `fused_mrf_stage` under
+    autograd: the bf16 forward and backward forms launch, no float32 form;
+    x's gradient comes back bf16, the weights' float32 (autograd's cast
+    backward), and both are the plain bf16 backward's."""
+    if op == "chain":
+        name, fwd = "fused_resstack", fused_residual_stacks
+        tree, vjp, T = _stacks(256, cuda, seed=5), fused_residual_stacks_vjp_plain, 60
+    else:
+        name, fwd = "fused_mrf", fused_mrf_stage
+        tree, vjp, T = _resblocks(32, cuda, seed=5), fused_mrf_stage_vjp_plain, 60
+    leaves = _map(tree, lambda t: t.clone().requires_grad_())
+    ops = _map(leaves, lambda t: t * 1.5)
+    leaves = list(_flat(leaves))
+    C = leaves[0].shape[1]
+    x, cot = _to(_bf16_inputs(2, T, C, 11), cuda)
+    x.requires_grad_()
+    before = dict(_build.launch_counts)
+    y = fwd(x, ops)
+    got = torch.autograd.grad(y, [x] + leaves, cot)
+    torch.cuda.synchronize()
+    for form, want in ((name, 0), (name + "_bwd", 0), (name + "_bf16", 1),
+                       (name + "_bwd_bf16", 1)):
+        assert _build.launch_counts[form] - before.get(form, 0) == want, form
+    assert y.dtype == BF16 and got[0].dtype == BF16
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    # d leaf = 1.5 d product, exact: the product's bf16 gradient, widened
+    _assert_bf16_grads_close(got[0], [(g / 1.5).to(BF16) for g in got[1:]], vjp,
+                             _f64((x.detach(), _map(ops, lambda t: t.detach().to(BF16)), cot)))
+
+
+def test_basis_decode_bf16_kernel_gradient_is_plain_vjp(cuda):
+    """The bf16 decode under autograd: kernel 1b forward, the plain VJP in
+    bf16 backward; the float32 basis's gradient comes through its cast."""
+    from fastvocoder_tpu_torch.ops.basis_decode import basis_decode_vjp
+
+    g = torch.Generator().manual_seed(3)
+    w = torch.relu(torch.randn(2, 40, 256, generator=g)).to(cuda).to(BF16).requires_grad_()
+    basis = (0.1 * torch.randn(30, 256, generator=g)).to(cuda).requires_grad_()
+    cot = torch.randn(2, 41 * 15, generator=g).to(cuda)
+    before = dict(_build.launch_counts)
+    dw, db = torch.autograd.grad(basis_decode(w, basis.to(BF16)), (w, basis), cot)
+    assert _build.launch_counts["basis_decode_bf16"] == before.get("basis_decode_bf16", 0) + 1
+    assert _build.launch_counts["basis_decode"] == before.get("basis_decode", 0)
+    want_w, want_b = basis_decode_vjp(w.detach(), basis.detach().to(BF16), cot)
+    assert dw.dtype == BF16 and db.dtype == torch.float32
+    assert torch.equal(dw, want_w) and torch.equal(db, want_b.float())
+
+
+@pytest.mark.parametrize("family", ["basis-melgan", "hifigan", "melgan"])
+def test_bf16_training_step_runs_the_bf16_forms_and_keeps_float32_state(cuda, family):
+    """One narrow GAN step with compute_dtype bf16 on the card: the bf16
+    forms of the family's kernels, forward and backward, and no float32
+    form; finite losses; float32 gradients, parameters and Adam state."""
+    from fastvocoder_tpu_torch import hparams as thp
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    archs = {"hifigan": thp.HiFiGANConfig(resblock_kernel_sizes=(3, 5),
+                                          upsample_rates=(8, 5, 3, 2),
+                                          upsample_initial_channel=256,
+                                          upsample_kernel_sizes=(16, 10, 6, 4),
+                                          resblock_dilation_sizes=((1, 3), (1, 3))),
+             "basis-melgan": thp.BasisMelGANConfig(out_channels=32, channels=(32, 32, 32)),
+             "melgan": thp.MelGANConfig(channels=(64, 32, 32, 32, 32),
+                                        upsample_scales=(10, 6, 2, 2))}
+    cfg = thp.ModelConfig(family, archs[family], lambda_stft=1.0)
+    basis = None
+    if family == "basis-melgan":
+        basis = 0.1 * np.random.default_rng(3).standard_normal((30, 32)).astype(np.float32)
+    tr = make_trainer(cfg, hp=thp.HP.replace(fixed_length=20), basis_signal_weight=basis,
+                      disc_cfg=thp.TINY_DISC, keep_grads=True, compute_dtype=BF16)
+    state = tr.init_state(0)
+    rng = np.random.default_rng(4)
+    mel = torch.from_numpy(rng.standard_normal((4, 20, 80)).astype(np.float32)).to(cuda)
+    wav = torch.from_numpy(0.1 * rng.standard_normal((4, 4800)).astype(np.float32)).to(cuda)
+    weight = None
+    if family == "basis-melgan":
+        weight = torch.from_numpy(rng.random((4, 320, 32)).astype(np.float32)).to(cuda)
+    kernels = {"hifigan": ("fused_mrf", "fused_mrf_bwd"),
+               "basis-melgan": ("fused_resstack", "fused_resstack_bwd", "basis_decode"),
+               "melgan": ("fused_resstack", "fused_resstack_bwd")}[family]
+    before = dict(_build.launch_counts)
+    _, metrics = tr.pre_adv_step(state, mel, wav, weight)
+    _, gan = tr.gan_step(state, mel, wav, weight)
+    torch.cuda.synchronize()
+    for k in kernels:
+        assert _build.launch_counts[k + "_bf16"] > before.get(k + "_bf16", 0), k
+        assert _build.launch_counts[k] == before.get(k, 0), k
+    assert all(np.isfinite(float(v)) for v in list(metrics.values()) + list(gan.values()))
+    for who, module, opt in (("generator", state.generator, state.gen_opt),
+                             ("discriminator", state.discriminator, state.disc_opt)):
+        assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+                   for g in tr.last_grads[who].values())
+        assert all(p.dtype == torch.float32 for p in module.parameters())
+        assert all(v.dtype == torch.float32 for st in opt.state.values() for v in st.values()
+                   if isinstance(v, torch.Tensor) and v.dim() > 0)
