@@ -80,6 +80,28 @@ the data pipeline reads:
     beside float32 of the same call, and a profile of one bf16 HiFiGAN GAN
     step.
 
+Then the training runtime (`bin/train.py`'s runtime flags), at the same
+geometry on the same corpus:
+
+  * Basis-MelGAN light: `run_train --device_cache 1` for 4 pre-adversarial
+    steps (kernels 1, 2, 3), its first batch bit for bit a `DeviceCorpus`
+    built on the CPU from the same seed; ms a step of the three input paths
+    on one trainer (the corpus on the card; host crops through
+    `prefetch_to_device`, float16 target; host crops copied in the loop's
+    own thread, float32 target, as the loop did before the runtime), and the
+    host-to-device bytes of one profiled step of each;
+  * HiFiGAN light: one GAN step with remat against one without (same
+    weights and batch; kernel 4 launched one generator pass more), peak
+    memory and ms a step of both;
+  * HiFiGAN light through `run_train --remat 1 --fused_train 1` with a
+    wall-clock deadline: 2 steps, their checkpoint (reference layout,
+    written by the asynchronous writer) resumed with `--restore_step 2` for
+    2 more, held against an unbroken 4-step run, the checkpoint in
+    `Synthesizer` on the card against the CPU; the loop's stall per
+    checkpoint save (the asynchronous writer's snapshot against a
+    synchronous save); 2 steps with `--mixprecision 1 --remat 1
+    --device_cache 0`.
+
 Launch counts are zeroed before each path and read right after it; the run
 fails if a kernel of the path was not launched.  A profile of one batch-1
 inference of each of the first two models closes the run (MelGAN's and
@@ -183,6 +205,13 @@ BF16_BWD_ROWS, KINK_BAND = 0.9, 1e-5
 # of the generator's or the discriminator's gradients), on BF16_CPU_BATCH
 # crops (a CPU step of 32 takes minutes in bf16)
 BF16_STEP_RATIO, BF16_CPU_BATCH = 2.0, 4
+# the training runtime on the card: a remat GAN step against the standard
+# one from the same weights on the same batch (the same kernels on the same
+# inputs; cuDNN's algorithm choice is the only source of difference): losses
+# within REMAT_LOSS_RTOL, gradients within REMAT_GRAD_TOL of their peaks; a
+# run resumed from its checkpoint against the unbroken run: losses within
+# RESUME_RTOL
+REMAT_LOSS_RTOL, REMAT_GRAD_TOL, RESUME_RTOL = 1e-5, 1e-4, 1e-5
 
 
 def log(msg: str) -> None:
@@ -2199,6 +2228,385 @@ def time_steps(torch, cfg, basis, step: str, batch, n: int = 5, profile: bool = 
     return ms
 
 
+def h2d_bytes(torch, fn) -> int:
+    """Host-to-device bytes of one call of fn: the `Memcpy HtoD` events of a
+    torch.profiler trace (CUPTI), summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return int(sum(e.get("args", {}).get("bytes", 0) for e in events
+                   if "HtoD" in str(e.get("name", ""))))
+
+
+def runtime_argv(model: str, conf: str, index, run_dir: str, steps: int, start_steps: int,
+                 basis_dir: str = "", *flags) -> list:
+    """`run_train`'s arguments for the runtime phase: no validation pass
+    (valid_step past the run), a checkpoint at `steps`."""
+    argv = ["--audio_index_path", index[0], "--mel_index_path", index[1],
+            "--audio_index_valid_path", index[0], "--mel_index_valid_path", index[1],
+            "--model_name", model, "--config", conf, "--run_dir", run_dir, "--seed", "0",
+            "--batch_size", str(TRAIN_BATCH), "--batch_expand_size", "1",
+            "--fixed_length", str(TRAIN_FRAMES), "--max_steps", str(steps),
+            "--save_step", str(steps), "--valid_step", "100000",
+            "--discriminator_train_start_steps", str(start_steps), "--stall_exit_s", "600"]
+    if basis_dir:
+        argv += ["--basis_dataset_path", basis_dir]
+    return argv + [str(f) for f in flags]
+
+
+def input_paths_phase(torch, count_path, corpus: str, index, basis_cfg, basis) -> dict:
+    """Basis-MelGAN light's training input on the card: `run_train
+    --device_cache 1` for 4 pre-adversarial steps (kernels 1, 2, 3), its
+    first batch held bit for bit against a `DeviceCorpus` built on the CPU
+    from the same seed; then ms a step of the three input paths on one
+    trainer (the device corpus, the host path through `prefetch_to_device`
+    with the float16 target, and host crops copied in the loop's own thread
+    with the float32 target, as the loop did before the runtime), and the
+    host-to-device bytes of one profiled step of each."""
+    from fastvocoder_tpu_torch.bin.train import run_train
+    from fastvocoder_tpu_torch.data.device_cache import DeviceCorpus
+    from fastvocoder_tpu_torch.train import trainer as tr
+
+    log(f"[basis-melgan: run_train --device_cache 1, 4 steps of {TRAIN_BATCH} x {TRAIN_FRAMES} "
+        f"frames, the corpus on the card]")
+    first = []
+    pre_adv = tr.Trainer.pre_adv_step
+
+    def spy(self, state, mel, wav, weight=None):
+        if not first:
+            first.append({"mel": mel.clone(), "wav": wav.clone(), "weight": weight.clone()})
+        return pre_adv(self, state, mel, wav, weight)
+
+    tr.Trainer.pre_adv_step = spy
+    try:
+        t0 = time.perf_counter()
+        state = count_path("basis-melgan run_train --device_cache 1", lambda: run_train(
+            runtime_argv("basis-melgan", CONF, index, os.path.join(corpus, "run_cache"), 4, 4,
+                         corpus, "--device_cache", 1)),
+            ("basis_decode", "fused_resstack", "fused_resstack_bwd"))
+    finally:
+        tr.Trainer.pre_adv_step = pre_adv
+    log(f"  4 steps and a checkpoint in {time.perf_counter() - t0:.2f} s: "
+        + "; ".join(f"step {s_} " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items()))
+                    for s_, m in state.history))
+    if [s_ for s_, _ in state.history] != [1, 2, 3, 4] or not all(
+            np.isfinite(v) for _, m in state.history for v in m.values()):
+        raise AssertionError("the device-cache run did not take 4 finite steps")
+    hp, ds = basis_input_setup(corpus, index, basis_cfg)
+    cpu_first = next(DeviceCorpus(ds, hp=hp, L=basis_cfg.arch.L, device="cpu",
+                                  log=lambda m: None).batches(seed=0, weight_until=4))
+    for k, want in cpu_first.items():
+        got = first[0][k].cpu()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"the run's first batch's {k} is not the CPU DeviceCorpus's")
+    log(f"  the run's first batch equals a CPU DeviceCorpus's bit for bit: "
+        + ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype).split('.')[-1]}"
+                    for k, v in cpu_first.items()))
+
+    log("[basis-melgan: ms a step by input path, one trainer, pre-adversarial steps]")
+    out = {}
+    step_on, paths = input_paths(torch, corpus, index, basis_cfg, basis)
+    for name, (what, batches) in paths.items():
+        step = lambda: step_on(next(batches))
+        n = 6
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n - 1):
+            step()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / (n - 1)
+        batches.close()
+        log(f"  {what}: {out[name]:.2f} ms a step (steps 2..{n}, one window)")
+    t0 = time.perf_counter()
+    n = 8
+    for _, b in zip(range(n), host_batches(corpus, index, basis_cfg, f16=True)):
+        pass
+    log(f"  host ms a batch (crop, collate, float16): {(time.perf_counter() - t0) * 1e3 / n:.2f}")
+
+    # Earlier profiles in this process can leave CUPTI's copy records out of
+    # a later trace, so the bytes are read in a process of their own.
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--h2d", corpus, *index],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        raise AssertionError(f"the host-to-device profile failed:\n{child.stderr[-4000:]}")
+    nbytes = json.loads(child.stdout.strip().splitlines()[-1])
+    for name, b in nbytes.items():
+        log(f"  {name}: host-to-device "
+            + (f"{b} bytes in one profiled step" if b else "not measured (no copy in the trace)"))
+    return {name: (ms, nbytes[name]) for name, ms in out.items()}
+
+
+def basis_input_setup(corpus: str, index, basis_cfg):
+    """(hp, dataset) of the Basis-MelGAN runtime phase: the reference's batch
+    of TRAIN_BATCH x TRAIN_FRAMES over the seeded corpus's weight targets."""
+    from fastvocoder_tpu_torch.data import dataset as d
+    from fastvocoder_tpu_torch.hparams import HP
+
+    hp = HP.replace(batch_size=TRAIN_BATCH, batch_expand_size=1, fixed_length=TRAIN_FRAMES)
+    ds = d.WeightDataset.from_index_files(index[0], index[1], basis_cfg.arch.L,
+                                          os.path.join(corpus, "weight"), hp=hp)
+    return hp, ds
+
+
+def host_batches(corpus: str, index, basis_cfg, f16: bool):
+    """The host path's batches (crop and collate in numpy), the weight target
+    float16 as `run_train` sends it, or float32 as the loop did before."""
+    from fastvocoder_tpu_torch.data import dataset as d
+
+    hp, ds = basis_input_setup(corpus, index, basis_cfg)
+    for epoch in range(hp.epochs):
+        for b in d.batch_iterator(ds, hp, seed=0, epoch=epoch, L=basis_cfg.arch.L):
+            yield dict(b, weight=b["weight"].astype(np.float16)) if f16 else b
+
+
+def input_paths(torch, corpus: str, index, basis_cfg, basis):
+    """(step, {name: (what, batches)}): Basis-MelGAN light's pre-adversarial
+    step on one trainer (seed 0), `step(batch)`, and the batches of each
+    input path: the corpus on the card (`DeviceCorpus`), the host path
+    through `prefetch_to_device`, and host crops copied in the loop's own
+    thread with the float32 target, as the loop did before the runtime."""
+    from fastvocoder_tpu_torch.data import dataset as d
+    from fastvocoder_tpu_torch.data.device_cache import DeviceCorpus
+    from fastvocoder_tpu_torch.runtime import prefetch_to_device
+    from fastvocoder_tpu_torch.train import trainer as tr
+
+    hp, ds = basis_input_setup(corpus, index, basis_cfg)
+    trainer = tr.make_trainer(basis_cfg, hp=hp, basis_signal_weight=basis)
+    state = trainer.init_state(0)
+    t0 = time.perf_counter()
+    corpus_dev = DeviceCorpus(ds, hp=hp, L=basis_cfg.arch.L, log=log)
+    log(f"  staged in {time.perf_counter() - t0:.2f} s")
+    cuda = torch.device("cuda")
+    return (lambda batch: trainer.pre_adv_step(state, **batch)), {
+        "device corpus": ("device corpus (--device_cache 1)",
+                          corpus_dev.batches(seed=0, weight_until=10 ** 9)),
+        "host prefetch": ("host crops, prefetch_to_device, float16 target (--device_cache 0)",
+                          prefetch_to_device(host_batches(corpus, index, basis_cfg, True), cuda)),
+        "host in the loop": ("host crops copied in the loop's thread, float32 target",
+                             (d.to_device(b, cuda)
+                              for b in host_batches(corpus, index, basis_cfg, False))),
+    }
+
+
+def h2d_child(corpus: str, audio_index: str, mel_index: str) -> int:
+    """`chip_smoke.py --h2d <corpus> <audio index> <mel index>`: the
+    host-to-device bytes of one profiled step of each input path (after one
+    unprofiled step), printed as one JSON object on the last line."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from fastvocoder_tpu_torch.hparams import load_model_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    basis_cfg = load_model_config("basis-melgan", CONF)
+    basis = np.load(os.path.join(corpus, "basis_signal_weight.npy")).astype(np.float32)
+    out = {}
+    step_on, paths = input_paths(torch, corpus, (audio_index, mel_index), basis_cfg, basis)
+    for name, (_, batches) in paths.items():
+        step = lambda: step_on(next(batches))
+        step()
+        torch.cuda.synchronize()
+        out[name] = h2d_bytes(torch, step)
+        batches.close()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def remat_phase(torch, count_path, hifi_cfg, batch) -> dict:
+    """HiFiGAN light, one GAN step with remat against one without, from the
+    same weights on the same batch, with cuDNN held to deterministic
+    algorithms (its nondeterministic ones move a step's gradients between
+    two runs of the same step, printed beside): losses within
+    REMAT_LOSS_RTOL, every gradient within REMAT_GRAD_TOL of its peak,
+    kernel 4 launched one generator pass (4 stages) more.  Then, with
+    cuDNN's default choice, peak memory (first step) and ms a step (median
+    of steps 2..4) of both."""
+    from fastvocoder_tpu_torch.ops import _build
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    log("[hifigan: one gan_step with remat against one without, same weights and batch]")
+    args = [torch.from_numpy(batch[k]).cuda() for k in ("mel", "wav")]
+
+    def one_step(remat: bool, name: str):
+        trainer = make_trainer(hifi_cfg, keep_grads=True, remat=remat)
+        state = trainer.init_state(0)
+        _, metrics = count_path(name, lambda: trainer.gan_step(state, *args),
+                                ("fused_mrf", "fused_mrf_bwd"))
+        return ({k: float(v) for k, v in metrics.items()},
+                {who: {n: g_.cpu() for n, g_ in grads.items()}
+                 for who, grads in trainer.last_grads.items()},
+                _build.launch_counts["fused_mrf"])
+
+    def worst(got, want):
+        out = {}
+        for who, w in want.items():
+            out[who] = 0.0, ""
+            for name, t in w.items():
+                peak = t.abs().max().item()
+                sibling = name.rsplit(".", 1)[0] + ".weight"
+                if sibling in w:
+                    peak = max(peak, w[sibling].abs().max().item())
+                rel = (got[who][name] - t).abs().max().item() / max(peak, 1e-30)
+                out[who] = max(out[who], (rel, name))
+        return out
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        m0, g0, n0 = one_step(False, "hifigan gan_step, cuDNN deterministic")
+        m1, g1, n1 = one_step(True, "hifigan gan_step remat, cuDNN deterministic")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    _, g_again, _ = one_step(False, "hifigan gan_step, cuDNN's default")
+    _, g_twice, _ = one_step(False, "hifigan gan_step again, cuDNN's default")
+    log(f"  kernel 4 launches: {n0} without, {n1} with remat (+{n1 - n0}, one generator pass "
+        f"of 4 stages)")
+    if n1 - n0 != 4:
+        raise AssertionError(f"remat launched kernel 4 {n1 - n0} more times, want 4")
+    for k, want in m0.items():
+        rel = abs(m1[k] - want) / max(abs(want), 1e-30)
+        log(f"  {k}: {m1[k]:.7f} with, {want:.7f} without (relative {rel:.1e}, tol "
+            f"{REMAT_LOSS_RTOL:.0e})")
+        if not rel <= REMAT_LOSS_RTOL:
+            raise AssertionError(f"remat moved {k}")
+    noise = worst(g_twice, g_again)
+    for who, (rel, name) in worst(g1, g0).items():
+        log(f"  {who} gradients with remat against without (cuDNN deterministic): worst "
+            f"{rel:.2e} of its peak ({name}), tol {REMAT_GRAD_TOL:.0e}; two runs of the step "
+            f"without remat, cuDNN's default: {noise[who][0]:.2e} ({noise[who][1]})")
+        if not rel <= REMAT_GRAD_TOL:
+            raise AssertionError(f"remat moved the {who} gradients")
+
+    out = {}
+    for remat in (False, True):
+        trainer = make_trainer(hifi_cfg, remat=remat)
+        state = trainer.init_state(0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer.gan_step(state, *args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            trainer.gan_step(state, *args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[remat] = peak / 2**30, float(np.median(times[1:]))
+        log(f"  remat={remat}: peak device memory {out[remat][0]:.3f} GiB (first step), "
+            f"{out[remat][1]:.2f} ms a step (median of steps 3..5: "
+            f"{', '.join(f'{t:.1f}' for t in times[1:])})")
+        del trainer, state
+    return {"peak GiB": (out[False][0], out[True][0]), "ms": (out[False][1], out[True][1])}
+
+
+def resume_phase(torch, count_path, Synthesizer, corpus: str, index) -> dict:
+    """HiFiGAN light through `run_train` with the runtime's flags (`--remat
+    1 --fused_train 1 --stall_exit_s 600`, a wall-clock deadline an hour
+    on): 2 steps written by the asynchronous writer in the reference layout,
+    a second run from the run directory with `--restore_step 2` for 2 more
+    (GAN steps), its losses those of an unbroken 4-step run within
+    RESUME_RTOL; the checkpoint in `Synthesizer` on the card against the
+    CPU; the loop's stall per checkpoint save (`save_stall`, returned); then
+    2 steps in bf16 (`--mixprecision 1 --remat 1 --device_cache 0`)."""
+    from fastvocoder_tpu_torch.bin.train import run_train
+    from fastvocoder_tpu_torch.checkpoint import checkpoint_format
+    from fastvocoder_tpu_torch.train.checkpoint import latest_checkpoint
+
+    log("[hifigan: run_train --remat 1 --fused_train 1, 2 + 2 steps resumed against 4 unbroken]")
+    os.environ["TRAIN_DEADLINE_EPOCH"] = str(time.time() + 3600)
+    flags = ("--remat", 1, "--fused_train", 1)
+    kernels = ("fused_mrf", "fused_mrf_bwd")
+    try:
+        whole = count_path("hifigan run_train 4 steps", lambda: run_train(runtime_argv(
+            "hifigan", HIFI_CONF, index, os.path.join(corpus, "whole"), 4, 2, "", *flags)),
+            kernels)
+        cut = os.path.join(corpus, "cut")
+        count_path("hifigan run_train 2 steps", lambda: run_train(runtime_argv(
+            "hifigan", HIFI_CONF, index, cut, 2, 2, "", *flags)), kernels)
+        ckpt = latest_checkpoint(cut)
+        log(f"  {os.path.basename(ckpt)}: format {checkpoint_format(ckpt)!r}")
+        if checkpoint_format(ckpt) != "reference":
+            raise AssertionError("the run's checkpoint is not in the reference layout")
+        resumed = count_path("hifigan run_train resumed", lambda: run_train(runtime_argv(
+            "hifigan", HIFI_CONF, index, cut, 4, 2, "", *flags, "--checkpoint_path", cut,
+            "--restore_step", 2)), kernels)
+    finally:
+        del os.environ["TRAIN_DEADLINE_EPOCH"]
+    want = dict(whole.history)
+    if [s_ for s_, _ in resumed.history] != [3, 4]:
+        raise AssertionError(f"the resumed run logged {[s_ for s_, _ in resumed.history]}")
+    for step, m in resumed.history:
+        for k, v in m.items():
+            rel = abs(v - want[step][k]) / max(abs(want[step][k]), 1e-30)
+            log(f"  step {step} {k}: resumed {v:.7f}, unbroken {want[step][k]:.7f} "
+                f"(relative {rel:.1e}, tol {RESUME_RTOL:.0e})")
+            if not rel <= RESUME_RTOL:
+                raise AssertionError(f"the resumed run's step {step} {k} is not the unbroken run's")
+    final = latest_checkpoint(cut)  # the resumed run's tail
+    mel = mel_like_bench(100, 4)
+    card = Synthesizer(final, HIFI_CONF, "hifigan")._run(mel)
+    cpu = Synthesizer(final, HIFI_CONF, "hifigan", device="cpu")._run(mel)
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    log(f"  Synthesizer on the card from the resumed run's {os.path.basename(final)}: "
+        f"{card.shape[0]} samples, "
+        f"{err:.2e} of the CPU's peak off (tol {MODEL_TOL:.0e})")
+    if not (card.shape == cpu.shape and np.all(np.isfinite(card)) and err <= MODEL_TOL):
+        raise AssertionError("the trained checkpoint does not synthesize on the card as on the CPU")
+    saves = save_stall(torch, resumed, corpus)
+
+    log("[hifigan: run_train --mixprecision 1 --remat 1 --device_cache 0, 2 steps]")
+    bf16 = count_path("hifigan run_train bf16 remat host path", lambda: run_train(runtime_argv(
+        "hifigan", HIFI_CONF, index, os.path.join(corpus, "bf16_remat"), 2, 1, "",
+        "--mixprecision", 1, "--remat", 1, "--device_cache", 0)),
+        ("fused_mrf_bf16", "fused_mrf_bwd_bf16"))
+    log("  " + "; ".join(f"step {s_} " + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items()))
+                         for s_, m in bf16.history))
+    if not all(np.isfinite(v) for _, m in bf16.history for v in m.values()):
+        raise AssertionError("the bf16 remat run's losses are not finite")
+    return saves
+
+
+def save_stall(torch, state, corpus: str, n: int = 3) -> dict:
+    """The loop's stall per checkpoint save on a trained HiFiGAN light state
+    (its Adam states included): `AsyncCheckpointWriter.submit` until its
+    on-device snapshot is done, the write that follows on the worker, and a
+    synchronous `save_checkpoint`; medians of n saves, in ms."""
+    from fastvocoder_tpu_torch.train.checkpoint import AsyncCheckpointWriter, save_checkpoint
+
+    log("[hifigan light: the loop's stall per checkpoint save]")
+    times = {"submit": [], "write on the worker": [], "synchronous save": []}
+    writer = AsyncCheckpointWriter()
+    try:
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            writer.submit(os.path.join(corpus, f"async_{i}.pth.tar"), state, "hifigan")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            writer.wait()
+            t2 = time.perf_counter()
+            save_checkpoint(os.path.join(corpus, f"sync_{i}.pth.tar"), state, "hifigan")
+            t3 = time.perf_counter()
+            for k, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+                times[k].append(dt * 1e3)
+    finally:
+        writer.close()
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"  {os.path.getsize(os.path.join(corpus, 'sync_0.pth.tar'))} bytes a file; ms, median "
+        f"of {n}: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2454,6 +2862,16 @@ def main() -> int:
         log("[ms a step on the card, bf16 beside float32 in this call]")
         step_ms["melgan gan_step (MSD + MFD + MPD) bf16"] = time_steps(
             torch, melgan_cfg, None, "gan_step", batch, compute_dtype=bf16)
+        torch.cuda.empty_cache()
+
+        # the training runtime: input paths, remat, resume (reference layout)
+        step_ms["basis-melgan pre_adv_step by input path (ms, H2D bytes)"] = input_paths_phase(
+            torch, count_path, corpus, index, basis_cfg, basis)
+        torch.cuda.empty_cache()
+        step_ms["hifigan gan_step without / with remat"] = remat_phase(
+            torch, count_path, hifi_cfg, fixed_batch(hifi_cfg, index))
+        step_ms["hifigan checkpoint save (ms)"] = resume_phase(torch, count_path, Synthesizer,
+                                                               corpus, index)
     log(f"  ms a step: {step_ms}")
 
     for model, synth in (("basis-melgan", basis_synth), ("hifigan", hifi_synth)):
@@ -2470,4 +2888,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--h2d"]:
+        sys.exit(h2d_child(*sys.argv[2:5]))
     sys.exit(main())

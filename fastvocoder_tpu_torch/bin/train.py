@@ -6,11 +6,23 @@ bin/train.py:258-499) for one device.  Per step the host picks
 boundary, as the JAX package's `bin/train.py` does.  It keeps that script's
 artifacts:
 per-step `total_loss.txt` / `stft_loss.txt` appends, a `logger.txt` line
-every `log_step`, `all_scalars.json` on exit, `checkpoint_<step>.pth.tar`
-every `save_step` (and at `max_steps`), and the `valid_step` sweep over full
-utterances in index order; a run directory as `--checkpoint_path` resumes
-from its newest checkpoint and goes on with the batches the unbroken run
-would have seen.
+every `log_step` (with the run's `eta`), TensorBoard scalars under
+`hp.tensorboard_path` mirrored into `all_scalars.json` on exit,
+`checkpoint_<step>.pth.tar` every `save_step` (and at `max_steps`) in the
+reference's layout (`train/checkpoint.py`), written on a worker thread,
+and the `valid_step` sweep over full utterances in index order.  A run
+directory as `--checkpoint_path` resumes from its newest checkpoint (the
+JAX package's too, its Adam states included) and goes on with the batches
+the unbroken run would have seen; `--restore_step` takes precedence over
+the checkpoint's step, as in the JAX script.
+
+Input: with `--device_cache 1` the whole corpus is staged on the device
+and crops are cut there (`data/device_cache.py`); with 0 the host cuts
+them and `runtime.prefetch_to_device` copies batch k+1 on a side stream
+while step k runs; -1, the default, takes the JAX script's rule (the
+device path when the padded corpus is at most 6e9 bytes; one process
+always).  The host path sends Basis-MelGAN's weight target as float16, as
+the JAX script does; the device path stores it in bf16.
 
 The run is on the CUDA device unless `--device cpu` is passed; with neither
 it raises.  Metrics stay on the device between log points, so steps queue
@@ -20,8 +32,14 @@ utterance's `<name>.f0.npy` beside its `<name>.mel.npy` (training and
 validation) and conditions on the mel and f0.  `--mixprecision 1` trains
 in bf16 as the JAX script does (`make_trainer(compute_dtype=
 torch.bfloat16)`: float32 parameters, optimiser state and losses, bf16
-convs and kernels).  Arguments of the JAX script whose features are not
-ported yet (`--remat`, `--device_cache`) raise when set.
+convs and kernels); `--remat 1` recomputes the generator forward in the
+backward (`make_trainer(remat=True)`).  `--stall_exit_s` (default 900, 0
+off) arms a watchdog that exits the process with code 17 when no step has
+completed for that long; `TRAIN_DEADLINE_EPOCH` (else `DEADLINE_EPOCH`), a
+Unix time, stops the run at the first step boundary past it with a tail
+checkpoint.  `--fused_train` -1 or 1 trains through the kernels, the
+port's path on the card; 0, the JAX script's module path, is not ported
+(`WAITING`).
 """
 
 from __future__ import annotations
@@ -31,6 +49,7 @@ import dataclasses
 import json
 import logging
 import os
+import threading
 import time
 from datetime import datetime
 
@@ -45,33 +64,132 @@ from fastvocoder_tpu_torch.data.dataset import (
     num_batches_per_epoch,
     to_device,
 )
+from fastvocoder_tpu_torch.data.device_cache import DeviceCorpus
 from fastvocoder_tpu_torch.hparams import DISC, HP, DiscriminatorConfig, load_model_config
+from fastvocoder_tpu_torch.runtime import StepTimer, prefetch_to_device
 from fastvocoder_tpu_torch.train.checkpoint import (
+    AsyncCheckpointWriter,
     latest_checkpoint,
     load_checkpoint,
-    save_checkpoint,
 )
 from fastvocoder_tpu_torch.train.trainer import make_trainer
 
 logger = logging.getLogger(__name__)
 
-# arguments of the JAX script that this package accepts only at their
-# "off" value: name -> (off value, what waits)
+# arguments of the JAX script with a value this package refuses:
+# name -> (the value, what it asks for)
 WAITING = {
-    "remat": (0, "rematerialisation of the generator forward"),
-    "device_cache": (0, "the on-device corpus cache"),
+    "fused_train": (0, "training through the modules' library convs instead of the kernels "
+                       "(an open question, ROADMAP.md C)"),
 }
+DEVICE_CACHE_MAX_BYTES = 6e9  # the JAX script's auto rule (sized for a 16 GB TPU)
+STALL_EXIT_CODE = 17
+
+
+class _NoopWriter:
+    def add_scalar(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
+class _ScalarJsonWriter:
+    """A TensorBoard writer whose scalars are also dumped to a JSON file on
+    close: the reference's tensorboardX `export_scalars_to_json`
+    (reference bin/train.py:473), which torch's SummaryWriter dropped."""
+
+    def __init__(self, writer, json_path: str):
+        self._w = writer
+        self._path = json_path
+        self.scalars: dict = {}
+
+    def add_scalar(self, tag, value, global_step=None):
+        self._w.add_scalar(tag, value, global_step=global_step)
+        self.scalars.setdefault(tag, []).append([global_step, float(value)])
+
+    def close(self):
+        with open(self._path, "w") as f:
+            json.dump(self.scalars, f)
+        self._w.close()
+
+
+def _make_writer(logdir: str):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(logdir)
+    except Exception:  # tensorboard is not installed
+        logger.warning("tensorboard unavailable; TensorBoard scalars are not written "
+                       "(all_scalars.json still is)")
+        return _NoopWriter()
+
+
+def _start_stall_watchdog(heartbeat, stall_exit_s, logger_path, exit_fn=os._exit,
+                          sleep_fn=time.sleep, stop: threading.Event = None):
+    """A daemon thread that turns "no completed train-loop iteration for
+    `stall_exit_s` seconds" into `exit_fn(17)`, so that a supervisor
+    relaunches the run from its newest checkpoint (the JAX script's
+    failure detection, SURVEY.md section 5: a hung device call never
+    returns, and a supervisor sees only dead processes).  The line goes to
+    the log and to the run's `logger.txt`.  `heartbeat` is a one-element
+    list holding the `time.monotonic()` of the last completed iteration;
+    `stop` (set when the run returns) ends the thread."""
+    stop = stop if stop is not None else threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            sleep_fn(min(30.0, stall_exit_s / 4))
+            idle = time.monotonic() - heartbeat[0]
+            if idle > stall_exit_s and not stop.is_set():
+                msg = (f"stall watchdog: no training progress for {idle:.0f}s "
+                       f"(> --stall_exit_s={stall_exit_s}); exiting for a resume from the "
+                       f"last checkpoint")
+                logger.error(msg)
+                try:
+                    with open(os.path.join(logger_path, "logger.txt"), "a") as f:
+                        f.write(msg + "\n")
+                except OSError:
+                    pass
+                exit_fn(STALL_EXIT_CODE)
+                return  # reached only with an injected exit_fn
+
+    t = threading.Thread(target=watch, daemon=True, name="stall_watchdog")
+    t.start()
+    return t
+
+
+def wall_deadline() -> float:
+    """`TRAIN_DEADLINE_EPOCH`, else `DEADLINE_EPOCH` (a Unix time; 0 or unset:
+    none).  A malformed value is logged and ignored: the run goes on."""
+    raw = os.environ.get("TRAIN_DEADLINE_EPOCH", os.environ.get("DEADLINE_EPOCH", "0"))
+    try:
+        return float(raw or 0)
+    except ValueError:
+        logger.warning("ignoring malformed TRAIN_DEADLINE_EPOCH/DEADLINE_EPOCH value "
+                       f"{raw!r}; running without a wall-clock deadline")
+        return 0.0
+
+
+def corpus_bytes(dataset, hp, L=None, weight_channels: int = 0) -> int:
+    """The JAX script's estimate of the padded corpus on the device
+    (bin/train.py:519-529): items x longest utterance x (81 float32 mel
+    rows, `hop_size` float32 samples, and a weight target's bf16 rows)."""
+    max_f = max((dataset.mel_length(i) for i in range(len(dataset))), default=0)
+    per_frame = 81 * 4 + hp.hop_size * 4
+    if L is not None:
+        per_frame += (hp.hop_size // (L // 2)) * weight_channels * 2
+    return len(dataset) * max_f * per_frame
 
 
 def run(args, disc_cfg: DiscriminatorConfig = DISC):
     """Train as `args` (the namespace `run_train` parses) says; -> the final
     `TrainState`, with the logged metrics of every step in
     `state.history`."""
-    for name, (off, what) in WAITING.items():
-        if getattr(args, name, off) not in (off, -1):
+    for name, (value, what) in WAITING.items():
+        if getattr(args, name, None) == value:
             raise NotImplementedError(
-                f"--{name}: {what} is not ported yet (ROADMAP queue A)"
-            )
+                f"--{name} {value}: {what} is not ported (ROADMAP.md C)")
     cfg = load_model_config(args.model_name, args.config)
     if args.use_mpd >= 0:  # the command line over the YAML's key
         cfg = dataclasses.replace(cfg, use_mpd=bool(args.use_mpd))
@@ -87,9 +205,10 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         test_size=args.test_size,
     )
     if args.run_dir:
-        # a self-contained run directory: checkpoints and logs under it
+        # a self-contained run directory: checkpoints, logs and TensorBoard under it
         hp = hp.replace(checkpoint_path=os.path.join(args.run_dir, "checkpoint"),
-                        logger_path=os.path.join(args.run_dir, "logger"))
+                        logger_path=os.path.join(args.run_dir, "logger"),
+                        tensorboard_path=os.path.join(args.run_dir, "tensorboard"))
 
     logger.info(f"Loading Model of {args.model_name}...")
     is_basis = args.model_name == "basis-melgan"
@@ -106,7 +225,7 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         use_scheduler=bool(args.use_scheduler), learning_rate=args.learning_rate,
         learning_rate_discriminator=args.learning_rate_discriminator,
         disc_cfg=disc_cfg, device=args.device or None, seed=args.seed,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, remat=bool(args.remat),
     )
     device = trainer.device
     state = trainer.init_state(args.seed)
@@ -121,6 +240,9 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         ckpt_path = latest or ""
     if ckpt_path:
         load_checkpoint(ckpt_path, state, args.model_name)
+    if args.restore_step:  # over the checkpoint's own step, as in the JAX script
+        state.step = args.restore_step
+    if ckpt_path:
         logger.info(f"\n---Model Restored at Step {state.step}---\n")
     else:
         logger.info("\n---Start New Training---\n")
@@ -130,10 +252,6 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
     current_logger_path = os.path.join(hp.logger_path, stamp)
     os.makedirs(current_checkpoint_path, exist_ok=True)
     os.makedirs(current_logger_path, exist_ok=True)
-    scalars: dict = {}
-
-    def add_scalar(tag, value, step):
-        scalars.setdefault(tag, []).append([step, float(value)])
 
     if is_basis:
         weight_dir = os.path.join(args.basis_dataset_path, "weight")
@@ -179,10 +297,10 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         history.extend(drained)
         return drained
 
-    def save(step):
+    def save(step, what="checkpoint"):
         path = os.path.join(current_checkpoint_path, f"checkpoint_{step}.pth.tar")
-        save_checkpoint(path, state, args.model_name)
-        logger.info(f"saved checkpoint {path}")
+        ckpt_writer.submit(path, state, args.model_name)  # snapshots before the next step
+        logger.info(f"saving {what} {path} (async)")
 
     def run_validation():
         """Full utterances, batch 1, in index order (reference
@@ -210,7 +328,7 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         state.generator.train()
         # divided by valid_num over valid_num + 1 items: the reference's
         # quirk, kept (bin/train.py:458-471)
-        add_scalar("valid_stft_loss", total / float(hp.valid_num), state.step)
+        writer.add_scalar("valid_stft_loss", total / float(hp.valid_num), state.step)
 
     def host_batches():
         # Batch number n of a run is batch (n - 1) % steps_per_epoch of epoch
@@ -219,7 +337,8 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         # the batches the unbroken run would have seen.  The weight target
         # is read only by the weight L1 before the discriminator starts
         # (reference bin/train.py:87-89): past the boundary it is dropped
-        # from the stream.
+        # from the stream, before it as float16, as the JAX script sends it
+        # (an L1 target; the loss sums in float32).
         first_epoch, skip = divmod(start_step, steps_per_epoch)
         for epoch in range(first_epoch, hp.epochs):
             stream = batch_iterator(dataset, hp, seed=args.seed, epoch=epoch, L=L)
@@ -228,48 +347,89 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
                     continue
                 if is_basis and epoch * steps_per_epoch + i + 1 > hp.discriminator_train_start_steps:
                     batch = {k: v for k, v in batch.items() if k != "weight"}
+                elif "weight" in batch:
+                    batch = dict(batch, weight=batch["weight"].astype(np.float16))
                 yield batch
 
-    window_start, window_steps = time.perf_counter(), 0
-    for host_batch in host_batches():
-        if args.max_steps and state.step >= args.max_steps:
-            break
-        batch = to_device(host_batch, device)
-        step_fn = (trainer.gan_step if state.step + 1 > hp.discriminator_train_start_steps
-                   else trainer.pre_adv_step)
-        _, metrics = step_fn(state, batch["mel"], batch["wav"], batch.get("weight"))
-        pending.append((state.step, metrics))
-        window_steps += 1
+    use_device_cache = args.device_cache
+    if use_device_cache < 0:
+        need = corpus_bytes(dataset, hp, L, cfg.arch.out_channels if is_basis else 0)
+        use_device_cache = int(need <= DEVICE_CACHE_MAX_BYTES)
+        logger.info(f"--device_cache -1: the padded corpus takes about {need / 1e9:.2f} GB, "
+                    f"{'within' if use_device_cache else 'over'} the "
+                    f"{DEVICE_CACHE_MAX_BYTES / 1e9:.0f} GB rule: the "
+                    f"{'device' if use_device_cache else 'host'} path")
+    if use_device_cache:
+        logger.info("input: the corpus on the device, crops cut there (data/device_cache.py)")
+        corpus = DeviceCorpus(dataset, hp=hp, L=L, device=device, log=logger.info)
+        batch_stream = corpus.batches(seed=args.seed, start_step=start_step,
+                                      weight_until=hp.discriminator_train_start_steps)
+    else:
+        logger.info("input: host crops, prefetched to the device (runtime/prefetch.py)")
+        batch_stream = prefetch_to_device(host_batches(), device)
 
-        if state.step % hp.log_step == 0:
-            drained = drain_metrics()  # waits for the window's steps
-            mean_t = (time.perf_counter() - window_start) / max(window_steps, 1)
-            window_start, window_steps = time.perf_counter(), 0
-            m = drained[-1][1]
-            epoch = (state.step - 1) // steps_per_epoch
-            msg = (f"epoch [{epoch + 1}] step [{state.step}/{total_step}] "
-                   + " ".join(f"{k}={v:.6f}" for k, v in sorted(m.items()))
-                   + f" step_time={mean_t:.3f}s")
-            logger.info(msg)
-            with open(os.path.join(current_logger_path, "logger.txt"), "a") as f:
-                f.write(msg + "\n")
-            for k, v in m.items():
-                add_scalar(k, v, state.step)
-        if state.step % hp.save_step == 0:
-            drain_metrics()
-            save(state.step)
-        if state.step % hp.valid_step == 0:
-            drain_metrics()
-            run_validation()
-        if args.max_steps and state.step >= args.max_steps:
-            logger.info(f"reached max_steps={args.max_steps}; stopping")
-            if state.step % hp.save_step != 0:
-                save(state.step)  # the tail, so a resumed run loses nothing
-            break
+    deadline = wall_deadline()
+    writer = _ScalarJsonWriter(_make_writer(os.path.join(hp.tensorboard_path, stamp)),
+                               os.path.join(current_logger_path, "all_scalars.json"))
+    ckpt_writer = AsyncCheckpointWriter()
+    stop_watchdog = threading.Event()
+    heartbeat = [time.monotonic() + args.stall_exit_s]  # the first step gets twice the grace
+    if args.stall_exit_s > 0:
+        _start_stall_watchdog(heartbeat, args.stall_exit_s, current_logger_path,
+                              stop=stop_watchdog)
+    timer = StepTimer(clear_time=hp.clear_time)
+    window_steps = 0
+    timer.start()
+    try:
+        for batch in batch_stream:
+            heartbeat[0] = time.monotonic()
+            if args.max_steps and state.step >= args.max_steps:
+                break
+            step_fn = (trainer.gan_step if state.step + 1 > hp.discriminator_train_start_steps
+                       else trainer.pre_adv_step)
+            _, metrics = step_fn(state, batch["mel"], batch["wav"], batch.get("weight"))
+            pending.append((state.step, metrics))
+            window_steps += 1
 
-    drain_metrics()
-    with open(os.path.join(current_logger_path, "all_scalars.json"), "w") as f:
-        json.dump(scalars, f)
+            if state.step % hp.log_step == 0:
+                drained = drain_metrics()  # waits for the window's steps
+                mean_t = timer.stop() / max(window_steps, 1)
+                timer.start()
+                window_steps = 0
+                m = drained[-1][1]
+                epoch = (state.step - 1) // steps_per_epoch
+                eta = (total_step - state.step) * mean_t
+                msg = (f"epoch [{epoch + 1}] step [{state.step}/{total_step}] "
+                       + " ".join(f"{k}={v:.6f}" for k, v in sorted(m.items()))
+                       + f" step_time={mean_t:.3f}s eta={eta / 3600:.1f}h")
+                logger.info(msg)
+                with open(os.path.join(current_logger_path, "logger.txt"), "a") as f:
+                    f.write(msg + "\n")
+                for k, v in m.items():
+                    writer.add_scalar(k, v, state.step)
+            if state.step % hp.save_step == 0:
+                drain_metrics()
+                save(state.step)
+            if state.step % hp.valid_step == 0:
+                drain_metrics()
+                run_validation()
+            past_deadline = bool(deadline) and time.time() >= deadline
+            if (args.max_steps and state.step >= args.max_steps) or past_deadline:
+                if past_deadline:
+                    logger.info(f"wall-clock deadline {deadline:.0f} reached at step "
+                                f"{state.step}; stopping")
+                else:
+                    logger.info(f"reached max_steps={args.max_steps}; stopping")
+                if state.step % hp.save_step != 0:
+                    save(state.step, "final checkpoint")  # the tail: a resumed run loses nothing
+                break
+        drain_metrics()
+        ckpt_writer.wait()
+    finally:
+        batch_stream.close()  # frees the prefetch thread of a run cut short
+        stop_watchdog.set()
+        ckpt_writer.close()
+        writer.close()
     state.history = history
     return state
 
@@ -286,6 +446,8 @@ def build_parser() -> argparse.ArgumentParser:
                         default=os.path.join("dataset", "mel", "valid"))
     parser.add_argument("--checkpoint_path", type=str, default="",
                         help="a checkpoint, or a run directory to resume from its newest one")
+    parser.add_argument("--restore_step", type=int, default=0,
+                        help="the step to go on from (0: the checkpoint's own)")
     parser.add_argument("--run_dir", type=str, default="",
                         help="self-contained run directory: checkpoints and logs go to "
                              "<run_dir>/{checkpoint,logger}")
@@ -319,9 +481,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--use_mpd", type=int, default=-1,
                         help="1 adds the multi-period discriminator, 0 leaves it out; -1 "
                              "takes the YAML's use_mpd key (off, as in the reference)")
-    for name, (off, what) in WAITING.items():
-        parser.add_argument(f"--{name}", type=int, default=off,
-                            help=f"{what}: not ported yet, raises when set")
+    parser.add_argument("--remat", type=int, default=0,
+                        help="1 recomputes the generator forward in the backward (less "
+                             "activation memory, one more generator pass an update)")
+    parser.add_argument("--device_cache", type=int, default=-1,
+                        help="1 stages the corpus on the device and cuts crops there, 0 cuts "
+                             "them on the host and prefetches, -1 takes the JAX script's rule "
+                             f"(the device path up to {DEVICE_CACHE_MAX_BYTES:.0e} bytes)")
+    parser.add_argument("--stall_exit_s", type=int, default=900,
+                        help="exit with code 17 when no step completes for this many seconds "
+                             "(the first step gets twice as long); 0 disables")
+    parser.add_argument("--fused_train", type=int, default=-1,
+                        help="-1 or 1 trains through the kernels (this package's path on the "
+                             "card); 0, the module path, is not ported and raises")
     return parser
 
 

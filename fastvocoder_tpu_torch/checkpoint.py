@@ -23,20 +23,31 @@ keys as in `docs/checkpoints/*.npz`, onto the port's `state_dict`:
 
 Any other leaf is refused by name.
 
-`load_release_npz` reads a committed release checkpoint.  The port's own
-trainer writes `torch.save` payloads of format `TRAIN_FORMAT`
-(`train/checkpoint.py`), their state in the training form;
-`jax_tree_from_state_dict` carries such a state back into a flat JAX-layout
-tree, so that `state_dict_from_jax` fuses it as it fuses a JAX tree.
-`checkpoint_format` tells the two kinds of file apart by their contents.
+`load_release_npz` reads a committed release checkpoint.  A training
+checkpoint is a `torch.save` file in one of two layouts:
+
+  * the reference's (`REFERENCE_FORMAT`): `model` and `discriminator` under
+    the upstream torch key names, `step`, as the JAX package's trainer
+    writes it and, since format `fastvocoder_tpu_torch.train/2`, the port's
+    (`train/checkpoint.py`);
+  * the port's earlier payload of format `TRAIN_FORMAT` (`train/1`), its
+    modules' `state_dict`s in the training form.
+
+`jax_tree_from_state_dict` carries a training-form state back into a flat
+JAX-layout tree, so that `state_dict_from_jax` fuses it as it fuses a JAX
+tree.  `read_checkpoint` tells the kinds of file apart by their contents.
+A torch file is read with `torch_load`, a restricted unpickler that needs
+neither JAX nor optax, the JAX package's files included.
 """
 
 from __future__ import annotations
 
 import json
+import pickle
 import re
+import types
 import zipfile
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,7 +56,8 @@ Tree = Mapping[str, Union[np.ndarray, "Tree"]]
 
 _UPSAMPLER = re.compile(r"up_\d+")
 
-TRAIN_FORMAT = "fastvocoder_tpu_torch.train/1"  # the trainer's checkpoints
+TRAIN_FORMAT = "fastvocoder_tpu_torch.train/1"  # the trainer's earlier payload
+REFERENCE_FORMAT = "fastvocoder_tpu_torch.train/2"  # the trainer's, in the reference layout
 ROOT_LEAVES = ("fir",)  # parameters at a tree's root, carried as they are
 
 
@@ -143,22 +155,97 @@ def jax_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, np.
     return out
 
 
-def checkpoint_format(path: str) -> str:
-    """"release" for a release checkpoint (a `.npz` with `meta`), "train"
-    for a `torch.save` file (the trainer's payload, whose `format` the
-    reader checks); raises ValueError for any other file, whatever its
-    name."""
+class OptaxRecord(tuple):
+    """An optax state object (`ScaleByAdamState`, `EmptyState`,
+    `MaskedState`, ...) read without optax: its fields in order, and its
+    class's name in `optax_name`."""
+
+    optax_name = ""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+    def __setstate__(self, state):  # named tuples pickle no state
+        pass
+
+
+_RECORDS: Dict[str, type] = {}
+
+# the globals a checkpoint file may name: torch's tensor rebuilds, numpy's
+# array reconstruction (numpy 1 and 2), `_codecs.encode` (protocol 2's
+# bytes) and OrderedDict; `optax.*` classes become `OptaxRecord`s
+_ALLOWED = {
+    ("torch._utils", "_rebuild_tensor"), ("torch._utils", "_rebuild_tensor_v2"),
+    ("torch._utils", "_rebuild_parameter"), ("collections", "OrderedDict"),
+    ("numpy", "ndarray"), ("numpy", "dtype"), ("_codecs", "encode"),
+    ("numpy.core.multiarray", "_reconstruct"), ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
+}
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module == "optax" or module.startswith("optax."):
+            full = f"{module}.{name}"
+            if full not in _RECORDS:
+                _RECORDS[full] = type(name, (OptaxRecord,), {"optax_name": name})
+            return _RECORDS[full]
+        if (module, name) in _ALLOWED:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"refused global {module}.{name}")
+
+
+# what `torch.load(pickle_module=)` takes from a pickle module (zip files)
+_restricted_pickle = types.ModuleType("fastvocoder_tpu_torch_restricted_pickle")
+_restricted_pickle.Unpickler = _RestrictedUnpickler
+
+
+def torch_load(path: str, map_location="cpu"):
+    """`torch.load` of a training checkpoint through a restricted unpickler:
+    tensors, numpy arrays, containers and plain values, optax state objects
+    as `OptaxRecord`s; any other global raises `pickle.UnpicklingError`
+    naming it.  Imports neither JAX nor optax."""
+    return torch.load(path, map_location=map_location, pickle_module=_restricted_pickle,
+                      weights_only=False)
+
+
+def _formats_message(path: str, why: str) -> str:
+    return (f"{path} {why}: a checkpoint is a release checkpoint (.npz with `meta` and "
+            f"`param:` arrays, as tools/export_release_checkpoint.py writes), a training "
+            f"checkpoint in the reference layout (`model` and `discriminator` under the "
+            f"upstream torch key names: format {REFERENCE_FORMAT!r} of this package's "
+            f"bin/train.py, or the JAX package's bin/train.py) or this package's earlier "
+            f"training payload (format {TRAIN_FORMAT!r})")
+
+
+def read_checkpoint(path: str, map_location="cpu") -> Tuple[str, Optional[dict]]:
+    """-> (kind, payload): ("release", None) for a release checkpoint,
+    ("reference", the torch payload) for the reference layout,
+    ("train", the payload) for a `TRAIN_FORMAT` payload.  Any other file,
+    whatever its name, raises ValueError naming every format."""
     if zipfile.is_zipfile(path):
         with zipfile.ZipFile(path) as z:
             names = z.namelist()
         if "meta.npy" in names:
-            return "release"
+            return "release", None
         if any(n.endswith("/data.pkl") for n in names):
-            return "train"
-    raise ValueError(
-        f"{path} is neither a release checkpoint (.npz with `meta` and `param:` arrays, as "
-        f"tools/export_release_checkpoint.py writes) nor a training checkpoint of this "
-        f"package (format {TRAIN_FORMAT!r}, written by bin/train.py)")
+            try:
+                payload = torch_load(path, map_location)
+            except pickle.UnpicklingError as e:
+                raise ValueError(_formats_message(path, f"cannot be read ({e})")) from e
+            if isinstance(payload, dict) and payload.get("format") == TRAIN_FORMAT:
+                return "train", payload
+            if isinstance(payload, dict) and isinstance(payload.get("model"), Mapping) \
+                    and payload.get("format", REFERENCE_FORMAT) == REFERENCE_FORMAT:
+                return "reference", payload
+            raise ValueError(_formats_message(
+                path, "is a torch file but not a checkpoint of this package's trainer"))
+    raise ValueError(_formats_message(path, "is neither a release checkpoint nor a torch file"))
+
+
+def checkpoint_format(path: str) -> str:
+    """"release", "reference" or "train" (`read_checkpoint`)."""
+    return read_checkpoint(path)[0]
 
 
 def load_release_npz(path: str) -> dict:

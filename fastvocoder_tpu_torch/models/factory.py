@@ -10,14 +10,14 @@ synthesis of the trunk's bands).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from fastvocoder_tpu_torch.checkpoint import (
-    TRAIN_FORMAT,
-    checkpoint_format,
     jax_tree_from_state_dict,
     load_release_npz,
+    read_checkpoint,
     state_dict_from_jax,
 )
 from fastvocoder_tpu_torch.hparams import DISC, DiscriminatorConfig, ModelConfig
@@ -28,6 +28,7 @@ from fastvocoder_tpu_torch.models.melgan import MelGANGenerator
 from fastvocoder_tpu_torch.models.multiband_hifigan import MultiBandHiFiGANGenerator
 from fastvocoder_tpu_torch.models.nhv import NHVGenerator
 from fastvocoder_tpu_torch.ops.precision import check_compute_dtype
+from fastvocoder_tpu_torch.train.checkpoint import generator_tree
 
 
 def build_generator(cfg: ModelConfig, weight_norm: bool = False,
@@ -66,25 +67,36 @@ def load_generator(checkpoint_path: str, cfg: ModelConfig, device: torch.device,
                    compute_dtype=None):
     """A checkpoint -> (generator on `device` in eval mode without
     gradients, computing in `compute_dtype` (`build_generator`), pattern or
-    None).  Takes a release checkpoint
-    (`checkpoint.load_release_npz`) or a checkpoint of the port's trainer
-    (`train/checkpoint.py`, format `TRAIN_FORMAT`), of which only the
-    generator is read: its training form, with weight norm fused into the
-    serving form in float32 as a release's JAX tree is fused.  A trained
-    checkpoint has no pattern.  Any other file raises ValueError."""
-    if checkpoint_format(checkpoint_path) == "release":
+    None).  Takes, told apart by their contents
+    (`checkpoint.read_checkpoint`): a release checkpoint
+    (`checkpoint.load_release_npz`); a training checkpoint in the
+    reference layout, written by this package's trainer or by the JAX
+    package's (its `model`, the reference's torch keys, or NHV's flat JAX
+    tree; a published file's `pattern` comes with it); or this package's
+    earlier `TRAIN_FORMAT` payload, of whose training form only the
+    generator is read.  Weight norm is fused in float32 as a release's JAX
+    tree is fused.  Any other file raises ValueError naming every format."""
+    kind, payload = read_checkpoint(checkpoint_path)
+    pattern = None
+    if kind == "release":
         ckpt = load_release_npz(checkpoint_path)
         _check_model(checkpoint_path, ckpt["model_name"], cfg)
         state, pattern = ckpt["state_dict"], ckpt["pattern"]
-    else:
-        payload = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
-        if not isinstance(payload, dict) or payload.get("format") != TRAIN_FORMAT:
-            raise ValueError(f"{checkpoint_path} is a torch file but not a checkpoint of this "
-                             f"package's trainer (format {TRAIN_FORMAT!r})")
+    elif kind == "train":
         _check_model(checkpoint_path, payload["model_name"], cfg)
         trained = build_generator(cfg, weight_norm=True)
         trained.load_state_dict(payload["generator"])
-        state, pattern = state_dict_from_jax(jax_tree_from_state_dict(trained.state_dict())), None
+        state = state_dict_from_jax(jax_tree_from_state_dict(trained.state_dict()))
+    else:
+        if payload.get("model_name") is not None:
+            _check_model(checkpoint_path, payload["model_name"], cfg)
+        try:
+            state = state_dict_from_jax(generator_tree(payload["model"], cfg))
+        except (KeyError, ValueError) as e:
+            raise ValueError(f"{checkpoint_path} does not hold a {cfg.model_name!r} generator "
+                             f"of this configuration: {e}") from e
+        if payload.get("pattern") is not None:
+            pattern = np.asarray(payload["pattern"], np.float32)
     gen = build_generator(cfg, compute_dtype=compute_dtype)
     gen.load_state_dict(state)
     gen.to(device).eval().requires_grad_(False)

@@ -42,6 +42,16 @@ bf16 forms on the card, forward and backward), while the parameters, the
 optimisers' state, the clip and the losses stay float32 (every generator
 output reaches the MR-STFT loss as float32, the GAN losses upcast the
 features).  No loss scaling: bf16 has float32's exponent range.
+
+`remat=True` is the JAX package's `make_trainer(remat=True)` (`--remat`):
+the generator forward that a gradient is taken through runs under
+`torch.utils.checkpoint.checkpoint(use_reentrant=False)`, so its
+activations are recomputed in the backward instead of being kept through
+the losses and the discriminator; in `gan_step` the discriminator applied
+to the estimate is wrapped too.  The recompute runs the same kernels on
+the same weights (no parameter changes before the backward), NHV's noise
+is the step's explicit draw, so the step computes what it computes
+without remat, at one more generator pass a generator update.
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fastvocoder_tpu_torch.hparams import DISC, HP, DiscriminatorConfig, Hparams, ModelConfig
 from fastvocoder_tpu_torch.losses import (
@@ -164,6 +175,7 @@ class Trainer:
     keep_grads: bool = False
     last_grads: dict = dataclasses.field(default_factory=dict, compare=False)
     compute_dtype: Optional[torch.dtype] = None  # None (float32) or torch.bfloat16
+    remat: bool = False  # recompute the generator forward in the backward
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh modules on the trainer's device, initialised from `seed`
@@ -195,12 +207,19 @@ class Trainer:
     def _gen_forward(self, generator: nn.Module, mel: torch.Tensor,
                      noise: Optional[torch.Tensor] = None):
         """The generator's training forward; NHV's with the step's `noise`
-        (its inference sources without one, as validation runs it)."""
-        if noise is not None:
-            f0 = mel[..., self.cfg.arch.in_channels]
-            out = generator(mel, sources=generator.sources(f0, noise))
+        (its inference sources without one, as validation runs it); with
+        `remat`, recomputed in the backward where a gradient is taken."""
+
+        def forward(mel, noise):
+            if noise is not None:
+                f0 = mel[..., self.cfg.arch.in_channels]
+                return generator(mel, sources=generator.sources(f0, noise))
+            return generator(mel)
+
+        if self.remat and torch.is_grad_enabled():
+            out = checkpoint(forward, mel, noise, use_reentrant=False)
         else:
-            out = generator(mel)
+            out = forward(mel, noise)
         if self.cfg.model_name == "basis-melgan":
             return out  # (est_source, est_weight)
         return out, None
@@ -267,7 +286,10 @@ class Trainer:
                                         pqmf=self.pqmf)
         total = self.cfg.lambda_stft * stft_l
         metrics = {"stft_loss": stft_l}
-        est_p = disc(self._to_fullband(est))
+        if self.remat:  # the discriminator's features of the estimate, recomputed too
+            est_p = checkpoint(disc, self._to_fullband(est), use_reentrant=False)
+        else:
+            est_p = disc(self._to_fullband(est))
         adv_l = adversarial_loss(est_p)
         total = total + self.hp.lambda_adv * adv_l
         metrics["adversarial_loss"] = adv_l
@@ -325,13 +347,15 @@ def make_trainer(
     seed: int = 0,
     noise: Optional[Noise] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
 ) -> Trainer:
     """The trainer of `cfg` on `device`: the CUDA device by default, and a
     RuntimeError without one unless `device="cpu"` is asked for.  `noise`
     replaces NHV's draw of a step (`seeded_noise(seed, device)`); the
     discriminator takes the MPD where `cfg.use_mpd` or `disc_cfg.use_mpd`
     says so.  `compute_dtype=torch.bfloat16` trains in bf16 mixed precision
-    (the module docstring says what stays float32)."""
+    (the module docstring says what stays float32); `remat=True`
+    recomputes the generator forward in the backward (module docstring)."""
     compute_dtype = check_compute_dtype(compute_dtype)
     if device is None:
         if not torch.cuda.is_available():
@@ -354,5 +378,5 @@ def make_trainer(
         pqmf=PQMF().to(device) if cfg.multiband else None,
         noise=noise if noise is not None else seeded_noise(seed, device),
         basis_signal_weight=basis_signal_weight, keep_grads=keep_grads,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, remat=remat,
     )

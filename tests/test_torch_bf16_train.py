@@ -35,9 +35,12 @@ in float32; its bf16 gradient there is rounding noise in both packages, so
 Basis-MelGAN is held from its trained weights.
 
 Also: `run_train([... "--mixprecision", "1", "--device", "cpu"])` takes 3
-steps and writes a checkpoint that `Synthesizer` loads in float32 and in
-bf16; `make_trainer(compute_dtype=torch.bfloat16)` and `--mixprecision`
-raise without a card unless given the CPU.
+steps on the host input path and writes a checkpoint that `Synthesizer`
+loads in float32 and in bf16; Basis-MelGAN's run on the device path (bf16
+weight targets) writes one whose bf16 synthesis is held against the JAX
+package's bf16 synthesis of the same file (DEV_RATIO, the rule above);
+`make_trainer(compute_dtype=torch.bfloat16)` and `--mixprecision` raise
+without a card unless given the CPU.
 """
 
 import os
@@ -227,8 +230,12 @@ def test_run_train_mixprecision_writes_a_checkpoint_synthesizer_loads_in_both_ty
     checkpoint) and in bf16 (within the JAX package's bf16 gate of that
     waveform, max(2e-3, 1 % of its peak))."""
     run_dir = corpus / f"mixed_{model}"
+    # the host input path, which this test ran before the corpus could sit
+    # on the device: the device path's bf16 weight targets train Basis-MelGAN
+    # to weights whose bf16 synthesis misses the gate below in the JAX
+    # package too (ROADMAP.md C)
     state = run_train(_argv(corpus, model, run_dir, max_steps=3, save_step=3,
-                            mixprecision=1), disc_cfg=thp.TINY_DISC)
+                            mixprecision=1, device_cache=0), disc_cfg=thp.TINY_DISC)
     assert [s for s, _ in state.history] == [1, 2, 3]
     assert all(np.isfinite(v) for _, m in state.history for v in m.values())
     assert "discriminator_loss" in dict(state.history)[3]
@@ -236,7 +243,8 @@ def test_run_train_mixprecision_writes_a_checkpoint_synthesizer_loads_in_both_ty
     path = latest_checkpoint(str(run_dir))
     assert path.endswith("checkpoint_3.pth.tar")
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    assert all(v.dtype == torch.float32 for v in payload["generator"].values()
+    assert all(v.dtype == torch.float32
+               for part in ("model", "discriminator") for v in payload[part].values()
                if v.is_floating_point())
     if model == "nhv":
         return
@@ -254,6 +262,38 @@ def test_run_train_mixprecision_writes_a_checkpoint_synthesizer_loads_in_both_ty
     got = synth._run(mel)
     assert got.dtype == np.float32 and got.shape == want.shape and np.all(np.isfinite(got))
     assert np.abs(got - want).max() <= max(2e-3, 1e-2 * peak)
+
+
+def test_run_train_mixprecision_device_path_checkpoint_in_bf16_as_close_as_jaxs(corpus):
+    """Basis-MelGAN through `--mixprecision 1 --device_cache 1` (bf16 weight
+    targets on the device path): the checkpoint synthesizes in float32 as
+    the JAX package's generator does on the same file (1e-5 of the peak),
+    and in bf16 it deviates from float32 by no more than DEV_RATIO times the
+    JAX package's own bf16 synthesis of that file does."""
+    from fastvocoder_tpu.models.factory import build_generator as jax_build_generator
+    from fastvocoder_tpu.train import checkpoint as jck
+
+    model = "basis-melgan"
+    run_dir = corpus / "mixed_device"
+    run_train(_argv(corpus, model, run_dir, max_steps=3, save_step=3, mixprecision=1,
+                    device_cache=1), disc_cfg=thp.TINY_DISC)
+    path = latest_checkpoint(str(run_dir))
+    conf = str(corpus / CONFS[model])
+    mel = np.random.default_rng(5).random((23, 80)).astype(np.float32)
+    f32 = Synthesizer(path, conf, model, device="cpu")._run(mel)
+    bf16 = Synthesizer(path, conf, model, device="cpu", compute_dtype=BF16)._run(mel)
+    jcfg = jhp.load_model_config(model, conf)
+    params = jck.load_checkpoint(path, jcfg, with_discriminator=False)["gen_params"]
+    jax_out = {}
+    for dtype in (None, jnp.bfloat16):
+        gen = jax_build_generator(jcfg, compute_dtype=dtype)
+        out = gen.apply({"params": params}, jnp.asarray(mel)[None], method=gen.inference)
+        jax_out[dtype] = np.asarray(out, np.float32)[0]
+    peak = np.abs(jax_out[None]).max()
+    assert f32.shape == jax_out[None].shape
+    assert np.abs(f32 - jax_out[None]).max() <= 1e-5 * peak
+    jax_dev = np.abs(jax_out[jnp.bfloat16] - jax_out[None]).max()
+    assert np.abs(bf16 - f32).max() <= DEV_RATIO * jax_dev
 
 
 def test_bf16_training_needs_a_card_unless_told_the_cpu(corpus):

@@ -42,7 +42,9 @@ def test_scan_sees_the_whole_port():
                 "dsp/stft.py", "losses/__init__.py", "losses/gan.py", "losses/stft_loss.py",
                 "models/discriminator/msd.py", "models/discriminator/mfd.py",
                 "models/discriminator/composite.py", "models/melgan.py", "models/nhv.py",
-                "models/discriminator/mpd.py", "dsp/f0.py", "ops/overlap_add.py"):
+                "models/discriminator/mpd.py", "dsp/f0.py", "ops/overlap_add.py",
+                "runtime/__init__.py", "runtime/prefetch.py", "runtime/profiler.py",
+                "data/device_cache.py"):
         assert f"fastvocoder_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
