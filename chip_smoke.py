@@ -102,8 +102,32 @@ geometry on the same corpus:
     synchronous save); 2 steps with `--mixprecision 1 --remat 1
     --device_cache 0`.
 
-Launch counts are zeroed before each path and read right after it; the run
-fails if a kernel of the path was not launched.  A profile of one batch-1
+Then the pipeline from a wav to a published model, Basis-MelGAN light,
+through the port's launcher and CLI (`pipeline_phase`):
+
+  * the mel golden's wav through `dsp.audio.melspectrogram` on the card
+    against its mel (1e-5), and ms of extraction a second of audio;
+  * 12 seeded wavs of 2-4 s (one at 48 kHz, one at 22.05 kHz) and
+    `docs/samples/ground_truth_eval0.wav` through `MODE=preprocess python -m
+    fastvocoder_tpu_torch.bin.launcher` in a fresh process, its pool of host
+    workers on;
+  * `MODE=train`, 2 pre-adversarial steps on those mels with seeded weight
+    targets (kernels 1, 2, 3); `python -m fastvocoder_tpu_torch.bin.cli
+    synthesize` on the checkpoint (4 wavs, `.gl.wav` included), and
+    Griffin-Lim on the card in float64 against a plain numpy loop from the
+    same phase (1e-9 of the peak), timed on both;
+  * `MODE=publish`: the 30,000-frame pattern (kernel 2 at 120,000 and
+    480,000 rows, kernel 1 over 480,000 weight steps), each held against
+    its plain version at those shapes; the release weights' zero-mel
+    response against the pattern `basis_melgan_clean2.npz` stores;
+  * `MODE=test` on the published file over the eval mels, `MODE=evaluation`
+    on the eval split, and `StreamingSynthesizer.for_model` on the release
+    weights against the full pass (the interior within 1e-5), ms a chunk.
+
+These run in this process through `runpy` (preprocess excepted), so that
+the launch counts see them.  Launch counts are zeroed before each path and
+read right after it; the run fails if a kernel of the path was not
+launched.  A profile of one batch-1
 inference of each of the first two models closes the run (MelGAN's and
 NHV's come with their phases).
 
@@ -2607,6 +2631,401 @@ def save_stall(torch, state, corpus: str, n: int = 3) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The pipeline: wav -> mel -> train -> synthesize -> publish -> test ->
+# evaluation, through the port's launcher and CLI, and streaming
+# ---------------------------------------------------------------------------
+
+GROUND_TRUTH = os.path.join(ROOT, "docs", "samples", "ground_truth_eval0.wav")
+MEL_GOLDEN = os.path.join(ROOT, "tests", "goldens", "mel_golden.npz")
+# a release file's pattern was computed from its weights before they were
+# rounded to float16: the zero-mel response of the committed weights lies
+# within 5e-4 of the pattern's peak from it, in the JAX package and in the
+# port alike (tests/test_torch_publish.py, on the CPU); the card's response
+# is held within that plus the card's bound against the CPU
+RELEASE_PATTERN_TOL = 5e-4 + MODEL_TOL
+
+
+def run_module(module: str, argv, mode: str = "") -> str:
+    """`[MODE=<mode>] python -m <module> <argv>` inside this process, so
+    that the launch counts see its kernels; -> what it printed (echoed)."""
+    import contextlib
+    import runpy
+
+    saved_argv, saved_mode = sys.argv, os.environ.get("MODE")
+    sys.argv = [module] + list(argv)
+    sys.modules.pop(module, None)  # as in a fresh process
+    if mode:
+        os.environ["MODE"] = mode
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(module, run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise AssertionError(f"{mode or module} exited with {e.code}") from e
+    finally:
+        sys.argv = saved_argv
+        if saved_mode is None:
+            os.environ.pop("MODE", None)
+        else:
+            os.environ["MODE"] = saved_mode
+        for line in out.getvalue().splitlines():
+            log(f"    | {line}")
+    return out.getvalue()
+
+
+def write_wavs(root: str) -> str:
+    """12 seeded wavs of 2-4 s (a voiced tone with harmonics, vibrato and
+    noise; one at 48 kHz, one at 22.05 kHz, the rest at 24 kHz) and the
+    ground-truth sample, as an index file; -> its path."""
+    import scipy.io.wavfile
+
+    rng = np.random.default_rng(21)
+    paths = []
+    for i in range(12):
+        sr = {0: 48000, 1: 22050}.get(i, 24000)
+        t = np.arange(int(rng.uniform(2.0, 4.0) * sr)) / sr
+        f0 = rng.uniform(100, 250) * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        y = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6))
+        y = y * (0.6 + 0.4 * np.sin(2 * np.pi * 0.5 * t)) + 0.02 * rng.standard_normal(t.size)
+        paths.append(os.path.join(root, f"utt_{i}.wav"))
+        scipy.io.wavfile.write(paths[-1], sr, (y / np.abs(y).max() * 20000).astype(np.int16))
+    paths.append(GROUND_TRUTH)
+    index = os.path.join(root, "wavs.txt")
+    with open(index, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return index
+
+
+def numpy_griffin_lim(S: np.ndarray, phase: np.ndarray, n_iters: int, n_fft: int, hop: int,
+                      win: int) -> np.ndarray:
+    """The plain host loop (reference data/audio.py:74-84,108-110): numpy
+    float64, S (bins, frames) from the initial phase `phase`."""
+    n = np.arange(win)
+    w = 0.5 - 0.5 * np.cos(2 * np.pi * n / win)
+    left = (n_fft - win) // 2
+    w = np.pad(w, (left, n_fft - win - left))
+
+    def stft(y):
+        y = np.pad(y, (n_fft // 2, n_fft // 2), mode="reflect")
+        nf = 1 + (len(y) - n_fft) // hop
+        frames = np.stack([y[i * hop: i * hop + n_fft] for i in range(nf)])
+        return np.fft.rfft(frames * w, n=n_fft, axis=-1).T
+
+    def istft(z):
+        frames = np.fft.irfft(z.T, n=n_fft, axis=-1) * w
+        total = n_fft + hop * (frames.shape[0] - 1)
+        out, wsq = np.zeros(total), np.zeros(total)
+        for i, fr in enumerate(frames):
+            out[i * hop: i * hop + n_fft] += fr
+            wsq[i * hop: i * hop + n_fft] += w * w
+        return (out / np.maximum(wsq, 1e-10))[n_fft // 2: total - n_fft // 2]
+
+    y = istft(S * np.exp(1j * phase))
+    for _ in range(n_iters):
+        y = istft(S * np.exp(1j * np.angle(stft(y))))
+    return y
+
+
+def mel_phase(torch) -> dict:
+    """The mel golden's wav on the card against its mel; ms of extraction a
+    second of audio on the card and through the CPU path."""
+    from fastvocoder_tpu_torch.dsp import audio
+
+    g = np.load(MEL_GOLDEN)
+    got = audio.melspectrogram(g["wav"])
+    err = float(np.abs(got - g["mel"]).max())
+    log(f"  melspectrogram of the golden wav on the card: {got.shape}, max abs {err:.3e} from "
+        f"the golden (tol 1e-5)")
+    if got.shape != g["mel"].shape or not err <= 1e-5:
+        raise AssertionError("melspectrogram on the card disagrees with the mel golden")
+    rng = np.random.default_rng(4)
+    wav = (0.3 * np.sin(np.arange(240000) / 9.0) + 0.05 * rng.standard_normal(240000)
+           ).astype(np.float32)  # 10 s
+    card = host_us(torch, lambda: audio.melspectrogram(wav), 5) / 1e4
+    cpu = host_us(torch, lambda: audio.melspectrogram(wav, device="cpu"), 3) / 1e4
+    log(f"  mel extraction (float64): {card:.3f} ms a second of audio on the card, {cpu:.3f} on "
+        f"the CPU path")
+    return {"mel_ms_per_audio_s": card, "mel_ms_per_audio_s_cpu": cpu, "golden_err": err}
+
+
+def griffin_lim_phase(torch, mel: np.ndarray) -> dict:
+    """Griffin-Lim of `mel` (80, T) on the card in float64 against the
+    plain numpy loop from the same phase (1e-9 of the peak), and the times
+    of both, of float32 on the card and of `inv_mel_spectrogram` (the
+    synthesize path's)."""
+    from fastvocoder_tpu_torch.dsp import audio, griffin_lim
+    from fastvocoder_tpu_torch.hparams import HP as hp
+
+    amp = np.power(10.0, (np.clip(mel.astype(np.float64), 0, 1) * -hp.min_level_db
+                          + hp.min_level_db + hp.ref_level_db) * 0.05)
+    basis = griffin_lim._inv_mel_basis(hp.sample_rate, hp.n_fft, hp.num_mels, hp.fmin)
+    S = np.maximum(1e-10, basis @ amp) ** hp.power
+    phase = 2 * np.pi * np.random.default_rng(8).random(S.shape)
+    args = dict(n_iters=hp.griffin_lim_iters, n_fft=hp.n_fft, hop=hp.hop_length, win=hp.win_length)
+    t0 = time.perf_counter()
+    want = numpy_griffin_lim(S, phase, **args)
+    host = (time.perf_counter() - t0) * 1e3
+    mag = torch.from_numpy(S.T.copy()).cuda()
+    run = lambda m, p: griffin_lim.griffin_lim(m, phase0=p, length=want.shape[0], **args)
+    got = run(mag, phase.T.copy()).cpu().numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    card = host_us(torch, lambda: run(mag, phase.T.copy()), 3) / 1e3
+    card32 = host_us(torch, lambda: run(mag.float(), phase.T.copy()), 3) / 1e3
+    inv = host_us(torch, lambda: audio.inv_mel_spectrogram(mel), 3) / 1e3
+    log(f"  Griffin-Lim, {hp.griffin_lim_iters} iterations over {mel.shape[1]} frames: card "
+        f"float64 {card:.2f} ms (float32 {card32:.2f}), host numpy loop {host:.2f} ms; card "
+        f"against the host from the same phase {err:.3e} of the peak (tol 1e-9); "
+        f"inv_mel_spectrogram on the card {inv:.2f} ms")
+    if not err <= 1e-9:
+        raise AssertionError("Griffin-Lim on the card disagrees with the numpy loop")
+    return {"frames": int(mel.shape[1]), "card_f64_ms": card, "card_f32_ms": card32,
+            "host_numpy_ms": host, "inv_mel_spectrogram_ms": inv, "rel_err": err}
+
+
+def long_launches(torch, gen, frames: int) -> dict:
+    """Kernels 2 and 1 at publish's shapes against their plain versions on
+    the card: the chain at (1, 4 frames, 256) and (1, 16 frames, 256) with
+    the trained stages' weights, the decode over 16 frames weight steps;
+    with their times."""
+    from fastvocoder_tpu_torch.ops.basis_decode import basis_decode_cuda, basis_decode_plain
+    from fastvocoder_tpu_torch.ops.fused_resstack import (
+        fused_residual_stacks_cuda,
+        fused_residual_stacks_plain,
+    )
+
+    dev = next(gen.parameters()).device
+    g = torch.Generator().manual_seed(12)
+    out = {}
+    for stage, T in ((0, frames * 4), (1, frames * 16)):
+        stacks = [m.chain_operands() for m in gen.stacks[stage]]
+        x = (0.3 * torch.randn(1, T, stacks[0][0].shape[1], generator=g)).to(dev)
+        got = fused_residual_stacks_cuda(x, stacks)
+        want = fused_residual_stacks_plain(x, stacks)
+        err, tol, rows_ok, ok = rows_close(got, want, CHAIN_TOL, CHAIN_ROW_TOL)
+        del got, want
+        ms = cuda_ms(lambda: fused_residual_stacks_cuda(x, stacks), iters=3, warmup=1)
+        plain = cuda_ms(lambda: fused_residual_stacks_plain(x, stacks), iters=3, warmup=1)
+        b3, _ = bound_3xtf32_ms(*chain_work(1, T, stacks))
+        log(f"  fused_resstack (1, {T}, 256): max abs {err:.3e} (tol {tol:.3e}), rows within "
+            f"{CHAIN_ROW_TOL:.0e}: {rows_ok:.4f}; kernel {ms:.3f} ms, plain {plain:.3f}, 3xTF32 "
+            f"bound {b3:.3f}")
+        if not ok:
+            raise AssertionError(f"fused_resstack disagrees with its plain version at (1, {T})")
+        out[f"fused_resstack_{T}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                                      "bound_3xtf32_ms": b3}
+        del x
+    basis = gen.basis_signal.basis
+    eps = float(np.finfo(np.float32).eps)
+    w = torch.relu(torch.randn(1, frames * 16, basis.shape[1], generator=g)).to(dev)
+    got, want = basis_decode_cuda(w, basis), basis_decode_plain(w, basis)
+    err = (got - want).abs()
+    ok = bool(torch.all(err <= 4 * basis.shape[1] * eps * basis_decode_plain(w.abs(),
+                                                                              basis.abs())))
+    ms = cuda_ms(lambda: basis_decode_cuda(w, basis), iters=5, warmup=1)
+    plain = cuda_ms(lambda: basis_decode_plain(w, basis), iters=5, warmup=1)
+    C, L = basis.shape[1], basis.shape[0]
+    bms, by = bound_ms(4 * (frames * 16 * C + L * C + (frames * 16 + 1) * L // 2),
+                       2 * 2 * (frames * 16 + 1) * L // 2 * C)
+    log(f"  basis_decode (1, {frames * 16}, {C}): max abs {err.max().item():.3e}, within bound "
+        f"{ok}; kernel {ms:.3f} ms, plain {plain:.3f}, bound {bms:.3f} ({by})")
+    if not ok:
+        raise AssertionError("basis_decode disagrees with its plain version at publish's shape")
+    out[f"basis_decode_{frames * 16}"] = {"max_abs_err": err.max().item(), "ms": ms,
+                                          "plain_ms": plain, "bound_ms": bms}
+    return out
+
+
+def pipeline_phase(torch, count_path, root: str) -> dict:
+    """wav -> mel -> train -> synthesize -> publish -> test -> evaluation
+    for Basis-MelGAN light through the port's launcher and CLI, then
+    streaming on the release weights; -> the phase's numbers."""
+    import scipy.io.wavfile
+
+    from fastvocoder_tpu_torch.bin.evaluation import evaluate, load_data
+    from fastvocoder_tpu_torch.bin.publish import PATTERN_FRAMES, zero_mel_response
+    from fastvocoder_tpu_torch.bin.synthesize import Synthesizer
+    from fastvocoder_tpu_torch.checkpoint import load_release_npz
+    from fastvocoder_tpu_torch.dsp import audio
+    from fastvocoder_tpu_torch.hparams import load_model_config
+    from fastvocoder_tpu_torch.models.factory import load_generator
+    from fastvocoder_tpu_torch.models.streaming import DEFAULT_HALO, StreamingSynthesizer
+    from fastvocoder_tpu_torch.train.checkpoint import latest_checkpoint
+
+    basis = ("basis_decode", "fused_resstack")
+    out = {}
+    log("[pipeline: feature extraction on the card]")
+    out["mel"] = mel_phase(torch)
+
+    log("[pipeline: MODE=preprocess python -m fastvocoder_tpu_torch.bin.launcher, pool on]")
+    index = write_wavs(root)
+    processed, audio_idx, mel_idx = (os.path.join(root, d) for d in ("processed", "audio", "mel"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fastvocoder_tpu_torch.bin.launcher", "--data_path", index,
+         "--save_path", processed, "--audio_index_path", audio_idx, "--mel_index_path", mel_idx,
+         "--train_size", "9", "--valid_size", "2", "--eval_size", "2"],
+        cwd=ROOT, env=dict(os.environ, MODE="preprocess", PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=600)
+    out["preprocess_s"] = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).strip().splitlines()[-6:]:
+        log(f"    | {line}")
+    mels = sorted(f for f in os.listdir(processed) if f.endswith(".mel.npy"))
+    log(f"  13 wavs (2-4 s; 48 kHz, 22.05 kHz, 24 kHz) -> {len(mels)} mels in "
+        f"{out['preprocess_s']:.2f} s (a fresh process, its pool of host workers included)")
+    if proc.returncode != 0 or len(mels) != 13 or "failed" in proc.stdout:
+        raise AssertionError(f"preprocess failed (exit {proc.returncode})")
+    gt_mel = np.load(os.path.join(processed, "ground_truth_eval0.wav.mel.npy"))
+    _, gt = scipy.io.wavfile.read(GROUND_TRUTH)
+    again = audio.melspectrogram(gt.astype(np.float32) / 32768.0)
+    if gt_mel.shape != again.shape or not np.abs(gt_mel - again).max() <= 1e-9:
+        raise AssertionError("the preprocessed ground-truth mel is not the card's mel of its wav")
+
+    log("[pipeline: MODE=train, Basis-MelGAN light, 2 pre-adversarial steps]")
+    os.makedirs(os.path.join(root, "weight"))
+    rng = np.random.default_rng(5)
+    for path in open(os.path.join(audio_idx, "train")).read().split() + \
+            open(os.path.join(audio_idx, "valid")).read().split():
+        frames = np.load(path.replace(".wav.npy", ".wav.mel.npy"), mmap_mode="r").shape[1]
+        np.save(os.path.join(root, "weight", os.path.basename(path)),
+                rng.random((256, frames * 16), dtype=np.float32))  # as write_corpus's targets
+    np.save(os.path.join(root, "basis_signal_weight.npy"),
+            np.load(os.path.join(ROOT, "dataset", "clean_basis", "basis_signal_weight.npy")))
+    run_dir = os.path.join(root, "run")
+    t0 = time.perf_counter()
+    count_path("pipeline MODE=train", lambda: run_module(
+        "fastvocoder_tpu_torch.bin.launcher",
+        ["--audio_index_path", os.path.join(audio_idx, "train"),
+         "--mel_index_path", os.path.join(mel_idx, "train"),
+         "--audio_index_valid_path", os.path.join(audio_idx, "valid"),
+         "--mel_index_valid_path", os.path.join(mel_idx, "valid"),
+         "--model_name", "basis-melgan", "--config", CONF, "--run_dir", run_dir,
+         "--basis_dataset_path", root, "--batch_size", "4", "--batch_expand_size", "1",
+         "--fixed_length", str(TRAIN_FRAMES), "--max_steps", "2", "--save_step", "2",
+         "--valid_step", "2", "--valid_num", "1"], mode="train"),
+        basis + ("fused_resstack_bwd",))
+    ckpt = latest_checkpoint(run_dir)
+    losses = [float(v) for d, _, files in os.walk(run_dir) if "total_loss.txt" in files
+              for v in open(os.path.join(d, "total_loss.txt")).read().split()]
+    log(f"  {ckpt} in {time.perf_counter() - t0:.2f} s; total losses {losses}")
+    if ckpt is None or not ckpt.endswith("checkpoint_2.pth.tar") or len(losses) != 2 \
+            or not np.isfinite(losses).all():
+        raise AssertionError("pipeline training left no step-2 checkpoint or no finite losses")
+
+    log("[pipeline: python -m fastvocoder_tpu_torch.bin.cli synthesize]")
+    gt_mel_path = os.path.join(processed, "ground_truth_eval0.wav.mel.npy")
+    wav_path = os.path.join(root, "gt.wav")
+    count_path("pipeline cli synthesize", lambda: run_module(
+        "fastvocoder_tpu_torch.bin.cli",
+        ["synthesize", "--checkpoint_path", ckpt, "--mel_path", gt_mel_path, "--wav_path",
+         wav_path, "--model_name", "basis-melgan", "--config", CONF]), basis)
+    T = gt_mel.shape[1]
+    for suffix, n in (("", (T * 16 - 1) * 15 + 30), (".remove", (T * 16 - 1) * 15 + 30),
+                      (".bias", (T * 16 - 1) * 15 + 30), (".gl", (T - 1) * HOP)):
+        rate, y = scipy.io.wavfile.read(wav_path[:-4] + suffix + ".wav")
+        if rate != 24000 or y.shape != (n,):
+            raise AssertionError(f"synthesize wrote {suffix or 'the waveform'} as {y.shape}")
+    log(f"  4 wavs written (est, remove, bias: {(T * 16 - 1) * 15 + 30} samples; gl: "
+        f"{(T - 1) * HOP})")
+    out["griffin_lim"] = griffin_lim_phase(torch, gt_mel)
+
+    log(f"[pipeline: MODE=publish, the {PATTERN_FRAMES}-frame zero-mel pattern]")
+    published = os.path.join(root, "published.pth.tar")
+    t0 = time.perf_counter()
+    count_path("pipeline MODE=publish", lambda: run_module(
+        "fastvocoder_tpu_torch.bin.launcher",
+        ["--checkpoint_path", ckpt, "--model_name", "basis-melgan", "--config", CONF,
+         "--save_path", published], mode="publish"), basis)
+    out["publish_ms"] = (time.perf_counter() - t0) * 1e3
+    gen, pattern = load_generator(published, load_model_config("basis-melgan", CONF),
+                                  torch.device("cuda"))
+    n = (PATTERN_FRAMES * 16 - 1) * 15 + 30
+    if pattern is None or pattern.shape != (n,) or not np.isfinite(pattern).all():
+        raise AssertionError(f"the published pattern is {None if pattern is None else pattern.shape}")
+    out["pattern_ms"] = host_us(torch, lambda: zero_mel_response(
+        gen, PATTERN_FRAMES, 80, torch.device("cuda")), 3) / 1e3
+    log(f"  published in {out['publish_ms']:.1f} ms (a zero-mel inference of {PATTERN_FRAMES} "
+        f"frames alone {out['pattern_ms']:.1f} ms), pattern of {n} samples, peak "
+        f"{np.abs(pattern).max():.3e}")
+    out["long_launches"] = long_launches(torch, gen, PATTERN_FRAMES)
+    del gen
+    torch.cuda.empty_cache()
+    release = Synthesizer(CKPT, CONF, "basis-melgan")
+    stored = load_release_npz(CKPT)["pattern"]
+    frames = (stored.shape[0] - 30) // (16 * 15) + 1
+    got = count_path("release zero-mel response", lambda: zero_mel_response(
+        release.generator, frames, 80, torch.device("cuda")), basis)
+    err, peak = float(np.abs(got - stored).max()), float(np.abs(stored).max())
+    log(f"  basis_melgan_clean2.npz zero-mel response over {frames} frames against the stored "
+        f"pattern: max abs {err:.3e}, {err / peak:.3e} of the peak (tol {RELEASE_PATTERN_TOL})")
+    if got.shape != stored.shape or not err <= RELEASE_PATTERN_TOL * peak:
+        raise AssertionError("the release zero-mel response disagrees with the stored pattern")
+    out["release_pattern_err"] = err
+
+    log("[pipeline: MODE=test on the published file over the eval mels]")
+    eval_dir = os.path.join(root, "eval_mels")
+    os.makedirs(eval_dir)
+    for path in open(os.path.join(mel_idx, "eval")).read().split():
+        np.save(os.path.join(eval_dir, os.path.basename(path)), np.load(path))
+    said = count_path("pipeline MODE=test", lambda: run_module(
+        "fastvocoder_tpu_torch.bin.launcher",
+        ["--checkpoint_path", published, "--file_path", eval_dir, "--model_name",
+         "basis-melgan", "--config", CONF], mode="test"), basis)
+    out["test_rtf"] = float(re.search(r"rtf is ([0-9.eE+-]+)\.", said).group(1))
+    wavs = [f for f in os.listdir(eval_dir) if f.endswith(".wav")]
+    if len(wavs) != 2 or not out["test_rtf"] > 0:
+        raise AssertionError("MODE=test wrote no wavs or no RTF")
+
+    log("[pipeline: MODE=evaluation on the eval split]")
+    result = os.path.join(root, "eval.json")
+    eval_args = ["--checkpoint_path", ckpt, "--model_name", "basis-melgan", "--config", CONF,
+                 "--audio_index_path", os.path.join(audio_idx, "eval"),
+                 "--mel_index_path", os.path.join(mel_idx, "eval"), "--num_items", "2",
+                 "--output", result]
+    count_path("pipeline MODE=evaluation", lambda: run_module(
+        "fastvocoder_tpu_torch.bin.launcher", eval_args, mode="evaluation"), basis)
+    with open(result) as f:
+        summary = json.load(f)
+    if len(summary["items"]) != 2 or not np.isfinite(list(summary["mean"].values())).all():
+        raise AssertionError("MODE=evaluation gave no finite metrics")
+    synth = Synthesizer(ckpt, CONF, "basis-melgan", bucket_frames=64)
+    items = load_data(os.path.join(audio_idx, "eval"), os.path.join(mel_idx, "eval"), [0, 1])
+    out["evaluation_ms_per_item"] = host_us(torch, lambda: evaluate(synth, *items), 3) / 2e3
+    log(f"  mean {summary['mean']}; {out['evaluation_ms_per_item']:.1f} ms an item "
+        f"(a warm Synthesizer)")
+    del synth
+
+    log("[pipeline: streaming on the release weights against the full pass]")
+    mel = np.tile(gt_mel.T.astype(np.float32), (4, 1))  # 4 x 193 frames
+    gen, pattern = release.generator, release.pattern
+    s = StreamingSynthesizer.for_model(gen, "basis-melgan", pattern=pattern)
+    streamed = count_path("streaming", lambda: s(mel), basis)
+    T = mel.shape[0]
+    with torch.inference_mode():
+        full_pass = lambda: gen.inference(torch.from_numpy(mel[None]).cuda())[0].cpu().numpy()
+        full = full_pass()[: T * HOP] - pattern[: T * HOP]
+    edge = DEFAULT_HALO * HOP
+    peak = max(1.0, float(np.abs(full).max()))
+    interior = float(np.abs(streamed[edge:-edge] - full[edge:-edge]).max())
+    chunks = -(-T // s.chunk)
+    stream_ms = host_us(torch, lambda: s(mel), 5) / 1e3
+    with torch.inference_mode():
+        full_ms = host_us(torch, full_pass, 5) / 1e3
+    seconds = T * HOP / 24000
+    log(f"  {T} frames in {chunks} chunks of {s.chunk} + 2 x {s.halo} frames: interior max abs "
+        f"{interior:.3e} (tol {1e-5 * peak:.1e}), edges {np.abs(streamed - full).max():.3e}; "
+        f"{stream_ms / chunks:.3f} ms a chunk, RTF {stream_ms / 1e3 / seconds:.3e} streamed "
+        f"against {full_ms / 1e3 / seconds:.3e} in one pass")
+    if streamed.shape != full.shape or not interior <= 1e-5 * peak:
+        raise AssertionError("streaming disagrees with the full pass in the interior")
+    out["streaming"] = {"frames": T, "chunks": chunks, "ms_per_chunk": stream_ms / chunks,
+                        "rtf": stream_ms / 1e3 / seconds, "full_pass_rtf": full_ms / 1e3 / seconds,
+                        "interior_err": interior}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2873,6 +3292,15 @@ def main() -> int:
         step_ms["hifigan checkpoint save (ms)"] = resume_phase(torch, count_path, Synthesizer,
                                                                corpus, index)
     log(f"  ms a step: {step_ms}")
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        pipeline = pipeline_phase(torch, count_path, work)
+    log(f"  pipeline: {json.dumps(pipeline)}")
+    for e in entries:
+        if e["name"] in ("basis_decode", "fused_resstack"):
+            e["publish"] = {k: v for k, v in pipeline["long_launches"].items()
+                            if k.startswith(e["name"])}
 
     for model, synth in (("basis-melgan", basis_synth), ("hifigan", hifi_synth)):
         log(f"[profile: {model} batch-1 inference on the device]")

@@ -14,10 +14,16 @@ NHV's conditioning (B, T, 81) with f0 on channel 80, basis weights
                backward and the HiFiGAN tail, each beside its plain PyTorch
                version.
   * models/  — the five generators, the discriminators, batched synthesis.
-  * dsp/, losses/, data/, train/ — STFT, f0, the GAN losses, the data
-               pipeline and the trainer.
+  * dsp/, losses/, data/, train/ — STFT and inverse STFT, the mel
+               filterbank, feature extraction, Griffin-Lim, f0, the GAN
+               losses, preprocessing and the data pipeline, the trainer and
+               its checkpoints (published files included).
+  * models/streaming.py — chunked synthesis at one shape.
   * serving/ — request batching and the HTTP frontend.
-  * bin/     — synthesize / test (RTF) / serve / train entry points.
+  * bin/     — the entry points: train, preprocess, synthesize, publish,
+               test (RTF), evaluation and serve, dispatched by MODE
+               (`bin/launcher.py`) or a subcommand (`bin/cli.py`, the
+               `fastvocoder-torch` script).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """

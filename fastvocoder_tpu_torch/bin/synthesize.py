@@ -11,6 +11,11 @@ families, as the JAX package's entry point trims.  Samples within the
 generator's receptive field of the pad boundary then differ from an
 exact-length run by edge effects only.
 
+`run_synthesizer` writes the waveform, `<wav>.remove.wav` (bias removed),
+`<wav>.bias.wav` and `<wav>.gl.wav`, the Griffin-Lim inversion of the mel
+(`dsp.audio.inv_mel_spectrogram`, on the same device, its phase seeded 0
+where the JAX package's draw is unseeded).
+
 NHV is conditioned on the mel and f0 (T, 81) (`dsp.f0.f0_to_condition`):
 `synthesize` takes the packed tensor, or an 80-channel mel with `f0=`; its
 zero-conditioning bias has f0 = 0 everywhere (no voicing: the noise source
@@ -149,11 +154,15 @@ def run_synthesizer(argv=None):
             raise SystemExit("nhv needs an f0 track: --mel_path is not named <name>.mel.npy, so "
                              "there is no default f0 path; pass --f0_path")
         f0 = np.load(f0_path)
+    # the Griffin-Lim reference (float64, seeded: dsp/audio.py)
+    gl_wav = audio.inv_mel_spectrogram(mel, hp, device=synthesizer.device)
     est, est_remove, bias = synthesizer.synthesize(mel.T, f0=f0)
     audio.save_wav(est, args.wav_path, hp.sample_rate, rescale_out=hp.rescale_out)
     audio.save_wav(est_remove, args.wav_path[:-3] + "remove.wav", hp.sample_rate,
                    rescale_out=hp.rescale_out)
     audio.save_wav(bias, args.wav_path[:-3] + "bias.wav", hp.sample_rate,
+                   rescale_out=hp.rescale_out)
+    audio.save_wav(gl_wav, args.wav_path[:-3] + "gl.wav", hp.sample_rate,
                    rescale_out=hp.rescale_out)
 
 

@@ -172,12 +172,15 @@ class OptaxRecord(tuple):
 _RECORDS: Dict[str, type] = {}
 
 # the globals a checkpoint file may name: torch's tensor rebuilds, numpy's
-# array reconstruction (numpy 1 and 2), `_codecs.encode` (protocol 2's
-# bytes) and OrderedDict; `optax.*` classes become `OptaxRecord`s
+# array reconstruction (numpy 1 and 2), `_codecs.encode` and `bytes`
+# (protocol 2's bytes; an empty array's data is `bytes()`: the published
+# pattern of a family other than Basis-MelGAN) and OrderedDict; `optax.*`
+# classes become `OptaxRecord`s
 _ALLOWED = {
     ("torch._utils", "_rebuild_tensor"), ("torch._utils", "_rebuild_tensor_v2"),
     ("torch._utils", "_rebuild_parameter"), ("collections", "OrderedDict"),
     ("numpy", "ndarray"), ("numpy", "dtype"), ("_codecs", "encode"),
+    ("__builtin__", "bytes"), ("builtins", "bytes"),
     ("numpy.core.multiarray", "_reconstruct"), ("numpy._core.multiarray", "_reconstruct"),
     ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
 }

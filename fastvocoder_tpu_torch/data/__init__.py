@@ -1,1 +1,1 @@
-"""The training data pipeline."""
+"""Preprocessing (wav -> features and splits) and the training data pipeline."""

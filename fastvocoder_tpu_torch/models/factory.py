@@ -72,7 +72,8 @@ def load_generator(checkpoint_path: str, cfg: ModelConfig, device: torch.device,
     (`checkpoint.load_release_npz`); a training checkpoint in the
     reference layout, written by this package's trainer or by the JAX
     package's (its `model`, the reference's torch keys, or NHV's flat JAX
-    tree; a published file's `pattern` comes with it); or this package's
+    tree; a published file's `pattern` comes with it, None when empty, as
+    the other families publish it); or this package's
     earlier `TRAIN_FORMAT` payload, of whose training form only the
     generator is read.  Weight norm is fused in float32 as a release's JAX
     tree is fused.  Any other file raises ValueError naming every format."""
@@ -95,7 +96,7 @@ def load_generator(checkpoint_path: str, cfg: ModelConfig, device: torch.device,
         except (KeyError, ValueError) as e:
             raise ValueError(f"{checkpoint_path} does not hold a {cfg.model_name!r} generator "
                              f"of this configuration: {e}") from e
-        if payload.get("pattern") is not None:
+        if payload.get("pattern") is not None and np.size(payload["pattern"]):
             pattern = np.asarray(payload["pattern"], np.float32)
     gen = build_generator(cfg, compute_dtype=compute_dtype)
     gen.load_state_dict(state)

@@ -32,6 +32,10 @@ restricted unpickler of `checkpoint.torch_load`, without JAX or optax.
 
 `AsyncCheckpointWriter` writes on a worker thread; `submit` snapshots the
 state on the device first, before the next step is queued.
+
+`save_published` writes the published `{model, pattern}` file as the JAX
+package's does; `generator_state` reads the training-form generator of any
+of these files.
 """
 
 from __future__ import annotations
@@ -530,6 +534,40 @@ def load_checkpoint(path: str, state: "TrainState", model_name: str) -> "TrainSt
             state.disc_updates = _load_optax_adam(state.disc_opt, state.discriminator,
                                                   payload["discriminator_optimizer"])
     return state
+
+
+def generator_state(path: str, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The generator of a training checkpoint (either of this package's
+    formats, or the JAX package's) or of a published file, as the training
+    form's `state_dict` (`build_generator(cfg, weight_norm=True)`).
+    Refuses a release checkpoint (its weights are fused) and another
+    model's file."""
+    kind, payload = read_checkpoint(path)
+    if kind == "release":
+        raise ValueError(f"{path} is a release checkpoint: it holds no training-form generator")
+    saved_model = payload.get("model_name")
+    if saved_model is not None and saved_model != cfg.model_name:
+        raise ValueError(f"{path} holds a {saved_model!r} model, not {cfg.model_name!r}")
+    if kind == "train":
+        return dict(payload["generator"])
+    entries = generator_key_map(cfg) if has_torch_layout(cfg.model_name) else None
+    try:
+        return port_from_reference(payload["model"], entries)
+    except KeyError as e:
+        raise ValueError(f"{path} does not hold this {cfg.model_name!r} configuration's "
+                         f"generator: no {e}") from e
+
+
+def save_published(path: str, cfg: ModelConfig, generator_state: Mapping[str, torch.Tensor],
+                   pattern: np.ndarray) -> None:
+    """The published artifact `{'model', 'pattern'}` (reference
+    bin/publish.py:71-74), as the JAX package's `save_published` writes it:
+    the training-form generator state under the reference's keys and
+    layouts (NHV: its flat layout), and the zero-mel `pattern` as a numpy
+    array (empty but for Basis-MelGAN)."""
+    entries = generator_key_map(cfg) if has_torch_layout(cfg.model_name) else None
+    write_payload(path, {"model": reference_from_port(generator_state, entries),
+                         "pattern": np.asarray(pattern)})
 
 
 class AsyncCheckpointWriter:

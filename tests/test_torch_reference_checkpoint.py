@@ -9,8 +9,8 @@ Both trainers write the reference's `.pth.tar` layout
 JAX package writes for the same weights, and loads in the JAX package's
 `load_checkpoint` into trees of its modules' structure; the JAX generator
 and discriminator then compute what the port's do, within 1e-4 of each
-output's peak (HiFiGAN, Basis-MelGAN, MelGAN with the MPD, NHV in its flat
-layout).  It holds no `optimizer`: JAX starts a fresh one.
+output's peak (HiFiGAN, Basis-MelGAN, MultiBand-HiFiGAN under its `trunk`
+key map, MelGAN with the MPD, NHV in its flat layout).  It holds no `optimizer`: JAX starts a fresh one.
 
 Narrow configurations and `TINY_DISC`, as the trainer tests use; the
 helpers here serve both files.
@@ -41,6 +41,10 @@ HIFI_ARCH = dict(resblock_kernel_sizes=(3, 5), upsample_rates=(8, 5, 3, 2),
                  resblock_dilation_sizes=((1, 3), (1, 3)))
 BASIS_ARCH = dict(out_channels=16, channels=(16, 16, 16))
 MELGAN_ARCH = dict(channels=(16, 16, 8, 8, 8))
+# MultiBand-HiFiGAN: 4 bands of 60 samples a frame (tests/test_torch_trainer.py's)
+MB_ARCH = dict(resblock_kernel_sizes=(3, 5), upsample_rates=(10, 6),
+               upsample_initial_channel=32, upsample_kernel_sizes=(20, 12),
+               resblock_dilation_sizes=((1, 3), (1, 3)), out_bands=4)
 NHV_ARCH = dict(channels=16, ccep_size=32, fir_taps=17, fft_size=512)
 
 
@@ -57,6 +61,9 @@ def _cfgs(name):
     basis = None
     if name == "hifigan":
         make = lambda hp: hp.ModelConfig("hifigan", hp.HiFiGANConfig(**HIFI_ARCH), lambda_stft=5.0)
+    elif name == "multiband-hifigan":
+        make = lambda hp: hp.ModelConfig(name, hp.HiFiGANConfig(**MB_ARCH), lambda_stft=5.0,
+                                         multiband=True)
     elif name == "basis-melgan":
         make = lambda hp: hp.ModelConfig(name, hp.BasisMelGANConfig(**BASIS_ARCH), lambda_stft=1.0)
         basis = (0.1 * np.random.default_rng(3).standard_normal((30, 16))).astype(np.float32)
@@ -123,7 +130,7 @@ def _close(got, want, tol, what):
     assert np.abs(got - want).max() <= tol * peak, f"{what}: {np.abs(got - want).max():.3e}"
 
 
-@pytest.mark.parametrize("name", ["hifigan", "basis-melgan", "melgan", "nhv"])
+@pytest.mark.parametrize("name", ["hifigan", "basis-melgan", "multiband-hifigan", "melgan", "nhv"])
 def test_a_port_checkpoint_loads_in_jax_and_computes_the_same(tmp_path, name):
     use_mpd = name == "melgan"
     ttr = _port_trainer(name, use_mpd=use_mpd)

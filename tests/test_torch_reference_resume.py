@@ -20,10 +20,15 @@ takes the other direction and holds the helpers both files use).
     `tests/test_torch_trainer.py` describes, larger here than at
     initialisation (`ROADMAP.md` C); Adam's second-moment update passes it on
     to the parameters.  In float64 both packages take the same gradient
-    (the last test).  Cases: HiFiGAN's GAN step against MSD, MFD
+    (the last test).  MelGAN's narrow random-init generator is held the same
+    way: its float32 loss gradient is 6e-3 to 8e-3 of its peak off float64
+    in either package (`ROADMAP.md` C; tests/test_torch_trainer.py starts
+    MelGAN from its release weights for that reason), so one of its gains'
+    gradients comes 3.2e-3 of the peak off JAX's.  Cases: HiFiGAN's GAN step against MSD, MFD
     and the MPD (2-D kernels' moments), Basis-MelGAN's pre-adversarial step
     (optax's masked state of the frozen basis), NHV's (its flat layout and
-    root `fir`);
+    root `fir`), MultiBand-HiFiGAN's (its `trunk` key map) and MelGAN's GAN
+    step against MSD, MFD and the MPD;
   * `load_generator` synthesizes such a file within 1e-4 of the peak of
     the JAX generator's output on the same weights.
 """
@@ -136,20 +141,25 @@ def _assert_params(module, before, after_tree, grads_tree, lr):
     assert checked > 100 and moved > checked // 2
 
 
-RESUMED = {"hifigan": "gan_step", "basis-melgan": "pre_adv_step", "nhv": "pre_adv_step"}
+RESUMED = {"hifigan": "gan_step", "basis-melgan": "pre_adv_step", "nhv": "pre_adv_step",
+           "multiband-hifigan": "pre_adv_step", "melgan": "gan_step"}
+WITH_MPD = ("hifigan", "melgan")  # trained against MSD, MFD and the MPD
+# generators whose float32 gradient is ill-conditioned here (module
+# docstring): held by the losses and by gradients within BASIS_GRAD_TOL
+ILL_CONDITIONED = ("basis-melgan", "melgan")
 
 
 @pytest.fixture(scope="module")
 def jax_trained(tmp_path_factory):
     """name -> (path, JAX trainer): 2 JAX steps of `RESUMED[name]` (HiFiGAN
-    against the MPD too), saved by the JAX package's trainer with both optax
+    and MelGAN against the MPD too), saved by the JAX package's trainer with both optax
     states; made once a module."""
     made = {}
 
     def get(name):
         if name not in made:
             step = RESUMED[name]
-            jtr = _jax_trainer(name, use_mpd=name == "hifigan")
+            jtr = _jax_trainer(name, use_mpd=name in WITH_MPD)
             jstate = jtr.init_state(jax.random.PRNGKey(0))
             for seed in (1, 2):
                 mel, wav, weight = _batch(name, seed)
@@ -169,7 +179,7 @@ def jax_trained(tmp_path_factory):
 
 @pytest.mark.parametrize("name", sorted(RESUMED))
 def test_a_jax_trained_checkpoint_resumes_in_the_port(jax_trained, name):
-    step, use_mpd = RESUMED[name], name == "hifigan"
+    step, use_mpd = RESUMED[name], name in WITH_MPD
     path, jtr = jax_trained(name)
     assert checkpoint_format(path) == "reference"
 
@@ -204,7 +214,7 @@ def test_a_jax_trained_checkpoint_resumes_in_the_port(jax_trained, name):
     for k in jmetrics:
         np.testing.assert_allclose(float(metrics[k]), float(jmetrics[k]), rtol=LOSS_RTOL,
                                    err_msg=k)
-    if name == "basis-melgan":
+    if name in ILL_CONDITIONED:
         _assert_grads(ttr.last_grads["generator"], jgrads["generator"], BASIS_GRAD_TOL)
     else:
         _assert_grads(ttr.last_grads["generator"], jgrads["generator"])

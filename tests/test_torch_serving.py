@@ -169,7 +169,7 @@ def test_rtf_protocol_and_synthesize_cli(tmp_path):
     wav = tmp_path / "out.wav"
     run_synthesizer(["--checkpoint_path", NPZ, "--mel_path", str(tmp_path / "utt.npy"),
                      "--wav_path", str(wav), "--config", CONF, "--device", "cpu"])
-    for name in ("out.wav", "out.remove.wav", "out.bias.wav"):
+    for name in ("out.wav", "out.remove.wav", "out.bias.wav", "out.gl.wav"):
         assert (tmp_path / name).stat().st_size > 44
 
 
