@@ -125,7 +125,34 @@ through the port's launcher and CLI (`pipeline_phase`):
     weights against the full pass (the interior within 1e-5), ms a chunk.
 
 These run in this process through `runpy` (preprocess excepted), so that
-the launch counts see them.  Launch counts are zeroed before each path and
+the launch counts see them.
+
+Data parallelism and mesh serving run on the one card of the machine
+(NCCL between two cards is not measured here).  After bf16 serving:
+
+  * `bin/serve.py --mesh all` for Basis-MelGAN light (a mesh of every card:
+    one here), 4 concurrent requests, against the server without a mesh;
+    `BatchedSynthesizer` over a mesh of two replicas on cuda:0 (3
+    utterances in one bucket, rows padded to 4) against one replica, within
+    1e-6 of the peak, ms a call of both (kernels 1, 2);
+  * `LastLinear` at C = 256 on the card against the CPU, eval and train
+    mode.
+
+After the training runtime, on the same corpus:
+
+  * `run_train` for Basis-MelGAN light, 4 steps, in a child process in a
+    one-rank NCCL group (RANK=0 WORLD_SIZE=1 LOCAL_RANK=0 MASTER_ADDR
+    MASTER_PORT): the launches of kernels 1, 2 and 3 and the losses of the
+    run without the group;
+  * two child processes, two gloo ranks on the card (NCCL refuses two ranks
+    on one GPU), 16 rows each of one batch of 32: a Basis-MelGAN light
+    pre-adversarial step with the weight target and a HiFiGAN light GAN step
+    against the full-size discriminator, the reduced gradients, losses and
+    clip norms against one process's step at batch 32, ms a step of both.
+    Each child prints its launch counts, which the parent adds to the
+    kernels' line; a child that fails fails the run.
+
+Launch counts are zeroed before each path and
 read right after it; the run fails if a kernel of the path was not
 launched.  A profile of one batch-1
 inference of each of the first two models closes the run (MelGAN's and
@@ -140,6 +167,7 @@ fails.  Needs one GPU; uses no network (the server binds 127.0.0.1).
 
 from __future__ import annotations
 
+import copy
 import io
 import json
 import os
@@ -1867,13 +1895,15 @@ def rtf_phase(count_path, run_test, model: str, ckpt: str, conf: str, kernels) -
 
 
 def serving_phase(count_path, run_serve, ServingModel, model: str, ckpt: str, conf: str,
-                  kernels, bf16: bool = False, absent=()) -> None:
+                  kernels, bf16: bool = False, absent=(), mesh: bool = False) -> None:
     """4 concurrent HTTP requests, twice, against a direct ServingModel call
-    (with `bf16`, `--bf16 1` against a ServingModel in bf16, within the bf16
-    gate: a bucket's batch may take other library algorithms)."""
+    without a mesh (with `bf16`, `--bf16 1` against a ServingModel in bf16,
+    within the bf16 gate: a bucket's batch may take other library
+    algorithms; with `mesh`, `--mesh all`, /healthz reporting every card)."""
     import torch
 
-    log(f"[{model}: HTTP serving (bin/serve.py{' --bf16 1' if bf16 else ''})]")
+    flags = (["--bf16", "1"] if bf16 else []) + (["--mesh", "all"] if mesh else [])
+    log(f"[{model}: HTTP serving (bin/serve.py{''.join(' ' + f for f in flags)})]")
     lengths = (60, 130, 300, 585)
     req_mels = [conditioning(model, mel_like_bench(n, 20 + i)) for i, n in enumerate(lengths)]
     results = [None] * len(req_mels)
@@ -1881,7 +1911,7 @@ def serving_phase(count_path, run_serve, ServingModel, model: str, ckpt: str, co
     def serve_all():
         httpd, batcher = run_serve(
             ["--checkpoint_path", ckpt, "--config", conf, "--model_name", model, "--port", "0"]
-            + (["--bf16", "1"] if bf16 else []),
+            + flags,
             block=False,
         )
         try:
@@ -1906,8 +1936,11 @@ def serving_phase(count_path, run_serve, ServingModel, model: str, ckpt: str, co
             httpd.server_close()
             batcher.close()
 
-    health = count_path(f"{model} HTTP serving", serve_all, kernels, absent=absent)
+    health = count_path(f"{model} HTTP serving" + (" on a mesh" if mesh else ""), serve_all,
+                        kernels, absent=absent)
     log(f"  healthz {health}")
+    if health.get("mesh_size") != (torch.cuda.device_count() if mesh else 1):
+        raise AssertionError(f"/healthz reports a mesh of {health.get('mesh_size')}")
     direct = ServingModel(ckpt, conf, model,
                           compute_dtype=torch.bfloat16 if bf16 else None)(req_mels)
     for i, n in enumerate(lengths):
@@ -2020,6 +2053,22 @@ def write_corpus(root: str, n: int = 64, seed: int = 0, weight_channels: int = 0
     return tuple(paths)
 
 
+def train_argv(model: str, conf: str, index, run_dir: str, steps: int, start_steps: int,
+               basis_dir: str = "") -> list:
+    """`run_train`'s arguments for a training phase: a validation pass and a
+    checkpoint at `steps`."""
+    argv = ["--audio_index_path", index[0], "--mel_index_path", index[1],
+            "--audio_index_valid_path", index[0], "--mel_index_valid_path", index[1],
+            "--model_name", model, "--config", conf, "--run_dir", run_dir, "--seed", "0",
+            "--batch_size", str(TRAIN_BATCH), "--batch_expand_size", "1",
+            "--fixed_length", str(TRAIN_FRAMES), "--max_steps", str(steps),
+            "--save_step", str(steps), "--valid_step", str(steps), "--valid_num", "3",
+            "--discriminator_train_start_steps", str(start_steps)]
+    if basis_dir:
+        argv += ["--basis_dataset_path", basis_dir]
+    return argv
+
+
 def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, steps: int,
                 start_steps: int, kernels, basis_dir: str = "", use_mpd: bool = False,
                 mixprecision: bool = False, absent=()):
@@ -2027,7 +2076,7 @@ def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, st
     `use_mpd`, `--use_mpd 1`; with `mixprecision`, `--mixprecision 1`,
     launching none of `absent`); checks the losses, that the weights moved,
     and that the checkpoint loads back (a bf16 run's also in `Synthesizer`
-    in bf16)."""
+    in bf16).  -> (configuration, basis or None, the run's logged history)."""
     import dataclasses
 
     from fastvocoder_tpu_torch.bin.train import run_train
@@ -2039,15 +2088,7 @@ def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, st
         else "training (bin/train.py)"
     log(f"[{model}: {kind}, {steps} steps of {TRAIN_BATCH} x {TRAIN_FRAMES} frames]")
     run_dir = os.path.join(corpus, f"run_{model}" + ("_bf16" if mixprecision else ""))
-    argv = ["--audio_index_path", index[0], "--mel_index_path", index[1],
-            "--audio_index_valid_path", index[0], "--mel_index_valid_path", index[1],
-            "--model_name", model, "--config", conf, "--run_dir", run_dir, "--seed", "0",
-            "--batch_size", str(TRAIN_BATCH), "--batch_expand_size", "1",
-            "--fixed_length", str(TRAIN_FRAMES), "--max_steps", str(steps),
-            "--save_step", str(steps), "--valid_step", str(steps), "--valid_num", "3",
-            "--discriminator_train_start_steps", str(start_steps)]
-    if basis_dir:
-        argv += ["--basis_dataset_path", basis_dir]
+    argv = train_argv(model, conf, index, run_dir, steps, start_steps, basis_dir)
     if use_mpd:
         argv += ["--use_mpd", "1"]
     if mixprecision:
@@ -2101,7 +2142,7 @@ def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, st
             f"{np.abs(wav).max():.3e}")
         if wav.dtype != np.float32 or not np.all(np.isfinite(wav)):
             raise AssertionError(f"{model}: the bf16 run's checkpoint does not synthesize")
-    return cfg, basis
+    return cfg, basis, state.history
 
 
 def fixed_batch(cfg, index, basis_dir: str = ""):
@@ -3026,6 +3067,343 @@ def pipeline_phase(torch, count_path, root: str) -> dict:
     return out
 
 
+# data parallelism on the one card: the one-rank NCCL run against the run
+# without a group (the same arithmetic and a one-rank all-reduce: losses
+# within DP_LOSS_RTOL); two gloo ranks against one process at batch 32 (the
+# reduced gradients within DP_GRAD_TOL of their peaks, a gain's or a
+# bias's against its conv weight's, if larger; the frozen basis's, which
+# only enters the clip norm, within DP_BASIS_GRAD_TOL: a float32 sum over
+# the batch's 71,680 weight frames with cancellation, 1.1e-4 of its peak
+# apart in two summation orders; the losses within DP_LOSS_RTOL, the clip
+# norms within DP_NORM_RTOL); two serving replicas on the card against one
+# (within MESH_TOL of the peak); LastLinear on the card against the CPU
+# (LASTLINEAR_TOL of the peak)
+DP_LOSS_RTOL, DP_GRAD_TOL, DP_NORM_RTOL, MESH_TOL, LASTLINEAR_TOL = 1e-5, 1e-4, 1e-5, 1e-6, 1e-5
+DP_BASIS_GRAD_TOL = 1e-3
+DP_STEPS = (("basis-melgan", "pre_adv_step"), ("hifigan", "gan_step"))
+CHILD_TIMEOUT_S = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_children(name: str, argv, envs) -> list:
+    """Start one process of `chip_smoke.py argv` an environment of `envs`
+    (each beside this one's), all at once; -> each one's output.  A child
+    that fails or outlives CHILD_TIMEOUT_S fails the phase; every child is
+    ended before this returns."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv],
+                              env=dict(os.environ, **env), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for env in envs]
+    outputs = []
+    try:
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        for p in procs:
+            outputs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outputs)):
+        for line in out.splitlines():
+            if "data parallel:" in line or "CHILD " in line:
+                log(f"  rank {rank}: {line.strip()}")
+        if p.returncode != 0:
+            raise AssertionError(f"{name}: rank {rank} exited {p.returncode}:\n{out[-6000:]}")
+    return outputs
+
+
+def child_launches(output: str) -> dict:
+    """The launch counts a child printed on its `CHILD launches` line."""
+    for line in output.splitlines():
+        if line.startswith("CHILD launches "):
+            return json.loads(line[len("CHILD launches "):])
+    raise AssertionError("a child printed no launch counts")
+
+
+def dp_env(rank: int, world: int, port: int) -> dict:
+    return {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def dp_nccl_phase(corpus: str, index, want_history, want_counts, launches) -> None:
+    """`run_train` for Basis-MelGAN light, 4 pre-adversarial steps of 32 x
+    140 frames, in a child process that the environment puts in a one-rank
+    NCCL group (RANK=0 WORLD_SIZE=1 LOCAL_RANK=0 MASTER_ADDR MASTER_PORT):
+    its log names the backend and the world size, it launches kernels 1, 2
+    and 3 as the run without the group did, and its losses are that run's."""
+    kernels = ("basis_decode", "fused_resstack", "fused_resstack_bwd")
+    log("[basis-melgan: bin/train.py in a one-rank NCCL group, 4 steps]")
+    argv_path, out_path = os.path.join(corpus, "dp_argv.json"), os.path.join(corpus, "dp_out.json")
+    with open(argv_path, "w") as f:
+        json.dump(train_argv("basis-melgan", CONF, index, os.path.join(corpus, "run_dp"), 4, 4,
+                             corpus), f)
+    t0 = time.perf_counter()
+    (out,) = run_children("one-rank NCCL run_train", ["--dp-train", argv_path, out_path],
+                          [dp_env(0, 1, free_port())])
+    log(f"  the child ran in {time.perf_counter() - t0:.2f} s (its start and imports included)")
+    if "rank 0 of 1 over nccl" not in out:
+        raise AssertionError("the one-rank run did not log an NCCL group of one rank")
+    counts = child_launches(out)
+    log(f"  launches on the one-rank NCCL path: {counts}; without the group: {want_counts}")
+    if any(counts.get(k, 0) != want_counts[k] for k in kernels):
+        raise AssertionError("the one-rank NCCL run launched other kernels than the run without "
+                             "the group")
+    for k, v in counts.items():
+        launches[k] += v
+    with open(out_path) as f:
+        history = [(s_, m) for s_, m in json.load(f)["history"]]
+    # relative to each value, or to 1e-2 where that is smaller
+    # (`weight_average_value` is a mean that cancels to about 1e-5)
+    worst, where = max((abs(m[k] - w[k]) / max(abs(w[k]), 1e-2), f"step {s_} {k}")
+                       for (s_, m), (_, w) in zip(history, want_history) for k in w)
+    log(f"  losses of 4 steps against the run without the group: worst relative {worst:.3e} "
+        f"({where}; tol {DP_LOSS_RTOL:.0e})")
+    if [s_ for s_, _ in history] != [s_ for s_, _ in want_history] or not worst <= DP_LOSS_RTOL:
+        raise AssertionError("the one-rank NCCL run's losses differ from the run without a group")
+
+
+def dp_train_child(argv_path: str, out_path: str) -> int:
+    """`chip_smoke.py --dp-train <argv.json> <out.json>`: `run_train` with
+    those arguments in the group the environment names; its history to
+    `out.json`, its launch counts on a `CHILD launches` line."""
+    import logging
+
+    import torch
+
+    logging.basicConfig(level=logging.INFO)
+    sys.path.insert(0, ROOT)
+    from fastvocoder_tpu_torch.bin.train import run_train
+    from fastvocoder_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(argv_path) as f:
+        state = run_train(json.load(f))
+    with open(out_path, "w") as f:
+        json.dump({"history": state.history}, f)
+    print("CHILD launches " + json.dumps(dict(_build.launch_counts)), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_models(corpus: str):
+    """(name, configuration, basis or None, step kind) of DP_STEPS."""
+    from fastvocoder_tpu_torch.hparams import load_model_config
+
+    basis = np.load(os.path.join(corpus, "basis_signal_weight.npy")).astype(np.float32)
+    confs = {"basis-melgan": CONF, "hifigan": HIFI_CONF}
+    return [(m, load_model_config(m, confs[m]), basis if m == "basis-melgan" else None, step)
+            for m, step in DP_STEPS]
+
+
+def dp_step_result(trainer, metrics) -> dict:
+    out = {f"m/{k}": float(v) for k, v in metrics.items()}
+    out.update({f"n/{k}": float(v) for k, v in trainer.last_norms.items()})
+    out.update({f"g/{who}/{n}": g.cpu().numpy() for who, grads in trainer.last_grads.items()
+                for n, g in grads.items()})
+    return out
+
+
+def dp_steps_child(work: str) -> int:
+    """`chip_smoke.py --dp-steps <work dir>`: a rank of a gloo group on the
+    card the environment names (every rank on cuda:0); for each of
+    DP_STEPS, from seed 0's weights broadcast by rank 0, one step on this
+    rank's rows of the batch in `batches.npz`, its global metrics, clip
+    norms and reduced gradients to `<model>.npz` (rank 0), then 3 more steps
+    timed; launch counts on a `CHILD launches` line."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from fastvocoder_tpu_torch.ops import _build
+    from fastvocoder_tpu_torch.parallel import (
+        DataParallel,
+        maybe_initialize_distributed,
+        reduce_metrics,
+        replicate_state,
+    )
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = maybe_initialize_distributed("cuda", backend="gloo")
+    dp = DataParallel.current()
+    dev = torch.device("cuda", 0)
+    for model, cfg, basis, step in dp_models(work):
+        with np.load(os.path.join(work, f"{model}.batch.npz")) as z:
+            batch = dict(z)
+        trainer = make_trainer(cfg, basis_signal_weight=basis, keep_grads=True, dp=dp, device=dev)
+        state = replicate_state(trainer.init_state(0), dp)
+        rows = dp.rows(batch["wav"].shape[0] // world)
+        args = [torch.from_numpy(batch[k][rows]).to(dev) if k in batch else None
+                for k in ("mel", "wav", "weight")]
+        _, metrics = getattr(trainer, step)(state, *args)
+        (metrics,) = reduce_metrics([metrics], dp)
+        if rank == 0:
+            np.savez(os.path.join(work, f"{model}.dp.npz"), **dp_step_result(trainer, metrics))
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(trainer, step)(state, *args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"CHILD {model} {step} on {rank + 1} of {world} gloo ranks sharing the card, "
+              f"{len(batch['wav']) // world} rows a rank: {float(np.median(times)):.2f} ms a step "
+              f"(median of 3: {', '.join(f'{t:.1f}' for t in times)})", flush=True)
+        del trainer, state
+        torch.cuda.empty_cache()
+    print("CHILD launches " + json.dumps(dict(_build.launch_counts)), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_gloo_phase(torch, corpus: str, index, launches) -> dict:
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one GPU),
+    each on 16 rows of one fixed batch of 32: a Basis-MelGAN light
+    pre-adversarial step with the weight target (kernels 1, 2, 3) and a
+    HiFiGAN light GAN step against the full-size discriminator (4, 5),
+    their reduced gradients, losses and clip norms against one process's
+    step on the whole batch; -> ms a step, one process beside two ranks."""
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    log("[data parallelism: two gloo ranks on the card against one process, batch 32]")
+    kernels = ("basis_decode", "fused_resstack", "fused_resstack_bwd", "fused_mrf",
+               "fused_mrf_bwd")
+    models = dp_models(corpus)
+    for model, cfg, _, _ in models:
+        batch = fixed_batch(cfg, index, basis_dir=corpus if model == "basis-melgan" else "")
+        np.savez(os.path.join(corpus, f"{model}.batch.npz"), **batch)
+    port = free_port()
+    t0 = time.perf_counter()
+    outs = run_children("two gloo ranks", ["--dp-steps", corpus],
+                        [dp_env(r, 2, port) for r in range(2)])
+    log(f"  both ranks ran in {time.perf_counter() - t0:.2f} s (start and imports included)")
+    for rank, out in enumerate(outs):
+        counts = child_launches(out)
+        log(f"  launches of rank {rank}: {counts}")
+        missing = [k for k in kernels if counts.get(k, 0) == 0]
+        if missing:
+            raise AssertionError(f"rank {rank} never launched {missing}")
+        for k, v in counts.items():
+            launches[k] += v
+    timing = {}
+    for model, cfg, basis, step in models:
+        with np.load(os.path.join(corpus, f"{model}.batch.npz")) as z:
+            batch = dict(z)
+        trainer = make_trainer(cfg, basis_signal_weight=basis, keep_grads=True)
+        state = trainer.init_state(0)
+        args = [torch.from_numpy(batch[k]).cuda() if k in batch else None
+                for k in ("mel", "wav", "weight")]
+        _, metrics = getattr(trainer, step)(state, *args)
+        want = dp_step_result(trainer, metrics)
+        with np.load(os.path.join(corpus, f"{model}.dp.npz")) as z:
+            got = dict(z)
+        loss = max(abs(got[k] - v) / max(abs(v), 1e-2) for k, v in want.items()
+                   if k.startswith("m/"))
+        norm = max(abs(got[k] - v) / abs(v) for k, v in want.items() if k.startswith("n/"))
+        grad, where, basis_grad = 0.0, "", 0.0
+        for k, w in want.items():
+            if k.startswith("g/"):
+                sibling = k.rsplit(".", 1)[0] + ".weight"
+                peak = max(np.abs(w).max(), np.abs(want[sibling]).max() if sibling in want else 0)
+                err = float(np.abs(got[k] - w).max() / max(peak, 1e-30))
+                if k.endswith("basis_signal.basis"):
+                    basis_grad = err
+                elif err > grad:
+                    grad, where = err, k[2:]
+        log(f"  {model} {step}: two ranks against one process: losses {loss:.3e} relative (tol "
+            f"{DP_LOSS_RTOL:.0e}), clip norms {norm:.3e} (tol {DP_NORM_RTOL:.0e}), gradients "
+            f"{grad:.3e} of the peak at worst ({where}; tol {DP_GRAD_TOL:.0e})"
+            + (f", the frozen basis's {basis_grad:.3e} (tol {DP_BASIS_GRAD_TOL:.0e})"
+               if basis is not None else ""))
+        if not (loss <= DP_LOSS_RTOL and norm <= DP_NORM_RTOL and grad <= DP_GRAD_TOL
+                and basis_grad <= DP_BASIS_GRAD_TOL):
+            raise AssertionError(f"{model} {step}: two gloo ranks disagree with one process")
+        timing[f"{model} {step}, one process, 32 rows"] = time_steps(torch, cfg, basis, step,
+                                                                     batch, n=4)
+        del trainer, state
+        torch.cuda.empty_cache()
+    return timing
+
+
+def mesh_serving_phase(torch, count_path, run_serve, ServingModel) -> dict:
+    """`bin/serve.py --mesh all` for Basis-MelGAN light (every card of this
+    machine) against the server without a mesh; then `BatchedSynthesizer`
+    over a mesh of two replicas on cuda:0, 3 utterances in one bucket (rows
+    padded to 4), against one replica; -> ms of each."""
+    from fastvocoder_tpu_torch.hparams import load_model_config
+    from fastvocoder_tpu_torch.models.batched import BatchedSynthesizer
+    from fastvocoder_tpu_torch.models.factory import load_generator
+    from fastvocoder_tpu_torch.parallel import make_mesh
+
+    kernels = ("basis_decode", "fused_resstack")
+    serving_phase(count_path, run_serve, ServingModel, "basis-melgan", CKPT, CONF, kernels,
+                  mesh=True)
+    log("[basis-melgan: BatchedSynthesizer over two replicas on cuda:0]")
+    cfg = load_model_config("basis-melgan", CONF)
+    replicas = [load_generator(CKPT, cfg, "cuda:0")[0] for _ in range(2)]
+    mels = [mel_like_bench(n, 40 + i) for i, n in enumerate((300, 310, 320))]
+    two = BatchedSynthesizer([g.inference for g in replicas], HOP, bucket_frames=64,
+                             mesh=make_mesh(["cuda:0", "cuda:0"]))
+    one = BatchedSynthesizer(replicas[0].inference, HOP, torch.device("cuda:0"), bucket_frames=64)
+    got = count_path("two-replica mesh", lambda: two(mels), kernels)
+    want = one(mels)
+    ms = {}
+    for name, synth in (("one replica", one), ("two replicas", two)):
+        times = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            synth(mels)  # ends in the copy to the host
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = float(np.median(times[1:]))
+    worst = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+    log(f"  3 utterances of 300-320 frames (one 320-frame bucket, 4 rows over two replicas): "
+        f"{worst:.3e} of the peak from one replica (tol {MESH_TOL:.0e}); ms a call, median of 5: "
+        f"{ms}")
+    if not worst <= MESH_TOL or any(g.shape != w.shape for g, w in zip(got, want)):
+        raise AssertionError("the two-replica mesh disagrees with one replica")
+    return ms
+
+
+def lastlinear_phase(torch) -> None:
+    """`LastLinear` at C = 256 on the card against the CPU, on (4, 585, 256)
+    inputs: eval mode from seeded running statistics, then two calls in
+    train mode (outputs and running statistics)."""
+    from fastvocoder_tpu_torch.models.layers import LastLinear
+
+    log("[LastLinear at C = 256: the card against the CPU]")
+    torch.manual_seed(0)
+    layer = LastLinear(256, 256, 256)
+    rng = np.random.default_rng(5)
+    with torch.no_grad():
+        for bn in (layer.bn_1, layer.bn_2):
+            bn.running_mean.copy_(torch.from_numpy(rng.standard_normal(256).astype(np.float32)))
+            bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 2, 256).astype(np.float32)))
+    xs = [torch.from_numpy(2 * rng.standard_normal((4, MEL_FRAMES, 256)).astype(np.float32))
+          for _ in range(3)]
+    cpu, card = layer, copy.deepcopy(layer).cuda()
+    worst = {}
+    with torch.no_grad():
+        for mode, x in (("eval", xs[0]), ("train 1", xs[1]), ("train 2", xs[2])):
+            for m in (cpu, card):
+                m.train(mode != "eval")
+            want, got = cpu(x), card(x.cuda()).cpu()
+            worst[mode] = float((got - want).abs().max() / want.abs().max())
+    for name, buf in cpu.named_buffers():
+        other = dict(card.named_buffers())[name].cpu()
+        worst[name] = float((other - buf).abs().max() / buf.abs().max())
+    log(f"  the card against the CPU, of each peak: {json.dumps(worst)} (tol {LASTLINEAR_TOL:.0e})")
+    if not all(v <= LASTLINEAR_TOL for v in worst.values()):
+        raise AssertionError("LastLinear on the card disagrees with the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -3093,6 +3471,7 @@ def main() -> int:
     del melgan_gen
     torch.cuda.empty_cache()
     launches = {e["name"]: 0 for e in entries}
+    path_counts = {}
 
     def count_path(name, fn, kernels, absent=()):
         """Run one path with every count zeroed; fail if it launched none
@@ -3110,6 +3489,7 @@ def main() -> int:
             raise AssertionError(f"{name} path launched {stray}")
         for k, v in counts.items():
             launches[k] += v
+        path_counts[name] = counts
         return out
 
     basis = ("basis_decode", "fused_resstack")
@@ -3172,6 +3552,8 @@ def main() -> int:
         profile_inference(torch, Synthesizer(ckpt, conf, model, compute_dtype=torch.bfloat16),
                           mel)
     log(f"  rtf by model: {rtfs}")
+    mesh_ms = mesh_serving_phase(torch, count_path, run_serve, ServingModel)
+    lastlinear_phase(torch)
 
     torch.cuda.empty_cache()
     step_ms = {}
@@ -3182,7 +3564,7 @@ def main() -> int:
                 np.load(os.path.join(ROOT, "dataset", "clean_basis", "basis_signal_weight.npy")))
         log(f"[corpus: 64 seeded utterances of 160-220 frames written in "
             f"{time.perf_counter() - t0:.2f} s]")
-        hifi_cfg, _ = train_phase(torch, count_path, "hifigan", HIFI_CONF, corpus, index, steps=6,
+        hifi_cfg, _, _ = train_phase(torch, count_path, "hifigan", HIFI_CONF, corpus, index, steps=6,
                                   start_steps=2, kernels=("fused_mrf", "fused_mrf_bwd"))
         # 2 + 2 * 4 generator passes of 4 MRF stages (the validation's come
         # on top), one backward of each stage a step
@@ -3198,7 +3580,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         seen = dict(launches)
-        basis_cfg, basis = train_phase(
+        basis_cfg, basis, basis_history = train_phase(
             torch, count_path, "basis-melgan", CONF, corpus, index, steps=4, start_steps=4,
             kernels=("fused_resstack", "fused_resstack_bwd", "basis_decode"), basis_dir=corpus)
         # the trunk runs twice a step (the mel and the zero mel), 2 stages each
@@ -3212,7 +3594,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         seen = dict(launches)
-        melgan_cfg, _ = train_phase(
+        melgan_cfg, _, _ = train_phase(
             torch, count_path, "melgan", MELGAN_CONF, corpus, index, steps=4, start_steps=2,
             kernels=("fused_resstack", "fused_resstack_bwd"), use_mpd=True)
         # one generator backward a step, 4 stages each
@@ -3227,7 +3609,7 @@ def main() -> int:
                                                                   "gan_step", batch, profile=True)
         torch.cuda.empty_cache()
 
-        nhv_cfg, _ = train_phase(torch, count_path, "nhv", NHV_CONF, corpus, index, steps=2,
+        nhv_cfg, _, _ = train_phase(torch, count_path, "nhv", NHV_CONF, corpus, index, steps=2,
                                  start_steps=2, kernels=())
         log("[ms a step on the card]")
         step_ms["nhv pre_adv_step"] = time_steps(torch, nhv_cfg, None, "pre_adv_step",
@@ -3291,7 +3673,13 @@ def main() -> int:
             torch, count_path, hifi_cfg, fixed_batch(hifi_cfg, index))
         step_ms["hifigan checkpoint save (ms)"] = resume_phase(torch, count_path, Synthesizer,
                                                                corpus, index)
+        torch.cuda.empty_cache()
+        # data parallelism on the one card: a one-rank NCCL group, two gloo ranks
+        dp_nccl_phase(corpus, index, basis_history,
+                      path_counts["basis-melgan training (bin/train.py)"], launches)
+        step_ms["data parallel (ms a step)"] = dp_gloo_phase(torch, corpus, index, launches)
     log(f"  ms a step: {step_ms}")
+    log(f"  ms a call of the two-replica mesh against one replica: {mesh_ms}")
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
@@ -3318,4 +3706,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--h2d"]:
         sys.exit(h2d_child(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--dp-train"]:
+        sys.exit(dp_train_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--dp-steps"]:
+        sys.exit(dp_steps_child(sys.argv[2]))
     sys.exit(main())

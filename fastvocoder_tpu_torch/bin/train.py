@@ -1,7 +1,7 @@
 """Training entry point: `run_train(argv)`.
 
 Counterpart of `fastvocoder_tpu/bin/train.py` (reference
-bin/train.py:258-499) for one device.  Per step the host picks
+bin/train.py:258-499).  Per step the host picks
 `pre_adv_step` or `gan_step` at the `discriminator_train_start_steps`
 boundary, as the JAX package's `bin/train.py` does.  It keeps that script's
 artifacts:
@@ -40,6 +40,21 @@ Unix time, stops the run at the first step boundary past it with a tail
 checkpoint.  `--fused_train` -1 or 1 trains through the kernels, the
 port's path on the card; 0, the JAX script's module path, is not ported
 (`WAITING`).
+
+Data parallelism: started by `torchrun --nproc_per_node N -m
+fastvocoder_tpu_torch.bin.train ...` (or any launcher that sets RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT), each process trains
+on its own card (`cuda:LOCAL_RANK`; NCCL, or gloo with `--device cpu`) on
+`batch_size / N` rows of each global batch, its slice of the common
+shuffled epoch; the JAX script runs one process a host over all of its
+chips instead.  Rank 0 broadcasts its state after initialisation or a
+resume, every update averages the ranks' gradients, and the logged metrics
+are the global batch's.  Rank 0 alone writes checkpoints, `logger.txt`, the
+loss files and TensorBoard, validates and runs the stall watchdog; rank 0's
+clock decides the deadline, broadcast at each step boundary, so that every
+rank stops at the same step.  `--device_cache -1` takes the device path
+only in one process, as the JAX script does; with 1 each rank holds its own
+copy of the corpus.
 """
 
 from __future__ import annotations
@@ -66,6 +81,13 @@ from fastvocoder_tpu_torch.data.dataset import (
 )
 from fastvocoder_tpu_torch.data.device_cache import DeviceCorpus
 from fastvocoder_tpu_torch.hparams import DISC, HP, DiscriminatorConfig, load_model_config
+from fastvocoder_tpu_torch.parallel import (
+    DataParallel,
+    maybe_initialize_distributed,
+    rank_device,
+    reduce_metrics,
+    replicate_state,
+)
 from fastvocoder_tpu_torch.runtime import StepTimer, prefetch_to_device
 from fastvocoder_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter,
@@ -190,6 +212,17 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         if getattr(args, name, None) == value:
             raise NotImplementedError(
                 f"--{name} {value}: {what} is not ported (ROADMAP.md C)")
+    rank, world = maybe_initialize_distributed(args.device or "cuda")
+    dp = DataParallel.current()
+    is_main = rank == 0
+    device = args.device or None
+    if dp is not None:
+        device = rank_device(args.device or "cuda")
+        if args.batch_size % world:
+            raise ValueError(f"batch_size {args.batch_size} must divide over {world} ranks")
+        logger.info(f"data parallel: rank {rank} of {world} over {dp.backend} on {device}, "
+                    f"{args.batch_size // world} rows of each batch of {args.batch_size}")
+    per_rank_bs = args.batch_size // world
     cfg = load_model_config(args.model_name, args.config)
     if args.use_mpd >= 0:  # the command line over the YAML's key
         cfg = dataclasses.replace(cfg, use_mpd=bool(args.use_mpd))
@@ -224,8 +257,8 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         cfg, hp=hp, basis_signal_weight=basis_signal_weight,
         use_scheduler=bool(args.use_scheduler), learning_rate=args.learning_rate,
         learning_rate_discriminator=args.learning_rate_discriminator,
-        disc_cfg=disc_cfg, device=args.device or None, seed=args.seed,
-        compute_dtype=compute_dtype, remat=bool(args.remat),
+        disc_cfg=disc_cfg, device=device, seed=args.seed,
+        compute_dtype=compute_dtype, remat=bool(args.remat), dp=dp,
     )
     device = trainer.device
     state = trainer.init_state(args.seed)
@@ -246,12 +279,14 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         logger.info(f"\n---Model Restored at Step {state.step}---\n")
     else:
         logger.info("\n---Start New Training---\n")
+    replicate_state(state, dp)
 
     stamp = str(datetime.now()).replace(" ", "-").replace(":", "-").replace(".", "-")
     current_checkpoint_path = os.path.join(hp.checkpoint_path, stamp)
     current_logger_path = os.path.join(hp.logger_path, stamp)
-    os.makedirs(current_checkpoint_path, exist_ok=True)
-    os.makedirs(current_logger_path, exist_ok=True)
+    if is_main:
+        os.makedirs(current_checkpoint_path, exist_ok=True)
+        os.makedirs(current_logger_path, exist_ok=True)
 
     if is_basis:
         weight_dir = os.path.join(args.basis_dataset_path, "weight")
@@ -270,14 +305,15 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
             args.audio_index_valid_path, args.mel_index_valid_path, test_size=hp.test_size,
             log=logger.info, with_f0=with_f0), hp)
 
-    steps_per_epoch = num_batches_per_epoch(len(dataset), hp)
+    steps_per_epoch = num_batches_per_epoch(len(dataset), hp, shard_count=world,
+                                            batch_size=per_rank_bs)
     total_step = hp.epochs * steps_per_epoch
     logger.info(f"{steps_per_epoch} steps per epoch")
     if steps_per_epoch == 0:
         raise SystemExit(
-            f"0 steps per epoch: {len(dataset)} items cannot fill one mega-batch of "
-            f"batch_size*batch_expand_size = {hp.batch_size}*{hp.batch_expand_size}; lower "
-            "--batch_size/--batch_expand_size or add data"
+            f"0 steps per epoch: {len(dataset)} items over {world} rank(s) cannot fill one "
+            f"mega-batch of batch_size*batch_expand_size = {per_rank_bs}*"
+            f"{hp.batch_expand_size} a rank; lower --batch_size/--batch_expand_size or add data"
         )
     L = cfg.arch.L if is_basis else None
     start_step = state.step
@@ -285,16 +321,22 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
     pending = []   # (step, metrics on the device)
 
     def drain_metrics():
+        """The pending steps' metrics, the global batch's under data
+        parallelism (one all-reduce; every rank drains at the same steps),
+        appended to the loss files by rank 0."""
         if not pending:
             return []
-        drained = [(s, {k: float(v) for k, v in m.items()}) for s, m in pending]
+        drained = [(s, {k: float(v) for k, v in m.items()})
+                   for (s, _), m in zip(pending, reduce_metrics([m for _, m in pending], dp))]
         pending.clear()
+        history.extend(drained)
+        if not is_main:
+            return drained
         with open(os.path.join(current_logger_path, "total_loss.txt"), "a") as ft, \
                 open(os.path.join(current_logger_path, "stft_loss.txt"), "a") as fs:
             for _, m in drained:
                 ft.write(f"{m['total_loss']}\n")
                 fs.write(f"{m['stft_loss']}\n")
-        history.extend(drained)
         return drained
 
     def save(step, what="checkpoint"):
@@ -341,7 +383,8 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
         # (an L1 target; the loss sums in float32).
         first_epoch, skip = divmod(start_step, steps_per_epoch)
         for epoch in range(first_epoch, hp.epochs):
-            stream = batch_iterator(dataset, hp, seed=args.seed, epoch=epoch, L=L)
+            stream = batch_iterator(dataset, hp, seed=args.seed, epoch=epoch, L=L,
+                                    shard_index=rank, shard_count=world, batch_size=per_rank_bs)
             for i, batch in enumerate(stream):
                 if epoch == first_epoch and i < skip:
                     continue
@@ -354,27 +397,33 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
     use_device_cache = args.device_cache
     if use_device_cache < 0:
         need = corpus_bytes(dataset, hp, L, cfg.arch.out_channels if is_basis else 0)
-        use_device_cache = int(need <= DEVICE_CACHE_MAX_BYTES)
+        use_device_cache = int(world == 1 and need <= DEVICE_CACHE_MAX_BYTES)
         logger.info(f"--device_cache -1: the padded corpus takes about {need / 1e9:.2f} GB, "
-                    f"{'within' if use_device_cache else 'over'} the "
-                    f"{DEVICE_CACHE_MAX_BYTES / 1e9:.0f} GB rule: the "
+                    f"{'within' if need <= DEVICE_CACHE_MAX_BYTES else 'over'} the "
+                    f"{DEVICE_CACHE_MAX_BYTES / 1e9:.0f} GB rule"
+                    + (f" and {world} processes train" if world > 1 else "") + ": the "
                     f"{'device' if use_device_cache else 'host'} path")
     if use_device_cache:
         logger.info("input: the corpus on the device, crops cut there (data/device_cache.py)")
         corpus = DeviceCorpus(dataset, hp=hp, L=L, device=device, log=logger.info)
-        batch_stream = corpus.batches(seed=args.seed, start_step=start_step,
+        batch_stream = corpus.batches(seed=args.seed, batch_size=per_rank_bs, shard_index=rank,
+                                      shard_count=world, start_step=start_step,
                                       weight_until=hp.discriminator_train_start_steps)
     else:
         logger.info("input: host crops, prefetched to the device (runtime/prefetch.py)")
         batch_stream = prefetch_to_device(host_batches(), device)
 
     deadline = wall_deadline()
-    writer = _ScalarJsonWriter(_make_writer(os.path.join(hp.tensorboard_path, stamp)),
-                               os.path.join(current_logger_path, "all_scalars.json"))
-    ckpt_writer = AsyncCheckpointWriter()
+    if dp is not None:  # rank 0's deadline, decided by rank 0's clock below
+        deadline = dp.broadcast_value(deadline)
+    writer, ckpt_writer = _NoopWriter(), None
+    if is_main:
+        writer = _ScalarJsonWriter(_make_writer(os.path.join(hp.tensorboard_path, stamp)),
+                                   os.path.join(current_logger_path, "all_scalars.json"))
+        ckpt_writer = AsyncCheckpointWriter()
     stop_watchdog = threading.Event()
     heartbeat = [time.monotonic() + args.stall_exit_s]  # the first step gets twice the grace
-    if args.stall_exit_s > 0:
+    if is_main and args.stall_exit_s > 0:
         _start_stall_watchdog(heartbeat, args.stall_exit_s, current_logger_path,
                               stop=stop_watchdog)
     timer = StepTimer(clear_time=hp.clear_time)
@@ -403,32 +452,41 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
                        + " ".join(f"{k}={v:.6f}" for k, v in sorted(m.items()))
                        + f" step_time={mean_t:.3f}s eta={eta / 3600:.1f}h")
                 logger.info(msg)
-                with open(os.path.join(current_logger_path, "logger.txt"), "a") as f:
-                    f.write(msg + "\n")
+                if is_main:
+                    with open(os.path.join(current_logger_path, "logger.txt"), "a") as f:
+                        f.write(msg + "\n")
                 for k, v in m.items():
                     writer.add_scalar(k, v, state.step)
             if state.step % hp.save_step == 0:
                 drain_metrics()
-                save(state.step)
+                if is_main:
+                    save(state.step)
             if state.step % hp.valid_step == 0:
                 drain_metrics()
-                run_validation()
+                if is_main:
+                    run_validation()
             past_deadline = bool(deadline) and time.time() >= deadline
+            if deadline and dp is not None:
+                # clocks differ: a rank that stopped on its own clock would
+                # leave the others waiting in the next step's all-reduce
+                past_deadline = bool(dp.broadcast_value(past_deadline))
             if (args.max_steps and state.step >= args.max_steps) or past_deadline:
                 if past_deadline:
                     logger.info(f"wall-clock deadline {deadline:.0f} reached at step "
                                 f"{state.step}; stopping")
                 else:
                     logger.info(f"reached max_steps={args.max_steps}; stopping")
-                if state.step % hp.save_step != 0:
+                if is_main and state.step % hp.save_step != 0:
                     save(state.step, "final checkpoint")  # the tail: a resumed run loses nothing
                 break
         drain_metrics()
-        ckpt_writer.wait()
+        if ckpt_writer is not None:
+            ckpt_writer.wait()
     finally:
         batch_stream.close()  # frees the prefetch thread of a run cut short
         stop_watchdog.set()
-        ckpt_writer.close()
+        if ckpt_writer is not None:
+            ckpt_writer.close()
         writer.close()
     state.history = history
     return state
@@ -474,7 +532,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--discriminator_train_start_steps", type=int,
                         default=HP.discriminator_train_start_steps)
     parser.add_argument("--device", type=str, default="",
-                        help="cuda (default; raises without a GPU) or cpu")
+                        help="cuda (default; raises without a GPU; under torchrun each rank "
+                             "takes cuda:LOCAL_RANK) or cpu (gloo under torchrun)")
     parser.add_argument("--mixprecision", type=int, default=0,
                         help="1 trains in bf16 mixed precision (float32 parameters and "
                              "optimiser state, bf16 compute)")

@@ -19,7 +19,10 @@ keys as in `docs/checkpoints/*.npz`, onto the port's `state_dict`:
     `_WNConv2d`) become (Cout, Cin, kh, kw), their gain `g` normalising each
     output channel over (kh, kw, Cin);
   * a leaf of the tree's root that is a parameter of its own (`ROOT_LEAVES`:
-    NHV's trainable FIR `fir`, (taps, 1, 1)) keeps its name and layout.
+    NHV's trainable FIR `fir`, (taps, 1, 1)) keeps its name and layout;
+  * a BatchNorm node (`LastLinear`'s `bn_1`, `bn_2`): its `scale` and
+    `bias` become `weight` and `bias`, and given the tree's `batch_stats`
+    its `mean` and `var` become `running_mean` and `running_var`.
 
 Any other leaf is refused by name.
 
@@ -35,9 +38,11 @@ checkpoint is a `torch.save` file in one of two layouts:
 
 `jax_tree_from_state_dict` carries a training-form state back into a flat
 JAX-layout tree, so that `state_dict_from_jax` fuses it as it fuses a JAX
-tree.  `read_checkpoint` tells the kinds of file apart by their contents.
-A torch file is read with `torch_load`, a restricted unpickler that needs
-neither JAX nor optax, the JAX package's files included.
+tree; `jax_batch_stats_from_state_dict` carries a BatchNorm's running
+statistics back into the flat `batch_stats` tree.  `read_checkpoint` tells
+the kinds of file apart by their contents.  A torch file is read with
+`torch_load`, a restricted unpickler that needs neither JAX nor optax, the
+JAX package's files included.
 """
 
 from __future__ import annotations
@@ -97,11 +102,22 @@ def _torch_layout(node: str, leaves: Mapping, k: np.ndarray) -> np.ndarray:
     return k.transpose(1, 2, 0) if _transposed(node, leaves) else k.transpose(2, 1, 0)
 
 
-def state_dict_from_jax(params: Tree, fuse: bool = True) -> Dict[str, torch.Tensor]:
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}  # Flax -> torch
+
+
+def state_dict_from_jax(params: Tree, fuse: bool = True,
+                        batch_stats: Optional[Tree] = None) -> Dict[str, torch.Tensor]:
     nodes: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in _flatten(params).items():
         node, _, leaf = key.rpartition("/")
         nodes.setdefault(node, {})[leaf] = value.astype(np.float32)
+    stats: Dict[str, torch.Tensor] = {}
+    for key, value in _flatten(batch_stats or {}).items():
+        node, _, leaf = key.rpartition("/")
+        if leaf not in _BATCH_STATS:
+            raise ValueError(f"{node}: unexpected batch statistic {leaf!r}")
+        stats[f"{node.replace('/', '.')}.{_BATCH_STATS[leaf]}"] = torch.from_numpy(
+            value.astype(np.float32))
 
     out: Dict[str, torch.Tensor] = {}
     for node, leaves in nodes.items():
@@ -112,7 +128,7 @@ def state_dict_from_jax(params: Tree, fuse: bool = True) -> Dict[str, torch.Tens
             out.update((leaf, torch.from_numpy(v)) for leaf, v in leaves.items())
             continue
         name = node.replace("/", ".")
-        unknown = set(leaves) - {"kernel", "g", "gt", "bias", "basis"}
+        unknown = set(leaves) - {"kernel", "g", "gt", "bias", "basis", "scale"}
         if unknown:
             raise ValueError(f"{node}: unexpected parameters {sorted(unknown)}")
         if "kernel" in leaves:
@@ -129,6 +145,9 @@ def state_dict_from_jax(params: Tree, fuse: bool = True) -> Dict[str, torch.Tens
             out[f"{name}.bias"] = torch.from_numpy(leaves["bias"])
         if "basis" in leaves:
             out[f"{name}.basis"] = torch.from_numpy(leaves["basis"])
+        if "scale" in leaves:  # a BatchNorm
+            out[f"{name}.weight"] = torch.from_numpy(leaves["scale"])
+    out.update(stats)
     return out
 
 
@@ -137,15 +156,17 @@ def jax_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, np.
     `state_dict_from_jax(..., fuse=False)`.  Keys `<node>.<leaf>` become
     `<node>/<leaf>` (`weight` -> `kernel`), torch weights become kernels
     (K, Cin, Cout) or (kh, kw, Cin, Cout), gains and root leaves stay as
-    they are."""
-    nodes: Dict[str, Dict[str, np.ndarray]] = {}
-    for key, value in state.items():
-        node, _, leaf = key.rpartition(".")
-        nodes.setdefault(node.replace(".", "/"), {})[leaf] = value.detach().cpu().numpy()
+    they are; a BatchNorm's `weight` becomes its `scale`, and its running
+    statistics are left to `jax_batch_stats_from_state_dict`."""
     out: Dict[str, np.ndarray] = {}
-    for node, leaves in nodes.items():
+    for node, leaves in _nodes(state).items():
+        batch_norm = "running_mean" in leaves
         for leaf, v in leaves.items():
-            if leaf == "weight":
+            if batch_norm and leaf in _BATCH_STATS.values():
+                continue
+            if batch_norm and leaf == "weight":
+                leaf = "scale"
+            elif leaf == "weight":
                 leaf = "kernel"
                 if v.ndim == 4:
                     v = v.transpose(2, 3, 1, 0)
@@ -153,6 +174,23 @@ def jax_tree_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, np.
                     v = v.transpose(2, 0, 1) if _transposed(node, leaves) else v.transpose(2, 1, 0)
             out[f"{node}/{leaf}" if node else leaf] = np.ascontiguousarray(v)
     return out
+
+
+def _nodes(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    nodes: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in state.items():
+        node, _, leaf = key.rpartition(".")
+        nodes.setdefault(node.replace(".", "/"), {})[leaf] = value.detach().cpu().numpy()
+    return nodes
+
+
+def jax_batch_stats_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The flat `batch_stats` tree of a port `state_dict`: each BatchNorm's
+    `running_mean` and `running_var` as `<node>/mean` and `<node>/var`."""
+    to_flax = {v: k for k, v in _BATCH_STATS.items()}
+    return {f"{node}/{to_flax[leaf]}": np.ascontiguousarray(v)
+            for node, leaves in _nodes(state).items() for leaf, v in leaves.items()
+            if leaf in to_flax}
 
 
 class OptaxRecord(tuple):

@@ -207,15 +207,21 @@ def collate(items: Sequence[Item], hp: Hparams, L: Optional[int] = None) -> Item
 
 
 def batch_iterator(dataset, hp: Hparams = HP, seed: int = 0, epoch: int = 0,
-                   L: Optional[int] = None, batch_size: Optional[int] = None) -> Iterator[Item]:
+                   L: Optional[int] = None, shard_index: int = 0, shard_count: int = 1,
+                   batch_size: Optional[int] = None) -> Iterator[Item]:
     """One epoch of training batches (reference data/dataset.py:131-142 and
     bin/train.py:398-405): shuffle, take mega-batches of `batch_expand_size *
     batch_size`, sort each by mel length descending, emit `batch_expand_size`
-    sub-batches.  Every draw comes from `default_rng((seed, epoch))`."""
+    sub-batches.  Every draw comes from `default_rng((seed, epoch))`.  With
+    `shard_count > 1` (data parallelism) shard `shard_index` takes its
+    contiguous slice of the common shuffled epoch, as the JAX package's
+    hosts do, and `batch_size` is then a shard's."""
     bs = batch_size if batch_size is not None else hp.batch_size
     mega = bs * hp.batch_expand_size
     rng = np.random.default_rng((seed, epoch))
     order = rng.permutation(len(dataset))
+    per = len(order) // shard_count
+    order = order[shard_index * per: (shard_index + 1) * per]
     for m in range(len(order) // mega):
         idxs = order[m * mega: (m + 1) * mega]
         lengths = np.array([dataset.mel_length(i) for i in idxs])
@@ -225,10 +231,12 @@ def batch_iterator(dataset, hp: Hparams = HP, seed: int = 0, epoch: int = 0,
             yield collate([dataset.crop(int(i), rng) for i in sub], hp, L=L)
 
 
-def num_batches_per_epoch(dataset_len: int, hp: Hparams,
+def num_batches_per_epoch(dataset_len: int, hp: Hparams, shard_count: int = 1,
                           batch_size: Optional[int] = None) -> int:
+    """Batches of an epoch of `batch_iterator` (each shard's, with
+    `shard_count`)."""
     bs = batch_size if batch_size is not None else hp.batch_size
-    return (dataset_len // (bs * hp.batch_expand_size)) * hp.batch_expand_size
+    return ((dataset_len // shard_count) // (bs * hp.batch_expand_size)) * hp.batch_expand_size
 
 
 def to_device(batch: Item, device: torch.device) -> Dict[str, torch.Tensor]:

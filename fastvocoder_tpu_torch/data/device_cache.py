@@ -24,7 +24,10 @@ draws in its order: per epoch `default_rng((seed, epoch))` permutes the
 items, the drop-last mega-batch arithmetic of `batch_iterator` sets the
 epoch's length, and each batch draws its starts from the same generator
 (no sort by length: with fixed-length crops it only reorders an epoch).
-So both packages cut the same batches from the same corpus.  Unlike the
+So both packages cut the same batches from the same corpus, and with
+`shard_index` / `shard_count` (data parallelism: each rank holds its own
+copy of the corpus on its own card) each rank takes its contiguous slice
+of the common shuffled epoch, as the JAX package does.  Unlike the
 JAX package, which replays from the first epoch, a resumed run
 (`start_step`) skips the batches the run before it consumed.
 """
@@ -118,27 +121,31 @@ class DeviceCorpus:
         starts = rng.integers(0, np.maximum(lens - fixed, 1))
         return np.where(lens > fixed + 1, starts, 0).astype(np.int32)
 
-    def steps_per_epoch(self, batch_size: Optional[int] = None) -> int:
+    def steps_per_epoch(self, batch_size: Optional[int] = None, shard_count: int = 1) -> int:
         bs = batch_size if batch_size is not None else self.hp.batch_size
         mega = bs * self.hp.batch_expand_size
-        return (self.n_items // mega) * mega // bs
+        return (self.n_items // shard_count // mega) * mega // bs
 
-    def batches(self, seed: int = 0, batch_size: Optional[int] = None, start_step: int = 0,
+    def batches(self, seed: int = 0, batch_size: Optional[int] = None, shard_index: int = 0,
+                shard_count: int = 1, start_step: int = 0,
                 weight_until: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
         """The run's batch stream, epoch after epoch (`hp.epochs`), from
-        batch `start_step + 1` on.  The weight target is gathered for the
-        batches of steps up to `weight_until` only (the weight L1 of the
-        pre-adversarial phase, reference bin/train.py:87-89)."""
+        batch `start_step + 1` on; with `shard_count > 1`, shard
+        `shard_index`'s batches of `batch_size` rows.  The weight target is
+        gathered for the batches of steps up to `weight_until` only (the
+        weight L1 of the pre-adversarial phase, reference
+        bin/train.py:87-89)."""
         hp = self.hp
         bs = batch_size if batch_size is not None else hp.batch_size
-        per_epoch = self.steps_per_epoch(bs)
+        per_epoch = self.steps_per_epoch(bs, shard_count)
+        per = self.n_items // shard_count
         if per_epoch == 0:
             return
         first_epoch, skip = divmod(start_step, per_epoch)
         step = first_epoch * per_epoch
         for epoch in range(first_epoch, hp.epochs):
             rng = np.random.default_rng((seed, epoch))
-            order = rng.permutation(self.n_items)[: per_epoch * bs]
+            order = rng.permutation(self.n_items)[shard_index * per:][: per_epoch * bs]
             for b in range(per_epoch):
                 idx = order[b * bs: (b + 1) * bs]
                 starts = self.sample_crops(rng, idx)  # drawn for a skipped batch too

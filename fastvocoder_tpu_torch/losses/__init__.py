@@ -5,11 +5,17 @@
 model/loss/loss.py:7-42): full-band MR-STFT with Basis-MelGAN's optional
 weight L1, or, given a PQMF, the mean of the sub-band and full-band MR-STFT
 losses.
+
+Under data parallelism (`dp`) the MR-STFT losses, the sub-band one
+included, are the global batch's (`losses/stft_loss.py`).  The weight L1 is
+a mean over equal shards, so the ranks' mean of their local values and
+gradients is the global one, and it needs no collective; so are the GAN
+losses (`losses/gan.py`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
@@ -25,6 +31,9 @@ from fastvocoder_tpu_torch.losses.stft_loss import (
     stft_loss,
 )
 from fastvocoder_tpu_torch.ops.pqmf import PQMF
+
+if TYPE_CHECKING:
+    from fastvocoder_tpu_torch.parallel.distributed import DataParallel
 
 __all__ = [
     "DEFAULT_RESOLUTIONS",
@@ -51,8 +60,10 @@ def reconstruction_loss(
     est_weight: Optional[torch.Tensor] = None,
     weight: Optional[torch.Tensor] = None,
     pqmf: Optional[PQMF] = None,
+    dp: Optional["DataParallel"] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """-> (stft_loss, weight_loss or None).
+    """-> (stft_loss, weight_loss or None); with `dp`, of the global batch
+    (module docstring).
 
     Full band (reference loss.py:33-42): est_source and wav are (B, T).
     Multiband (reference loss.py:16-31): est_source is the sub-band signal
@@ -64,11 +75,11 @@ def reconstruction_loss(
         wav_sub = pqmf.analysis(wav[..., None])  # (B, T', S)
         est_full = pqmf.synthesis(est_source)[..., 0]  # (B, T)
         sc_s, mag_s = multi_resolution_stft_loss(_bands_to_rows(est_source),
-                                                 _bands_to_rows(wav_sub))
-        sc_f, mag_f = multi_resolution_stft_loss(est_full, wav)
+                                                 _bands_to_rows(wav_sub), dp=dp)
+        sc_f, mag_f = multi_resolution_stft_loss(est_full, wav, dp=dp)
         return ((sc_s + mag_s) + (sc_f + mag_f)) / 2.0, None
 
-    sc, mag = multi_resolution_stft_loss(est_source, wav)
+    sc, mag = multi_resolution_stft_loss(est_source, wav, dp=dp)
     weight_loss = None
     if est_weight is not None and weight is not None:
         weight_loss = torch.mean(torch.abs(est_weight.float() - weight.float()))

@@ -6,6 +6,11 @@ reference trainer, bin/train.py:100-120, 157-169): MSE-to-ones adversarial
 loss on each scale's score, L1 feature matching over the other layers
 against the real features without gradient, MSE real/fake discriminator
 loss; each a mean over scales (and layers).
+
+Each is a mean over the batch's rows (a score or a feature map per row;
+the multi-period discriminator folds each row on its own), so under data
+parallelism the ranks' mean of their local losses, and of their gradients,
+is the global batch's: none needs a collective.
 """
 
 from __future__ import annotations

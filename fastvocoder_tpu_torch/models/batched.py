@@ -1,16 +1,28 @@
 """Batched bucketed synthesis (counterpart of
-`fastvocoder_tpu/models/batched.py`, without the mesh).
+`fastvocoder_tpu/models/batched.py`).
 
 Utterances are grouped by length rounded up to `bucket_frames`, zero-padded
 to the bucket, run as one batch per group and trimmed to `T * hop`.
+
+With a mesh (`parallel.make_mesh`: a list of devices, one may repeat) the
+synthesizer holds one replica of the forward a device, each with its own
+weights and kept kernel tables built on its own device, and splits each
+group's rows over them, as the JAX package's mesh shards a batch along its
+first axis: the rows are padded to a multiple of the mesh's size by
+repeating the last row, every replica's chunk is launched before any is
+copied back, and the waveforms come back in input order.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from fastvocoder_tpu_torch.parallel.mesh import shard_batch
+
+Forward = Callable[[torch.Tensor], torch.Tensor]
 
 
 def bucket_length(T: int, bucket_frames: int) -> int:
@@ -19,16 +31,19 @@ def bucket_length(T: int, bucket_frames: int) -> int:
 
 class BatchedSynthesizer:
     """forward(mel (B, T, C) tensor on `device`) -> wav (B, >= T *
-    samples_per_frame) tensor."""
+    samples_per_frame) tensor.  With `mesh`, `forward` is a sequence of
+    such callables, one a device of the mesh, each computing on its own
+    device (`device` is then unused)."""
 
     def __init__(
         self,
-        forward: Callable[[torch.Tensor], torch.Tensor],
+        forward: Union[Forward, Sequence[Forward]],
         samples_per_frame: int,
-        device: torch.device,
+        device: Optional[torch.device] = None,
         bucket_frames: int = 64,
         max_batch: int = 32,
         batch_pad: str = "exact",
+        mesh: Optional[Sequence[torch.device]] = None,
     ):
         """batch_pad: "exact" runs each group at its own size; "pow2" pads
         each group to the next power of two (<= max_batch) by repeating its
@@ -36,9 +51,18 @@ class BatchedSynthesizer:
         of batch shapes."""
         if batch_pad not in ("exact", "pow2"):
             raise ValueError(f"batch_pad: want 'exact' or 'pow2', got {batch_pad!r}")
-        self.forward = forward
+        if mesh is None:
+            self.mesh = [torch.device(device)]
+            self.forwards = [forward]
+        else:
+            self.mesh = [torch.device(d) for d in mesh]
+            self.forwards = list(forward)
+            if len(self.forwards) != len(self.mesh):
+                raise ValueError(f"a mesh of {len(self.mesh)} devices takes as many forwards, "
+                                 f"got {len(self.forwards)}")
+        self.device = self.mesh[0]
+        self.n_dev = len(self.mesh)
         self.spf = samples_per_frame
-        self.device = torch.device(device)
         self.bucket_frames = bucket_frames
         self.max_batch = max_batch
         self.batch_pad = batch_pad
@@ -48,8 +72,8 @@ class BatchedSynthesizer:
             p = 1
             while p < n:
                 p *= 2
-            return min(p, self.max_batch)
-        return n
+            n = min(p, self.max_batch)
+        return n + (-n) % self.n_dev  # rows split evenly over the mesh
 
     def warmup(self, bucket_lengths: Sequence[int], feature_dim: int = 80) -> int:
         """Run every (bucket, group size) shape `__call__` can dispatch for
@@ -68,6 +92,15 @@ class BatchedSynthesizer:
                 self([np.zeros((Tb, feature_dim), np.float32)] * k)
                 n += 1
         return n
+
+    def _run(self, batch: np.ndarray) -> np.ndarray:
+        """The forwards over a padded batch, its rows split over the mesh."""
+        with torch.inference_mode():
+            if self.n_dev == 1:
+                return self.forwards[0](torch.from_numpy(batch).to(self.device)).cpu().numpy()
+            chunks = shard_batch({"mel": batch}, self.mesh, dp=None)
+            outs = [fwd(c["mel"]) for fwd, c in zip(self.forwards, chunks)]  # all launched
+            return np.concatenate([o.cpu().numpy() for o in outs])
 
     def __call__(self, mels: Sequence[np.ndarray]) -> List[np.ndarray]:
         """mels: list of (T_i, C) -> list of (T_i * samples_per_frame,)
@@ -88,8 +121,7 @@ class BatchedSynthesizer:
                     batch = np.concatenate(
                         [batch, np.repeat(batch[-1:], want_rows - batch.shape[0], axis=0)]
                     )
-                with torch.inference_mode():
-                    wavs = self.forward(torch.from_numpy(batch).to(self.device)).cpu().numpy()
+                wavs = self._run(batch)
                 for row, i in enumerate(group):
                     out[i] = wavs[row, : mels[i].shape[0] * self.spf]
         return out

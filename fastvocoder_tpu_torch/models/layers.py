@@ -443,3 +443,72 @@ class BasisSignalLayer(nn.Module):
         if weight.dtype != basis.dtype:
             basis = _operands(self, lambda: self.basis.to(weight.dtype), slot="_cast")
         return basis_decode(weight.contiguous(), basis)
+
+
+class BatchNorm(nn.Module):
+    """Flax's `nn.BatchNorm` over the channels of (B, T, C), which the JAX
+    package's `LastLinear` uses; its arithmetic, not `nn.BatchNorm1d`'s:
+
+      * in training the batch statistics are mean(x) and the biased
+        variance mean(x^2) - mean(x)^2, clipped at 0 (Flax's fast variance),
+        and they update the running statistics as new = momentum * old +
+        (1 - momentum) * batch with momentum 0.99 (torch's `momentum` is the
+        batch's weight, 0.1 by default, and it keeps the unbiased variance);
+      * y = (x - mean) * (rsqrt(var + eps) * weight) + bias, eps 1e-5.
+
+    `weight` and `bias` are Flax's `scale` and `bias`, `running_mean` and
+    `running_var` its `batch_stats` `mean` and `var`.  Under data
+    parallelism (`dp`) the training statistics are the global batch's, as
+    the JAX package's mesh computes them: the sums all-reduced, with their
+    gradient summed over the ranks."""
+
+    def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5, dp=None):
+        super().__init__()
+        self.momentum, self.eps, self.dp = momentum, eps, dp
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def _batch_stats(self, x: torch.Tensor):
+        rows = x.reshape(-1, x.shape[-1])
+        if self.dp is None or self.dp.world == 1:
+            mean, mean_sq = rows.mean(0), torch.square(rows).mean(0)
+        else:
+            sums = torch.stack([rows.sum(0), torch.square(rows).sum(0)])
+            sums = self.dp.all_reduce_sum(sums, differentiable=True)
+            mean, mean_sq = sums / float(rows.shape[0] * self.dp.world)
+        return mean, torch.clamp(mean_sq - torch.square(mean), min=0.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean, var = self._batch_stats(x.float())
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class LastLinear(nn.Module):
+    """leaky(0.2) -> BatchNorm -> 1x1 conv -> leaky(0.2) -> BatchNorm -> 1x1
+    conv (reference modules.py:116-132), the JAX package's `LastLinear`,
+    used by no shipped configuration.  Children `bn_1`, `linear_1`, `bn_2`,
+    `linear_2` as its Flax names; `train` is its flag (torch's training
+    mode: `.train()` / `.eval()` switch it); `dp` makes the batch
+    statistics of training the global batch's (`BatchNorm`)."""
+
+    def __init__(self, cin: int, hidden_channel: int, out_channel: int, bias: bool = True,
+                 weight_norm: bool = True, train: bool = False, dp=None):
+        super().__init__()
+        self.bn_1 = BatchNorm(cin, dp=dp)
+        self.linear_1 = Conv1d(cin, hidden_channel, 1, bias=bias, weight_norm=weight_norm)
+        self.bn_2 = BatchNorm(hidden_channel, dp=dp)
+        self.linear_2 = Conv1d(hidden_channel, out_channel, 1, bias=bias, weight_norm=weight_norm)
+        self.train(train)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.linear_1(self.bn_1(leaky_relu(x, 0.2)))
+        return self.linear_2(self.bn_2(leaky_relu(x, 0.2)))

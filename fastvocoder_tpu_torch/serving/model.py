@@ -11,12 +11,15 @@ reference's test harness does (reference bin/test.py:85-88).  The other
 families' checkpoints carry no pattern and are served as they come.  NHV
 takes its conditioning (T, 81), the mel and f0 (`dsp.f0.f0_to_condition`).
 `compute_dtype=torch.bfloat16` serves in bf16 (`models/factory.py`), as the
-JAX package's `compute_dtype` (`bin/serve.py --bf16`).
+JAX package's `compute_dtype` (`bin/serve.py --bf16`).  `mesh` (a list of
+devices, `parallel.make_mesh`) serves data-parallel: the checkpoint is
+loaded once a device of the mesh, and each batch's rows are split over
+the replicas (`models/batched.py`).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,21 +46,29 @@ class ServingModel:
         batch_pad: str = "pow2",
         device: str | torch.device = "cuda",
         compute_dtype=None,
+        mesh: Optional[Sequence[torch.device]] = None,
     ):
-        self.device = resolve_device(device)
+        """`device` is the one device served without a mesh; with `mesh`
+        the replicas sit on its devices and `device` is unused."""
+        devices = [resolve_device(d) for d in mesh] if mesh is not None else [
+            resolve_device(device)]
+        self.device = devices[0]
+        self.mesh_size = len(devices)
         self.hp = hp
         self.model_name = model_name
         self.cfg = load_model_config(model_name, config_path)
-        self.generator, self.pattern = load_generator(
-            checkpoint_path, self.cfg, self.device, compute_dtype=compute_dtype
-        )
+        replicas = [load_generator(checkpoint_path, self.cfg, d, compute_dtype=compute_dtype)
+                    for d in devices]
+        self.generator, self.pattern = replicas[0]
+        forwards = [g.inference for g, _ in replicas]
         self.batched = BatchedSynthesizer(
-            self.generator.inference,
+            forwards[0] if mesh is None else forwards,
             samples_per_frame=hp.hop_size,
             device=self.device,
             bucket_frames=bucket_frames,
             max_batch=max_batch,
             batch_pad=batch_pad,
+            mesh=None if mesh is None else devices,
         )
 
     @property

@@ -2,7 +2,8 @@
 
 POST /synthesize   body = .npy bytes of a float mel (T, C)
                    -> 200, .npy bytes of the float32 waveform (T * hop,)
-GET  /healthz      -> 200, JSON {status, model, requests_served, batches_run}
+GET  /healthz      -> 200, JSON {status, model, requests_served, batches_run,
+                   mesh_size}
 
 Concurrent POSTs ride a ThreadingHTTPServer into the `DynamicBatcher`, so
 simultaneous requests synthesize as one batch on the GPU.  This is a
@@ -31,7 +32,7 @@ MAX_BODY = 256 * 1024 * 1024  # npy mels are small; reject absurd payloads
 
 def _handler_class(
     batcher: DynamicBatcher, input_channels: int, model_name: str,
-    validate=None,
+    validate=None, mesh_size: int = 1,
 ):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -56,7 +57,8 @@ def _handler_class(
                 return self._reply_json(404, {"error": "unknown path"})
             self._reply_json(
                 200,
-                {"status": "ok", "model": model_name, **batcher.stats()},
+                {"status": "ok", "model": model_name, **batcher.stats(),
+                 "mesh_size": mesh_size},
             )
 
         def do_POST(self):
@@ -109,12 +111,14 @@ def make_server(
     max_wait_ms: float = 5.0,
     max_pending: int = 1024,
     validate=None,
+    mesh_size: int = 1,
 ):
     """-> (ThreadingHTTPServer, DynamicBatcher).  `synthesize` is any
     list[mel]->list[wav] callable (ServingModel, BatchedSynthesizer, or a
     test stub).  `validate(mel)` (e.g. ServingModel.validate) runs per
     request before coalescing; its ValueError maps to HTTP 400.  Caller
-    owns serve_forever/shutdown and batcher.close()."""
+    owns serve_forever/shutdown and batcher.close().  `mesh_size`, the
+    devices `synthesize` splits a batch over, is reported by /healthz."""
     batcher = DynamicBatcher(
         synthesize,
         max_batch=max_batch,
@@ -123,7 +127,8 @@ def make_server(
     )
     httpd = ThreadingHTTPServer(
         (host, port),
-        _handler_class(batcher, input_channels, model_name, validate=validate),
+        _handler_class(batcher, input_channels, model_name, validate=validate,
+                       mesh_size=mesh_size),
     )
     return httpd, batcher
 

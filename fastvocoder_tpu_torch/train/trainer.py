@@ -1,4 +1,4 @@
-"""The GAN train steps: generator and discriminator updates on one device.
+"""The GAN train steps: generator and discriminator updates.
 
 Counterpart of `fastvocoder_tpu/train/trainer.py` (the reference's per-step
 `trainer()`, bin/train.py:48-255).  The host picks one of two steps at the
@@ -52,6 +52,18 @@ to the estimate is wrapped too.  The recompute runs the same kernels on
 the same weights (no parameter changes before the backward), NHV's noise
 is the step's explicit draw, so the step computes what it computes
 without remat, at one more generator pass a generator update.
+
+`dp` (a `parallel.DataParallel`) is data parallelism, the JAX package's
+mesh step (`parallel/mesh.py::compile_train_step`): each rank steps on its
+rows of the global batch, and every generator and discriminator update
+first averages the ranks' gradients in one flattened all-reduce a network,
+the frozen basis's gradient included, so that every rank clips by the same
+global norm and the replicas stay equal (`last_grads` and `last_norms` hold
+the reduced values).  The losses are the global batch's
+(`losses/stft_loss.py`, `losses/gan.py`); the metrics a step returns are
+this rank's (`parallel.reduce_metrics` makes them global).  NHV's noise is
+the global batch's draw of the step, of which each rank takes its rows, as
+JAX draws it once for the whole mesh.
 """
 
 from __future__ import annotations
@@ -77,6 +89,7 @@ from fastvocoder_tpu_torch.models.factory import build_discriminator, build_gene
 from fastvocoder_tpu_torch.models.nhv import NOISE_SCALE
 from fastvocoder_tpu_torch.ops.pqmf import PQMF
 from fastvocoder_tpu_torch.ops.precision import check_compute_dtype
+from fastvocoder_tpu_torch.parallel.distributed import DataParallel
 
 Metrics = Dict[str, torch.Tensor]
 Noise = Callable[[int, Sequence[int]], torch.Tensor]
@@ -170,12 +183,14 @@ class Trainer:
     # the clip norms of the last step, for tests and logs: "generator",
     # "discriminator"
     last_norms: dict = dataclasses.field(default_factory=dict, compare=False)
-    # with keep_grads, the last step's gradients before the clip, by
-    # parameter name, under the same two keys (for comparisons; costs a copy)
+    # with keep_grads, the last step's gradients before the clip (with dp,
+    # reduced over the ranks), by parameter name, under the same two keys
+    # (for comparisons; costs a copy)
     keep_grads: bool = False
     last_grads: dict = dataclasses.field(default_factory=dict, compare=False)
     compute_dtype: Optional[torch.dtype] = None  # None (float32) or torch.bfloat16
     remat: bool = False  # recompute the generator forward in the backward
+    dp: Optional[DataParallel] = None  # data parallelism: gradients reduced over the ranks
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh modules on the trainer's device, initialised from `seed`
@@ -199,10 +214,14 @@ class Trainer:
     # ---- forward helpers ----
 
     def _step_noise(self, state: TrainState, mel: torch.Tensor) -> Optional[torch.Tensor]:
-        """NHV's noise of this step (None for the other families)."""
+        """NHV's noise of this step (None for the other families); with `dp`,
+        this rank's rows of the global batch's draw."""
         if self.cfg.model_name != "nhv":
             return None
-        return self.noise(state.step, (mel.shape[0], mel.shape[1] * self.cfg.arch.hop_size))
+        B, samples = mel.shape[0], mel.shape[1] * self.cfg.arch.hop_size
+        if self.dp is None:
+            return self.noise(state.step, (B, samples))
+        return self.noise(state.step, (B * self.dp.world, samples))[self.dp.rows(B)]
 
     def _gen_forward(self, generator: nn.Module, mel: torch.Tensor,
                      noise: Optional[torch.Tensor] = None):
@@ -229,6 +248,11 @@ class Trainer:
             return self.pqmf.synthesis(est)[..., 0]
         return est
 
+    def _reduced(self, grads: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+        """The ranks' mean of a network's gradients (one all-reduce), or the
+        gradients as they are without `dp`."""
+        return grads if self.dp is None else self.dp.all_reduce_mean(grads)
+
     def _update(self, name: str, params: List[nn.Parameter], grads, opt: torch.optim.Adam,
                 lr: float, clipped_with: Tuple[torch.Tensor, ...] = ()) -> None:
         """Clip `grads` (with `clipped_with` counted in the norm), then one
@@ -245,7 +269,7 @@ class Trainer:
 
     def _update_generator(self, state: TrainState, total: torch.Tensor) -> None:
         named = [(n, p) for n, p in state.generator.named_parameters()]
-        grads = torch.autograd.grad(total, [p for _, p in named])
+        grads = self._reduced(torch.autograd.grad(total, [p for _, p in named]))
         if self.keep_grads:
             self.last_grads["generator"] = {n: g.clone() for (n, _), g in zip(named, grads)}
         frozen = tuple(g.contiguous() for (n, _), g in zip(named, grads)
@@ -262,7 +286,7 @@ class Trainer:
         """Generator-only phase (step <= discriminator_train_start_steps)."""
         est, est_weight = self._gen_forward(state.generator, mel, self._step_noise(state, mel))
         stft_l, weight_l = reconstruction_loss(est, wav, est_weight=est_weight, weight=weight,
-                                               pqmf=self.pqmf)
+                                               pqmf=self.pqmf, dp=self.dp)
         total = self.cfg.lambda_stft * stft_l
         metrics = {"stft_loss": stft_l}
         if weight_l is not None:
@@ -283,7 +307,7 @@ class Trainer:
         noise = self._step_noise(state, mel)  # one draw for both generator forwards
         est, est_weight = self._gen_forward(state.generator, mel, noise)
         stft_l, _ = reconstruction_loss(est, wav, est_weight=est_weight, weight=weight,
-                                        pqmf=self.pqmf)
+                                        pqmf=self.pqmf, dp=self.dp)
         total = self.cfg.lambda_stft * stft_l
         metrics = {"stft_loss": stft_l}
         if self.remat:  # the discriminator's features of the estimate, recomputed too
@@ -308,7 +332,7 @@ class Trainer:
         real_l, fake_l = discriminator_loss(disc(wav), disc(est_for_d))
         d_loss = real_l + fake_l
         params = list(disc.parameters())
-        d_grads = torch.autograd.grad(d_loss, params)
+        d_grads = self._reduced(torch.autograd.grad(d_loss, params))
         if self.keep_grads:
             self.last_grads["discriminator"] = {
                 n: g.clone() for (n, _), g in zip(disc.named_parameters(), d_grads)}
@@ -348,6 +372,7 @@ def make_trainer(
     noise: Optional[Noise] = None,
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
+    dp: Optional[DataParallel] = None,
 ) -> Trainer:
     """The trainer of `cfg` on `device`: the CUDA device by default, and a
     RuntimeError without one unless `device="cpu"` is asked for.  `noise`
@@ -355,7 +380,9 @@ def make_trainer(
     discriminator takes the MPD where `cfg.use_mpd` or `disc_cfg.use_mpd`
     says so.  `compute_dtype=torch.bfloat16` trains in bf16 mixed precision
     (the module docstring says what stays float32); `remat=True`
-    recomputes the generator forward in the backward (module docstring)."""
+    recomputes the generator forward in the backward (module docstring);
+    `dp` reduces the gradients over a process group's ranks (module
+    docstring)."""
     compute_dtype = check_compute_dtype(compute_dtype)
     if device is None:
         if not torch.cuda.is_available():
@@ -378,5 +405,5 @@ def make_trainer(
         pqmf=PQMF().to(device) if cfg.multiband else None,
         noise=noise if noise is not None else seeded_noise(seed, device),
         basis_signal_weight=basis_signal_weight, keep_grads=keep_grads,
-        compute_dtype=compute_dtype, remat=remat,
+        compute_dtype=compute_dtype, remat=remat, dp=dp,
     )

@@ -4,6 +4,7 @@ its JAX-free modules.  Checked on the source (AST), so imports inside
 functions count too."""
 
 import ast
+import os
 import pathlib
 
 import pytest
@@ -47,7 +48,8 @@ def test_scan_sees_the_whole_port():
                 "data/device_cache.py", "dsp/mel.py", "dsp/audio.py", "dsp/griffin_lim.py",
                 "data/preprocess.py", "models/streaming.py", "bin/preprocess.py",
                 "bin/evaluation.py", "bin/publish.py", "bin/launcher.py", "bin/cli.py",
-                "bin/__init__.py"):
+                "bin/__init__.py", "parallel/__init__.py", "parallel/distributed.py",
+                "parallel/mesh.py"):
         assert f"fastvocoder_tpu_torch/{new}" in names
     assert "chip_smoke.py" in names
 
@@ -59,7 +61,10 @@ def test_scan_catches_a_jax_import():
 
 def _entry_points(tmp_path):
     """The pipeline's entry points, each called as a user would without a
-    device argument (CUDA by default)."""
+    device argument (CUDA by default); the data-parallel ones under the
+    environment `torchrun` sets."""
+    from unittest import mock
+
     import numpy as np
 
     from fastvocoder_tpu_torch.bin.evaluation import run_evaluation
@@ -70,6 +75,18 @@ def _entry_points(tmp_path):
     from fastvocoder_tpu_torch.hparams import load_model_config
     from fastvocoder_tpu_torch.models.factory import build_generator
     from fastvocoder_tpu_torch.models.streaming import StreamingSynthesizer
+    from fastvocoder_tpu_torch.bin.serve import run_serve
+    from fastvocoder_tpu_torch.bin.train import run_train
+    from fastvocoder_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
+
+    torchrun = {"RANK": "0", "WORLD_SIZE": "2", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+                "MASTER_PORT": "1"}
+
+    def under_torchrun(fn):
+        def call():
+            with mock.patch.dict(os.environ, torchrun):
+                return fn()
+        return call
 
     conf = str(ROOT / "conf" / "basis-melgan" / "light.yaml")
     index = tmp_path / "index.txt"
@@ -95,13 +112,21 @@ def _entry_points(tmp_path):
         "audio.inv_mel_spectrogram": lambda: audio.inv_mel_spectrogram(mel),
         "melspectrogram": lambda: audio.melspectrogram(wav),
         "spectrogram": lambda: audio.spectrogram(wav),
+        "maybe_initialize_distributed": under_torchrun(maybe_initialize_distributed),
+        "run_train (torchrun)": under_torchrun(lambda: run_train([
+            "--model_name", "basis-melgan", "--config", conf])),
+        "make_mesh": make_mesh,
+        "run_serve --mesh all": lambda: run_serve([
+            "--checkpoint_path", str(ROOT / "docs" / "checkpoints" / "basis_melgan_clean2.npz"),
+            "--config", conf, "--port", "0", "--mesh", "all"], block=False),
     }
 
 
 ENTRY_POINTS = ("run_preprocess", "preprocess", "extract_one", "run_evaluation", "run_publisher",
                 "publish_model", "StreamingSynthesizer.for_model", "StreamingSynthesizer",
                 "inv_mel_spectrogram", "audio.inv_mel_spectrogram", "melspectrogram",
-                "spectrogram")
+                "spectrogram", "maybe_initialize_distributed", "run_train (torchrun)", "make_mesh",
+                "run_serve --mesh all")
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
