@@ -293,6 +293,8 @@ def cuda_ms(fn, iters: int = 100, warmup: int = 10) -> float:
 
 
 def bound_ms(nbytes: float, flops: float):
+    """The bound of a kernel that computes on the float32 CUDA cores (kernel
+    1); beside a tensor-core kernel's own bound as `bound_f32_ms`."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -303,6 +305,16 @@ def bound_3xtf32_ms(nbytes: float, flops: float):
     TF32 products on the tensor cores."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = 3 * flops / PEAK_TF32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_w16_ms(nbytes: float, flops: float):
+    """The bound of a bf16 backward form (3b, 5b): a third of its operations
+    (the weight gradients) three TF32 products each, the recompute's and the
+    adjoints' two (against a bf16 weight the third adds zeros): 7/9 of the
+    3xTF32 bound."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 7 / 3 * flops / PEAK_TF32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -460,16 +472,16 @@ def check_fused_resstack(torch, gen, T_main):
     log(f"  fused_resstack: checking and packing a stage's operands (ChainTable), which a "
         f"served model does once: {pack_ms:.4f} ms a stage")
     T = T_main
-    bms, by = bound_ms(*chain_work(1, T, stacks))
+    _, by = bound_3xtf32_ms(*chain_work(1, T, stacks))
     return {
         "name": "fused_resstack", "route": "cuda",
         "source": "fastvocoder_tpu_torch/csrc/fused_resstack.cu",
         "replaces": "fastvocoder_tpu/ops/fused_resstack.py:153",
         "shape": f"x (1, {T}, {C}), 3 stacks K=3 d=1,3,9 (stage 2 of 2)",
         "max_abs_err": worst, "ms": times[T][0], "plain_ms": times[T][1],
-        "bound_ms": bms, "bound_3xtf32_ms": times[T][3], "bound_by": by, "library_ms": None,
+        "bound_ms": times[T][3], "bound_f32_ms": times[T][2], "bound_by": by, "library_ms": None,
         "stage1_ms": times[T // 4][0], "stage1_plain_ms": times[T // 4][1],
-        "stage1_bound_ms": times[T // 4][2], "stage1_bound_3xtf32_ms": times[T // 4][3],
+        "stage1_bound_ms": times[T // 4][3], "stage1_bound_f32_ms": times[T // 4][2],
         "pack_ms": pack_ms,
     }
 
@@ -511,7 +523,7 @@ def check_melgan_chain(torch, gen, frames: int) -> dict:
             f"{plain:.4f} ms, float32 bound {bms:.4f} ms, 3xTF32 bound {b3:.4f} ms ({by}, "
             f"{flops / 1e9:.2f} GFLOP): {share(b3, ms)} of it")
         out.append({"shape": [1, T, C], "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                    "bound_ms": bms, "bound_3xtf32_ms": b3})
+                    "bound_ms": b3, "bound_f32_ms": bms})
     return out
 
 
@@ -713,8 +725,8 @@ def check_fused_mrf(torch, gen, frames: int):
         log(f"  fused_mrf (1, {T}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, float32 "
             f"bound {bms:.4f} ms, 3xTF32 bound {b3:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP): "
             f"{share(b3, ms)} of it")
-        per_stage.append({"shape": [1, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                          "bound_3xtf32_ms": b3})
+        per_stage.append({"shape": [1, T, C], "ms": ms, "plain_ms": plain, "bound_ms": b3,
+                          "bound_f32_ms": bms})
         if C != 256:  # the main path's stages
             for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
                 total[k] += v
@@ -727,7 +739,7 @@ def check_fused_mrf(torch, gen, frames: int):
         "shape": "HiFiGAN light's 3 MRF stages of a 585-frame utterance, summed: "
                  + ", ".join(str(tuple(s["shape"])) for s in per_stage[:-1]),
         "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": bms, "bound_3xtf32_ms": b3, "bound_by": by, "library_ms": None,
+        "bound_ms": b3, "bound_f32_ms": bms, "bound_by": by, "library_ms": None,
         "stages": per_stage,
     }
 
@@ -852,8 +864,9 @@ def check_fused_tail(torch, gen, frames: int):
                   + 2 * T * k_post.shape[0] * C * k_post.shape[2])
     bms, by = bound_ms(nbytes, mrf_flops + core_flops)
     # the MRF on the tensor cores in 3xTF32, the upsample and head on the CUDA cores
-    b3 = max(nbytes / PEAK_BYTES_PER_S,
-             3 * mrf_flops / PEAK_TF32_FLOP_PER_S + core_flops / PEAK_F32_FLOP_PER_S) * 1e3
+    t_ops = 3 * mrf_flops / PEAK_TF32_FLOP_PER_S + core_flops / PEAK_F32_FLOP_PER_S
+    b3 = max(nbytes / PEAK_BYTES_PER_S, t_ops) * 1e3
+    by3 = "operations" if t_ops * 1e3 >= b3 else "bytes"
     mrf_b3, _ = bound_3xtf32_ms(mrf_bytes, mrf_flops)
     log(f"  fused_tail (1, {T_main}, 32) -> (1, {T}, 1): kernel {ms:.4f} ms with a kept table, "
         f"{built:.4f} ms with the table built on the call, plain {plain:.4f} ms; float32 bound "
@@ -871,8 +884,8 @@ def check_fused_tail(torch, gen, frames: int):
         "source": "fastvocoder_tpu_torch/csrc/fused_tail.cu",
         "replaces": "fastvocoder_tpu/ops/fused_tail.py:80",
         "shape": f"x (1, {T_main}, 32) -> (1, {T}, 1), HiFiGAN light's last stage and head",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-        "bound_3xtf32_ms": b3, "bound_by": by, "library_ms": None, "ms_table_built": built,
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": b3,
+        "bound_f32_ms": bms, "bound_by": by3, "library_ms": None, "ms_table_built": built,
         "pair_ms": pair_ms, "yardstick_kernel4_ms": yardstick, "host_us": host,
     }
 
@@ -891,16 +904,16 @@ def grads_close(dx, dx_ref, grads, grads_ref):
 
 
 def check_backward(torch, name, vjp_cuda, vjp_plain, forward_cuda, forward_plain, stages,
-                   fwd_work, replaces, what, edges=(), tensor_cores=False):
+                   fwd_work, replaces, what, edges=()):
     """A backward kernel against its plain VJP at the training path's
     shapes (`stages`: (operands, C, T) per stage; batch TRAIN_BATCH and 1)
     and at `edges` ((operands, C, B, T), untimed, against the plain VJP in
     float64: over so few rows one leaky-relu flip of the float32 plain VJP
     would be a large share of a dW), its time, the plain VJP's
-    and the bound, summed over the stages at the training batch; also the
-    forward kernel's time at that batch.  With `tensor_cores` the 3xTF32
-    bound stands beside the float32 one.  -> (entry for the kernels line,
-    the forward's per-stage times)."""
+    and the bound (3xTF32 on the tensor cores; the float32 CUDA cores' beside
+    it), summed over the stages at the training batch; also the forward
+    kernel's time at that batch.  -> (entry for the kernels line, the
+    forward's per-stage times)."""
     g = torch.Generator().manual_seed(len(name))
     dev = torch.device("cuda")
     flat = lambda grads: [t for group in grads for t in (
@@ -952,14 +965,12 @@ def check_backward(torch, name, vjp_cuda, vjp_plain, forward_cuda, forward_plain
             # written; the forward again plus twice its operations
             nbytes, flops = 4 * 3 * B * T * C + 2 * weights, 3 * fflops
             bms, by = bound_ms(nbytes, flops)
-            stage = {"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms}
-            against = f"bound {bms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP)"
-            if tensor_cores:
-                stage["bound_3xtf32_ms"], by3 = bound_3xtf32_ms(nbytes, flops)
-                against = (f"float32 {against}, 3xTF32 bound {stage['bound_3xtf32_ms']:.3f} ms "
-                           f"({by3}): {share(stage['bound_3xtf32_ms'], ms)} of it")
+            b3, by3 = bound_3xtf32_ms(nbytes, flops)
+            stage = {"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": b3,
+                     "bound_f32_ms": bms}
             log(f"  {name} ({B}, {T}, {C}): kernel {ms:.3f} ms, plain VJP {plain:.3f} ms, "
-                + against)
+                f"float32 bound {bms:.3f} ms ({by}, {flops / 1e9:.1f} GFLOP), 3xTF32 bound "
+                f"{b3:.3f} ms ({by3}): {share(b3, ms)} of it")
             per_stage.append(stage)
             for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
                 total[k] += v
@@ -967,28 +978,24 @@ def check_backward(torch, name, vjp_cuda, vjp_plain, forward_cuda, forward_plain
                 fms = cuda_ms(lambda: forward_cuda(x, ops), iters=5, warmup=2)
                 fplain = cuda_ms(lambda: forward_plain(x, ops), iters=5, warmup=2)
             fb, _ = bound_ms(fbytes, fflops)
-            fstage = {"shape": [B, T, C], "ms": fms, "plain_ms": fplain, "bound_ms": fb}
-            against = f"bound {fb:.3f} ms"
-            if tensor_cores:
-                fstage["bound_3xtf32_ms"], _ = bound_3xtf32_ms(fbytes, fflops)
-                against = (f"float32 {against}, 3xTF32 bound {fstage['bound_3xtf32_ms']:.3f} ms: "
-                           f"{share(fstage['bound_3xtf32_ms'], fms)} of it")
+            fb3, _ = bound_3xtf32_ms(fbytes, fflops)
+            fstage = {"shape": [B, T, C], "ms": fms, "plain_ms": fplain, "bound_ms": fb3,
+                      "bound_f32_ms": fb}
             log(f"  forward at ({B}, {T}, {C}): kernel {fms:.3f} ms, plain {fplain:.3f} ms, "
-                + against)
+                f"float32 bound {fb:.3f} ms, 3xTF32 bound {fb3:.3f} ms: {share(fb3, fms)} of it")
             fwd_stages.append(fstage)
             del x, cot, dx, grads, dx_ref, grads_ref
             torch.cuda.empty_cache()
-    bms, by = bound_ms(total["bytes"], total["flops"])
+    bms, _ = bound_ms(total["bytes"], total["flops"])
+    b3, by = bound_3xtf32_ms(total["bytes"], total["flops"])
     entry = {
         "name": name, "route": "cuda",
         "source": f"fastvocoder_tpu_torch/csrc/{name}.cu", "replaces": replaces,
         "shape": what + ", summed: " + ", ".join(str(tuple(s["shape"])) for s in per_stage),
         "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": bms, "bound_by": by, "library_ms": None, "stages": per_stage,
+        "bound_ms": b3, "bound_f32_ms": bms, "bound_by": by, "library_ms": None,
+        "stages": per_stage,
     }
-    if tensor_cores:
-        entry["bound_3xtf32_ms"], entry["bound_by"] = bound_3xtf32_ms(total["bytes"],
-                                                                     total["flops"])
     return entry, fwd_stages
 
 
@@ -1020,7 +1027,7 @@ def check_fused_mrf_bwd(torch, gen):
         m.fused_mrf_stage_cuda, m.fused_mrf_stage_plain, stages, mrf_work,
         "fastvocoder_tpu/ops/fused_mrf.py:227",
         f"HiFiGAN light's 4 MRF stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames",
-        edges=edges, tensor_cores=True)
+        edges=edges)
 
 
 def check_fused_resstack_bwd(torch, gen):
@@ -1044,7 +1051,7 @@ def check_fused_resstack_bwd(torch, gen):
         r.fused_residual_stacks_plain, stages, chain_work,
         "fastvocoder_tpu/ops/fused_resstack.py:241",
         f"Basis-MelGAN light's 2 stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames",
-        edges=edges, tensor_cores=True)
+        edges=edges)
 
 
 def check_melgan_chain_bwd(torch, gen):
@@ -1061,9 +1068,8 @@ def check_melgan_chain_bwd(torch, gen):
         torch, "fused_resstack_bwd", r.fused_residual_stacks_vjp_cuda,
         r.fused_residual_stacks_vjp_plain, r.fused_residual_stacks_cuda,
         r.fused_residual_stacks_plain, stages, chain_work, "",
-        f"MelGAN original's 4 stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames",
-        tensor_cores=True)
-    keep = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_3xtf32_ms", "bound_by",
+        f"MelGAN original's 4 stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames")
+    keep = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_f32_ms", "bound_by",
             "stages")
     return {k: v for k, v in entry.items() if k in keep}, fwd
 
@@ -1234,7 +1240,7 @@ def bf16_grads_against_f64(torch, got, vjp_plain, args64):
 
 
 def check_bf16_backward(torch, name, vjp_cuda, vjp_f32, vjp_plain, stages, fwd_work, replaces,
-                        what, edges):
+                        what, edges, groups):
     """A bf16 backward form (kernel 3b or 5b) against its plain version:
     at `edges` ((operands, C, B, T), seeded per shape, untimed) against the
     plain version run in float64 on the same bf16 inputs (so that only the
@@ -1243,9 +1249,13 @@ def check_bf16_backward(torch, name, vjp_cuda, vjp_f32, vjp_plain, stages, fwd_w
     plain bf16 version's, and bit for bit
     against the float32 form (`vjp_f32`) on the widened inputs, rounded;
     at the training path's `stages` ((operands, C, T), batch TRAIN_BATCH)
-    against the plain bf16 version, timed against it and the bounds.
-    Operands are float32 and cast to bf16 here, as training casts them.
-    -> the kernels line's entry."""
+    against the plain bf16 version, timed against it, the bounds (its own,
+    `bound_w16_ms`, and the 3xTF32 and float32 ones beside it), and its
+    device time broken down by pass; `groups` ((label, number of stages) in order) get
+    the sums of their stages logged.  Operands are float32 and cast to bf16
+    here, as training casts them.  -> the kernels line's entry."""
+    from fastvocoder_tpu_torch.bin.chain_times import by_pass
+
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     cast = lambda ops: [cast(o) for o in ops] if isinstance(ops, (list, tuple)) else (
@@ -1315,23 +1325,37 @@ def check_bf16_backward(torch, name, vjp_cuda, vjp_f32, vjp_plain, stages, fwd_w
         nbytes, flops = 2 * 3 * B * T * C + 2 * 2 * weights, 3 * fflops
         bms, by = bound_ms(nbytes, flops)
         b3, by3 = bound_3xtf32_ms(nbytes, flops)
+        bw, byw = bound_w16_ms(nbytes, flops)
         log(f"  {name} ({B}, {T}, {C}): kernel {ms:.3f} ms, plain {plain:.3f} ms, float32 bound "
-            f"{bms:.3f} ms ({by}), 3xTF32 bound {b3:.3f} ms ({by3}): {share(b3, ms)} of it")
-        per_stage.append({"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                          "bound_3xtf32_ms": b3})
+            f"{bms:.3f} ms ({by}), 3xTF32 bound {b3:.3f} ms ({by3}): {share(b3, ms)} of it, "
+            f"two-product bound {bw:.3f} ms ({byw}): {share(bw, ms)} of it")
+        passes = by_pass(torch, lambda: vjp_cuda(x, ops_b, cot),
+                         "resstack_bwd" if "resstack" in name else "mrf_bwd")
+        log(f"    by pass (device ms): " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+        per_stage.append({"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bw,
+                          "bound_3xtf32_ms": b3, "bound_f32_ms": bms, "passes": passes})
         for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
             total[k] += v
         del x, cot, dx, grads, dx_ref, grads_ref
         torch.cuda.empty_cache()
-    bms, by = bound_ms(total["bytes"], total["flops"])
+    first = 0
+    for label, n in groups:
+        part = per_stage[first:first + n]
+        first += n
+        ms = sum(s_["ms"] for s_ in part)
+        bw = sum(s_["bound_ms"] for s_ in part)
+        log(f"  {name} over {label}'s {n} stages: {ms:.3f} ms, two-product bound {bw:.3f} ms: "
+            f"{share(bw, ms)} of it")
+    bw, by = bound_w16_ms(total["bytes"], total["flops"])
     entry = {
         "name": name, "route": "cuda", "form": "bf16",
         "source": f"fastvocoder_tpu_torch/csrc/{name[:-len('_bf16')]}.cu", "replaces": replaces,
         "shape": what + ", summed: " + ", ".join(str(tuple(s_["shape"])) for s_ in per_stage),
         "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": bms, "bound_by": by, "library_ms": None, "stages": per_stage,
+        "bound_ms": bw, "bound_by": by, "library_ms": None, "stages": per_stage,
     }
     entry["bound_3xtf32_ms"], _ = bound_3xtf32_ms(total["bytes"], total["flops"])
+    entry["bound_f32_ms"], _ = bound_ms(total["bytes"], total["flops"])
     return entry
 
 
@@ -1357,7 +1381,9 @@ def check_bf16_chain_bwd(torch, basis_gen, melgan_gen):
         r.fused_residual_stacks_vjp_cuda, r.fused_residual_stacks_vjp_plain, stages, chain_work,
         "fastvocoder_tpu/ops/fused_resstack.py:241 (bf16)",
         f"Basis-MelGAN light's 2 and MelGAN original's 4 stages of {TRAIN_BATCH} crops of "
-        f"{TRAIN_FRAMES} frames, bf16", edges)
+        f"{TRAIN_FRAMES} frames, bf16", edges,
+        (("Basis-MelGAN light", len(basis_gen.cfg.upsample_scales)),
+         ("MelGAN original", len(melgan_gen.cfg.upsample_scales))))
 
 
 def check_bf16_mrf_bwd(torch, gen):
@@ -1380,7 +1406,7 @@ def check_bf16_mrf_bwd(torch, gen):
         m.fused_mrf_stage_vjp_plain, stages, mrf_work,
         "fastvocoder_tpu/ops/fused_mrf.py:227 (bf16)",
         f"HiFiGAN light's 4 MRF stages of {TRAIN_BATCH} crops of {TRAIN_FRAMES} frames, bf16",
-        edges)
+        edges, (("HiFiGAN light", len(gen.mrfs)),))
 
 
 def check_bf16_decode(torch, F, basis):
@@ -1743,8 +1769,8 @@ def bf16_rtf(torch, model: str, ckpt: str, conf: str) -> float:
 
 
 def kernel_class(name: str) -> str:
-    for key, label in (("resstack_bwd_bf16_", "fused_resstack_bwd_bf16 kernel: bf16 conversions"),
-                       ("mrf_bwd_bf16_", "fused_mrf_bwd_bf16 kernel: bf16 conversions"),
+    for key, label in (("resstack_bwd_bf16_", "fused_resstack_bwd_bf16 kernel"),
+                       ("mrf_bwd_bf16_", "fused_mrf_bwd_bf16 kernel"),
                        ("resstack_bf16_kernel", "fused_resstack_bf16 kernel"),
                        ("basis_decode_bf16_kernel", "basis_decode_bf16 kernel"),
                        ("mrf_pair_bf16_kernel", "fused_mrf_bf16 kernel"),
@@ -1805,6 +1831,10 @@ def profile_device(torch, fn, n: int, unit: str) -> None:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
+    converting = sorted({e.name for e in kernels
+                         if "bf16_widen" in e.name or "bf16_narrow" in e.name})
+    if converting:  # 3b and 5b read bf16 in their own passes
+        raise AssertionError(f"a bf16 backward form widened or rounded apart: {converting}")
     by_class, by_name = {}, {}
     for e in kernels:
         d = e.time_range.end - e.time_range.start
@@ -2014,9 +2044,8 @@ def profile_melgan(torch, synth, mel: np.ndarray, stages) -> None:
         if C in per_width:
             st["in_inference_ms"] = per_width[C]
             log(f"  kernel 2 at C = {C} in one inference ({tuple(st['shape'])}, 3 launches): "
-                f"{per_width[C]:.4f} ms device, float32 bound {st['bound_ms']:.4f} ms, 3xTF32 "
-                f"bound {st['bound_3xtf32_ms']:.4f} ms: {share(st['bound_3xtf32_ms'], per_width[C])}"
-                " of it")
+                f"{per_width[C]:.4f} ms device, float32 bound {st['bound_f32_ms']:.4f} ms, 3xTF32 "
+                f"bound {st['bound_ms']:.4f} ms: {share(st['bound_ms'], per_width[C])} of it")
 
 
 def write_corpus(root: str, n: int = 64, seed: int = 0, weight_channels: int = 0):
@@ -2856,7 +2885,7 @@ def long_launches(torch, gen, frames: int) -> dict:
         if not ok:
             raise AssertionError(f"fused_resstack disagrees with its plain version at (1, {T})")
         out[f"fused_resstack_{T}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                                      "bound_3xtf32_ms": b3}
+                                      "bound_ms": b3}
         del x
     basis = gen.basis_signal.basis
     eps = float(np.finfo(np.float32).eps)
@@ -3576,7 +3605,9 @@ def main() -> int:
         log("[ms a step on the card]")
         step_ms["hifigan gan_step"] = time_steps(torch, hifi_cfg, None, "gan_step", batch,
                                                  profile=True)
-        step_ms["hifigan pre_adv_step"] = time_steps(torch, hifi_cfg, None, "pre_adv_step", batch)
+        # profiled beside its bf16 form below: device busy and idle of both
+        step_ms["hifigan pre_adv_step"] = time_steps(torch, hifi_cfg, None, "pre_adv_step", batch,
+                                                     profile=True)
         torch.cuda.empty_cache()
 
         seen = dict(launches)

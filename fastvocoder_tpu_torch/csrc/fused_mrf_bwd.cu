@@ -54,14 +54,22 @@
 // The bf16 form (`fvt_fused_mrf_bwd_bf16`, kernel 5b: bf16 x, g, weights
 // and biases, as a model trained with compute_dtype bf16 hands them)
 // computes what the Pallas body does with bf16 inputs (`_mrf_bwd_kernel`
-// upcasts them and recomputes in float32; dx and dW are cast back): one
-// launch widens the inputs into float32 scratch (exact), the float32 passes
-// above run on them unchanged, and one launch rounds dx and every dW and db
-// to bf16, once.  The TPU path summed the branches' dx in bf16 and, below
-// C = 128, the VJP of its blocked weights summed bf16 partials; here both
-// sums stay float32 until the one rounding.  A bf16 weight is exact in TF32 (its lo half is
-// zero); this form still runs all three products.  Extra scratch: 3 n (x,
-// g and dx in float32) + twice the weights' floats.
+// upcasts them and recomputes in float32; dx and dW are cast back), on
+// passes of its own (`mrf_bwd_bf16_*_kernel`, the W16 forms of
+// mma_common.cuh): the pack launches read the bf16 kernels and pack their
+// TF32 hi halves alone (a bf16 value is a TF32 value: the lo half is zero),
+// so the recompute and the adjoints run two products a depth step where the
+// float32 form runs three, and add the same sums bit for bit (the dropped
+// product is +0.0); the weight gradients contract two float32 intermediates
+// and keep three.  g is read in bf16 by the division that starts the stage,
+// x by the first pair's recompute, conv1's adjoint (the mask of h) and dW1,
+// the biases by the recompute, each widened where it is read; the sum of
+// the branches writes dx in bf16 and the weight gradients' reduction every
+// dW and db: one rounding each.  Every intermediate stays float32.  The TPU
+// path summed the branches' dx in bf16 and, below C = 128, the VJP of its
+// blocked weights summed bf16 partials; here both sums stay float32 until
+// the one rounding.  Scratch: the float32 form's, less half the packed
+// kernels.
 
 #include "bwd_common.cuh"
 #include "mma_common.cuh"
@@ -86,13 +94,16 @@ static_assert(2 * kMaxBranches * kMaxPairs <= fvt_mma::kMaxPack, "one pack launc
 FVT_MMA_PAIR_KERNEL(mrf_bwd_pair_kernel)
 FVT_MMA_CONV_KERNEL(mrf_bwd_conv_kernel)
 FVT_MMA_WGRAD_KERNEL(mrf_bwd_wgrad_kernel)
-FVT_BWD_WIDEN_KERNEL(mrf_bwd_bf16_widen_kernel)
-FVT_BWD_NARROW_KERNEL(mrf_bwd_bf16_narrow_kernel)
+FVT_MMA_W16_PAIR_KERNEL(mrf_bwd_bf16_pair_kernel)
+FVT_MMA_W16_CONV_KERNEL(mrf_bwd_bf16_conv_kernel)
+FVT_MMA_W16_WGRAD_KERNEL(mrf_bwd_bf16_wgrad_kernel)
 
 // ---------------------------------------------------------------------------
 // the stage
 // ---------------------------------------------------------------------------
 
+// a pair's weights, biases and gradients: float32, or in the bf16 form bf16
+// (the pointers then point at bf16)
 struct Pair {
   int K1, d, K2;
   // w (tap, c_in, c_out) as the module holds it
@@ -102,11 +113,12 @@ struct Pair {
 
 // floats of the stage's packed kernels (both orientations) and of the
 // partials the largest weight-gradient launch of the stage needs
-template <int C>
+template <int C, bool W16>
 size_t partial_floats(int B, int T, int nb, int np, const int* ints) {
   size_t packed = 0;
   for (int i = 0; i < nb * np; ++i) {
-    packed += 2 * (fvt_mma::packed_floats<C>(ints[3 * i]) + fvt_mma::packed_floats<C>(ints[3 * i + 2]));
+    packed += 2 * (fvt_mma::packed_elems<C, float, W16>(ints[3 * i]) +
+                   fvt_mma::packed_elems<C, float, W16>(ints[3 * i + 2]));
   }
   size_t most = 0;
   for (int p = 0; p < np; ++p) {
@@ -120,9 +132,12 @@ size_t partial_floats(int B, int T, int nb, int np, const int* ints) {
   return packed + most;
 }
 
-template <int C>
+// x, g, dx and the pairs' tensors float32, or with W16 bf16
+template <int C, bool W16>
 cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, int B, int T,
                     int nb, int np, const Pair (*pairs)[kMaxPairs], cudaStream_t stream) {
+  using S = std::conditional_t<W16, fvt_mma::bf16, float>;  // the kernels' type
+  const int b16 = W16 ? 1 : 0;  // 1 where the form reads and writes bf16
   const size_t n = static_cast<size_t>(B) * T * C;
   float* gs = scratch;
   float* per_branch = scratch + n;
@@ -133,7 +148,7 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
   // adjoints do ([1])
   const float* pk[2][kMaxBranches][kMaxPairs][2];
   for (int side = 0; side < 2; ++side) {
-    fvt_mma::PackArgs pack;
+    fvt_mma::PackArgsT<float, S> pack;
     int i = 0;
     for (int br = 0; br < nb; ++br) {
       for (int p = 0; p < np; ++p) {
@@ -141,12 +156,12 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
         const float* src[2] = {q.w1, q.w2};
         const int K[2] = {q.K1, q.K2};
         for (int c = 0; c < 2; ++c, ++i) {
-          pack.src[i] = src[c];
+          pack.src[i] = reinterpret_cast<const S*>(src[c]);
           pack.dst[i] = packed;
           pack.K[i] = K[c];
           pack.swap[i] = side == 0;
           pk[side][br][p][c] = packed;
-          packed += fvt_mma::packed_floats<C>(K[c]);
+          packed += fvt_mma::packed_elems<C, float, W16>(K[c]);
         }
       }
     }
@@ -168,7 +183,8 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
     return per_branch + br * branch_floats + static_cast<size_t>(2 * np + p % 2) * n;
   };
 
-  divide_kernel<<<elementwise_blocks(n), kThreads, 0, stream>>>(g, static_cast<float>(nb), n, gs);
+  divide_kernel<<<elementwise_blocks(n), kThreads, 0, stream>>>(g, static_cast<float>(nb), n, gs,
+                                                                b16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -176,6 +192,7 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
   for (int p = 0; p < np; ++p) {
     fvt_mma::PairArgs a;
     a.slope = kSlope;
+    a.bf16 = b16 * (fvt_mma::kBf16Bias | (p == 0 ? fvt_mma::kBf16Src : 0));
     for (int z = 0; z < kMaxZ; ++z) {
       const int br = z < nb ? z : 0;
       const Pair& q = pairs[br][p];
@@ -190,14 +207,17 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
       a.dil[z] = q.d;
       a.k2[z] = q.K2;
     }
-    err = FVT_MMA_LAUNCH_PAIR(mrf_bwd_pair_kernel, C, a, nb, B, T, stream);
+    err = W16 ? FVT_MMA_LAUNCH_PAIR(mrf_bwd_bf16_pair_kernel, C, a, nb, B, T, stream)
+              : FVT_MMA_LAUNCH_PAIR(mrf_bwd_pair_kernel, C, a, nb, B, T, stream);
     if (err != cudaSuccess) return err;
   }
 
   for (int p = np - 1; p >= 0; --p) {
     auto dh_out = [&](int br) -> const float* { return p == np - 1 ? gs : dh_of(br, p + 1); };
+    const int x16 = p == 0 ? b16 : 0;  // h is x
     fvt_mma::ConvArgs a;
     WgradArgs w;
+    w.out_bf16 = b16;
     // dt1 = conv2^T(dh') * leaky'(t1)
     fvt_mma::clear(a);
     a.flip = 1;
@@ -210,7 +230,8 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
       a.sgn[br] = u_of(br, p);
       a.dst[br] = dt_of(br);
     }
-    err = FVT_MMA_LAUNCH_CONV(mrf_bwd_conv_kernel, C, a, nb, B, T, stream);
+    err = W16 ? FVT_MMA_LAUNCH_CONV(mrf_bwd_bf16_conv_kernel, C, a, nb, B, T, stream)
+              : FVT_MMA_LAUNCH_CONV(mrf_bwd_conv_kernel, C, a, nb, B, T, stream);
     if (err != cudaSuccess) return err;
     // dW2, db2
     for (int br = 0; br < nb; ++br) {
@@ -223,13 +244,16 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
       w.dil[br] = 1;
       w.reflect[br] = 0;
       w.slope[br] = 1.0f;
+      w.bf16[br] = 0;
     }
-    err = FVT_MMA_LAUNCH_WGRAD(mrf_bwd_wgrad_kernel, C, w, nb, B, T, partials, stream);
+    err = W16 ? FVT_MMA_LAUNCH_WGRAD(mrf_bwd_bf16_wgrad_kernel, C, w, nb, B, T, partials, stream)
+              : FVT_MMA_LAUNCH_WGRAD(mrf_bwd_wgrad_kernel, C, w, nb, B, T, partials, stream);
     if (err != cudaSuccess) return err;
     // dh = dh' + conv1^T(dt1) * leaky'(h)
     fvt_mma::clear(a);
     a.flip = 1;
     a.sgn_slope = kSlope;
+    a.bf16 = x16 * fvt_mma::kBf16Sgn;
     for (int br = 0; br < nb; ++br) {
       const Pair& q = pairs[br][p];
       a.src[br] = dt_of(br);
@@ -240,7 +264,8 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
       a.res[br] = dh_out(br);
       a.dst[br] = dh_of(br, p);
     }
-    err = FVT_MMA_LAUNCH_CONV(mrf_bwd_conv_kernel, C, a, nb, B, T, stream);
+    err = W16 ? FVT_MMA_LAUNCH_CONV(mrf_bwd_bf16_conv_kernel, C, a, nb, B, T, stream)
+              : FVT_MMA_LAUNCH_CONV(mrf_bwd_conv_kernel, C, a, nb, B, T, stream);
     if (err != cudaSuccess) return err;
     // dW1, db1
     for (int br = 0; br < nb; ++br) {
@@ -253,39 +278,22 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
       w.dil[br] = q.d;
       w.reflect[br] = 0;
       w.slope[br] = kSlope;
+      w.bf16[br] = x16 * fvt_bwd::kBf16In;
     }
-    err = FVT_MMA_LAUNCH_WGRAD(mrf_bwd_wgrad_kernel, C, w, nb, B, T, partials, stream);
+    err = W16 ? FVT_MMA_LAUNCH_WGRAD(mrf_bwd_bf16_wgrad_kernel, C, w, nb, B, T, partials, stream)
+              : FVT_MMA_LAUNCH_WGRAD(mrf_bwd_wgrad_kernel, C, w, nb, B, T, partials, stream);
     if (err != cudaSuccess) return err;
   }
 
   SumArgs s;
   for (int br = 0; br < nb; ++br) s.src[br] = dh_of(br, 0);
-  sum_kernel<<<elementwise_blocks(n), kThreads, 0, stream>>>(s, nb, n, dx);
+  sum_kernel<<<elementwise_blocks(n), kThreads, 0, stream>>>(s, nb, n, dx, b16);
   return cudaGetLastError();
 }
 
-// elements of pair i's (w1, b1, w2, b2)
-void pair_sizes(int C, const int* ints, int i, long long* n) {
-  const long long cc = static_cast<long long>(C) * C;
-  n[0] = ints[3 * i] * cc;
-  n[1] = C;
-  n[2] = ints[3 * i + 2] * cc;
-  n[3] = C;
-}
-
-// the float32 scratch the bf16 form needs beyond the float32 form's
-size_t bf16_extra_floats(int B, int T, int C, int nb, int np, const int* ints) {
-  size_t weights = 0;
-  for (int i = 0; i < nb * np; ++i) {
-    long long n[4];
-    pair_sizes(C, ints, i, n);
-    weights += static_cast<size_t>(n[0] + n[1] + n[2] + n[3]);
-  }
-  return static_cast<size_t>(3) * B * T * C + 2 * weights;
-}
-
-// the float32 form on float32 operands: per pair 4 weight pointers and 4
-// gradient pointers, as the C entry takes them
+// either form on operands laid out as the C entries take them: per pair 4
+// weight pointers and 4 gradient pointers
+template <bool W16>
 cudaError_t run_stage(const float* x, const float* g, float* dx, float* scratch, int B, int T,
                       int C, int nb, int np, const int* ints, const float* const* weights,
                       float* const* grads, cudaStream_t s) {
@@ -308,11 +316,11 @@ cudaError_t run_stage(const float* x, const float* g, float* dx, float* scratch,
     }
   }
   switch (C) {
-    case 16: return run_bwd<16>(x, g, dx, scratch, B, T, nb, np, pairs, s);
-    case 32: return run_bwd<32>(x, g, dx, scratch, B, T, nb, np, pairs, s);
-    case 64: return run_bwd<64>(x, g, dx, scratch, B, T, nb, np, pairs, s);
-    case 128: return run_bwd<128>(x, g, dx, scratch, B, T, nb, np, pairs, s);
-    case 256: return run_bwd<256>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    case 16: return run_bwd<16, W16>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    case 32: return run_bwd<32, W16>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    case 64: return run_bwd<64, W16>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    case 128: return run_bwd<128, W16>(x, g, dx, scratch, B, T, nb, np, pairs, s);
+    case 256: return run_bwd<256, W16>(x, g, dx, scratch, B, T, nb, np, pairs, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -326,6 +334,23 @@ bool table_ok(int nb, int np, const int* ints) {
   return true;
 }
 
+// floats of scratch either form needs; -1 for a table it refuses
+template <bool W16>
+long long scratch_floats(int B, int T, int C, int nb, int np, const int* ints) {
+  if (B < 1 || T < 1 || !table_ok(nb, np, ints)) return -1;
+  size_t partials;
+  switch (C) {
+    case 16: partials = partial_floats<16, W16>(B, T, nb, np, ints); break;
+    case 32: partials = partial_floats<32, W16>(B, T, nb, np, ints); break;
+    case 64: partials = partial_floats<64, W16>(B, T, nb, np, ints); break;
+    case 128: partials = partial_floats<128, W16>(B, T, nb, np, ints); break;
+    case 256: partials = partial_floats<256, W16>(B, T, nb, np, ints); break;
+    default: return -1;
+  }
+  const size_t n = static_cast<size_t>(B) * T * C;
+  return static_cast<long long>(n + static_cast<size_t>(nb) * (2 * np + 2) * n + partials);
+}
+
 }  // namespace
 
 extern "C" int fvt_fused_mrf_bwd_max_branches() { return kMaxBranches; }
@@ -334,18 +359,7 @@ extern "C" int fvt_fused_mrf_bwd_max_pairs() { return kMaxPairs; }
 // floats of scratch `fvt_fused_mrf_bwd` needs; -1 for a table it refuses
 extern "C" long long fvt_fused_mrf_bwd_scratch_floats(int B, int T, int C, int nb, int np,
                                                       const int* ints) {
-  if (B < 1 || T < 1 || !table_ok(nb, np, ints)) return -1;
-  size_t partials;
-  switch (C) {
-    case 16: partials = partial_floats<16>(B, T, nb, np, ints); break;
-    case 32: partials = partial_floats<32>(B, T, nb, np, ints); break;
-    case 64: partials = partial_floats<64>(B, T, nb, np, ints); break;
-    case 128: partials = partial_floats<128>(B, T, nb, np, ints); break;
-    case 256: partials = partial_floats<256>(B, T, nb, np, ints); break;
-    default: return -1;
-  }
-  const size_t n = static_cast<size_t>(B) * T * C;
-  return static_cast<long long>(n + static_cast<size_t>(nb) * (2 * np + 2) * n + partials);
+  return scratch_floats<false>(B, T, C, nb, np, ints);
 }
 
 // x, g, dx (B, T, C) float32 contiguous, C in {16, 32, 64, 128, 256}.
@@ -361,16 +375,14 @@ extern "C" int fvt_fused_mrf_bwd(const float* x, const float* g, float* dx, floa
                                  const float* const* weights, float* const* grads,
                                  void* stream) {
   if (B < 1 || T < 1 || !table_ok(nb, np, ints)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run_stage(x, g, dx, scratch, B, T, C, nb, np, ints, weights, grads,
-                                    static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run_stage<false>(x, g, dx, scratch, B, T, C, nb, np, ints, weights,
+                                           grads, static_cast<cudaStream_t>(stream)));
 }
 
 // floats of scratch `fvt_fused_mrf_bwd_bf16` needs; -1 as above
 extern "C" long long fvt_fused_mrf_bwd_bf16_scratch_floats(int B, int T, int C, int nb, int np,
                                                            const int* ints) {
-  const long long base = fvt_fused_mrf_bwd_scratch_floats(B, T, C, nb, np, ints);
-  if (base < 0) return -1;
-  return base + static_cast<long long>(bf16_extra_floats(B, T, C, nb, np, ints));
+  return scratch_floats<true>(B, T, C, nb, np, ints);
 }
 
 // x, g, dx (B, T, C) bf16 contiguous; ints as `fvt_fused_mrf_bwd` takes
@@ -385,42 +397,9 @@ extern "C" int fvt_fused_mrf_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat1
                                       const __nv_bfloat16* const* weights,
                                       __nv_bfloat16* const* grads, void* stream) {
   if (B < 1 || T < 1 || !table_ok(nb, np, ints)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kMost = 2 + 4 * kMaxBranches * kMaxPairs;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_el = static_cast<long long>(B) * T * C;
-  const int n_pairs = nb * np;
-  // float32 x, g, dx, then the weights' copies, then their gradients
-  float* x32 = scratch;
-  float* g32 = x32 + n_el;
-  float* dx32 = g32 + n_el;
-  float* at = dx32 + n_el;
-  const void* src[kMost];
-  void* dst[kMost];
-  long long count[kMost];
-  long long sizes[4 * kMaxBranches * kMaxPairs];
-  const float* w32[4 * kMaxBranches * kMaxPairs];
-  float* d32[4 * kMaxBranches * kMaxPairs];
-  for (int i = 0; i < n_pairs; ++i) pair_sizes(C, ints, i, sizes + 4 * i);
-  src[0] = x, dst[0] = x32, count[0] = n_el;
-  src[1] = g, dst[1] = g32, count[1] = n_el;
-  for (int i = 0; i < 4 * n_pairs; ++i) {
-    src[2 + i] = weights[i], dst[2 + i] = at, count[2 + i] = sizes[i];
-    w32[i] = at;
-    at += sizes[i];
-  }
-  for (int i = 0; i < 4 * n_pairs; ++i) {
-    d32[i] = at;
-    at += sizes[i];
-  }
-  cudaError_t err = fvt_bwd::launch_convert(mrf_bwd_bf16_widen_kernel, src, dst, count,
-                                            2 + 4 * n_pairs, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = run_stage(x32, g32, dx32, at, B, T, C, nb, np, ints, w32, d32, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  src[0] = dx32, dst[0] = dx, count[0] = n_el;
-  for (int i = 0; i < 4 * n_pairs; ++i) {
-    src[1 + i] = d32[i], dst[1 + i] = grads[i], count[1 + i] = sizes[i];
-  }
-  return static_cast<int>(fvt_bwd::launch_convert(mrf_bwd_bf16_narrow_kernel, src, dst, count,
-                                                  1 + 4 * n_pairs, st));
+  return static_cast<int>(run_stage<true>(
+      reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(g),
+      reinterpret_cast<float*>(dx), scratch, B, T, C, nb, np, ints,
+      reinterpret_cast<const float* const*>(weights), reinterpret_cast<float* const*>(grads),
+      static_cast<cudaStream_t>(stream)));
 }

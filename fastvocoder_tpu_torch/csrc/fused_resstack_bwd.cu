@@ -31,10 +31,11 @@
 //     floats);
 //   * then the stacks run last to first, four launches each: the 1x1 conv's
 //     adjoint with the leaky mask (-> dt, `resstack_bwd_conv_kernel`); the
-//     dilated conv's adjoint with the mask of h, and the skip conv's adjoint
-//     as a second product over dh' staged in the same tile (-> dh); the
-//     mirrored edges' sums folded back onto the rows they were copied from
-//     (`resstack_bwd_fold_kernel`: m rows a side a sequence, masked by h);
+//     mirrored edges' sums, evaluated at the padded positions and masked by
+//     h, into a small buffer (`resstack_bwd_fold_kernel`: m rows a side a
+//     sequence); the dilated conv's adjoint with the mask of h, the skip
+//     conv's adjoint as a second product over dh' staged in the same tile,
+//     and the edges' sums added to the rows they were copied from (-> dh);
 //     and the three weight gradients of the stack at once (blockIdx.z,
 //     `resstack_bwd_wgrad_kernel`), the dilated conv's staging mirrored rows
 //     of leaky(h);
@@ -45,24 +46,30 @@
 //     from run to run.
 // The mirrored edges need m <= T - 1, as torch's ReflectionPad1d does.
 // Scratch, in floats, n_el = B T C: (2 n + 2) n_el (h of stacks 1.., u of
-// every stack, dt, two dh used in turn) + the packed kernels (2 (K + 2) C^2
-// a stack and form) + the weight gradients' partials.
+// every stack, dt, two dh used in turn) + the edges' sums (2 B m C, m the
+// widest margin) + the packed kernels (2 (K + 2) C^2 a stack and form) +
+// the weight gradients' partials.
 //
 // The bf16 form (`fvt_fused_resstacks_bwd_bf16`, kernel 3b: bf16 x, g,
 // weights and biases, as a model trained with compute_dtype bf16 hands
 // them) computes what the Pallas body does with bf16 inputs
 // (`_chain_bwd_kernel` upcasts x, g and the weights, recomputes the chain
-// and its adjoint in float32 and `_run_interior_bwd` casts dx and dW back):
-// one launch widens the inputs into float32 scratch (exact), the float32
-// passes above run on them unchanged, and one launch rounds dx and every dW
-// and db to bf16, once.  Unlike the TPU kernel, which left the mirrored
-// edges to XLA's bf16 autograd, it takes the edges in float32 too.  A bf16
-// weight is exact in TF32, so the lo half of its split is zero and one of
-// the three products of each depth step against a weight adds nothing;
-// this form does not skip it (the weight gradients, which contract two
-// float32 intermediates, need all three).  Extra scratch: 3 n_el (x, g and
-// dx in float32) + twice the weights' floats (their float32 copies and the
-// float32 gradients).
+// and its adjoint in float32 and `_run_interior_bwd` casts dx and dW back),
+// on passes of its own (`resstack_bwd_bf16_*_kernel`, the W16 forms of
+// mma_common.cuh): the pack launch reads the bf16 kernels and packs their
+// TF32 hi halves alone (a bf16 value is a TF32 value: the lo half is zero),
+// so the recompute, the adjoints and the fold run two products a depth step
+// where the float32 form runs three, and add the same sums bit for bit (the
+// dropped product is +0.0); the weight gradients contract two float32
+// intermediates and keep three.  x is read in bf16 by the first stack's
+// recompute, the first stack's adjoints and fold (the mask of h) and its
+// weight gradients, g by the last stack's adjoints and weight gradients,
+// the biases by the recompute, each widened where it is read; the first
+// stack's dilated adjoint writes dx in bf16, with the edges added, and the
+// weight gradients' reduction writes every dW and db in bf16: one rounding
+// each.  Every intermediate stays float32.  Unlike the TPU kernel, which
+// left the mirrored edges to XLA's bf16 autograd, it takes the edges in
+// float32 too.  Scratch: the float32 form's, less half the packed kernels.
 
 #include "bwd_common.cuh"
 #include "mma_common.cuh"
@@ -78,33 +85,23 @@ FVT_MMA_STACK_KERNEL(resstack_bwd_stack_kernel)
 FVT_MMA_CONV_KERNEL(resstack_bwd_conv_kernel)
 FVT_MMA_FOLD_KERNEL(resstack_bwd_fold_kernel)
 FVT_MMA_WGRAD_KERNEL(resstack_bwd_wgrad_kernel)
-FVT_BWD_WIDEN_KERNEL(resstack_bwd_bf16_widen_kernel)
-FVT_BWD_NARROW_KERNEL(resstack_bwd_bf16_narrow_kernel)
+FVT_MMA_W16_STACK_KERNEL(resstack_bwd_bf16_stack_kernel)
+FVT_MMA_W16_CONV_KERNEL(resstack_bwd_bf16_conv_kernel)
+FVT_MMA_W16_FOLD_KERNEL(resstack_bwd_bf16_fold_kernel)
+FVT_MMA_W16_WGRAD_KERNEL(resstack_bwd_bf16_wgrad_kernel)
 
+// a stack's weights, biases and gradients: float32, or in the bf16 form bf16
+// (the pointers then point at bf16)
 struct Stack {
   int d;
   const float *wd, *bd, *w1, *b1, *ws, *bs;  // (tap, c_in, c_out) as the module holds them
   float *dwd, *dbd, *dw1, *db1, *dws, *dbs;
 };
 
+// floats of a stack's packed kernels in one orientation
+template <bool W16>
 size_t packed_stack_floats(int C, int K) {
-  return static_cast<size_t>(2) * (K + 2) * C * C;
-}
-
-// elements of a stack's six weights and biases (wd, bd, w1, b1, ws, bs)
-void stack_sizes(int C, int K, long long* n) {
-  const long long cc = static_cast<long long>(C) * C;
-  const long long sizes[6] = {K * cc, C, cc, C, cc, C};
-  for (int i = 0; i < 6; ++i) n[i] = sizes[i];
-}
-
-// the float32 scratch the bf16 form needs beyond the float32 form's
-size_t bf16_extra_floats(int B, int T, int C, int n, int K) {
-  long long sizes[6];
-  stack_sizes(C, K, sizes);
-  size_t weights = 0;
-  for (int i = 0; i < 6; ++i) weights += static_cast<size_t>(sizes[i]);
-  return static_cast<size_t>(3) * B * T * C + static_cast<size_t>(2) * n * weights;
+  return static_cast<size_t>(W16 ? 1 : 2) * (K + 2) * C * C;
 }
 
 template <int C>
@@ -113,9 +110,21 @@ size_t partial_floats(int B, int T, int K) {
   return fvt_mma::wgrad_floats<C>(B, T, taps, 3);
 }
 
-template <int C>
+int widest_margin(int n, int K, const int* dil) {
+  int m = 0;
+  for (int s = 0; s < n; ++s) m = m > (K - 1) / 2 * dil[s] ? m : (K - 1) / 2 * dil[s];
+  return m;
+}
+
+// x, g, dx and the stacks' tensors float32, or with W16 bf16
+template <int C, bool W16>
 cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, int B, int T,
                     int n, int K, const Stack* stacks, cudaStream_t stream) {
+  using fvt_mma::kBf16Bias;
+  using fvt_mma::kBf16Dst;
+  using fvt_mma::kBf16Sgn;
+  using fvt_mma::kBf16Src;
+  using fvt_mma::kBf16Src2;
   const size_t n_el = static_cast<size_t>(B) * T * C;
   auto h_in = [&](int s) -> const float* {
     return s == 0 ? x : scratch + static_cast<size_t>(s - 1) * n_el;
@@ -125,13 +134,17 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
   auto dh_of = [&](int s) -> float* {
     return scratch + static_cast<size_t>(2 * n + s % 2) * n_el;
   };
+  float* edge = scratch + static_cast<size_t>(2 * n + 2) * n_el;
   // every kernel packed twice: [0] as the forward reads it (produced c_out),
   // [1] as the adjoint does (produced c_in); (wd, w1, ws) a stack
-  float* packed = scratch + static_cast<size_t>(2 * n + 2) * n_el;
-  float* partials = packed + 2 * n * packed_stack_floats(C, K);
+  int dil[kMaxStacks];
+  for (int s = 0; s < n; ++s) dil[s] = stacks[s].d;
+  float* packed = edge + fvt_mma::edge_floats(B, C, widest_margin(n, K, dil));
+  float* partials = packed + 2 * n * packed_stack_floats<W16>(C, K);
   const float* pk[kMaxStacks][2][3];
   {
-    fvt_mma::PackArgs pack;
+    using S = std::conditional_t<W16, fvt_mma::bf16, float>;  // the kernels' type
+    fvt_mma::PackArgsT<float, S> pack;
     float* at = packed;
     int i = 0;
     for (int side = 0; side < 2; ++side) {
@@ -139,12 +152,12 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
         const float* src[3] = {stacks[s].wd, stacks[s].w1, stacks[s].ws};
         const int taps[3] = {K, 1, 1};
         for (int c = 0; c < 3; ++c, ++i) {
-          pack.src[i] = src[c];
+          pack.src[i] = reinterpret_cast<const S*>(src[c]);
           pack.dst[i] = at;
           pack.K[i] = taps[c];
           pack.swap[i] = side == 0;
           pk[s][side][c] = at;
-          at += fvt_mma::packed_floats<C>(taps[c]);
+          at += fvt_mma::packed_elems<C, float, W16>(taps[c]);
         }
       }
     }
@@ -152,6 +165,7 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
     if (err != cudaSuccess) return err;
   }
   cudaError_t err;
+  const int b16 = W16 ? 1 : 0;  // 1 where the form reads and writes bf16
 
   // recompute: u of every stack, h of every stack but the first
   for (int s = 0; s < n; ++s) {
@@ -169,7 +183,9 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
     a.K = K;
     a.dil = q.d;
     a.slope = kSlope;
-    err = FVT_MMA_LAUNCH_STACK(resstack_bwd_stack_kernel, C, a, B, T, stream);
+    a.bf16 = b16 * (kBf16Bias | (s == 0 ? kBf16Src : 0));
+    err = W16 ? FVT_MMA_LAUNCH_STACK(resstack_bwd_bf16_stack_kernel, C, a, B, T, stream)
+              : FVT_MMA_LAUNCH_STACK(resstack_bwd_stack_kernel, C, a, B, T, stream);
     if (err != cudaSuccess) return err;
   }
 
@@ -177,6 +193,7 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
     const Stack& q = stacks[s];
     const float* dh_out = s == n - 1 ? g : dh_of(s + 1);
     float* dh = s == 0 ? dx : dh_of(s);
+    const int g16 = s == n - 1 ? b16 : 0, x16 = s == 0 ? b16 : 0;  // dh_out is g, h is x
     fvt_mma::ConvArgs a;
     // dt = dh' W1^T * leaky'(t)
     fvt_mma::clear(a);
@@ -186,9 +203,12 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
     a.w[0] = pk[s][1][1];
     a.sgn[0] = u_of(s);
     a.dst[0] = dt;
-    err = FVT_MMA_LAUNCH_CONV(resstack_bwd_conv_kernel, C, a, 1, B, T, stream);
+    a.bf16 = g16 * kBf16Src;
+    err = W16 ? FVT_MMA_LAUNCH_CONV(resstack_bwd_bf16_conv_kernel, C, a, 1, B, T, stream)
+              : FVT_MMA_LAUNCH_CONV(resstack_bwd_conv_kernel, C, a, 1, B, T, stream);
     if (err != cudaSuccess) return err;
-    // dh = conv^T(dt) * leaky'(h) + dh' Ws^T, then the mirrored edges
+    // the mirrored edges of conv^T(dt) * leaky'(h), then
+    // dh = conv^T(dt) * leaky'(h) + dh' Ws^T + the edges
     fvt_mma::clear(a);
     a.flip = 1;
     a.sgn_slope = kSlope;
@@ -197,13 +217,17 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
     a.K[0] = K;
     a.dil[0] = q.d;
     a.sgn[0] = h_in(s);
+    a.edge = edge;
+    a.bf16 = x16 * kBf16Sgn;
+    err = W16 ? FVT_MMA_LAUNCH_FOLD(resstack_bwd_bf16_fold_kernel, C, a, B, T, stream)
+              : FVT_MMA_LAUNCH_FOLD(resstack_bwd_fold_kernel, C, a, B, T, stream);
+    if (err != cudaSuccess) return err;
     a.src2[0] = dh_out;
     a.w2[0] = pk[s][1][2];
     a.dst[0] = dh;
-    err = FVT_MMA_LAUNCH_CONV(resstack_bwd_conv_kernel, C, a, 1, B, T, stream);
-    if (err != cudaSuccess) return err;
-    a.src2[0] = nullptr;
-    err = FVT_MMA_LAUNCH_FOLD(resstack_bwd_fold_kernel, C, a, B, T, stream);
+    a.bf16 = x16 * (kBf16Sgn | kBf16Dst) | g16 * kBf16Src2;
+    err = W16 ? FVT_MMA_LAUNCH_CONV(resstack_bwd_bf16_conv_kernel, C, a, 1, B, T, stream)
+              : FVT_MMA_LAUNCH_CONV(resstack_bwd_conv_kernel, C, a, 1, B, T, stream);
     if (err != cudaSuccess) return err;
     // dWd, dbd; dW1, db1; dWs, dbs
     fvt_bwd::WgradArgs w;
@@ -215,27 +239,34 @@ cudaError_t run_bwd(const float* x, const float* g, float* dx, float* scratch, i
     w.dil[0] = q.d;
     w.reflect[0] = 1;
     w.slope[0] = kSlope;
+    w.bf16[0] = x16 * fvt_bwd::kBf16In;
     w.a[1] = u_of(s);
     w.dy[1] = dh_out;
     w.dw[1] = q.dw1;
     w.db[1] = q.db1;
+    w.bf16[1] = g16 * fvt_bwd::kBf16Dy;
     w.a[2] = h_in(s);
     w.dy[2] = dh_out;
     w.dw[2] = q.dws;
     w.db[2] = q.dbs;
+    w.bf16[2] = x16 * fvt_bwd::kBf16In | g16 * fvt_bwd::kBf16Dy;
     for (int z = 1; z < 3; ++z) {
       w.K[z] = 1;
       w.dil[z] = 1;
       w.reflect[z] = 0;
       w.slope[z] = 1.0f;
     }
-    err = FVT_MMA_LAUNCH_WGRAD(resstack_bwd_wgrad_kernel, C, w, 3, B, T, partials, stream);
+    w.out_bf16 = b16;
+    err = W16 ? FVT_MMA_LAUNCH_WGRAD(resstack_bwd_bf16_wgrad_kernel, C, w, 3, B, T, partials,
+                                     stream)
+              : FVT_MMA_LAUNCH_WGRAD(resstack_bwd_wgrad_kernel, C, w, 3, B, T, partials, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-// the float32 form on float32 operands, laid out as the C entry takes them
+// either form on operands laid out as the C entries take them
+template <bool W16>
 cudaError_t run_chain(const float* x, const float* g, float* dx, float* scratch, int B, int T,
                       int C, int n, int K, const int* dil, const float* const* weights,
                       float* const* grads, cudaStream_t st) {
@@ -259,10 +290,10 @@ cudaError_t run_chain(const float* x, const float* g, float* dx, float* scratch,
     q.dbs = d[5];
   }
   switch (C) {
-    case 32: return run_bwd<32>(x, g, dx, scratch, B, T, n, K, stacks, st);
-    case 64: return run_bwd<64>(x, g, dx, scratch, B, T, n, K, stacks, st);
-    case 128: return run_bwd<128>(x, g, dx, scratch, B, T, n, K, stacks, st);
-    default: return run_bwd<256>(x, g, dx, scratch, B, T, n, K, stacks, st);
+    case 32: return run_bwd<32, W16>(x, g, dx, scratch, B, T, n, K, stacks, st);
+    case 64: return run_bwd<64, W16>(x, g, dx, scratch, B, T, n, K, stacks, st);
+    case 128: return run_bwd<128, W16>(x, g, dx, scratch, B, T, n, K, stacks, st);
+    default: return run_bwd<256, W16>(x, g, dx, scratch, B, T, n, K, stacks, st);
   }
 }
 
@@ -277,14 +308,9 @@ bool chain_ok(int B, int T, int C, int n, int K, const int* dil) {
   return true;
 }
 
-}  // namespace
-
-extern "C" int fvt_fused_resstacks_bwd_max_stacks() { return kMaxStacks; }
-
-// floats of scratch `fvt_fused_resstacks_bwd` needs; -1 for a chain it
-// refuses (a margin above T - 1 among the reasons)
-extern "C" long long fvt_fused_resstacks_bwd_scratch_floats(int B, int T, int C, int n, int K,
-                                                            const int* dil) {
+// floats of scratch either form needs; -1 for a chain it refuses
+template <bool W16>
+long long scratch_floats(int B, int T, int C, int n, int K, const int* dil) {
   if (!chain_ok(B, T, C, n, K, dil)) return -1;
   const size_t n_el = static_cast<size_t>(B) * T * C;
   size_t partials;
@@ -295,15 +321,25 @@ extern "C" long long fvt_fused_resstacks_bwd_scratch_floats(int B, int T, int C,
     default: partials = partial_floats<256>(B, T, K);
   }
   return static_cast<long long>(static_cast<size_t>(2 * n + 2) * n_el +
-                                2 * n * packed_stack_floats(C, K) + partials);
+                                fvt_mma::edge_floats(B, C, widest_margin(n, K, dil)) +
+                                2 * n * packed_stack_floats<W16>(C, K) + partials);
+}
+
+}  // namespace
+
+extern "C" int fvt_fused_resstacks_bwd_max_stacks() { return kMaxStacks; }
+
+// floats of scratch `fvt_fused_resstacks_bwd` needs; -1 for a chain it
+// refuses (a margin above T - 1 among the reasons)
+extern "C" long long fvt_fused_resstacks_bwd_scratch_floats(int B, int T, int C, int n, int K,
+                                                            const int* dil) {
+  return scratch_floats<false>(B, T, C, n, K, dil);
 }
 
 // floats of scratch `fvt_fused_resstacks_bwd_bf16` needs; -1 as above
 extern "C" long long fvt_fused_resstacks_bwd_bf16_scratch_floats(int B, int T, int C, int n,
                                                                  int K, const int* dil) {
-  const long long base = fvt_fused_resstacks_bwd_scratch_floats(B, T, C, n, K, dil);
-  if (base < 0) return -1;
-  return base + static_cast<long long>(bf16_extra_floats(B, T, C, n, K));
+  return scratch_floats<true>(B, T, C, n, K, dil);
 }
 
 // x, g, dx (B, T, C) float32 contiguous, C in {32, 64, 128, 256}.  dil: n
@@ -319,8 +355,8 @@ extern "C" int fvt_fused_resstacks_bwd(const float* x, const float* g, float* dx
                                        const int* dil, const float* const* weights,
                                        float* const* grads, void* stream) {
   if (!chain_ok(B, T, C, n, K, dil)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run_chain(x, g, dx, scratch, B, T, C, n, K, dil, weights, grads,
-                                    static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run_chain<false>(x, g, dx, scratch, B, T, C, n, K, dil, weights, grads,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 // x, g, dx (B, T, C) bf16 contiguous; weights and grads as
@@ -333,40 +369,9 @@ extern "C" int fvt_fused_resstacks_bwd_bf16(const __nv_bfloat16* x, const __nv_b
                                             const __nv_bfloat16* const* weights,
                                             __nv_bfloat16* const* grads, void* stream) {
   if (!chain_ok(B, T, C, n, K, dil)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_el = static_cast<long long>(B) * T * C;
-  long long sizes[6];
-  stack_sizes(C, K, sizes);
-  // float32 x, g, dx, then the weights' copies, then their gradients
-  float* x32 = scratch;
-  float* g32 = x32 + n_el;
-  float* dx32 = g32 + n_el;
-  float* at = dx32 + n_el;
-  const void* src[2 + 6 * kMaxStacks];
-  void* dst[2 + 6 * kMaxStacks];
-  long long count[2 + 6 * kMaxStacks];
-  const float* w32[6 * kMaxStacks];
-  float* d32[6 * kMaxStacks];
-  src[0] = x, dst[0] = x32, count[0] = n_el;
-  src[1] = g, dst[1] = g32, count[1] = n_el;
-  for (int i = 0; i < 6 * n; ++i) {
-    src[2 + i] = weights[i], dst[2 + i] = at, count[2 + i] = sizes[i % 6];
-    w32[i] = at;
-    at += sizes[i % 6];
-  }
-  for (int i = 0; i < 6 * n; ++i) {
-    d32[i] = at;
-    at += sizes[i % 6];
-  }
-  cudaError_t err = fvt_bwd::launch_convert(resstack_bwd_bf16_widen_kernel, src, dst, count,
-                                            2 + 6 * n, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = run_chain(x32, g32, dx32, at, B, T, C, n, K, dil, w32, d32, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  src[0] = dx32, dst[0] = dx, count[0] = n_el;
-  for (int i = 0; i < 6 * n; ++i) {
-    src[1 + i] = d32[i], dst[1 + i] = grads[i], count[1 + i] = sizes[i % 6];
-  }
-  return static_cast<int>(fvt_bwd::launch_convert(resstack_bwd_bf16_narrow_kernel, src, dst,
-                                                  count, 1 + 6 * n, st));
+  return static_cast<int>(run_chain<true>(
+      reinterpret_cast<const float*>(x), reinterpret_cast<const float*>(g),
+      reinterpret_cast<float*>(dx), scratch, B, T, C, n, K, dil,
+      reinterpret_cast<const float* const*>(weights), reinterpret_cast<float* const*>(grads),
+      static_cast<cudaStream_t>(stream)));
 }

@@ -72,6 +72,28 @@
 // weight unit in the tensor core and the units on the CUDA cores as in the
 // TF32 forms.  Their kernels have names of their own
 // (`FVT_MMA_BF16_*_KERNEL`), so that a profile tells the two forms apart.
+//
+// The bf16 backward forms (kernels 3b and 5b, template flag W16) compute
+// in float32 as the TF32 forms do, on bf16 weights and bf16 x and g:
+//   * A bf16 weight is a TF32 value: the lo half of its split is zero, so
+//     `pack_kernel` packs its hi half alone (a unit is half the bytes, a
+//     slab holds twice the units) and a depth step runs two products,
+//     lo hi + hi hi, where the TF32 forms run three.  The dropped product
+//     adds +0.0: the sums are the three-product sums bit for bit.  The
+//     weight gradient contracts two float32 intermediates and keeps three.
+//   * An operand flagged bf16 (`kBf16*`: x, g, a bias, dx; its pointer
+//     then points at bf16) is widened where it is read (as a row is staged,
+//     as a fragment or a mask is loaded) and rounded to bf16 once where it
+//     is written (dx, and every dW and db in `fvt_bwd::wgrad_reduce_kernel`).
+//     Every intermediate stays float32.
+// Their kernels have names of their own (`FVT_MMA_W16_*_KERNEL`).
+//
+// Units in flight: at C >= 128 the weight gradient issues a depth step's
+// products before it waits on the last one's, and unit k + 1's before unit
+// k's sum is added (two register sets of partial sums take turns, so each
+// unit's sum still starts at zero); elsewhere, the convs at every width and
+// the weight gradient at C <= 64, a unit is waited on before the next is
+// issued, which measured faster there (`conv_core`, `WGeo::kPipe`).
 
 #pragma once
 
@@ -162,6 +184,26 @@ __device__ __forceinline__ void store4(E* p, float4 v) {
     *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
   } else {
     *reinterpret_cast<float4*>(p) = v;
+  }
+}
+
+// Operands of the bf16 backward forms' passes that hold bf16 (the float*
+// field then points at bf16): bits of the `bf16` field of an argument block
+enum : int { kBf16Src = 1, kBf16Src2 = 2, kBf16Sgn = 4, kBf16Dst = 8, kBf16Bias = 16 };
+
+// p + i elements of an operand that holds float32, or bf16 where b16
+__device__ __forceinline__ const float* elem(const float* p, size_t i, bool b16) {
+  return b16 ? reinterpret_cast<const float*>(reinterpret_cast<const bf16*>(p) + i) : p + i;
+}
+// two neighbouring elements there as floats (widened), and back (rounded)
+__device__ __forceinline__ float2 load2_at(const float* p, size_t i, bool b16) {
+  return b16 ? load2(reinterpret_cast<const bf16*>(p) + i) : load2(p + i);
+}
+__device__ __forceinline__ void store2_at(float* p, size_t i, float2 v, bool b16) {
+  if (b16) {
+    store2(reinterpret_cast<bf16*>(p) + i, v);
+  } else {
+    store2(p + i, v);
   }
 }
 
@@ -416,13 +458,29 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// waits until at most N of the warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins the accumulators of an asynchronous wgmma to this point of the
+// program (after its wait): a read of them cannot move above it.  No memory
+// clobber, so that loads may still be scheduled across it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]));
+  }
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem));
 }
 // the same copy, or 16 bytes of zeros where `valid` is false (gmem is not read)
-__device__ __forceinline__ void cp_async16_zfill(float* smem, const float* gmem, bool valid) {
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
                "r"(valid ? 16 : 0));
@@ -456,33 +514,38 @@ __device__ __forceinline__ int reflect_index(int i, int T) {
 // geometry
 // ---------------------------------------------------------------------------
 
-template <int C, typename E = float>
+template <int C, typename E = float, bool W16 = false>
 struct Geo {
   static constexpr int kNW = C < 128 ? C : 128;  // channels a warpgroup produces
   static constexpr int kGroupsN = C / kNW;       // warpgroups side by side
   static constexpr int kNT = kNW / 8;            // 8-channel tiles of a warpgroup
   static constexpr int kSA = C + Form<E>::kPad;  // elements a staged row
   // a weight unit: the kKC contracted channels [c kKC, (c + 1) kKC) of one
-  // tap for all C produced channels, as kHalves halves (TF32: hi, then lo),
-  // each in core matrices of 128 bytes, [kKC / kCK][C / 8][8 produced][kCK
-  // contracted], kCK = 16 bytes of E
+  // tap for all C produced channels, as kHalves halves (TF32: hi, then lo;
+  // W16 and bf16: one), each in core matrices of 128 bytes, [kKC / kCK][C /
+  // 8][8 produced][kCK contracted], kCK = 16 bytes of E
   static constexpr int kKC = C == 16 || C >= 256 ? 16 : 32;
   static constexpr int kChunks = C / kKC;
   static constexpr int kCK = 16 / static_cast<int>(sizeof(E));
   static constexpr int kCoreElems = 8 * kCK;
   static constexpr int kHalfElems = C * kKC;
-  static constexpr int kUnitElems = Form<E>::kHalves * kHalfElems;
+  static constexpr int kHalves = W16 ? 1 : Form<E>::kHalves;
+  static constexpr int kUnitElems = kHalves * kHalfElems;
   static constexpr int kUnitBytes = kUnitElems * static_cast<int>(sizeof(E));
-  static constexpr int kUnitsPerSlab = 18432 / kUnitBytes > 0 ? 18432 / kUnitBytes : 1;
+  // W16: twice the TF32 form's units, so that a slab has its bytes and the
+  // launches size shared memory alike (a W16 slab of the TF32 form's units
+  // measured 2-6 % slower on an H100: PERF.md section 6)
+  static constexpr int kUnitsPerSlab =
+      W16 ? 2 * Geo<C, E>::kUnitsPerSlab : (18432 / kUnitBytes > 0 ? 18432 / kUnitBytes : 1);
   static constexpr int kSlabElems = kUnitsPerSlab * kUnitElems;
   static constexpr uint32_t kStrideK = C / 8 * 128;  // bytes between core matrices in depth
   static constexpr uint32_t kStrideN = 128;          // and along the produced channels
 };
 
 // elements of the packed form of a kernel of K taps (`pack_kernel`)
-template <int C, typename E = float>
+template <int C, typename E = float, bool W16 = false>
 __host__ __device__ constexpr size_t packed_elems(int K) {
-  return static_cast<size_t>(Form<E>::kHalves) * K * C * C;
+  return static_cast<size_t>(Geo<C, E, W16>::kHalves) * K * C * C;
 }
 template <int C>
 __host__ __device__ constexpr size_t packed_floats(int K) {
@@ -517,9 +580,9 @@ struct Lane {
 
 // Slab s of a packed kernel of K taps into one stage of the ring, by all
 // threads of the block: a flat copy.
-template <int C, int THREADS, typename E>
+template <int C, int THREADS, typename E, bool W16 = false>
 __device__ __forceinline__ void load_slab(E* stage, const E* __restrict__ W, int K, int s) {
-  using G = Geo<C, E>;
+  using G = Geo<C, E, W16>;
   constexpr int kVec = 16 / static_cast<int>(sizeof(E));
   const int first = s * G::kUnitsPerSlab;
   const int units = min(G::kUnitsPerSlab, K * G::kChunks - first);
@@ -528,6 +591,16 @@ __device__ __forceinline__ void load_slab(E* stage, const E* __restrict__ W, int
     cp_async16(stage + kVec * i, src + kVec * i);
   }
   cp_async_commit();  // a group per call, empty past the last slab
+}
+
+// acc += p on the CUDA cores, once p's group has completed
+template <int NT>
+__device__ __forceinline__ void add_partial(float (&acc)[NT][4], const float (&p)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += p[j][e];
+  }
 }
 
 // acc[j] += sum_{k < K} sum_c tile[row + off0 + k step][c] W[k][n_j][c] for
@@ -546,11 +619,18 @@ __device__ __forceinline__ void load_slab(E* stage, const E* __restrict__ W, int
 // added to acc on the CUDA cores, rounded to nearest.  The bf16 form keeps
 // that order: a unit is one or two wgmmas there, and its sums agree with
 // the plain float32 sums of bf16 operands to float32's rounding.
-template <int C, int WM, int ST, typename E>
+//
+// Two units in flight (the next unit's products issued before the last
+// one's sum is waited on, two register sets in turn) measured 1-55 %
+// slower at N <= 64 on an H100 (PERF.md section 6): a block shares its SM with
+// others whose units fill the wait, and the second set cost registers;
+// wider, it does not fit beside the accumulators.  So a unit is waited on
+// before the next is issued.
+template <int C, int WM, int ST, typename E, bool W16 = false>
 __device__ __forceinline__ void conv_core(float (&acc)[Geo<C>::kNT][4], const E* tile, int off0,
                                           int step, const E* __restrict__ W, int K, E* ring,
                                           const Lane<C, WM>& ln, bool active) {
-  using G = Geo<C, E>;
+  using G = Geo<C, E, W16>;
   constexpr int THREADS = block_threads<C, WM>();
   constexpr int kSteps = G::kKC / Form<E>::kDepth;
   const int n_slabs = (K * G::kChunks + G::kUnitsPerSlab - 1) / G::kUnitsPerSlab;
@@ -560,12 +640,12 @@ __device__ __forceinline__ void conv_core(float (&acc)[Geo<C>::kNT][4], const E*
 
   __syncthreads();
 #pragma unroll
-  for (int s = 0; s < ST - 1; ++s) load_slab<C, THREADS>(ring + s * G::kSlabElems, W, K, s);
+  for (int s = 0; s < ST - 1; ++s) load_slab<C, THREADS, E, W16>(ring + s * G::kSlabElems, W, K, s);
   for (int s = 0; s < n_slabs; ++s) {
     cp_async_wait<ST - 2>();
     fence_smem_for_wgmma();
     __syncthreads();  // slab s has landed; every warp is done with slab s - 1
-    load_slab<C, THREADS>(ring + (s + ST - 1) % ST * G::kSlabElems, W, K, s + ST - 1);
+    load_slab<C, THREADS, E, W16>(ring + (s + ST - 1) % ST * G::kSlabElems, W, K, s + ST - 1);
     if (!active) continue;
     const E* slab = ring + s % ST * G::kSlabElems;
     const int first = s * G::kUnitsPerSlab;
@@ -608,45 +688,46 @@ __device__ __forceinline__ void conv_core(float (&acc)[Geo<C>::kNT][4], const E*
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < kSteps; ++ks) {
-          // depth step ks: the core matrices 2 ks and 2 ks + 1 of each half
+          // depth step ks: the core matrices 2 ks and 2 ks + 1 of each half;
+          // W16 has no lo half (hi lo would add +0.0)
           const uint64_t d_hi =
               wgmma_desc(hi + 2 * ks * (C / 8) * G::kCoreElems, G::kStrideK, G::kStrideN);
-          const uint64_t d_lo = wgmma_desc(hi + G::kHalfElems + 2 * ks * (C / 8) * G::kCoreElems,
-                                           G::kStrideK, G::kStrideN);
           Wgmma<G::kNW>::run(p, a_lo[ks], d_hi, ks > 0);
-          Wgmma<G::kNW>::run(p, a_hi[ks], d_lo, 1);
+          if constexpr (!W16) {
+            const uint64_t d_lo = wgmma_desc(hi + G::kHalfElems + 2 * ks * (C / 8) * G::kCoreElems,
+                                             G::kStrideK, G::kStrideN);
+            Wgmma<G::kNW>::run(p, a_hi[ks], d_lo, 1);
+          }
           Wgmma<G::kNW>::run(p, a_hi[ks], d_hi, 1);
         }
       }
       wgmma_commit();
       wgmma_wait_all();
-#pragma unroll
-      for (int j = 0; j < G::kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] += p[j][e];
-      }
+      add_partial(acc, p);
     }
   }
 }
 
 // acc[j] = bias[channel] (+ bias2[channel]; zeros without a bias), each
 // bias as the form E stores it (rounded to bf16 in the bf16 forms, as the
-// JAX package casts a bias to the compute type before it is added)
+// JAX package casts a bias to the compute type before it is added); with
+// `b16` both biases hold bf16 (the bf16 backward forms), widened
 template <int C, int WM, typename E = float>
 __device__ __forceinline__ void init_acc(float (&acc)[Geo<C>::kNT][4],
                                          const float* __restrict__ bias,
                                          const Lane<C, WM>& ln,
-                                         const float* __restrict__ bias2 = nullptr) {
+                                         const float* __restrict__ bias2 = nullptr,
+                                         bool b16 = false) {
 #pragma unroll
   for (int j = 0; j < Geo<C>::kNT; ++j) {
     const int col = ln.n0 + j * 8 + 2 * ln.t;
     float2 b = make_float2(0.f, 0.f);
     if (bias != nullptr) {
-      b = __ldg(reinterpret_cast<const float2*>(bias + col));
+      b = load2_at(bias, col, b16);
       b = make_float2(fit<E>(b.x), fit<E>(b.y));
     }
     if (bias2 != nullptr) {
-      const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias2 + col));
+      const float2 b2 = load2_at(bias2, col, b16);
       b = make_float2(b.x + fit<E>(b2.x), b.y + fit<E>(b2.y));
     }
     acc[j][0] = acc[j][2] = b.x;
@@ -669,10 +750,34 @@ __device__ __forceinline__ uint32_t leaky_bf16x2(uint32_t v, float slope) {
 // elements) into `tile`, zeros outside [0, T): every conv's zero padding; or,
 // with `mirror`, the mirrored rows there: a residual stack's reflect pad
 // (any number of folds, down to T = 1).  The bf16 form rounds the
-// leaky-relu's products to bf16, as the Pallas bodies do.
+// leaky-relu's products to bf16, as the Pallas bodies do.  With `b16` a
+// float32 tile takes a bf16 source (src points at bf16), widened as it is
+// staged.
 template <int C, int THREADS, typename E>
 __device__ __forceinline__ void stage_rows(E* tile, const E* __restrict__ src, int T, int g_lo,
-                                           int n, float slope, bool mirror = false) {
+                                           int n, float slope, bool mirror = false,
+                                           bool b16 = false) {
+  if constexpr (!is_bf16<E>()) {
+    if (b16) {
+      // 4 bf16 (8 bytes) in, a float4 out a thread: neighbouring threads
+      // store neighbouring 16 bytes, as the float32 staging does
+      constexpr int CV = C / 4;
+      const bf16* s16 = reinterpret_cast<const bf16*>(src);
+      for (int i = threadIdx.x; i < n * CV; i += THREADS) {
+        const int row = i / CV, cv = i % CV;
+        const int g = mirror ? reflect_index(g_lo + row, T) : g_lo + row;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (g >= 0 && g < T) {
+          const uint2 u =
+              __ldg(reinterpret_cast<const uint2*>(s16 + static_cast<size_t>(g) * C) + cv);
+          const float2 a = unpack_bf16x2(u.x), b = unpack_bf16x2(u.y);
+          v = leaky4(make_float4(a.x, a.y, b.x, b.y), slope);
+        }
+        *reinterpret_cast<float4*>(tile + row * Geo<C, E>::kSA + 4 * cv) = v;
+      }
+      return;
+    }
+  }
   constexpr int kVec = 16 / static_cast<int>(sizeof(E));  // elements of a 16-byte copy
   constexpr int CV = C / kVec;
   for (int i = threadIdx.x; i < n * CV; i += THREADS) {
@@ -703,28 +808,32 @@ __device__ __forceinline__ void stage_rows(E* tile, const E* __restrict__ src, i
 
 constexpr int kMaxPack = 64;
 
-// Up to kMaxPack kernels: src (K, C, C) float32 as (tap, produced,
+// Up to kMaxPack kernels: src (K, C, C) of type S as (tap, produced,
 // contracted), or with `swap` as (tap, contracted, produced); dst
-// `packed_elems<C, E>(K)` elements.
-template <typename E>
+// `packed_elems<C, E, W16>(K)` elements.
+template <typename E, typename S = float>
 struct PackArgsT {
-  const float* src[kMaxPack];
+  const S* src[kMaxPack];
   E* dst[kMaxPack];
   int K[kMaxPack];
   int swap[kMaxPack];
 };
 using PackArgs = PackArgsT<float>;
+// the bf16 backward forms': bf16 kernels packed for the W16 passes
+using PackArgsW16 = PackArgsT<float, bf16>;
 
 // dst = src in the order `conv_core` reads it: per unit (tap, chunk of kKC
 // contracted channels) the core matrices [kKC / kCK][C / 8][8 produced][kCK
 // contracted]; the TF32 form split into its hi half, then its lo half, the
-// bf16 form rounded to nearest.
-template <int C, typename E>
-__global__ void __launch_bounds__(256) pack_kernel(PackArgsT<E> a) {
-  using G = Geo<C, E>;
+// bf16 form rounded to nearest; from bf16 kernels into a TF32 packing (W16)
+// the hi half alone: a bf16 value is a TF32 value, its lo half zero.
+template <int C, typename E, typename S>
+__global__ void __launch_bounds__(256) pack_kernel(PackArgsT<E, S> a) {
+  constexpr bool kW16 = is_bf16<S>() && !is_bf16<E>();
+  using G = Geo<C, E, kW16>;
   constexpr int kCK = G::kCK;
   const int conv = blockIdx.y;
-  const float* __restrict__ src = a.src[conv];
+  const S* __restrict__ src = a.src[conv];
   E* __restrict__ dst = a.dst[conv];
   const int total = a.K[conv] * C * C;
   const bool swap = a.swap[conv] != 0;
@@ -734,11 +843,19 @@ __global__ void __launch_bounds__(256) pack_kernel(PackArgsT<E> a) {
     const int kg = within / (8 * kCK * (C / 8));
     const int tap = unit / G::kChunks, chunk = unit % G::kChunks;
     const int produced = ng * 8 + r8, contracted = chunk * G::kKC + kg * kCK + kk;
-    const float v = __ldg(src + (static_cast<size_t>(tap) * C + (swap ? contracted : produced)) * C +
-                          (swap ? produced : contracted));
+    const S* from = src + (static_cast<size_t>(tap) * C + (swap ? contracted : produced)) * C +
+                    (swap ? produced : contracted);
+    float v;
+    if constexpr (is_bf16<S>()) {
+      v = __bfloat162float(__ldg(from));
+    } else {
+      v = __ldg(from);
+    }
     E* at = dst + static_cast<size_t>(unit) * G::kUnitElems + within;
     if constexpr (is_bf16<E>()) {
       *at = __float2bfloat16_rn(v);
+    } else if constexpr (kW16) {
+      *at = v;
     } else {
       uint32_t hi, lo;
       split_tf32(v, hi, lo);
@@ -748,12 +865,12 @@ __global__ void __launch_bounds__(256) pack_kernel(PackArgsT<E> a) {
   }
 }
 
-template <int C, typename E>
-cudaError_t launch_pack(const PackArgsT<E>& a, int n, cudaStream_t stream) {
+template <int C, typename E, typename S>
+cudaError_t launch_pack(const PackArgsT<E, S>& a, int n, cudaStream_t stream) {
   int max_K = 1;
   for (int i = 0; i < n; ++i) max_K = max_K > a.K[i] ? max_K : a.K[i];
   const int blocks = (max_K * C * C + 255) / 256;
-  pack_kernel<C, E><<<dim3(blocks < 64 ? blocks : 64, n), 256, 0, stream>>>(a);
+  pack_kernel<C, E, S><<<dim3(blocks < 64 ? blocks : 64, n), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -776,6 +893,7 @@ struct PairArgsT {
   int dil[kMaxZ];
   int k2[kMaxZ];
   float slope;                // the leaky-relu's, before both convs
+  int bf16 = 0;               // W16: kBf16Src (every src is bf16 x), kBf16Bias
 };
 using PairArgs = PairArgsT<float>;
 
@@ -789,10 +907,10 @@ using PairArgs = PairArgsT<float>;
 // elements, then the weight ring.  The bf16 form rounds u's conv and its
 // leaky-relu, conv2 and the residual sum, as fused_mrf.py's Pallas body
 // does.  The body of each library's pair kernel (`FVT_MMA_PAIR_KERNEL`,
-// `FVT_MMA_BF16_PAIR_KERNEL`), which names it after its library and form,
-// so that a profile tells the forward's launches from the backward's
-// recompute.
-template <int C, int WM, int ST, typename E>
+// `FVT_MMA_BF16_PAIR_KERNEL`, `FVT_MMA_W16_PAIR_KERNEL`), which names it
+// after its library and form, so that a profile tells the forward's
+// launches from the backward's recompute.
+template <int C, int WM, int ST, typename E, bool W16 = false>
 __device__ __forceinline__ void pair_body(const PairArgsT<E>& a, int T, int R, int tile_rows,
                                           E* smem) {
   using G = Geo<C, E>;
@@ -808,13 +926,16 @@ __device__ __forceinline__ void pair_body(const PairArgsT<E>& a, int T, int R, i
   E* tile = smem;
   E* ring = smem + tile_rows * G::kSA;
   float acc[G::kNT][4];
+  const bool sb = W16 && (a.bf16 & kBf16Src) != 0, bb = W16 && (a.bf16 & kBf16Bias) != 0;
+  const E* src = a.src[z] + base;
+  if constexpr (W16) src = elem(a.src[z], base, sb);
 
-  stage_rows<C, THREADS>(tile, a.src[z] + base, T, u_lo - m1, nu + 2 * m1, a.slope);
+  stage_rows<C, THREADS>(tile, src, T, u_lo - m1, nu + 2 * m1, a.slope, false, sb);
 
   // u row i reads the staged rows i + k d
   const bool active_u = ln.group_m * 64 < nu;
-  init_acc<C, WM, E>(acc, a.b1[z], ln);
-  conv_core<C, WM, ST>(acc, tile, 0, d, a.w1[z], K1, ring, ln, active_u);
+  init_acc<C, WM, E>(acc, a.b1[z], ln, nullptr, bb);
+  conv_core<C, WM, ST, E, W16>(acc, tile, 0, d, a.w1[z], K1, ring, ln, active_u);
   __syncthreads();  // the tile is read no more: u takes its rows
   E* u_out = a.u_dst[z];
   if (active_u) {
@@ -841,21 +962,33 @@ __device__ __forceinline__ void pair_body(const PairArgsT<E>& a, int T, int R, i
 
   // output row i reads u rows i + k
   const bool active_o = ln.group_m * 64 < no;
-  init_acc<C, WM, E>(acc, a.b2[z], ln);
-  conv_core<C, WM, ST>(acc, tile, 0, 1, a.w2[z], K2, ring, ln, active_o);
+  init_acc<C, WM, E>(acc, a.b2[z], ln, nullptr, bb);
+  conv_core<C, WM, ST, E, W16>(acc, tile, 0, 1, a.w2[z], K2, ring, ln, active_o);
   if (!active_o) return;
+  auto store = [&](auto src_bf16) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = ln.row0 + ln.g + 8 * half;
-    if (r >= no) continue;
-    const size_t row = base + static_cast<size_t>(q0 + r) * C;
+    for (int half = 0; half < 2; ++half) {
+      const int r = ln.row0 + ln.g + 8 * half;
+      if (r >= no) continue;
+      const size_t row = base + static_cast<size_t>(q0 + r) * C;
 #pragma unroll
-    for (int j = 0; j < G::kNT; ++j) {
-      const size_t at = row + ln.n0 + j * 8 + 2 * ln.t;
-      const float2 h = load2(a.src[z] + at);
-      store2(a.dst[z] + at, make_float2(fit<E>(h.x + fit<E>(acc[j][2 * half])),
-                                        fit<E>(h.y + fit<E>(acc[j][2 * half + 1]))));
+      for (int j = 0; j < G::kNT; ++j) {
+        const size_t at = row + ln.n0 + j * 8 + 2 * ln.t;
+        float2 h;
+        if constexpr (W16) {
+          h = load2_at(a.src[z], at, decltype(src_bf16)::value);
+        } else {
+          h = load2(a.src[z] + at);
+        }
+        store2(a.dst[z] + at, make_float2(fit<E>(h.x + fit<E>(acc[j][2 * half])),
+                                          fit<E>(h.y + fit<E>(acc[j][2 * half + 1]))));
+      }
     }
+  };
+  if (sb) {
+    store(std::true_type{});
+  } else {
+    store(std::false_type{});
   }
 }
 
@@ -878,6 +1011,14 @@ typedef PairKernelT<float> PairKernel;
     extern __shared__ __align__(16) unsigned char smem_raw[];                  \
     fvt_mma::pair_body<C, WM, ST, fvt_mma::bf16>(                               \
         a, T, R, tile_rows, reinterpret_cast<fvt_mma::bf16*>(smem_raw));        \
+  }
+
+#define FVT_MMA_W16_PAIR_KERNEL(name)                                           \
+  template <int C, int WM, int ST>                                              \
+  __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
+  name(fvt_mma::PairArgs a, int T, int R, int tile_rows) {                      \
+    extern __shared__ __align__(16) float smem[];                              \
+    fvt_mma::pair_body<C, WM, ST, float, true>(a, T, R, tile_rows, smem);       \
   }
 
 // One launch of `kernel` (a FVT_MMA_PAIR_KERNEL or FVT_MMA_BF16_PAIR_KERNEL
@@ -936,6 +1077,7 @@ struct StackArgsT {
   int K;
   int dil;
   float slope;  // the leaky-relu's, before both convs
+  int bf16 = 0;  // W16: kBf16Src (src is bf16 x), kBf16Bias
 };
 using StackArgs = StackArgsT<float>;
 
@@ -950,10 +1092,11 @@ using StackArgs = StackArgsT<float>;
 // body does: u's conv and its leaky-relu, t = W1 u + b1 and the skip
 // Ws h + bs apart (t is kept in registers as bf16 pairs meanwhile), and
 // their sum.  The body of each library's stack kernel
-// (`FVT_MMA_STACK_KERNEL`, `FVT_MMA_BF16_STACK_KERNEL`), which names it
-// after its library and form, so that a profile tells the forward's
-// launches from the backward's recompute.
-template <int C, int WM, int ST, typename E>
+// (`FVT_MMA_STACK_KERNEL`, `FVT_MMA_BF16_STACK_KERNEL`,
+// `FVT_MMA_W16_STACK_KERNEL`), which names it after its library and form,
+// so that a profile tells the forward's launches from the backward's
+// recompute.
+template <int C, int WM, int ST, typename E, bool W16 = false>
 __device__ __forceinline__ void stack_body(const StackArgsT<E>& a, int T, int tile_rows,
                                            E* smem) {
   using G = Geo<C, E>;
@@ -964,16 +1107,18 @@ __device__ __forceinline__ void stack_body(const StackArgsT<E>& a, int T, int ti
   const int no = min(R, T - q0);
   const int d = a.dil, m = (a.K - 1) / 2 * d;
   const size_t base = static_cast<size_t>(blockIdx.y) * T * C;
+  const bool sb = W16 && (a.bf16 & kBf16Src) != 0, bb = W16 && (a.bf16 & kBf16Bias) != 0;
   const E* src = a.src + base;
+  if constexpr (W16) src = elem(a.src, base, sb);
   E* tile = smem;
   E* ring = smem + tile_rows * G::kSA;
   float acc[G::kNT][4];
 
-  stage_rows<C, THREADS>(tile, src, T, q0 - m, no + 2 * m, a.slope, true);
+  stage_rows<C, THREADS>(tile, src, T, q0 - m, no + 2 * m, a.slope, true, sb);
   // u row i reads the staged rows i + k d
   const bool active = ln.group_m * 64 < no;
-  init_acc<C, WM, E>(acc, a.bd, ln);
-  conv_core<C, WM, ST>(acc, tile, 0, d, a.wd, a.K, ring, ln, active);
+  init_acc<C, WM, E>(acc, a.bd, ln, nullptr, bb);
+  conv_core<C, WM, ST, E, W16>(acc, tile, 0, d, a.wd, a.K, ring, ln, active);
   __syncthreads();  // the tile is read no more: u takes its rows
   if (active) {
 #pragma unroll
@@ -1004,12 +1149,12 @@ __device__ __forceinline__ void stack_body(const StackArgsT<E>& a, int T, int ti
     }
     init_acc<C, WM, E>(acc, a.bs, ln);
   } else {
-    init_acc<C, WM, E>(acc, a.b1, ln, a.bs);
-    conv_core<C, WM, ST>(acc, tile, 0, 1, a.w1, 1, ring, ln, active);
+    init_acc<C, WM, E>(acc, a.b1, ln, a.bs, bb);
+    conv_core<C, WM, ST, E, W16>(acc, tile, 0, 1, a.w1, 1, ring, ln, active);
   }
   __syncthreads();  // u is read no more: the raw rows of h take its place
-  stage_rows<C, THREADS>(tile, src, T, q0, no, 1.0f);
-  conv_core<C, WM, ST>(acc, tile, 0, 1, a.ws, 1, ring, ln, active);
+  stage_rows<C, THREADS>(tile, src, T, q0, no, 1.0f, false, sb);
+  conv_core<C, WM, ST, E, W16>(acc, tile, 0, 1, a.ws, 1, ring, ln, active);
   if (!active) return;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -1049,6 +1194,14 @@ typedef StackKernelT<float> StackKernel;
         a, T, tile_rows, reinterpret_cast<fvt_mma::bf16*>(smem_raw));           \
   }
 
+#define FVT_MMA_W16_STACK_KERNEL(name)                                          \
+  template <int C, int WM, int ST>                                              \
+  __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
+  name(fvt_mma::StackArgs a, int T, int tile_rows) {                            \
+    extern __shared__ __align__(16) float smem[];                              \
+    fvt_mma::stack_body<C, WM, ST, float, true>(a, T, tile_rows, smem);         \
+  }
+
 // One launch of `kernel` (a FVT_MMA_STACK_KERNEL or FVT_MMA_BF16_STACK_KERNEL
 // at C, WM, ST) with `a` over (B, T, C).
 template <int C, int WM, int ST, typename E>
@@ -1078,12 +1231,17 @@ cudaError_t launch_stack(StackKernelT<E> kernel, const StackArgsT<E>& a, int B, 
 //   s      = leaky(s, out_slope)
 //   s     *= sgn[r] >= 0 ? 1 : sgn_slope          (where sgn is given)
 //   s     += src2[r] W2                           (where src2 is given)
+//   s     += edge[0][m - r]   (1 <= r <= m)       (conv 0, where edge is given)
+//   s     += edge[1][T - 2 - r]   (T - 1 - m <= r <= T - 2)
 //   dst[r] = s + res[r]                           (where res is given)
 //
 // in(g) = leaky(src[g], in_slope) inside [0, T), zero outside.  sign is +1
 // for a forward conv and -1 with `flip`, the adjoint, whose W is the forward
 // weight with its two channel axes swapped.  Every W is packed from
 // (taps, C, C): produced channel, then contracted channel; W2 has one tap.
+// edge (B, 2, m, C), m = (K[0] - 1) / 2 dil[0]: the reflect pad's folds of
+// conv 0 (`fold_body`).  `bf16` (W16 only): which of src, src2, sgn, dst
+// hold bf16 (kBf16Src, ...), the same for every conv.
 struct ConvArgs {
   const float* src[kMaxZ];
   const float* w[kMaxZ];
@@ -1093,12 +1251,14 @@ struct ConvArgs {
   const float* w2[kMaxZ];    // packed (1, C, C), with src2
   const float* res[kMaxZ];   // (B, T, C) or null
   float* dst[kMaxZ];
+  float* edge;               // conv 0's folds: written by a fold launch, read by a conv launch
   int K[kMaxZ];
   int dil[kMaxZ];
   float in_slope;   // 1 = no activation
   float out_slope;  // 1 = no activation
   float sgn_slope;
   int flip;
+  int bf16;
 };
 
 inline void clear(ConvArgs& a) {
@@ -1108,16 +1268,19 @@ inline void clear(ConvArgs& a) {
     a.K[z] = 1;
     a.dil[z] = 1;
   }
+  a.edge = nullptr;
   a.in_slope = a.out_slope = a.sgn_slope = 1.0f;
   a.flip = 0;
+  a.bf16 = 0;
 }
 
 // acc = leaky(acc, out_slope) * (sgn >= 0 ? 1 : sgn_slope) on the lane's two
-// rows, which are rows gr[0] and gr[1] of the sequence at `base` (-1: none)
+// rows, which are rows gr[0] and gr[1] of the sequence at `base` (-1: none);
+// sgn holds bf16 where b16
 template <int C, int WM>
 __device__ __forceinline__ void mask_rows(float (&acc)[Geo<C>::kNT][4], const int (&gr)[2],
                                           const float* sgn, float sgn_slope, float out_slope,
-                                          size_t base, const Lane<C, WM>& ln) {
+                                          size_t base, const Lane<C, WM>& ln, bool b16 = false) {
   const bool act = out_slope != 1.0f;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -1132,8 +1295,7 @@ __device__ __forceinline__ void mask_rows(float (&acc)[Geo<C>::kNT][4], const in
         y = leaky(y, out_slope);
       }
       if (sgn != nullptr) {
-        const float2 s =
-            __ldg(reinterpret_cast<const float2*>(sgn + row + ln.n0 + j * 8 + 2 * ln.t));
+        const float2 s = load2_at(sgn, row + ln.n0 + j * 8 + 2 * ln.t, b16);
         x *= s.x >= 0.0f ? 1.0f : sgn_slope;
         y *= s.y >= 0.0f ? 1.0f : sgn_slope;
       }
@@ -1144,8 +1306,9 @@ __device__ __forceinline__ void mask_rows(float (&acc)[Geo<C>::kNT][4], const in
 // Block x owns rows [x R, x R + R) of sequence blockIdx.y, R = 64 WM.
 // Shared memory: R + 2 max m staged rows, then the weight ring.  With src2
 // its R rows are staged over the tile once the conv has read it.  The body
-// of each library's conv kernel (`FVT_MMA_CONV_KERNEL`).
-template <int C, int WM, int ST>
+// of each library's conv kernel (`FVT_MMA_CONV_KERNEL`,
+// `FVT_MMA_W16_CONV_KERNEL`).
+template <int C, int WM, int ST, bool W16 = false>
 __device__ __forceinline__ void conv_body(const ConvArgs& a, int T, int tile_rows, float* smem) {
   using G = Geo<C>;
   constexpr int THREADS = block_threads<C, WM>();
@@ -1157,46 +1320,85 @@ __device__ __forceinline__ void conv_body(const ConvArgs& a, int T, int tile_row
   const int K = a.K[z], d = a.dil[z];
   const int m = (K - 1) / 2 * d;
   const size_t base = static_cast<size_t>(b) * T * C;
+  const int f = W16 ? a.bf16 : 0;
   float* tile = smem;
   float* ring = smem + tile_rows * G::kSA;
   float acc[G::kNT][4];
 
-  stage_rows<C, THREADS>(tile, a.src[z] + base, T, q0 - m, no + 2 * m, a.in_slope);
+  stage_rows<C, THREADS>(tile, elem(a.src[z], base, f & kBf16Src), T, q0 - m, no + 2 * m,
+                         a.in_slope, false, f & kBf16Src);
   const bool active = ln.group_m * 64 < no;
   init_acc<C, WM>(acc, a.bias[z], ln);
   // forwards row i reads staged rows i + k d; the adjoint i + (K - 1 - k) d
-  conv_core<C, WM, ST>(acc, tile, a.flip ? (K - 1) * d : 0, a.flip ? -d : d, a.w[z], K, ring, ln,
-                       active);
+  conv_core<C, WM, ST, float, W16>(acc, tile, a.flip ? (K - 1) * d : 0, a.flip ? -d : d, a.w[z],
+                                   K, ring, ln, active);
   int gr[2];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = ln.row0 + ln.g + 8 * half;
     gr[half] = r < no ? q0 + r : -1;
   }
-  if (active) mask_rows<C, WM>(acc, gr, a.sgn[z], a.sgn_slope, a.out_slope, base, ln);
+  // a bf16 operand's flag is passed as a constant at each call of an
+  // inlined helper, so that no element of the epilogue tests it
+  if (active) {
+    if (f & kBf16Sgn) {
+      mask_rows<C, WM>(acc, gr, a.sgn[z], a.sgn_slope, a.out_slope, base, ln, true);
+    } else {
+      mask_rows<C, WM>(acc, gr, a.sgn[z], a.sgn_slope, a.out_slope, base, ln, false);
+    }
+  }
   if (a.src2[z] != nullptr) {
     __syncthreads();  // the tile is read no more: src2's rows take its place
-    stage_rows<C, THREADS>(tile, a.src2[z] + base, T, q0, no, 1.0f);
-    conv_core<C, WM, ST>(acc, tile, 0, 1, a.w2[z], 1, ring, ln, active);
+    stage_rows<C, THREADS>(tile, elem(a.src2[z], base, f & kBf16Src2), T, q0, no, 1.0f, false,
+                           f & kBf16Src2);
+    conv_core<C, WM, ST, float, W16>(acc, tile, 0, 1, a.w2[z], 1, ring, ln, active);
   }
   if (!active) return;
 
   const float* res = a.res[z];
+  const float* edge = z == 0 && m > 0 ? a.edge : nullptr;
+  auto store = [&](auto dst_bf16) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (gr[half] < 0) continue;
-    const size_t row = base + static_cast<size_t>(gr[half]) * C;
+    for (int half = 0; half < 2; ++half) {
+      if (gr[half] < 0) continue;
+      const size_t row = base + static_cast<size_t>(gr[half]) * C;
+      // the row's folds from the edges (edge[side][i], 0 <= i < m), or null
+      const float* folds[2] = {nullptr, nullptr};
+      if (edge != nullptr) {
+        const int i[2] = {m - gr[half], T - 2 - gr[half]};
 #pragma unroll
-    for (int j = 0; j < G::kNT; ++j) {
-      const size_t at = row + ln.n0 + j * 8 + 2 * ln.t;
-      float2 v = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
-      if (res != nullptr) {
-        const float2 h = __ldg(reinterpret_cast<const float2*>(res + at));
-        v.x += h.x;
-        v.y += h.y;
+        for (int side = 0; side < 2; ++side) {
+          if (i[side] >= 0 && i[side] < m) {
+            folds[side] = edge + ((static_cast<size_t>(b) * 2 + side) * m + i[side]) * C;
+          }
+        }
       }
-      *reinterpret_cast<float2*>(a.dst[z] + at) = v;
+#pragma unroll
+      for (int j = 0; j < G::kNT; ++j) {
+        const int col = ln.n0 + j * 8 + 2 * ln.t;
+        float2 v = make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+        // the left edge's fold, then the right's
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          if (folds[side] != nullptr) {
+            const float2 e = __ldg(reinterpret_cast<const float2*>(folds[side] + col));
+            v.x += e.x;
+            v.y += e.y;
+          }
+        }
+        if (res != nullptr) {
+          const float2 h = __ldg(reinterpret_cast<const float2*>(res + row + col));
+          v.x += h.x;
+          v.y += h.y;
+        }
+        store2_at(a.dst[z], row + col, v, decltype(dst_bf16)::value);
+      }
     }
+  };
+  if (f & kBf16Dst) {
+    store(std::true_type{});
+  } else {
+    store(std::false_type{});
   }
 }
 
@@ -1208,6 +1410,14 @@ typedef void (*ConvKernel)(ConvArgs, int, int);
   name(fvt_mma::ConvArgs a, int T, int tile_rows) {                             \
     extern __shared__ __align__(16) float smem[];                              \
     fvt_mma::conv_body<C, WM, ST>(a, T, tile_rows, smem);                       \
+  }
+
+#define FVT_MMA_W16_CONV_KERNEL(name)                                           \
+  template <int C, int WM, int ST>                                              \
+  __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
+  name(fvt_mma::ConvArgs a, int T, int tile_rows) {                             \
+    extern __shared__ __align__(16) float smem[];                              \
+    fvt_mma::conv_body<C, WM, ST, true>(a, T, tile_rows, smem);                 \
   }
 
 // shared memory of a launch of the convs of `a` whose tile has `rows` rows
@@ -1227,8 +1437,8 @@ inline int max_margin(const ConvArgs& a, int nz) {
   return max_m;
 }
 
-// One launch of `kernel` (a FVT_MMA_CONV_KERNEL at C, WM, ST) with nz convs
-// of `a` over (B, T, C).
+// One launch of `kernel` (a FVT_MMA_CONV_KERNEL or FVT_MMA_W16_CONV_KERNEL at
+// C, WM, ST) with nz convs of `a` over (B, T, C).
 template <int C, int WM, int ST>
 cudaError_t launch_conv(ConvKernel kernel, const ConvArgs& a, int nz, int B, int T,
                         cudaStream_t stream) {
@@ -1249,23 +1459,22 @@ cudaError_t launch_conv(ConvKernel kernel, const ConvArgs& a, int nz, int B, int
 // the adjoint of a reflect pad
 // ---------------------------------------------------------------------------
 
-// After the adjoint of a conv of a reflect-padded input (conv 0 of `a`,
+// Before the adjoint of a conv of a reflect-padded input (conv 0 of `a`,
 // flip set, m = (K - 1) / 2 dil <= T - 1): the padded position -j
 // (1 <= j <= m) was a copy of row j, and position 2 (T - 1) - j of row j
 // (T - 1 - m <= j <= T - 2).  The adjoint conv evaluated at those positions
 // flows back onto the rows they were copied from:
 //
-//   dst[j] += (sum_k in(p + (half - k) dil) W[k]) * (sgn[j] >= 0 ? 1 : sgn_slope)
+//   edge[0][m - j]     = (sum_k in(-j + (half - k) dil) W[k]) * (sgn[j] >= 0 ? 1 : sgn_slope)
+//   edge[1][T - 2 - j] = the same at position 2 (T - 1) - j
 //
-// for p = -j and p = 2 (T - 1) - j.  The mask distributes over the sum, so
-// this runs in a launch of its own after the conv pass that wrote dst: a
-// block an edge of a sequence, R rows at a time, or, where the two edges'
-// rows overlap (T <= 2 m + 1), one block a sequence, the left edge first.  Along each edge the
-// positions rise with the block's rows (left: row i at p = i - m for
-// j = m - i; right: p = T + i for j = T - 2 - i), so a pass is the conv
-// pass's own over shifted rows.  The body of each library's fold kernel
-// (`FVT_MMA_FOLD_KERNEL`).
-template <int C, int WM, int ST>
+// which the conv launch of the same arguments adds to its rows, the left
+// edge's first (the mask distributes over the sum).  Two blocks a sequence,
+// an edge each, R rows at a time.  Along each edge the positions rise with
+// the block's rows (left: row i at p = i - m; right: p = T + i), so a pass is
+// the conv pass's own over shifted rows.  The body of each library's fold
+// kernel (`FVT_MMA_FOLD_KERNEL`, `FVT_MMA_W16_FOLD_KERNEL`).
+template <int C, int WM, int ST, bool W16 = false>
 __device__ __forceinline__ void fold_body(const ConvArgs& a, int T, int tile_rows, float* smem) {
   using G = Geo<C>;
   constexpr int THREADS = block_threads<C, WM>();
@@ -1273,39 +1482,42 @@ __device__ __forceinline__ void fold_body(const ConvArgs& a, int T, int tile_row
   const Lane<C, WM> ln;
   const int K = a.K[0], d = a.dil[0];
   const int m = (K - 1) / 2 * d;
-  const size_t base = static_cast<size_t>(blockIdx.y) * T * C;
+  const int side = blockIdx.x, b = blockIdx.y;
+  const size_t base = static_cast<size_t>(b) * T * C;
+  const int f = W16 ? a.bf16 : 0;
   float* tile = smem;
   float* ring = smem + tile_rows * G::kSA;
   float acc[G::kNT][4];
-  // grid.x = 2: the edges' rows are apart, a block each; 1: both in turn
-  for (int side = gridDim.x == 2 ? blockIdx.x : 0; side < (gridDim.x == 2 ? blockIdx.x + 1 : 2);
-       ++side) {
-    for (int c0 = 0; c0 < m; c0 += R) {
-      const int nv = min(R, m - c0);
-      const int p0 = side == 0 ? c0 - m : T + c0;
-      __syncthreads();  // every warp is done with the tile
-      stage_rows<C, THREADS>(tile, a.src[0] + base, T, p0 - m, nv + 2 * m, a.in_slope);
-      const bool active = ln.group_m * 64 < nv;
-      init_acc<C, WM>(acc, nullptr, ln);
-      conv_core<C, WM, ST>(acc, tile, (K - 1) * d, -d, a.w[0], K, ring, ln, active);
-      if (!active) continue;
-      int gr[2];
+  for (int c0 = 0; c0 < m; c0 += R) {
+    const int nv = min(R, m - c0);
+    const int p0 = side == 0 ? c0 - m : T + c0;
+    __syncthreads();  // every warp is done with the tile
+    stage_rows<C, THREADS>(tile, elem(a.src[0], base, f & kBf16Src), T, p0 - m, nv + 2 * m,
+                           a.in_slope, false, f & kBf16Src);
+    const bool active = ln.group_m * 64 < nv;
+    init_acc<C, WM>(acc, nullptr, ln);
+    conv_core<C, WM, ST, float, W16>(acc, tile, (K - 1) * d, -d, a.w[0], K, ring, ln, active);
+    if (!active) continue;
+    int gr[2];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = ln.row0 + ln.g + 8 * half, i = c0 + r;
-        gr[half] = r < nv ? (side == 0 ? m - i : T - 2 - i) : -1;
-      }
-      mask_rows<C, WM>(acc, gr, a.sgn[0], a.sgn_slope, 1.0f, base, ln);
+    for (int half = 0; half < 2; ++half) {
+      const int r = ln.row0 + ln.g + 8 * half, i = c0 + r;
+      gr[half] = r < nv ? (side == 0 ? m - i : T - 2 - i) : -1;
+    }
+    if (f & kBf16Sgn) {
+      mask_rows<C, WM>(acc, gr, a.sgn[0], a.sgn_slope, 1.0f, base, ln, true);
+    } else {
+      mask_rows<C, WM>(acc, gr, a.sgn[0], a.sgn_slope, 1.0f, base, ln, false);
+    }
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        if (gr[half] < 0) continue;
-        float* row = a.dst[0] + base + static_cast<size_t>(gr[half]) * C;
+    for (int half = 0; half < 2; ++half) {
+      if (gr[half] < 0) continue;
+      float* row = a.edge + ((static_cast<size_t>(b) * 2 + side) * m + c0 + ln.row0 + ln.g +
+                             8 * half) * C;
 #pragma unroll
-        for (int j = 0; j < G::kNT; ++j) {
-          float2* at = reinterpret_cast<float2*>(row + ln.n0 + j * 8 + 2 * ln.t);
-          const float2 v = *at;  // written by the conv pass, or by this block's left edge
-          *at = make_float2(v.x + acc[j][2 * half], v.y + acc[j][2 * half + 1]);
-        }
+      for (int j = 0; j < G::kNT; ++j) {
+        *reinterpret_cast<float2*>(row + ln.n0 + j * 8 + 2 * ln.t) =
+            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
       }
     }
   }
@@ -1319,21 +1531,34 @@ __device__ __forceinline__ void fold_body(const ConvArgs& a, int T, int tile_row
     fvt_mma::fold_body<C, WM, ST>(a, T, tile_rows, smem);                       \
   }
 
-// One launch of `kernel` (a FVT_MMA_FOLD_KERNEL at C, WM, ST) for conv 0 of
-// `a` over B sequences of T rows; nothing to do without a margin.
+#define FVT_MMA_W16_FOLD_KERNEL(name)                                           \
+  template <int C, int WM, int ST>                                              \
+  __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
+  name(fvt_mma::ConvArgs a, int T, int tile_rows) {                             \
+    extern __shared__ __align__(16) float smem[];                              \
+    fvt_mma::fold_body<C, WM, ST, true>(a, T, tile_rows, smem);                 \
+  }
+
+// floats of the folds of a launch over B sequences whose conv 0 has margin m
+inline size_t edge_floats(int B, int C, int m) { return static_cast<size_t>(B) * 2 * m * C; }
+
+// One launch of `kernel` (a FVT_MMA_FOLD_KERNEL or FVT_MMA_W16_FOLD_KERNEL
+// at C, WM, ST) for conv 0 of `a` over B sequences of T rows, into a.edge
+// (`edge_floats`); nothing to do without a margin.
 template <int C, int WM, int ST>
 cudaError_t launch_fold(ConvKernel kernel, const ConvArgs& a, int B, int T,
                         cudaStream_t stream) {
   const int m = max_margin(a, 1);
-  if (m < 0 || m > T - 1 || !a.flip) return cudaErrorInvalidValue;
+  if (m < 0 || m > T - 1 || !a.flip || (m > 0 && a.edge == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
   if (m == 0) return cudaSuccess;
   const int tile_rows = 64 * WM + 2 * m;
   const int smem = conv_smem<C, ST>(tile_rows);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(T > 2 * m + 1 ? 2 : 1, B), block_threads<C, WM>(), smem, stream>>>(a, T,
-                                                                                tile_rows);
+  kernel<<<dim3(2, B), block_threads<C, WM>(), smem, stream>>>(a, T, tile_rows);
   return cudaGetLastError();
 }
 
@@ -1376,28 +1601,32 @@ struct Tile {
 
 // A weight gradient is a split-K GEMM, dW[k] = in_k^T dy with M = c_in,
 // N = c_out and the B T rows as depth, on wgmma: a block stages a chunk of
-// rows of `in` row-major (rows padded to C + 8 floats, so that the
-// transposed A fragment, read into registers, meets 32 different banks; the
-// activation is applied as a fragment is read), and of dy, which it then
-// transposes and splits into TF32 halves in shared memory, as the K-major B
-// operand.  The next chunk's rows are on their way (`cp.async`; `in` in two
-// stages, dy in one, free once transposed) while the block multiplies the
-// current one;
+// rows of `in` row-major (rows padded by 8, so that the transposed A
+// fragment, read into registers, meets 32 different banks; the activation is
+// applied as a fragment is read), and of dy, which it then transposes and
+// splits into TF32 halves in shared memory, as the K-major B operand.  The
+// next chunk's rows are on their way (`cp.async`; `in` in two stages, dy in
+// one, free once transposed) while the block multiplies the current one;
 // each warpgroup owns the accumulators of one 64-row group of dW (several
 // taps x c_in below C = 64, so that no thread idles) across all the block's
-// chunks.  Where a conv has fewer groups than a block has warpgroups they
-// share one and split each chunk's rows, and add their sums through shared
-// memory in a fixed order.  The sum over blocks is taken in two stages
-// (partials per block, then `fvt_bwd::wgrad_reduce_kernel` in a fixed
-// order): no atomics, the same bits from run to run.  db rides along in the
-// blocks that hold a conv's first groups.
+// chunks.  A block's two groups share their output channels: at C = 256
+// (two 128-channel halves of the output, four 64-row blocks of the input)
+// it stages the 128 channels of `in` and of dy that they read, and takes 64
+// rows a chunk, as at C = 128 (32 when it staged all 256 of both: 174 KB).
+// Where a conv has fewer groups than a block has warpgroups they share one
+// and split each chunk's rows, and add their sums through shared memory in a
+// fixed order.  The sum over blocks is taken in two stages (partials per
+// block, then `fvt_bwd::wgrad_reduce_kernel` in a fixed order): no atomics,
+// the same bits from run to run.  db rides along in the blocks that hold
+// the first 64-row block of a conv's first tap.
 
 constexpr int kWgradThreads = fvt_bwd::kThreads;
 constexpr int kGroupsPerBlock = kWgradThreads / 128;  // warpgroups of a block
 
 // A warpgroup's group of dW: 64 rows (kTaps taps x C input channels below
 // C = 64, 64 input channels of one tap from there) x kNW output channels.
-// kRows rows a chunk.
+// Group r of a tap group is its output half r / kBlocksM, its input block
+// r % kBlocksM.  kRows rows a chunk.
 template <int C>
 struct WGeo {
   static constexpr int kNW = C < 128 ? C : 128;
@@ -1407,15 +1636,23 @@ struct WGeo {
   static constexpr int kBlocksM = C >= 64 ? C / 64 : 1;
   static constexpr int kGroupsPerTapGroup = kBlocksM * kGroupsN;
   static constexpr int kAcc = kNT * 4;  // accumulators a thread
-  static constexpr int kRows = C <= 16 ? 256 : (C <= 32 ? 128 : (C <= 64 ? 64 : 32));
-  static constexpr int kS = C + 8;  // floats a staged row of `in`
+  static constexpr int kInW = C < 128 ? C : 128;  // channels of `in` a block stages
+  static constexpr int kDyW = kNW;                // and of dy
+  static constexpr int kRows = C <= 16 ? 256 : (C <= 32 ? 128 : 64);
+  // C >= 128: a depth step in flight while the next is read, and two sets
+  // of partial sums, so that the next unit is issued before a unit's sum is
+  // added; narrower, a unit at a time (in flight, units measured slower:
+  // PERF.md section 6)
+  static constexpr bool kPipe = C >= 128;
+  static constexpr int kS = kInW + 8;  // elements a staged row of `in`
   // dy is staged as the K-major B operand: hi and lo halves of core matrices
-  // [kRows / 4][C / 8][8 channels][4 rows], kCore floats apart (32 and 4 of
-  // padding, so that the staging's 16-byte stores fall into different banks)
+  // [kRows / 4][kDyW / 8][8 channels][4 rows], kCore floats apart (32 and 4
+  // of padding, so that the staging's 16-byte stores fall into different
+  // banks)
   static constexpr int kCore = 36;
-  static constexpr int kDyHalf = kRows / 4 * (C / 8) * kCore;
-  static constexpr uint32_t kStrideK = C / 8 * kCore * 4;  // bytes, along the rows
-  static constexpr uint32_t kStrideN = kCore * 4;          // bytes, along the channels
+  static constexpr int kDyHalf = kRows / 4 * (kDyW / 8) * kCore;
+  static constexpr uint32_t kStrideK = kDyW / 8 * kCore * 4;  // bytes, along the rows
+  static constexpr uint32_t kStrideN = kCore * 4;             // bytes, along the channels
 };
 
 template <int C>
@@ -1431,14 +1668,19 @@ __host__ __device__ inline int wgrad_groups(int K) {
 // `wgrad_in_rows`.  The product is in^T dy on wgmma: A = in^T from
 // registers (a lane reads its (channel, row) elements from the row-major
 // staged tile), B = dy from shared memory, split into TF32 halves when it is
-// staged; the products of 32 rows are summed in the tensor core from zero and
-// added to the accumulators on the CUDA cores (`conv_core`).  The body of
-// each library's weight-gradient kernel (`FVT_MMA_WGRAD_KERNEL`).
-template <int C>
+// staged; the products of 32 rows (a unit: four depth steps of 8) are summed
+// in the tensor core from zero and added to the accumulators on the CUDA
+// cores (`conv_core`).  Each depth step is a commit group, waited on once
+// the next is issued: its fragment is read and split while the tensor cores
+// multiply, and two register sets of partial sums take turns so that the
+// next unit is issued before a unit's sum is added.  W16: `in` or dy may
+// hold bf16 (fvt_bwd::kBf16In, kBf16Dy), staged as bf16 and widened as a
+// fragment is read or dy is transposed.  The body of each library's
+// weight-gradient kernel (`FVT_MMA_WGRAD_KERNEL`, `FVT_MMA_W16_WGRAD_KERNEL`).
+template <int C, bool W16 = false>
 __device__ __forceinline__ void wgrad_body(const fvt_bwd::WgradArgs& w, int B, int T, int in_rows,
                                            float* smem) {
   using G = WGeo<C>;
-  constexpr int C4 = C / 4;
   constexpr int RC = G::kRows;
   const int z = gridDim.z - 1 - blockIdx.z;  // the longest blocks first (launch_pair)
   const int K = w.K[z], d = w.dil[z];
@@ -1454,8 +1696,12 @@ __device__ __forceinline__ void wgrad_body(const fvt_bwd::WgradArgs& w, int B, i
   const int split = wg / here;
   const int group = g_first + wg % here;
   const int k_first = group / G::kGroupsPerTapGroup * G::kTaps;
-  const int m_block = group % G::kGroupsPerTapGroup / G::kGroupsN;
-  const int n0 = group % G::kGroupsN * G::kNW;
+  const int m_block = group % G::kGroupsPerTapGroup % G::kBlocksM;
+  const int n0 = group % G::kGroupsPerTapGroup / G::kBlocksM * G::kNW;
+  // the channels of `in` and dy the block stages
+  const int r_first = g_first % G::kGroupsPerTapGroup;
+  const int in_c0 = C >= 64 ? r_first % G::kBlocksM * 64 : 0;
+  const int dy_c0 = r_first / G::kBlocksM * G::kNW;
   // the lane's rows of dW: m = 16 w4 + g and m + 8, (tap, channel) = (m / C, m % C)
   const int tap_l = C >= 64 ? 0 : 16 * w4 / C;
   const int ci0 = (C >= 64 ? m_block * 64 + 16 * w4 : 16 * w4 % C) + g;
@@ -1464,26 +1710,31 @@ __device__ __forceinline__ void wgrad_body(const fvt_bwd::WgradArgs& w, int B, i
   const int k_hi = min(K, (g_first + here - 1) / G::kGroupsPerTapGroup * G::kTaps + G::kTaps) - 1;
   const int lo = (k_lo - half_k) * d, span = (k_hi - k_lo) * d;
   const int k_mine = min(k_first + tap_l, K - 1);
+  const bool in16 = W16 && (w.bf16[z] & fvt_bwd::kBf16In) != 0;
+  const bool dy16 = W16 && (w.bf16[z] & fvt_bwd::kBf16Dy) != 0;
 
   // two stages of in_rows rows of `in`, one of RC rows of dy, then dy split
   float* as = smem;
   float* dyr = smem + 2 * in_rows * G::kS;
-  float* dyh = dyr + RC * C;  // dy's hi half, then its lo half
+  float* dyh = dyr + RC * G::kDyW;  // dy's hi half, then its lo half
   const int chunks_per_seq = (T + RC - 1) / RC;
   const int n_chunks = B * chunks_per_seq;
   const float slope = w.slope[z];
   const bool mirror = w.reflect[z] != 0;
-  const bool sums_bias = blockIdx.x == 0;
+  const bool sums_bias = g_first < G::kGroupsPerTapGroup && r_first % G::kBlocksM == 0;
 
   // chunk c's rows, asynchronously: `in` from row r0 + lo (mirrored, or
-  // zeros outside [0, T)) into stage st, dy from row r0 (zeros past T)
-  auto load = [&](int c, int st) {
+  // zeros outside [0, T)) into stage st, dy from row r0 (zeros past T); a
+  // bf16 operand as bf16, in the same rows (16-byte copies of 8 elements)
+  auto load_in = [&](auto in_bf16, int c, int st) {
+    using S = std::conditional_t<decltype(in_bf16)::value, bf16, float>;
+    constexpr int CI = G::kInW * static_cast<int>(sizeof(S)) / 16;  // copies a row
     const int b = c / chunks_per_seq;
     const int r0 = (c % chunks_per_seq) * RC;
-    const float* src = w.a[z] + static_cast<size_t>(b) * T * C;
-    float* at = as + st * in_rows * G::kS;
-    for (int i = threadIdx.x; i < in_rows * C4; i += kWgradThreads) {
-      const int row = i / C4, c4 = i % C4;
+    const S* src = reinterpret_cast<const S*>(w.a[z]) + static_cast<size_t>(b) * T * C + in_c0;
+    S* at = reinterpret_cast<S*>(as + st * in_rows * G::kS);
+    for (int i = threadIdx.x; i < in_rows * CI; i += kWgradThreads) {
+      const int row = i / CI, cv = i % CI;
       int gr = r0 + lo + row;
       bool ok = true;
       if (mirror) {
@@ -1492,21 +1743,51 @@ __device__ __forceinline__ void wgrad_body(const fvt_bwd::WgradArgs& w, int B, i
         ok = false;
         gr = 0;
       }
-      cp_async16_zfill(at + row * G::kS + 4 * c4, src + static_cast<size_t>(gr) * C + 4 * c4, ok);
+      cp_async16_zfill(at + row * G::kS + 16 / sizeof(S) * cv,
+                       src + static_cast<size_t>(gr) * C + 16 / sizeof(S) * cv, ok);
     }
-    const float* dy = w.dy[z] + static_cast<size_t>(b) * T * C;
-    for (int i = threadIdx.x; i < RC * C4; i += kWgradThreads) {
-      const int row = i / C4, c4 = i % C4;
+  };
+  auto load_dy = [&](auto dy_bf16, int c) {
+    using S = std::conditional_t<decltype(dy_bf16)::value, bf16, float>;
+    constexpr int CD = G::kDyW * static_cast<int>(sizeof(S)) / 16;
+    const int b = c / chunks_per_seq;
+    const int r0 = (c % chunks_per_seq) * RC;
+    const S* dy = reinterpret_cast<const S*>(w.dy[z]) + static_cast<size_t>(b) * T * C + dy_c0;
+    S* at = reinterpret_cast<S*>(dyr);
+    for (int i = threadIdx.x; i < RC * CD; i += kWgradThreads) {
+      const int row = i / CD, cv = i % CD;
       const bool ok = r0 + row < T;
-      cp_async16_zfill(dyr + row * C + 4 * c4,
-                       dy + static_cast<size_t>(ok ? r0 + row : 0) * C + 4 * c4, ok);
+      cp_async16_zfill(at + row * G::kDyW + 16 / sizeof(S) * cv,
+                       dy + static_cast<size_t>(ok ? r0 + row : 0) * C + 16 / sizeof(S) * cv, ok);
+    }
+  };
+  auto load = [&](int c, int st) {
+    if constexpr (W16) {
+      if (in16) {
+        load_in(std::true_type{}, c, st);
+      } else {
+        load_in(std::false_type{}, c, st);
+      }
+      if (dy16) {
+        load_dy(std::true_type{}, c);
+      } else {
+        load_dy(std::false_type{}, c);
+      }
+    } else {
+      load_in(std::false_type{}, c, st);
+      load_dy(std::false_type{}, c);
     }
     cp_async_commit();
   };
 
-  float acc[G::kNT][4];
+  float acc[G::kNT][4], p0[G::kNT][4], p1[G::kNT][4];
 #pragma unroll
-  for (int j = 0; j < G::kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  for (int j = 0; j < G::kNT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = p0[j][e] = p1[j][e] = 0.0f;
+  }
+  uint32_t ah[4][4], al[4][4];  // a unit's fragments, a set a depth step (kPipe: two in turn)
+  constexpr int C4 = G::kDyW / 4;
   float4 bsum = make_float4(0.f, 0.f, 0.f, 0.f);  // of channels 4 (tid % C4) ..
 
   load(blockIdx.y, 0);  // S <= the chunks: every block has one
@@ -1518,62 +1799,156 @@ __device__ __forceinline__ void wgrad_body(const fvt_bwd::WgradArgs& w, int B, i
     const int rn = min(RC, T - (c % chunks_per_seq) * RC);
     // dy: a thread takes 4 rows of 4 channels and stores, per channel, the
     // 4 rows side by side: the transpose the K-major operand wants
-    for (int i = threadIdx.x; i < RC / 4 * C4; i += kWgradThreads) {
-      const int rq = i / C4, c4 = i % C4;
-      float v[4][4];
+    auto transpose = [&](auto dy_bf16) {
+      for (int i = threadIdx.x; i < RC / 4 * C4; i += kWgradThreads) {
+        const int rq = i / C4, c4 = i % C4;
+        float v[4][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(dyr + (4 * rq + r) * C + 4 * c4);
-        v[r][0] = x.x, v[r][1] = x.y, v[r][2] = x.z, v[r][3] = x.w;
-        if (sums_bias) bsum = make_float4(bsum.x + x.x, bsum.y + x.y, bsum.z + x.z, bsum.w + x.w);
+        for (int r = 0; r < 4; ++r) {
+          const int e0 = (4 * rq + r) * G::kDyW + 4 * c4;
+          float4 x;
+          if constexpr (decltype(dy_bf16)::value) {
+            const uint2 u =
+                *reinterpret_cast<const uint2*>(reinterpret_cast<const bf16*>(dyr) + e0);
+            const float2 x0 = unpack_bf16x2(u.x), x1 = unpack_bf16x2(u.y);
+            x = make_float4(x0.x, x0.y, x1.x, x1.y);
+          } else {
+            x = *reinterpret_cast<const float4*>(dyr + e0);
+          }
+          v[r][0] = x.x, v[r][1] = x.y, v[r][2] = x.z, v[r][3] = x.w;
+          if (sums_bias) {
+            bsum = make_float4(bsum.x + x.x, bsum.y + x.y, bsum.z + x.z, bsum.w + x.w);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int co = 4 * c4 + e;
+          uint32_t hi[4], lo4[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) split_tf32(v[r][e], hi[r], lo4[r]);
+          float* at = dyh + (rq * (G::kDyW / 8) + co / 8) * G::kCore + co % 8 * 4;
+          *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(at + G::kDyHalf) = make_uint4(lo4[0], lo4[1], lo4[2], lo4[3]);
+        }
       }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int co = 4 * c4 + e;
-        uint32_t hi[4], lo4[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) split_tf32(v[r][e], hi[r], lo4[r]);
-        float* at = dyh + (rq * (C / 8) + co / 8) * G::kCore + co % 8 * 4;
-        *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<uint4*>(at + G::kDyHalf) = make_uint4(lo4[0], lo4[1], lo4[2], lo4[3]);
+    };
+    if constexpr (W16) {
+      if (dy16) {
+        transpose(std::true_type{});
+      } else {
+        transpose(std::false_type{});
       }
+    } else {
+      transpose(std::false_type{});
     }
     fence_smem_for_wgmma();
     __syncthreads();  // dyh is ready; dy's rows and the other stage are free
     if (c + static_cast<int>(gridDim.y) < n_chunks) load(c + gridDim.y, st ^ 1);
-    // batch q covers rows 32 q .. 32 q + 31 of the chunk: 4 depth steps
-    const float* a_st = as + st * in_rows * G::kS;
-    for (int q = split; q * 32 < rn; q += splits) {
-      uint32_t a_hi[4][4], a_lo[4][4];
-      // tap k reads `in` row r + (k - half) d: staged row r + (k - k_lo) d
-      const float* ap = a_st + (q * 32 + t + (k_mine - k_lo) * d) * G::kS + ci0;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        split_tf32(leaky(ap[ks * 8 * G::kS], slope), a_hi[ks][0], a_lo[ks][0]);
-        split_tf32(leaky(ap[ks * 8 * G::kS + 8], slope), a_hi[ks][1], a_lo[ks][1]);
-        split_tf32(leaky(ap[(ks * 8 + 4) * G::kS], slope), a_hi[ks][2], a_lo[ks][2]);
-        split_tf32(leaky(ap[(ks * 8 + 4) * G::kS + 8], slope), a_hi[ks][3], a_lo[ks][3]);
-      }
-      float p[G::kNT][4];
-#pragma unroll
-      for (int j = 0; j < G::kNT; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.0f;
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const float* hi = dyh + ((q * 8 + 2 * ks) * (C / 8) + n0 / 8) * G::kCore;
+    // unit q covers rows 32 q .. 32 q + 31 of the chunk: 4 depth steps
+    const float* a32 = as + st * in_rows * G::kS;
+    // tap k reads `in` row r + (k - half) d: staged row r + (k - k_lo) d
+    const int i_lane = (t + (k_mine - k_lo) * d) * G::kS + ci0 - in_c0;
+    auto products = [&](auto in_bf16) {
+      auto in_at = [&](int i) -> float {
+        if constexpr (decltype(in_bf16)::value) {
+          return leaky(__bfloat162float(reinterpret_cast<const bf16*>(a32)[i]), slope);
+        } else {
+          return leaky(a32[i], slope);
+        }
+      };
+      // depth step ks of unit q into p, its fragment through (fh, fl): one
+      // commit group
+      auto step = [&](float (&p)[G::kNT][4], uint32_t (&fh)[4], uint32_t (&fl)[4], int q,
+                      int ks) {
+        const int i = i_lane + (q * 32 + ks * 8) * G::kS;
+        split_tf32(in_at(i), fh[0], fl[0]);
+        split_tf32(in_at(i + 8), fh[1], fl[1]);
+        split_tf32(in_at(i + 4 * G::kS), fh[2], fl[2]);
+        split_tf32(in_at(i + 4 * G::kS + 8), fh[3], fl[3]);
+        wgmma_fence();
+        const float* hi = dyh + ((q * 8 + 2 * ks) * (G::kDyW / 8) + (n0 - dy_c0) / 8) * G::kCore;
         const uint64_t d_hi = wgmma_desc(hi, G::kStrideK, G::kStrideN);
         const uint64_t d_lo = wgmma_desc(hi + G::kDyHalf, G::kStrideK, G::kStrideN);
-        Wgmma<G::kNW>::run(p, a_lo[ks], d_hi, ks > 0);
-        Wgmma<G::kNW>::run(p, a_hi[ks], d_lo, 1);
-        Wgmma<G::kNW>::run(p, a_hi[ks], d_hi, 1);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
+        Wgmma<G::kNW>::run(p, fl, d_hi, ks > 0);
+        Wgmma<G::kNW>::run(p, fh, d_lo, 1);
+        Wgmma<G::kNW>::run(p, fh, d_hi, 1);
+        wgmma_commit();
+      };
+      // unit q (four depth steps) into p, its fragment through (fh, fl): one
+      // commit group
+      auto unit = [&](float (&p)[G::kNT][4], uint32_t (&fh)[4][4], uint32_t (&fl)[4][4],
+                      int q) {
 #pragma unroll
-      for (int j = 0; j < G::kNT; ++j) {
+        for (int ks = 0; ks < 4; ++ks) {
+          const int i = i_lane + (q * 32 + ks * 8) * G::kS;
+          split_tf32(in_at(i), fh[ks][0], fl[ks][0]);
+          split_tf32(in_at(i + 8), fh[ks][1], fl[ks][1]);
+          split_tf32(in_at(i + 4 * G::kS), fh[ks][2], fl[ks][2]);
+          split_tf32(in_at(i + 4 * G::kS + 8), fh[ks][3], fl[ks][3]);
+        }
+        wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] += p[j][e];
+        for (int ks = 0; ks < 4; ++ks) {
+          const float* hi =
+              dyh + ((q * 8 + 2 * ks) * (G::kDyW / 8) + (n0 - dy_c0) / 8) * G::kCore;
+          const uint64_t d_hi = wgmma_desc(hi, G::kStrideK, G::kStrideN);
+          const uint64_t d_lo = wgmma_desc(hi + G::kDyHalf, G::kStrideK, G::kStrideN);
+          Wgmma<G::kNW>::run(p, fl[ks], d_hi, ks > 0);
+          Wgmma<G::kNW>::run(p, fh[ks], d_lo, 1);
+          Wgmma<G::kNW>::run(p, fh[ks], d_hi, 1);
+        }
+        wgmma_commit();
+      };
+      if constexpr (!G::kPipe) {
+        for (int q = split; q * 32 < rn; q += splits) {
+          unit(p0, ah, al, q);
+          wgmma_wait_all();
+          add_partial(acc, p0);
+        }
+        return;
       }
+      // units q, q + splits, ... of the chunk, two at a time: p0, then p1
+      for (int q = split; q * 32 < rn; q += 2 * splits) {
+        const int q1 = q + splits;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          step(p0, ah[ks & 1], al[ks & 1], q, ks);
+          wgmma_wait<1>();  // step ks - 1 is done, and with step 0 the unit before
+          if (ks == 0 && q != split) {
+            fence_regs(p1);
+            add_partial(acc, p1);
+          }
+        }
+        if (q1 * 32 >= rn) {
+          wgmma_wait<0>();
+          fence_regs(p0);
+          add_partial(acc, p0);
+          return;
+        }
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          step(p1, ah[ks & 1], al[ks & 1], q1, ks);
+          wgmma_wait<1>();
+          if (ks == 0) {
+            fence_regs(p0);
+            add_partial(acc, p0);
+          }
+        }
+        if ((q1 + splits) * 32 >= rn) {
+          wgmma_wait<0>();
+          fence_regs(p1);
+          add_partial(acc, p1);
+        }
+      }
+    };
+    if constexpr (W16) {
+      if (in16) {
+        products(std::true_type{});
+      } else {
+        products(std::false_type{});
+      }
+    } else {
+      products(std::false_type{});
     }
   }
   cp_async_wait<0>();
@@ -1615,23 +1990,40 @@ __device__ __forceinline__ void wgrad_body(const fvt_bwd::WgradArgs& w, int B, i
     // thread t summed channels 4 (t % C4) ..: kWgradThreads / C4 threads a channel
     *reinterpret_cast<float4*>(red + 4 * threadIdx.x) = bsum;
     __syncthreads();
-    if (threadIdx.x < C) {
+    if (threadIdx.x < G::kDyW) {
       const int c4 = threadIdx.x / 4, e = threadIdx.x % 4;
       float s = 0.0f;
       for (int i = c4; i < kWgradThreads; i += C4) s += red[4 * i + e];
-      part[nw + threadIdx.x] = s;
+      part[nw + dy_c0 + threadIdx.x] = s;
     }
   }
 }
 
 typedef void (*WgradKernel)(fvt_bwd::WgradArgs, int, int, int);
 
+// two blocks an SM where shared memory holds two (C <= 64): at most 128
+// registers a thread
+template <int C>
+__host__ __device__ constexpr int wgrad_min_blocks() {
+  return C <= 64 ? 2 : 1;
+}
+
 #define FVT_MMA_WGRAD_KERNEL(name)                                              \
   template <int C>                                                              \
-  __global__ void __launch_bounds__(fvt_mma::kWgradThreads)                     \
+  __global__ void __launch_bounds__(fvt_mma::kWgradThreads,                     \
+                                    fvt_mma::wgrad_min_blocks<C>())             \
   name(fvt_bwd::WgradArgs w, int B, int T, int in_rows) {                       \
     extern __shared__ __align__(16) float smem[];                              \
     fvt_mma::wgrad_body<C>(w, B, T, in_rows, smem);                             \
+  }
+
+#define FVT_MMA_W16_WGRAD_KERNEL(name)                                          \
+  template <int C>                                                              \
+  __global__ void __launch_bounds__(fvt_mma::kWgradThreads,                     \
+                                    fvt_mma::wgrad_min_blocks<C>())             \
+  name(fvt_bwd::WgradArgs w, int B, int T, int in_rows) {                       \
+    extern __shared__ __align__(16) float smem[];                              \
+    fvt_mma::wgrad_body<C, true>(w, B, T, in_rows, smem);                       \
   }
 
 inline int max_of(const int* v, int n) {
@@ -1704,7 +2096,7 @@ cudaError_t launch_wgrad(WgradKernel kernel, fvt_bwd::WgradArgs& w, int nz, int 
   // two stages of `in`, one of dy, dy split; reused for the sums the
   // warpgroups of a group exchange
   const int in_rows = wgrad_in_rows<C>(w, nz);
-  int floats = 2 * in_rows * G::kS + G::kRows * C + 2 * G::kDyHalf;
+  int floats = 2 * in_rows * G::kS + G::kRows * G::kDyW + 2 * G::kDyHalf;
   const int exchange =
       128 * G::kAcc > 4 * kWgradThreads ? 128 * G::kAcc : 4 * kWgradThreads;
   floats = floats > exchange ? floats : exchange;

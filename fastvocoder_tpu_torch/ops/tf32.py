@@ -12,6 +12,13 @@ floats' bits, so that the kernels' tolerance can be argued, and tested,
 without a GPU (`tests/test_torch_tf32_split.py`,
 `tests/test_torch_resstack_tf32.py`).  Nothing on a model's path
 calls them.
+
+The bf16 backward forms (kernels 3b and 5b) multiply float32 activations by
+bf16 weights.  A bf16 value (8 mantissa bits) is a TF32 value, so the lo half
+of the weight's split is zero and `hi lo` adds nothing: they sum the two
+products `lo hi + hi hi` (`matmul_2xtf32`), the same sum bit for bit.  Their
+weight gradients contract two float32 intermediates, whose lo halves are not
+zero, and keep three (`tests/test_torch_bf16_bwd_split.py`).
 """
 
 from __future__ import annotations
@@ -67,6 +74,16 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
 
+def matmul_2xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the bf16 backward forms compute it against a bf16 weight b:
+    `lo hi + hi hi` in float32, the split of b taken as its hi half alone.
+    On a b whose values are TF32 (a bf16 weight widened) this is
+    `matmul_3xtf32` bit for bit."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi = round_tf32(b)
+    return a_lo @ b_hi + a_hi @ b_hi
+
+
 def matmul_3xtf32_units(a: torch.Tensor, b: torch.Tensor, unit: int,
                         acc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """acc + a @ b as a kernel's core sums it over a long depth: the depth in
@@ -74,8 +91,20 @@ def matmul_3xtf32_units(a: torch.Tensor, b: torch.Tensor, unit: int,
     or the rows of one batch of a weight gradient), each unit's 3xTF32
     product summed from zero and added to the float32 accumulator in order;
     acc starts at zero, or at the given bias or partial result."""
+    return _units(matmul_3xtf32, a, b, unit, acc)
+
+
+def matmul_2xtf32_units(a: torch.Tensor, b: torch.Tensor, unit: int,
+                        acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`matmul_3xtf32_units` with each unit's product `matmul_2xtf32`: a
+    recompute or adjoint pass of the bf16 backward forms."""
+    return _units(matmul_2xtf32, a, b, unit, acc)
+
+
+def _units(product, a: torch.Tensor, b: torch.Tensor, unit: int,
+           acc: Optional[torch.Tensor]) -> torch.Tensor:
     if acc is None:
         acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
     for k0 in range(0, a.shape[1], unit):
-        acc = acc + matmul_3xtf32(a[:, k0:k0 + unit], b[k0:k0 + unit])
+        acc = acc + product(a[:, k0:k0 + unit], b[k0:k0 + unit])
     return acc

@@ -46,10 +46,12 @@ plain output's peak, and the share of elements more than one bf16 ulp apart
 is printed.  The decode rounds nothing after its float32 sums and keeps the
 float32 form's bound.
 
-The bf16 forms of the backward kernels (3b and 5b) widen their bf16
-inputs, run the float32 forms' passes and round every result to bf16
-once: each is held bit for bit against the float32 form on the widened
-inputs, rounded (the float32 forms' arithmetic is held above), and against
+The bf16 forms of the backward kernels (3b and 5b) read their bf16 inputs
+where the float32 forms read float32 ones, widened as they are read, run
+two products against a bf16 weight where the float32 forms run three (the
+third adds +0.0) and round every result to bf16 once: each is held bit for
+bit against the float32 form on the widened inputs, rounded (the float32
+forms' arithmetic is held above), and against
 its plain version run in float64 on the same bf16 inputs, element by
 element: every element of dx within one bf16 ulp of its own value plus
 1e-4 of dx's peak, of a dW or db within one ulp plus 2e-4 of its peak (the
@@ -1164,6 +1166,77 @@ def test_fused_mrf_bwd_bf16_kernel_matches_plain_vjp_release_weights(cuda, hifig
                                                                      T):
     blocks = [b.mrf_operands() for b in hifigan_light.mrfs[stage]]
     _check_mrf_bwd_bf16(cuda, 2, T, blocks, 20 + stage)
+
+
+def _kernel_names(fn):
+    """The names of the device kernels one call of fn launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("op", ["chain", "mrf"])
+def test_bwd_bf16_forms_launch_their_own_passes_and_no_conversion(cuda, op):
+    """3b and 5b launch passes of their own (the W16 forms), none of the
+    float32 forms' and no kernel that widens their inputs or rounds their
+    outputs apart."""
+    from fastvocoder_tpu_torch.ops.fused_mrf import fused_mrf_stage_vjp_bf16_cuda
+    from fastvocoder_tpu_torch.ops.fused_resstack import fused_residual_stacks_vjp_bf16_cuda
+
+    if op == "chain":
+        tree, vjp, C, own = _stacks(128, cuda, seed=3), fused_residual_stacks_vjp_bf16_cuda, 128, (
+            "resstack_bwd_bf16_stack_kernel", "resstack_bwd_bf16_conv_kernel",
+            "resstack_bwd_bf16_fold_kernel", "resstack_bwd_bf16_wgrad_kernel")
+    else:
+        tree, vjp, C, own = _resblocks(32, cuda, 3), fused_mrf_stage_vjp_bf16_cuda, 32, (
+            "mrf_bwd_bf16_pair_kernel", "mrf_bwd_bf16_conv_kernel", "mrf_bwd_bf16_wgrad_kernel")
+    x, g = _to(_bf16_inputs(2, 300, C, 7), cuda)
+    tree = _to(tree, cuda, BF16)
+    names = _kernel_names(lambda: vjp(x, tree, g))
+    assert names, "torch.profiler saw no device events"
+    for kernel in own:
+        assert any(kernel in n for n in names), kernel
+    float32_passes = [n for n in names if any(
+        k in n for k in ("resstack_bwd_stack", "resstack_bwd_conv", "resstack_bwd_fold",
+                         "resstack_bwd_wgrad_kernel", "mrf_bwd_pair", "mrf_bwd_conv",
+                         "mrf_bwd_wgrad_kernel"))]
+    assert not float32_passes
+    assert not [n for n in names if "widen" in n or "narrow" in n]
+
+
+def test_bwd_bf16_scratch_is_the_float32_forms_less_half_the_packed_kernels(cuda):
+    """The bf16 forms hold no float32 copy of x, g, dx, the weights or the
+    gradients (the forms that widened them took 3 B T C + 2 x the weights'
+    floats more than the float32 forms), and pack a bf16 kernel's TF32 hi
+    half alone."""
+    import ctypes
+
+    B, T, C, K, dil = 4, 300, 128, 3, (1, 3, 9)
+    lib = _build.library("fused_resstack_bwd")
+    arr = (ctypes.c_int * 3)(*dil)
+    sizes = {}
+    for form in ("", "_bf16"):
+        fn = getattr(lib, f"fvt_fused_resstacks_bwd{form}_scratch_floats")
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_longlong
+        sizes[form] = fn(B, T, C, 3, K, ctypes.addressof(arr))
+    # both orientations of (K + 1 + 1) taps a stack, one half of two
+    assert sizes[""] - sizes["_bf16"] == 2 * 3 * (K + 2) * C * C
+
+    lib = _build.library("fused_mrf_bwd")
+    kernels, dilations = (3, 7, 11), (1, 3, 5)
+    ints = (ctypes.c_int * 27)(*[v for k in kernels for d in dilations for v in (k, d, k)])
+    for form in ("", "_bf16"):
+        fn = getattr(lib, f"fvt_fused_mrf_bwd{form}_scratch_floats")
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_longlong
+        sizes[form] = fn(B, T, C, 3, 3, ctypes.addressof(ints))
+    assert sizes[""] - sizes["_bf16"] == 2 * sum(2 * k * len(dilations) for k in kernels) * C * C
 
 
 def _map(tree, fn):
