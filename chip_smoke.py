@@ -1128,10 +1128,11 @@ def _flat_tensors(obj):
         yield obj
 
 
-def against_f64(torch, name, x, args, bf16_form, f32_kernel, plain) -> None:
+def against_f64(torch, name, x, args, bf16_form, f32_kernel, plain) -> dict:
     """The error against float64 (the plain version in float64 on the bf16
     input) of the bf16 form, of its plain bf16 version and of the float32
-    kernel on the same input, each of the float64 output's peak."""
+    kernel on the same input, each of the float64 output's peak.  -> the
+    first two, for the kernels line."""
     xb = x.to(torch.bfloat16)
     y64 = plain(xb.double(), *to_f64(torch, args)).double()
     peak = y64.abs().max().item()
@@ -1139,9 +1140,11 @@ def against_f64(torch, name, x, args, bf16_form, f32_kernel, plain) -> None:
     def rel(y):
         return ((y.double() - y64).abs().max() / peak).item()
 
-    log(f"  {name} against float64 at {tuple(x.shape)}: bf16 form {rel(bf16_form(xb, *args)):.3e}, "
-        f"its plain bf16 version {rel(plain(xb, *args)):.3e}, float32 kernel "
-        f"{rel(f32_kernel(xb.float(), *args)):.3e} of the peak {peak:.3e}")
+    got, want = rel(bf16_form(xb, *args)), rel(plain(xb, *args))
+    log(f"  {name} against float64 at {tuple(x.shape)}: bf16 form {got:.3e}, its plain bf16 "
+        f"version {want:.3e}, float32 kernel {rel(f32_kernel(xb.float(), *args)):.3e} of the "
+        f"peak {peak:.3e}")
+    return {"err_f64": got, "plain_err_f64": want}
 
 
 def bf16_grads_close(torch, dx, dx_ref, grads, grads_ref):
@@ -1505,8 +1508,9 @@ def check_bf16_chain(torch, basis_gen, melgan_gen, T_main):
     log(f"  fused_resstack_bf16: {len(cases)} shapes agree, every width on the edges of its tiles")
     g = torch.Generator().manual_seed(81)
     x = (0.3 * torch.randn(1, T_main // 4, 256, generator=g)).to(dev)
-    against_f64(torch, "fused_resstack", x, (basis_stages[0],), fused_residual_stacks_bf16_cuda,
-                fused_residual_stacks_cuda, fused_residual_stacks_plain)
+    f64 = against_f64(torch, "fused_resstack", x, (basis_stages[0],),
+                      fused_residual_stacks_bf16_cuda, fused_residual_stacks_cuda,
+                      fused_residual_stacks_plain)
 
     timed = []
     for (stacks,), B, T in main + melgan + batch32:
@@ -1522,7 +1526,7 @@ def check_bf16_chain(torch, basis_gen, melgan_gen, T_main):
         log(f"  fused_resstack_bf16 ({B}, {T}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"bf16 bound {bms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP): {share(bms, ms)} of it")
         timed.append({"shape": [B, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                      "bound_by": by})
+                      "bound_by": by, "share_of_bound": bms / ms})
     main_entry = timed[1]
     return {
         "name": "fused_resstack_bf16", "route": "cuda",
@@ -1531,8 +1535,8 @@ def check_bf16_chain(torch, basis_gen, melgan_gen, T_main):
         "shape": f"x (1, {T_main}, 256) bf16, 3 stacks K=3 d=1,3,9 (stage 2 of 2)",
         "max_abs_err": worst, "ms": main_entry["ms"], "plain_ms": main_entry["plain_ms"],
         "bound_ms": main_entry["bound_ms"], "bound_by": main_entry["bound_by"],
-        "library_ms": None, "stage1": timed[0], "melgan_stages": timed[2:6],
-        "batch32": timed[6:],
+        "library_ms": None, "share_of_bound": main_entry["share_of_bound"], **f64,
+        "stage1": timed[0], "melgan_stages": timed[2:6], "batch32": timed[6:],
     }
 
 
@@ -1563,8 +1567,8 @@ def check_bf16_mrf(torch, gen, frames: int):
     log(f"  fused_mrf_bf16: {len(cases)} shapes agree, every width on the edges of its tiles")
     g = torch.Generator().manual_seed(82)
     x = (0.3 * torch.randn(1, lengths[0], stages[0][0][0][0].shape[1], generator=g)).to(dev)
-    against_f64(torch, "fused_mrf", x, (stages[0],), fused_mrf_stage_bf16_cuda,
-                fused_mrf_stage_cuda, fused_mrf_stage_plain)
+    f64 = against_f64(torch, "fused_mrf", x, (stages[0],), fused_mrf_stage_bf16_cuda,
+                      fused_mrf_stage_cuda, fused_mrf_stage_plain)
     per_stage, total = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
     for blocks, T in zip(stages, lengths):
         C = blocks[0][0][0].shape[1]
@@ -1577,10 +1581,13 @@ def check_bf16_mrf(torch, gen, frames: int):
         bms, by = bound_bf16_ms(nbytes, flops)
         log(f"  fused_mrf_bf16 (1, {T}, {C}): kernel {ms:.4f} ms, plain {plain:.4f} ms, bf16 "
             f"bound {bms:.4f} ms ({by}, {flops / 1e9:.2f} GFLOP): {share(bms, ms)} of it")
-        per_stage.append({"shape": [1, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms})
+        per_stage.append({"shape": [1, T, C], "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                          "share_of_bound": bms / ms})
         for k, v in (("ms", ms), ("plain_ms", plain), ("bytes", nbytes), ("flops", flops)):
             total[k] += v
     bms, by = bound_bf16_ms(total["bytes"], total["flops"])
+    log(f"  fused_mrf_bf16 over the {len(per_stage)} stages: {total['ms']:.4f} ms, bf16 bound "
+        f"{bms:.4f} ms: {share(bms, total['ms'])} of it")
     return {
         "name": "fused_mrf_bf16", "route": "cuda",
         "source": "fastvocoder_tpu_torch/csrc/fused_mrf.cu",
@@ -1588,7 +1595,8 @@ def check_bf16_mrf(torch, gen, frames: int):
         "shape": "HiFiGAN light's 3 MRF stages of a 585-frame utterance in bf16, summed: "
                  + ", ".join(str(tuple(s["shape"])) for s in per_stage),
         "max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": bms, "bound_by": by, "library_ms": None, "stages": per_stage,
+        "bound_ms": bms, "bound_by": by, "library_ms": None, "share_of_bound": bms / total["ms"],
+        **f64, "stages": per_stage,
     }
 
 
@@ -1615,8 +1623,8 @@ def check_bf16_tail(torch, gen, frames: int):
         f"{tail_edge_lengths(16)}")
     g = torch.Generator().manual_seed(83)
     x = (0.3 * torch.randn(1, T_main, 32, generator=g)).to(dev)
-    against_f64(torch, "fused_tail", x, light, fused_hifigan_tail_bf16_cuda,
-                fused_hifigan_tail_cuda, fused_hifigan_tail_plain)
+    f64 = against_f64(torch, "fused_tail", x, light, fused_hifigan_tail_bf16_cuda,
+                      fused_hifigan_tail_cuda, fused_hifigan_tail_plain)
     table = TailTable(*light, dev, torch.bfloat16)
     xb = x.to(torch.bfloat16)
     ms = cuda_ms(lambda: fused_hifigan_tail_bf16_cuda(xb, *light, table=table), iters=20, warmup=3)
@@ -1644,7 +1652,7 @@ def check_bf16_tail(torch, gen, frames: int):
         "replaces": "fastvocoder_tpu/ops/fused_tail.py:80", "form": "bf16",
         "shape": f"x (1, {T_main}, 32) bf16 -> (1, {T}, 1), HiFiGAN light's last stage and head",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": None,
+        "library_ms": None, "share_of_bound": bms / ms, **f64,
     }
 
 

@@ -20,6 +20,22 @@ each variant against the plain version and prints its device time
 
 The first variant of each list is the shipped one.  This is the loop that
 chose the tiles in the sources; `bin/tail_times.py` compares two checkouts.
+
+    python3 -m fastvocoder_tpu_torch.bin.tile_variants --bf16-forward [--once]
+        [--variants <name>,...]
+
+times the blocks of the bf16 forward forms 2b, 4b and 6b instead
+(`BF16_VARIANTS`: warpgroups over the rows, ring stages and slab bytes of
+`TileBf16Pair<C>` and `TileBf16Stack<C>` in `csrc/mma_common.cuh`, by
+width).  Each variant is a copy of the package under
+`build/tile_variants/<name>/` with its three forward sources and those
+lines changed (`conf/` and `docs/` linked),
+built in parallel; then `bin/chain_times.py --parts bf16_forward` runs on
+each in turns (in the order listed and back again, or once with `--once`)
+and prints, per shape, device ms, share of the bf16 bound and error against
+float64.  `--probes` adds `BF16_PROBES`: builds that skip the weights'
+copies or the products on purpose (their results are wrong), to show what
+a call's time is made of.
 """
 
 from __future__ import annotations
@@ -29,6 +45,7 @@ import os
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 
@@ -59,7 +76,139 @@ def decode_source(src: str, values) -> str:
     return src
 
 
+# Edits (old, new) of mma_common.cuh that variants and probes make
+_WIDE = ("kSlabBytes = 32768, kCost = 5;", "kSlabBytes = 32768, kCost = 100;")
+_COPIES = ("    load_slab<C, THREADS, bf16, false, kU>(ring + (s + ST - 2) % ST * kSlabElems, "
+           "W, K,\n                                           s + ST - 2);",
+           "    cp_async_commit();")
+_PRODUCTS = ("WgmmaBf16<G::kNW>::run(acc,", "if (K < 0) WgmmaBf16<G::kNW>::run(acc,")
+_BARRIER = ("    __syncthreads();  // slab s has landed; every warpgroup is done with slab "
+            "s - 2", "")
+_STAGING = [(f"  stage<C, THREADS>(tile, rs, src, T, {rows}",
+             f"  if (is_bf16<E>() && T < 0) stage<C, THREADS>(tile, rs, src, T, {rows}")
+            for rows in ("q0 - m, no + 2 * m,", "u_lo - m1, nu + 2 * m1,")]
+_EMPTY = ("  E* tile = smem_base<C>(smem);\n  E* ring = tile + tile_rows * G::kSA;\n"
+          "  const int rs = tile_stride<C>(tile_rows);  // the bf16 tile's (`tile_at`)\n"
+          "  float acc[G::kNT][4];\n",
+          "  if (is_bf16<E>() && T > 0) return;\n  E* tile = smem_base<C>(smem);\n"
+          "  E* ring = tile + tile_rows * G::kSA;\n"
+          "  const int rs = tile_stride<C>(tile_rows);  // the bf16 tile's (`tile_at`)\n"
+          "  float acc[G::kNT][4];\n")
+_WIDE_C = (("Stack", 128), ("Stack", 256), ("Pair", 128), ("Pair", 256))
+_NARROW_C = (("Stack", 32), ("Stack", 64), ("Pair", 16), ("Pair", 32), ("Pair", 64))
+
+# name -> {(kind, C): (WM, ST, slab bytes)} over the shipped TileBf16Pair
+# (kind "Pair": 4b, 6b) and TileBf16Stack ("Stack": 2b) of mma_common.cuh,
+# or a list of edits of it; the first, {}, is the shipped one
+BF16_VARIANTS = {
+    "shipped": {},
+    "C>=128 ST 5": {k: (None, 5, None) for k in _WIDE_C},
+    "C>=128 ST 3": {k: (None, 3, None) for k in _WIDE_C},
+    "C<=64 ST 3": {k: (None, 3, None) for k in _NARROW_C},
+    "C<=64 slab 32K": {k: (None, None, 32768) for k in _NARROW_C if k[1] > 16},
+    "Stack C256 64-row blocks only": [_WIDE],
+    "Pair C128 WM 1": {("Pair", 128): (1, None, None)},
+    "Pair C64 WM 2": {("Pair", 64): (2, None, None)},
+    "Pair C32 WM 2": {("Pair", 32): (2, None, None)},
+}
+# Probes that break the kernels' results on purpose, to see what their time
+# is made of: edits of mma_common.cuh, on the shipped tiles
+BF16_PROBES = {
+    "probe: no weight copies": [_COPIES],
+    "probe: no products": [_PRODUCTS],
+    "probe: loop alone": [_COPIES, _PRODUCTS],
+    "probe: loop alone, no slab barrier": [_COPIES, _PRODUCTS, _BARRIER],
+    "probe: loop alone, no staging": [_COPIES, _PRODUCTS] + _STAGING,
+    "probe: empty stack body": [_EMPTY],
+}
+BF16_SOURCES = ("fused_resstack.cu", "fused_mrf.cu", "fused_tail.cu")
+
+
+def tile_bf16_source(src: str, over) -> str:
+    """mma_common.cuh with the TileBf16Pair / TileBf16Stack lines of `over`
+    changed."""
+    for (kind, C), values in over.items():
+        head = f"struct TileBf16{kind}<{C}> {{ static constexpr int "
+        if head not in src:
+            raise RuntimeError(f"mma_common.cuh no longer holds {head!r}")
+        at = src.index(head) + len(head)
+        end = src.index(";", at)
+        fields = dict(f.strip().split(" = ") for f in src[at:end].split(","))
+        for key, v in zip(("kWM", "kST", "kSlabBytes"), values):
+            if v is not None:
+                fields[key] = str(v)
+        src = src[:at] + ", ".join(f"{k} = {v}" for k, v in fields.items()) + src[end:]
+    return src
+
+
+def bf16_forward_variants(args) -> int:
+    """The `--bf16-forward` mode (module docstring)."""
+    from fastvocoder_tpu_torch.ops import _build
+
+    root = Path(_build.PACKAGE_DIR).parent
+    names = args.variants.split(",") if args.variants else list(BF16_VARIANTS)
+    names += list(BF16_PROBES) if args.probes else []
+    out_dir = _build.BUILD_DIR.parent / "tile_variants"
+    roots, procs = {}, []
+    header = (_build.CSRC / "mma_common.cuh").read_text()
+    for name in names:
+        d = out_dir / name.replace(" ", "_").replace("<=", "le").replace(">=", "ge")
+        if d.exists():
+            shutil.rmtree(d)
+        pkg = d / "fastvocoder_tpu_torch"
+        shutil.copytree(_build.PACKAGE_DIR, pkg,
+                        ignore=shutil.ignore_patterns("__pycache__", "*.cu", "*.cuh"))
+        for src in BF16_SOURCES:
+            for f in [_build.CSRC / src] + _build.local_includes(_build.CSRC / src):
+                shutil.copy(f, pkg / "csrc" / f.name)
+        edits = BF16_PROBES.get(name, BF16_VARIANTS.get(name))
+        if isinstance(edits, list):
+            probed = header
+            for old, edit in edits:
+                if old not in probed:
+                    raise RuntimeError(f"{name}: mma_common.cuh no longer holds {old!r}")
+                probed = probed.replace(old, edit)
+        else:
+            probed = tile_bf16_source(header, BF16_VARIANTS[name])
+        (pkg / "csrc" / "mma_common.cuh").write_text(probed)
+        for link in ("conf", "docs"):
+            (d / link).symlink_to(root / link)
+        roots[name] = d
+        procs.append((name, subprocess.Popen(
+            [sys.executable, "-c", "from fastvocoder_tpu_torch.ops import _build; "
+             "_build.build_all()"], cwd=d, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    for name, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: build failed:\n{log}")
+    order = names if args.once else names + names[::-1]
+    tool = Path(__file__).resolve().parent / "chain_times.py"
+    failed = 0
+    for i, name in enumerate(order):
+        run = subprocess.run([sys.executable, str(tool), "--root", str(roots[name]), "--label",
+                              f"{name} #{i}", "--parts", "bf16_forward"],
+                             capture_output=True, text=True)
+        print("\n".join(line for line in run.stdout.splitlines() if "device" in line or
+                        "W" in line[-10:]), flush=True)
+        if run.returncode != 0:
+            print(f"{name}: chain_times exit {run.returncode}\n{run.stderr[-3000:]}", flush=True)
+            failed += 1
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--bf16-forward", action="store_true")
+    ap.add_argument("--once", action="store_true")
+    ap.add_argument("--probes", action="store_true", help="also time BF16_PROBES")
+    ap.add_argument("--variants", default="",
+                    help="names of BF16_VARIANTS or BF16_PROBES, comma separated")
+    args = ap.parse_args(argv)
+    if args.bf16_forward:
+        return bf16_forward_variants(args)
     import torch
 
     from fastvocoder_tpu_torch.hparams import load_model_config

@@ -37,10 +37,14 @@
 // `mrf_mean_bf16_kernel`): x, y and the intermediates in bf16, the stage's
 // kernels packed as bf16 once, by `fvt_fused_mrf_bf16_pack` from the
 // module's layout, for a kept table (ops/fused_mrf.py's StageTable in
-// bf16), biases float32 rounded to bf16 on load; one bf16 wgmma a depth
-// step of 16 with float32 sums, rounded where fused_mrf.py's Pallas body
-// rounds (`fvt_mma::pair_body`, `fvt_mrf::branch_mean4`).  Bound: the same
-// operations at 989 TFLOP/s.
+// bf16), biases float32 rounded to bf16 on load; rounded where
+// fused_mrf.py's Pallas body rounds (`fvt_mma::pair_body`,
+// `fvt_mrf::branch_mean4`).  Bound: the same operations at 989 TFLOP/s.
+// Its pair launches run the bf16 core (`fvt_mma::conv_core_bf16`: the
+// tensor core sums a whole conv from shared memory, slabs of weights in
+// flight), with the blocks of `fvt_mma::TileBf16Pair`: 4 warpgroups over
+// the rows at C = 32 and 64, where the grid is large and a block's
+// weights serve more rows.
 
 #include "mma_common.cuh"
 #include "mrf_common.cuh"
@@ -83,11 +87,12 @@ template <int C, typename E>
 cudaError_t run_pairs_and_mean(const E* x, E* y, E* scratch, const E* packed, int B, int T,
                                int nb, int np, const fvt_mrf::PairArgs* steps,
                                cudaStream_t stream) {
-  constexpr int WM = fvt_mma::Tile<C>::kWM, ST = fvt_mma::Tile<C>::kST;
+  using Tl = fvt_mma::PairTile<C, E>;
+  constexpr int WM = Tl::kWM, ST = Tl::kST, SLAB = Tl::kSlabBytes;
   const size_t n = static_cast<size_t>(B) * T * C;
   cudaError_t err;
   if constexpr (fvt_mma::is_bf16<E>()) {
-    err = fvt_mrf::run_pairs<C>(mrf_pair_bf16_kernel<C, WM, ST>, steps, nb, np, packed, x,
+    err = fvt_mrf::run_pairs<C>(mrf_pair_bf16_kernel<C, WM, ST, SLAB>, steps, nb, np, packed, x,
                                 scratch, B, T, stream);
   } else {
     err = fvt_mrf::run_pairs<C>(mrf_pair_kernel<C, WM, ST>, steps, nb, np, packed, x, scratch,

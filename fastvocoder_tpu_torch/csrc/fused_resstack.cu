@@ -36,11 +36,15 @@
 //
 // The bf16 form (`fvt_fused_resstacks_bf16`, `resstack_bf16_kernel`): x, y
 // and the scratch in bf16, the kernels packed as bf16 by
-// `fvt_fused_resstacks_bf16_pack` from the same float32 operands, biases
-// float32 rounded to bf16 on load; one bf16 wgmma a depth step of 16 with
-// float32 sums, rounded to bf16 where fused_resstack.py's Pallas body
-// rounds (`fvt_mma::stack_body`).  Bound: the same operations at the 989
-// TFLOP/s bf16 rate, a sixth of the 3xTF32 bound; half the bytes.
+// `fvt_fused_resstacks_bf16_pack` from the same float32 operands (in
+// wgmma's 128-byte swizzle at C >= 64), biases float32 rounded to bf16 on
+// load; rounded to bf16 where fused_resstack.py's Pallas body rounds
+// (`fvt_mma::stack_body`).  Bound: the same operations at the 989 TFLOP/s
+// bf16 rate, a sixth of the 3xTF32 bound; half the bytes.  Its core
+// (`fvt_mma::conv_core_bf16`) lets the tensor core sum a whole conv from
+// shared memory, a 32 KB slab of weights at a time with one in flight; at
+// C = 256 a grid of 64-row blocks that would run in several waves takes
+// 128-row blocks where they run in fewer (`wide_stack_blocks`).
 
 #include "mma_common.cuh"
 
@@ -84,10 +88,30 @@ cudaError_t pack_chain(E* packed, int n, int K, const float* const* kernels,
   return fvt_mma::launch_pack<C>(pack, 3 * n, stream);
 }
 
+// Whether the bf16 form's stacks at C = 256 take 128-row blocks: where the
+// grid of 64-row blocks runs in more waves than that of 128-row ones, by
+// their times (`fvt_mma::TileBf16StackWide::kCost`).
+bool wide_stack_blocks(int B, int T) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      return 132;  // an H100's; a failing device fails the launch anyway
+    }
+    return n;
+  }();
+  const long long narrow = static_cast<long long>(B) * ((T + 63) / 64);
+  const long long wide = static_cast<long long>(B) * ((T + 127) / 128);
+  return fvt_mma::TileBf16StackWide::kCost * ((wide + sms - 1) / sms) <
+         3 * ((narrow + sms - 1) / sms);
+}
+
 template <int C, typename E>
 cudaError_t run_chain(const E* x, E* y, E* scratch, const E* packed, int B, int T, int n, int K,
                       const int* dil, const float* const* biases, cudaStream_t stream) {
+  using Wide = fvt_mma::TileBf16StackWide;
   const size_t n_el = static_cast<size_t>(B) * T * C;
+  const bool wide = fvt_mma::is_bf16<E>() && C == 256 && wide_stack_blocks(B, T);
   const E* wd = packed;
   for (int s = 0; s < n; ++s) {
     fvt_mma::StackArgsT<E> a;
@@ -104,8 +128,13 @@ cudaError_t run_chain(const E* x, E* y, E* scratch, const E* packed, int B, int 
     a.dil = dil[s];
     a.slope = kSlope;
     cudaError_t err;
-    if constexpr (fvt_mma::is_bf16<E>()) {
-      err = FVT_MMA_LAUNCH_STACK(resstack_bf16_kernel, C, a, B, T, stream);
+    if constexpr (fvt_mma::is_bf16<E>() && C == 256) {
+      err = wide ? fvt_mma::launch_stack<C, Wide::kWM, Wide::kST, E, Wide::kSlabBytes>(
+                       resstack_bf16_kernel<C, Wide::kWM, Wide::kST, Wide::kSlabBytes>, a, B, T,
+                       stream)
+                 : FVT_MMA_LAUNCH_BF16_STACK(resstack_bf16_kernel, C, a, B, T, stream);
+    } else if constexpr (fvt_mma::is_bf16<E>()) {
+      err = FVT_MMA_LAUNCH_BF16_STACK(resstack_bf16_kernel, C, a, B, T, stream);
     } else {
       err = FVT_MMA_LAUNCH_STACK(resstack_kernel, C, a, B, T, stream);
     }

@@ -278,7 +278,8 @@ cudaError_t run_tail(const E* x, E* y, E* scratch, const E* packed, int B, int T
                      const float* b_post, int k_post, int bands, cudaStream_t stream) {
   constexpr bool kBf16 = fvt_mma::is_bf16<E>();
   constexpr int kGroups = kThreads / (C / 4);
-  constexpr int WM = fvt_mma::Tile<C>::kWM, ST = fvt_mma::Tile<C>::kST;
+  using Tl = fvt_mma::PairTile<C, E>;
+  constexpr int WM = Tl::kWM, ST = Tl::kST, SLAB = Tl::kSlabBytes;
   if (kGroups % u != 0) return cudaErrorInvalidValue;
   const int T = T_in * u;
   const size_t n = static_cast<size_t>(B) * T * C;
@@ -302,7 +303,7 @@ cudaError_t run_tail(const E* x, E* y, E* scratch, const E* packed, int B, int T
   if (err != cudaSuccess) return err;
 
   if constexpr (kBf16) {
-    err = fvt_mrf::run_pairs<C>(tail_pair_bf16_kernel<C, WM, ST>, steps, nb, np, packed, h0,
+    err = fvt_mrf::run_pairs<C>(tail_pair_bf16_kernel<C, WM, ST, SLAB>, steps, nb, np, packed, h0,
                                 scratch, B, T, stream);
   } else {
     err = fvt_mrf::run_pairs<C>(tail_pair_kernel<C, WM, ST>, steps, nb, np, packed, h0, scratch,

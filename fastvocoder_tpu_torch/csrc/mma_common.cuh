@@ -58,20 +58,29 @@
 //
 // The bf16 forms (E = __nv_bfloat16: activations bf16 in device and shared
 // memory, float32 parameters packed as bf16; the inference of a model
-// served with compute_dtype bf16) run the same core on
-// wgmma.mma_async.m64nNk16.f32.bf16.bf16: one product a depth step of 16
-// where 3xTF32 takes three a step of 8, so their bound is the operation
-// count at 989 TFLOP/s.  A lane's A fragment of a step holds the pairs of
-// channels (2 t, 2 t + 1) and (2 t + 8, 2 t + 9) of rows g and g + 8, two
-// bf16 to a register, low half first (mma.m16n8k16's layout), read straight
-// from the bf16 tile; a weight core matrix is 8 produced x 8 contracted
-// channels, again 128 contiguous bytes, so the descriptor's strides are the
-// TF32 form's.  The forms round to bf16 where the JAX package's Pallas
-// bodies round (`fit`): the bias before it is added, every conv's output,
-// every leaky-relu, every residual sum; products are summed in float32, a
-// weight unit in the tensor core and the units on the CUDA cores as in the
-// TF32 forms.  Their kernels have names of their own
-// (`FVT_MMA_BF16_*_KERNEL`), so that a profile tells the two forms apart.
+// served with compute_dtype bf16) have a core of their own
+// (`conv_core_bf16`) on wgmma.mma_async.m64nNk16.f32.bf16.bf16 with both
+// operands in shared memory: one product a depth step of 16, so their bound
+// is the operation count at 989 TFLOP/s.
+//   * The tensor core sums a whole conv: the accumulator starts at the
+//     rounded bias and every product adds into it.  Its truncation moves a
+//     stage's output by about 1e-5 of its size, 1/400 of a bf16 ulp, where
+//     the float32 forms' 1e-4 parity forbids it.
+//   * A slab's units are issued back to back, committed once, and waited on
+//     with one slab left in flight; 32 KB slabs in a ring of 4 at C >= 128
+//     (`TileBf16Pair`, `TileBf16Stack`).  A unit's wait, its sum on the CUDA
+//     cores and its fragment loads are gone from the critical path.
+//   * A from shared memory: a tap's shift of the tile is the descriptor's
+//     start address.  At C >= 64 tile and weights lie in wgmma's 128-byte
+//     swizzle (its phase follows the address bits, so any row may start a
+//     tap); below, core matrices of 8 rows x 16 bytes, their columns padded
+//     apart (`tile_at`, `Geo::kSwz`).
+//   * The tile is staged by cp.async and the leaky-relu applied in place
+//     while the first slabs land.
+// The forms round to bf16 where the JAX package's Pallas bodies round
+// (`fit`): the bias before it is added, every conv's output, every
+// leaky-relu, every residual sum.  Their kernels have names of their own
+// (`FVT_MMA_BF16_*_KERNEL`), so that a profile tells the forms apart.
 //
 // The bf16 backward forms (kernels 3b and 5b, template flag W16) compute
 // in float32 as the TF32 forms do, on bf16 weights and bf16 x and g:
@@ -88,12 +97,14 @@
 //     Every intermediate stays float32.
 // Their kernels have names of their own (`FVT_MMA_W16_*_KERNEL`).
 //
-// Units in flight: at C >= 128 the weight gradient issues a depth step's
-// products before it waits on the last one's, and unit k + 1's before unit
-// k's sum is added (two register sets of partial sums take turns, so each
-// unit's sum still starts at zero); elsewhere, the convs at every width and
-// the weight gradient at C <= 64, a unit is waited on before the next is
-// issued, which measured faster there (`conv_core`, `WGeo::kPipe`).
+// Units in flight in the float32 and W16 forms: at C >= 128 the weight
+// gradient issues a depth step's products before it waits on the last
+// one's, and unit k + 1's before unit k's sum is added (two register sets
+// of partial sums take turns, so each unit's sum still starts at zero);
+// elsewhere, the convs at every width and the weight gradient at C <= 64, a
+// unit is waited on before the next is issued, which measured faster there
+// (`conv_core`, `WGeo::kPipe`).  The bf16 forward forms keep a slab in
+// flight (`conv_core_bf16`).
 
 #pragma once
 
@@ -124,7 +135,7 @@ struct Form<float> {
 };
 template <>
 struct Form<bf16> {
-  static constexpr int kPad = 8, kHalves = 1, kDepth = 16;
+  static constexpr int kPad = 0, kHalves = 1, kDepth = 16;  // the tile: `tile_at`
 };
 
 template <typename E>
@@ -329,61 +340,59 @@ struct Wgmma<128> {
   }
 };
 
-// d (64 x N) (+)= a (64 x 16, from registers) b (N x 16, K-major in shared
-// memory behind `desc`), bf16 operands, float32 sums, one warpgroup;
-// asynchronous.  Warp w of the group holds rows 16 w .. 16 w + 15 of a and
-// d; there lane l = 4 g + t holds, two bf16 a register (the lower channel in
-// the low half), a0 (g, 2 t .. 2 t + 1), a1 (g + 8, 2 t ..), a2 (g,
-// 2 t + 8 ..), a3 (g + 8, 2 t + 8 ..), and d as `Wgmma` does.  B is not
-// transposed (the last immediate).
+// d (64 x N) += a (64 x 16) b (N x 16), both K-major in shared memory
+// behind their descriptors (`wgmma_desc`), bf16 operands, float32 sums, one
+// warpgroup; asynchronous.  Warp w of the group holds rows 16 w .. 16 w + 15
+// of d, as `Wgmma` does.  d is always added to (scale-d 1): the bf16 forms
+// start it at the bias and let every product of a conv add into it.
 template <int N>
 struct WgmmaBf16;
 
 template <>
 struct WgmmaBf16<16> {
-  static __device__ __forceinline__ void run(float (&d)[2][4], const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
+  static __device__ __forceinline__ void run(float (&d)[2][4], uint64_t desc_a,
+                                             uint64_t desc_b) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(1));
   }
 };
 
 template <>
 struct WgmmaBf16<32> {
-  static __device__ __forceinline__ void run(float (&d)[4][4], const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
+  static __device__ __forceinline__ void run(float (&d)[4][4], uint64_t desc_a,
+                                             uint64_t desc_b) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
           "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(1));
   }
 };
 
 template <>
 struct WgmmaBf16<64> {
-  static __device__ __forceinline__ void run(float (&d)[8][4], const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
+  static __device__ __forceinline__ void run(float (&d)[8][4], uint64_t desc_a,
+                                             uint64_t desc_b) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -392,18 +401,18 @@ struct WgmmaBf16<64> {
           "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
           "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
           "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(1));
   }
 };
 
 template <>
 struct WgmmaBf16<128> {
-  static __device__ __forceinline__ void run(float (&d)[16][4], const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
+  static __device__ __forceinline__ void run(float (&d)[16][4], uint64_t desc_a,
+                                             uint64_t desc_b) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
         "%8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31, "
@@ -411,7 +420,7 @@ struct WgmmaBf16<128> {
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
           "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
           "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -428,7 +437,7 @@ struct WgmmaBf16<128> {
           "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
           "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
           "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "l"(desc_a), "l"(desc_b), "r"(1));
   }
 };
 
@@ -514,17 +523,53 @@ __device__ __forceinline__ int reflect_index(int i, int T) {
 // geometry
 // ---------------------------------------------------------------------------
 
+// The blocks of the bf16 forward launches at width C, the pair kernels'
+// (4b, 6b) and the stack kernels' (2b): warpgroups over the rows (WM),
+// slabs of the weight ring (ST, at least 3: a slab on the tensor cores
+// while a warpgroup waits, one waited on, the rest landing) and the bytes
+// of a slab (rounded to whole weight units).  Chosen by `bin/tile_variants.py --bf16-forward` on
+// an H100 (PERF.md section 6, PR 14).
+template <int C>
+struct TileBf16Pair;
+template <>
+struct TileBf16Pair<16> { static constexpr int kWM = 2, kST = 4, kSlabBytes = 8192; };
+template <>
+struct TileBf16Pair<32> { static constexpr int kWM = 4, kST = 4, kSlabBytes = 16384; };
+template <>
+struct TileBf16Pair<64> { static constexpr int kWM = 4, kST = 4, kSlabBytes = 16384; };
+template <>
+struct TileBf16Pair<128> { static constexpr int kWM = 2, kST = 4, kSlabBytes = 32768; };
+template <>
+struct TileBf16Pair<256> { static constexpr int kWM = 1, kST = 4, kSlabBytes = 32768; };
+template <int C>
+struct TileBf16Stack;
+template <>
+struct TileBf16Stack<32> { static constexpr int kWM = 2, kST = 4, kSlabBytes = 8192; };
+template <>
+struct TileBf16Stack<64> { static constexpr int kWM = 2, kST = 4, kSlabBytes = 16384; };
+template <>
+struct TileBf16Stack<128> { static constexpr int kWM = 2, kST = 4, kSlabBytes = 32768; };
+template <>
+struct TileBf16Stack<256> { static constexpr int kWM = 1, kST = 4, kSlabBytes = 32768; };
+// and its 128-row block at C = 256, for grids of several waves
+// (`run_chain`): a block takes kCost / 3 the time of a 64-row one
+struct TileBf16StackWide { static constexpr int kWM = 2, kST = 4, kSlabBytes = 32768, kCost = 5; };
+
 template <int C, typename E = float, bool W16 = false>
 struct Geo {
   static constexpr int kNW = C < 128 ? C : 128;  // channels a warpgroup produces
   static constexpr int kGroupsN = C / kNW;       // warpgroups side by side
   static constexpr int kNT = kNW / 8;            // 8-channel tiles of a warpgroup
-  static constexpr int kSA = C + Form<E>::kPad;  // elements a staged row
+  static constexpr int kSA = C + Form<E>::kPad;  // elements a staged row (bf16: `tile_at`)
   // a weight unit: the kKC contracted channels [c kKC, (c + 1) kKC) of one
   // tap for all C produced channels, as kHalves halves (TF32: hi, then lo;
   // W16 and bf16: one), each in core matrices of 128 bytes, [kKC / kCK][C /
-  // 8][8 produced][kCK contracted], kCK = 16 bytes of E
-  static constexpr int kKC = C == 16 || C >= 256 ? 16 : 32;
+  // 8][8 produced][kCK contracted], kCK = 16 bytes of E.  The bf16 form at
+  // C >= 64 (kSwz) lays a unit out as wgmma's 128-byte swizzle does
+  // instead: 64 contracted channels, a 128-byte row a produced channel, its
+  // 16-byte pieces in the order (piece ^ row % 8) (`swz`)
+  static constexpr bool kSwz = is_bf16<E>() && C >= 64;
+  static constexpr int kKC = kSwz ? 64 : (C == 16 || C >= 256 ? 16 : 32);
   static constexpr int kChunks = C / kKC;
   static constexpr int kCK = 16 / static_cast<int>(sizeof(E));
   static constexpr int kCoreElems = 8 * kCK;
@@ -538,6 +583,10 @@ struct Geo {
   static constexpr int kUnitsPerSlab =
       W16 ? 2 * Geo<C, E>::kUnitsPerSlab : (18432 / kUnitBytes > 0 ? 18432 / kUnitBytes : 1);
   static constexpr int kSlabElems = kUnitsPerSlab * kUnitElems;
+  // the bf16 forms' units a slab of about `bytes` (`TileBf16Pair`)
+  __host__ __device__ static constexpr int units_in(int bytes) {
+    return (bytes + kUnitBytes / 2) / kUnitBytes > 0 ? (bytes + kUnitBytes / 2) / kUnitBytes : 1;
+  }
   static constexpr uint32_t kStrideK = C / 8 * 128;  // bytes between core matrices in depth
   static constexpr uint32_t kStrideN = 128;          // and along the produced channels
 };
@@ -580,12 +629,12 @@ struct Lane {
 
 // Slab s of a packed kernel of K taps into one stage of the ring, by all
 // threads of the block: a flat copy.
-template <int C, int THREADS, typename E, bool W16 = false>
+template <int C, int THREADS, typename E, bool W16 = false, int U = Geo<C, E, W16>::kUnitsPerSlab>
 __device__ __forceinline__ void load_slab(E* stage, const E* __restrict__ W, int K, int s) {
   using G = Geo<C, E, W16>;
   constexpr int kVec = 16 / static_cast<int>(sizeof(E));
-  const int first = s * G::kUnitsPerSlab;
-  const int units = min(G::kUnitsPerSlab, K * G::kChunks - first);
+  const int first = s * U;
+  const int units = min(U, K * G::kChunks - first);
   const E* src = W + static_cast<size_t>(first) * G::kUnitElems;
   for (int i = threadIdx.x; i < units * (G::kUnitElems / kVec); i += THREADS) {
     cp_async16(stage + kVec * i, src + kVec * i);
@@ -604,21 +653,20 @@ __device__ __forceinline__ void add_partial(float (&acc)[NT][4], const float (&p
 }
 
 // acc[j] += sum_{k < K} sum_c tile[row + off0 + k step][c] W[k][n_j][c] for
-// the warpgroup's 64 rows and its channel tiles j, where `active`.  `tile` is
-// the staged tile (rows of kSA elements), `off0` and `step` are in rows (step
-// may be negative: an adjoint walks the taps backwards); W is the packed
-// kernel; `ring` holds ST slabs, of which ST - 1 are in flight ahead of the
-// one in use.  Starts with a __syncthreads(): what the block staged before
-// the call is visible, and the ring is free.
+// the warpgroup's 64 rows and its channel tiles j, where `active`: the
+// float32 forms' contraction (3xTF32; W16: two products against a bf16
+// weight).  `tile` is the staged tile (rows of kSA elements), `off0` and
+// `step` are in rows (step may be negative: an adjoint walks the taps
+// backwards); W is the packed kernel; `ring` holds ST slabs, of which ST - 1
+// are in flight ahead of the one in use.  Starts with a __syncthreads():
+// what the block staged before the call is visible, and the ring is free.
 //
 // The tensor core adds into its accumulator with truncation, which over the
 // hundreds of steps of a conv drifts by more than float32's rounding
 // (measured on the mma.sync version: 1e-5 of a stage's output).  So the
 // products of one unit are summed in the tensor core from zero, where a
 // truncation is relative to that small partial sum, and the partial sum is
-// added to acc on the CUDA cores, rounded to nearest.  The bf16 form keeps
-// that order: a unit is one or two wgmmas there, and its sums agree with
-// the plain float32 sums of bf16 operands to float32's rounding.
+// added to acc on the CUDA cores, rounded to nearest.
 //
 // Two units in flight (the next unit's products issued before the last
 // one's sum is waited on, two register sets in turn) measured 1-55 %
@@ -630,12 +678,13 @@ template <int C, int WM, int ST, typename E, bool W16 = false>
 __device__ __forceinline__ void conv_core(float (&acc)[Geo<C>::kNT][4], const E* tile, int off0,
                                           int step, const E* __restrict__ W, int K, E* ring,
                                           const Lane<C, WM>& ln, bool active) {
+  static_assert(!is_bf16<E>(), "the bf16 forms contract in conv_core_bf16");
   using G = Geo<C, E, W16>;
   constexpr int THREADS = block_threads<C, WM>();
   constexpr int kSteps = G::kKC / Form<E>::kDepth;
   const int n_slabs = (K * G::kChunks + G::kUnitsPerSlab - 1) / G::kUnitsPerSlab;
-  // the lane's first element: row g, channel t (TF32) or channels 2 t, 2 t + 1 (bf16)
-  const E* a_lane = tile + (ln.row0 + ln.g) * G::kSA + (is_bf16<E>() ? 2 : 1) * ln.t;
+  // the lane's first element: row g, channel t
+  const E* a_lane = tile + (ln.row0 + ln.g) * G::kSA + ln.t;
   const int b_group = ln.n0 / 8 * G::kCoreElems;  // to the warpgroup's first core matrix
 
   __syncthreads();
@@ -658,54 +707,209 @@ __device__ __forceinline__ void conv_core(float (&acc)[Geo<C>::kNT][4], const E*
       float p[G::kNT][4];
 #pragma unroll
       for (int j = 0; j < G::kNT; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.0f;
-      if constexpr (is_bf16<E>()) {
-        uint32_t a[kSteps][4];
+      uint32_t a_hi[kSteps][4], a_lo[kSteps][4];
 #pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
-          const E* at = ap + ks * 16;
-          a[ks][0] = *reinterpret_cast<const uint32_t*>(at);
-          a[ks][1] = *reinterpret_cast<const uint32_t*>(at + 8 * G::kSA);
-          a[ks][2] = *reinterpret_cast<const uint32_t*>(at + 8);
-          a[ks][3] = *reinterpret_cast<const uint32_t*>(at + 8 * G::kSA + 8);
-        }
-        wgmma_fence();
+      for (int ks = 0; ks < kSteps; ++ks) {
+        split_tf32(ap[ks * 8], a_hi[ks][0], a_lo[ks][0]);
+        split_tf32(ap[ks * 8 + 8 * G::kSA], a_hi[ks][1], a_lo[ks][1]);
+        split_tf32(ap[ks * 8 + 4], a_hi[ks][2], a_lo[ks][2]);
+        split_tf32(ap[ks * 8 + 8 * G::kSA + 4], a_hi[ks][3], a_lo[ks][3]);
+      }
+      wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
-          // depth step ks: the core matrices 2 ks and 2 ks + 1
-          WgmmaBf16<G::kNW>::run(
-              p, a[ks], wgmma_desc(hi + 2 * ks * (C / 8) * G::kCoreElems, G::kStrideK, G::kStrideN),
-              ks > 0);
+      for (int ks = 0; ks < kSteps; ++ks) {
+        // depth step ks: the core matrices 2 ks and 2 ks + 1 of each half;
+        // W16 has no lo half (hi lo would add +0.0)
+        const uint64_t d_hi =
+            wgmma_desc(hi + 2 * ks * (C / 8) * G::kCoreElems, G::kStrideK, G::kStrideN);
+        Wgmma<G::kNW>::run(p, a_lo[ks], d_hi, ks > 0);
+        if constexpr (!W16) {
+          const uint64_t d_lo = wgmma_desc(hi + G::kHalfElems + 2 * ks * (C / 8) * G::kCoreElems,
+                                           G::kStrideK, G::kStrideN);
+          Wgmma<G::kNW>::run(p, a_hi[ks], d_lo, 1);
         }
-      } else {
-        uint32_t a_hi[kSteps][4], a_lo[kSteps][4];
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
-          split_tf32(ap[ks * 8], a_hi[ks][0], a_lo[ks][0]);
-          split_tf32(ap[ks * 8 + 8 * G::kSA], a_hi[ks][1], a_lo[ks][1]);
-          split_tf32(ap[ks * 8 + 4], a_hi[ks][2], a_lo[ks][2]);
-          split_tf32(ap[ks * 8 + 8 * G::kSA + 4], a_hi[ks][3], a_lo[ks][3]);
-        }
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ++ks) {
-          // depth step ks: the core matrices 2 ks and 2 ks + 1 of each half;
-          // W16 has no lo half (hi lo would add +0.0)
-          const uint64_t d_hi =
-              wgmma_desc(hi + 2 * ks * (C / 8) * G::kCoreElems, G::kStrideK, G::kStrideN);
-          Wgmma<G::kNW>::run(p, a_lo[ks], d_hi, ks > 0);
-          if constexpr (!W16) {
-            const uint64_t d_lo = wgmma_desc(hi + G::kHalfElems + 2 * ks * (C / 8) * G::kCoreElems,
-                                             G::kStrideK, G::kStrideN);
-            Wgmma<G::kNW>::run(p, a_hi[ks], d_lo, 1);
-          }
-          Wgmma<G::kNW>::run(p, a_hi[ks], d_hi, 1);
-        }
+        Wgmma<G::kNW>::run(p, a_hi[ks], d_hi, 1);
       }
       wgmma_commit();
       wgmma_wait_all();
       add_partial(acc, p);
     }
   }
+}
+
+// The 16-byte piece of a 128-byte row that holds piece `piece` in wgmma's
+// 128-byte swizzle, for row `row` of its 8-row pattern
+__host__ __device__ __forceinline__ int swz(int piece, int row) { return piece ^ (row & 7); }
+
+// The bf16 forms' staged tile.  At C >= 64 (Geo::kSwz), rows of 128 bytes
+// in 64-channel blocks, swizzled as wgmma's 128-byte mode reads them:
+// element (r, c) at tile[(c / 64) rs + 64 r + 8 swz(c % 64 / 8, r) + c % 8],
+// rs = 64 x its rows (a multiple of 8; the tile starts on 1024 bytes).
+// Below, column-major in 8-channel columns: element (r, c) at tile[(c / 8)
+// rs + 8 r + c % 8], rs = 8 x its rows; eight rows of a column are the 128
+// contiguous bytes of a core matrix.  Either way a tap's shift of the A
+// operand is a descriptor's start address, and no fragment passes through a
+// register.
+template <int C>
+__device__ __forceinline__ bf16* tile_at(bf16* tile, int rs, int r, int c) {
+  if constexpr (C >= 64) {
+    return tile + (c >> 6) * rs + 64 * r + (swz((c >> 3) & 7, r) << 3) + (c & 7);
+  } else {
+    return tile + (c >> 3) * rs + 8 * r + (c & 7);
+  }
+}
+
+// the stride rs of a bf16 tile of `rows` rows (`tile_at`)
+template <int C>
+__host__ __device__ __forceinline__ int tile_stride(int rows) {
+  return (C >= 64 ? 64 : 8) * rows;
+}
+
+// The descriptor of a K-major bf16 operand in wgmma's 128-byte swizzle at
+// `smem`: 8-row groups 1024 bytes apart.  The swizzle follows the address
+// bits (found on an H100: a base offset of the pattern's phase at the start
+// breaks the products), so a tap's shift of the tile by any number of rows
+// is its start address alone.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* smem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ uint32_t leaky_bf16x2(uint32_t v, float slope) {
+  const float2 f = unpack_bf16x2(v);
+  return pack_bf16x2(leaky(f.x, slope), leaky(f.y, slope));
+}
+
+// Stages src[g_lo .. g_lo + n) of one sequence (T rows of C bf16; zeros
+// outside [0, T), or mirrored) into a tile laid out as `tile_at` says (rs
+// its column stride), asynchronously: by cp.async, one commit group.  The
+// leaky-relu is applied once the rows have landed (`conv_core_bf16`), its
+// products rounded to bf16 as the Pallas bodies round them.  A warp takes 8
+// rows of 4 neighbouring 8-channel columns: its loads are 64 contiguous
+// bytes a row, and each quarter of it stores a column's 8 rows, 128
+// contiguous bytes.
+template <int C, int THREADS>
+__device__ __forceinline__ void stage_rows_bf16(bf16* tile, int rs, const bf16* __restrict__ src,
+                                                int T, int g_lo, int n, bool mirror = false) {
+  constexpr int CV = C / 8;  // columns
+  const int groups = (n + 7) / 8;
+  for (int i = threadIdx.x; i < groups * 8 * CV; i += THREADS) {
+    const int row = i / (8 * CV) * 8 + i % 8, cv = i / 8 % CV;
+    if (row >= n) continue;
+    int g = mirror ? reflect_index(g_lo + row, T) : g_lo + row;
+    const bool inside = g >= 0 && g < T;
+    g = inside ? g : 0;
+    cp_async16_zfill(tile_at<C>(tile, rs, row, 8 * cv), src + static_cast<size_t>(g) * C + 8 * cv,
+                     inside);
+  }
+  cp_async_commit();
+}
+
+// leaky(v, slope) in place on the first n rows of a bf16 tile (`tile_at`)
+template <int C, int THREADS>
+__device__ __forceinline__ void leaky_rows_bf16(bf16* tile, int rs, int n, float slope) {
+  constexpr int CV = C / 8;
+  for (int i = threadIdx.x; i < n * CV; i += THREADS) {
+    const int row = i % n, cv = i / n;
+    uint4* at = reinterpret_cast<uint4*>(tile_at<C>(tile, rs, row, 8 * cv));
+    const uint4 v = *at;
+    *at = make_uint4(leaky_bf16x2(v.x, slope), leaky_bf16x2(v.y, slope),
+                     leaky_bf16x2(v.z, slope), leaky_bf16x2(v.w, slope));
+  }
+}
+
+// acc[j] += sum_{k < K} sum_c tile[row + off0 + k step][c] W[k][n_j][c], the
+// bf16 forms' contraction (step > 0; `tile` as `tile_at` lays it out, rs its
+// stride): A and B both from shared memory, one wgmma m64nNk16 a depth
+// step, every product of the conv summed into acc by the tensor core (acc
+// starts at the bias: `init_acc`).  The truncation that makes the float32
+// forms sum a unit apart moves a stage's output by about 1e-5 of its size,
+// 1/400 of a bf16 ulp, and the sums are rounded to bf16 where the Pallas
+// bodies round.  A slab's units are issued back to back and committed
+// once; the warpgroup then waits until one slab is left in flight, so that
+// it runs on the tensor cores while the next lands and the ones after are
+// copied (ST - 2 slabs ahead of the one in use).  A copy into the stage of
+// slab s - 2 waits for the barrier at the top of the iteration of slab s,
+// when every warpgroup has waited on it.  Every warpgroup runs every
+// product, also one whose rows lie past the conv's (its sums are not
+// stored): ptxas serializes the wgmmas of a path that depends on the
+// thread.  Starts with a __syncthreads(), as `conv_core`; the rows a
+// `stage_rows_bf16` copies before the call land with the first slab, and
+// where `leaky_n` > 0 their first leaky_n rows take the leaky-relu once
+// they have landed, while the first slabs are on their way.  Returns with
+// the products done.
+template <int C, int WM, int ST, int SLAB>
+__device__ __forceinline__ void conv_core_bf16(float (&acc)[Geo<C>::kNT][4], bf16* tile, int rs,
+                                               int off0, int step, const bf16* __restrict__ W,
+                                               int K, bf16* ring, const Lane<C, WM>& ln,
+                                               int leaky_n = 0, float slope = 1.0f) {
+  static_assert(ST >= 3, "a slab on the tensor cores, one waited on, one landing");
+  using G = Geo<C, bf16>;
+  constexpr int THREADS = block_threads<C, WM>();
+  constexpr int kU = G::units_in(SLAB);
+  constexpr int kSlabElems = kU * G::kUnitElems;
+  constexpr int kSteps = G::kKC / Form<bf16>::kDepth;
+  const int total = K * G::kChunks;
+  const int n_slabs = (total + kU - 1) / kU;
+  // descriptors (in 16-byte steps from these): A at the warpgroup's first
+  // row of channel column 0, B at its first core matrix of stage 0 (the
+  // swizzled layout: addresses, its descriptors made at each product)
+  const uint64_t a0 = wgmma_desc(tile + (ln.group_m * 64 + off0) * 8, 2 * rs, 128);
+  const uint64_t b0 = wgmma_desc(ring + ln.n0 / 8 * G::kCoreElems, G::kStrideK, G::kStrideN);
+  const bf16* a_rows = tile + (ln.group_m * 64 + off0) * 64;
+
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < ST - 2; ++s) {
+    load_slab<C, THREADS, bf16, false, kU>(ring + s * kSlabElems, W, K, s);
+  }
+  if (leaky_n > 0) {
+    cp_async_wait<ST - 2>();  // the staged rows
+    __syncthreads();
+    leaky_rows_bf16<C, THREADS>(tile, rs, leaky_n, slope);
+  }
+  for (int s = 0; s < n_slabs; ++s) {
+    cp_async_wait<ST - 3>();
+    fence_smem_for_wgmma();
+    __syncthreads();  // slab s has landed; every warpgroup is done with slab s - 2
+    load_slab<C, THREADS, bf16, false, kU>(ring + (s + ST - 2) % ST * kSlabElems, W, K,
+                                           s + ST - 2);
+    const uint64_t b_slab = b0 + static_cast<uint64_t>(s % ST * (kSlabElems / 8));
+    const bf16* slab = ring + s % ST * kSlabElems + ln.n0 * G::kKC;
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = s * kU + u;
+      if (q < total) {
+        const int tap = q / G::kChunks, chunk = q % G::kChunks;
+        if constexpr (G::kSwz) {
+          // depth step ks: 32 bytes into the rows of the unit's 64 channels
+          const bf16* a = a_rows + chunk * rs + tap * step * 64;
+          const bf16* b = slab + u * G::kUnitElems;
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+            WgmmaBf16<G::kNW>::run(acc, wgmma_desc_sw128(a + 16 * ks),
+                                   wgmma_desc_sw128(b + 16 * ks));
+          }
+        } else {
+          const uint64_t a =
+              a0 + static_cast<uint64_t>(chunk * G::kKC / 8 * (rs / 8) + tap * step);
+          const uint64_t b = b_slab + static_cast<uint64_t>(u * (G::kUnitElems / 8));
+#pragma unroll
+          for (int ks = 0; ks < kSteps; ++ks) {
+            // depth step ks: channel columns (and core matrices) 2 ks, 2 ks + 1
+            WgmmaBf16<G::kNW>::run(acc, a + static_cast<uint64_t>(2 * ks * (rs / 8)),
+                                   b + static_cast<uint64_t>(2 * ks * (C / 8) * (G::kCoreElems / 8)));
+          }
+        }
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
 }
 
 // acc[j] = bias[channel] (+ bias2[channel]; zeros without a bias), each
@@ -741,64 +945,94 @@ __device__ __forceinline__ float leaky_fit(float v, float slope) {
   return v >= 0.0f ? v : fit<E>(v * slope);
 }
 
-__device__ __forceinline__ uint32_t leaky_bf16x2(uint32_t v, float slope) {
-  const float2 f = unpack_bf16x2(v);
-  return pack_bf16x2(leaky(f.x, slope), leaky(f.y, slope));
-}
-
 // Stages leaky(src[g_lo .. g_lo + n), slope) of one sequence (T rows of C
 // elements) into `tile`, zeros outside [0, T): every conv's zero padding; or,
 // with `mirror`, the mirrored rows there: a residual stack's reflect pad
-// (any number of folds, down to T = 1).  The bf16 form rounds the
-// leaky-relu's products to bf16, as the Pallas bodies do.  With `b16` a
-// float32 tile takes a bf16 source (src points at bf16), widened as it is
-// staged.
-template <int C, int THREADS, typename E>
-__device__ __forceinline__ void stage_rows(E* tile, const E* __restrict__ src, int T, int g_lo,
-                                           int n, float slope, bool mirror = false,
+// (any number of folds, down to T = 1).  With `b16` the float32 tile takes
+// a bf16 source (src points at bf16), widened as it is staged.
+template <int C, int THREADS>
+__device__ __forceinline__ void stage_rows(float* tile, const float* __restrict__ src, int T,
+                                           int g_lo, int n, float slope, bool mirror = false,
                                            bool b16 = false) {
-  if constexpr (!is_bf16<E>()) {
-    if (b16) {
-      // 4 bf16 (8 bytes) in, a float4 out a thread: neighbouring threads
-      // store neighbouring 16 bytes, as the float32 staging does
-      constexpr int CV = C / 4;
-      const bf16* s16 = reinterpret_cast<const bf16*>(src);
-      for (int i = threadIdx.x; i < n * CV; i += THREADS) {
-        const int row = i / CV, cv = i % CV;
-        const int g = mirror ? reflect_index(g_lo + row, T) : g_lo + row;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (g >= 0 && g < T) {
-          const uint2 u =
-              __ldg(reinterpret_cast<const uint2*>(s16 + static_cast<size_t>(g) * C) + cv);
-          const float2 a = unpack_bf16x2(u.x), b = unpack_bf16x2(u.y);
-          v = leaky4(make_float4(a.x, a.y, b.x, b.y), slope);
-        }
-        *reinterpret_cast<float4*>(tile + row * Geo<C, E>::kSA + 4 * cv) = v;
+  constexpr int CV = C / 4;  // 16-byte stores a row
+  if (b16) {
+    // 4 bf16 (8 bytes) in, a float4 out a thread: neighbouring threads
+    // store neighbouring 16 bytes, as the float32 staging does
+    const bf16* s16 = reinterpret_cast<const bf16*>(src);
+    for (int i = threadIdx.x; i < n * CV; i += THREADS) {
+      const int row = i / CV, cv = i % CV;
+      const int g = mirror ? reflect_index(g_lo + row, T) : g_lo + row;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (g >= 0 && g < T) {
+        const uint2 u =
+            __ldg(reinterpret_cast<const uint2*>(s16 + static_cast<size_t>(g) * C) + cv);
+        const float2 a = unpack_bf16x2(u.x), b = unpack_bf16x2(u.y);
+        v = leaky4(make_float4(a.x, a.y, b.x, b.y), slope);
       }
-      return;
+      *reinterpret_cast<float4*>(tile + row * Geo<C>::kSA + 4 * cv) = v;
     }
+    return;
   }
-  constexpr int kVec = 16 / static_cast<int>(sizeof(E));  // elements of a 16-byte copy
-  constexpr int CV = C / kVec;
   for (int i = threadIdx.x; i < n * CV; i += THREADS) {
     const int row = i / CV, cv = i % CV;
     const int g = mirror ? reflect_index(g_lo + row, T) : g_lo + row;
-    if constexpr (is_bf16<E>()) {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (g >= 0 && g < T) {
-        v = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(g) * C) + cv);
-        v = make_uint4(leaky_bf16x2(v.x, slope), leaky_bf16x2(v.y, slope),
-                       leaky_bf16x2(v.z, slope), leaky_bf16x2(v.w, slope));
-      }
-      *reinterpret_cast<uint4*>(tile + row * Geo<C, E>::kSA + kVec * cv) = v;
-    } else {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (g >= 0 && g < T) {
-        v = leaky4(__ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(g) * C) + cv),
-                   slope);
-      }
-      *reinterpret_cast<float4*>(tile + row * Geo<C, E>::kSA + kVec * cv) = v;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (g >= 0 && g < T) {
+      v = leaky4(__ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(g) * C) + cv),
+                 slope);
     }
+    *reinterpret_cast<float4*>(tile + row * Geo<C>::kSA + 4 * cv) = v;
+  }
+}
+
+// A form's staging, contraction and tile addressing: the float32 forms'
+// row-major tile (`stage_rows`, `conv_core`), the bf16 forms' column-major
+// one (`stage_rows_bf16`, `conv_core_bf16`, `tile_at`; rs its column
+// stride, 8 x its rows).  Every conv of the pair and stack bodies reads its
+// tile from row 0, tap k at row k step.
+// `stage` the rows of `conv`'s first call, which applies the leaky-relu to
+// the first `leaky_n` of them in the bf16 forms (`stage_rows_bf16`).
+template <int C, int THREADS, typename E>
+__device__ __forceinline__ void stage(E* tile, int rs, const E* __restrict__ src, int T, int g_lo,
+                                      int n, float slope, bool mirror, bool b16) {
+  if constexpr (is_bf16<E>()) {
+    stage_rows_bf16<C, THREADS>(tile, rs, src, T, g_lo, n, mirror);
+  } else {
+    stage_rows<C, THREADS>(tile, src, T, g_lo, n, slope, mirror, b16);
+  }
+}
+
+template <int C, int WM, int ST, typename E, bool W16, int SLAB>
+__device__ __forceinline__ void conv(float (&acc)[Geo<C>::kNT][4], E* tile, int rs, int step,
+                                     const E* __restrict__ W, int K, E* ring,
+                                     const Lane<C, WM>& ln, bool active, int leaky_n = 0,
+                                     float slope = 1.0f) {
+  if constexpr (is_bf16<E>()) {
+    // every warpgroup
+    conv_core_bf16<C, WM, ST, SLAB>(acc, tile, rs, 0, step, W, K, ring, ln, leaky_n, slope);
+  } else {
+    conv_core<C, WM, ST, E, W16>(acc, tile, 0, step, W, K, ring, ln, active);
+  }
+}
+
+// the first element of a pair or stack body's shared memory: the swizzled
+// bf16 tile starts on 1024 bytes (launches ask for them more)
+template <int C, typename E>
+__device__ __forceinline__ E* smem_base(E* smem) {
+  if constexpr (Geo<C, E>::kSwz) {
+    const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    return smem + ((1024 - (a & 1023)) & 1023) / sizeof(E);
+  } else {
+    return smem;
+  }
+}
+
+template <int C, typename E>
+__device__ __forceinline__ E* tile_elem(E* tile, int rs, int r, int c) {
+  if constexpr (is_bf16<E>()) {
+    return tile_at<C>(tile, rs, r, c);
+  } else {
+    return tile + r * Geo<C, E>::kSA + c;
   }
 }
 
@@ -851,7 +1085,12 @@ __global__ void __launch_bounds__(256) pack_kernel(PackArgsT<E, S> a) {
     } else {
       v = __ldg(from);
     }
-    E* at = dst + static_cast<size_t>(unit) * G::kUnitElems + within;
+    E* at = dst + static_cast<size_t>(unit) * G::kUnitElems;
+    if constexpr (G::kSwz) {
+      at += produced * G::kKC + (swz(kg, produced) << 3) + kk;
+    } else {
+      at += within;
+    }
     if constexpr (is_bf16<E>()) {
       *at = __float2bfloat16_rn(v);
     } else if constexpr (kW16) {
@@ -910,7 +1149,7 @@ using PairArgs = PairArgsT<float>;
 // `FVT_MMA_BF16_PAIR_KERNEL`, `FVT_MMA_W16_PAIR_KERNEL`), which names it
 // after its library and form, so that a profile tells the forward's
 // launches from the backward's recompute.
-template <int C, int WM, int ST, typename E, bool W16 = false>
+template <int C, int WM, int ST, typename E, bool W16 = false, int SLAB = 0>
 __device__ __forceinline__ void pair_body(const PairArgsT<E>& a, int T, int R, int tile_rows,
                                           E* smem) {
   using G = Geo<C, E>;
@@ -923,19 +1162,21 @@ __device__ __forceinline__ void pair_body(const PairArgsT<E>& a, int T, int R, i
   const int m1 = (K1 - 1) / 2 * d, m2 = (K2 - 1) / 2;
   const int nu = no + 2 * m2, u_lo = q0 - m2;
   const size_t base = static_cast<size_t>(b) * T * C;
-  E* tile = smem;
-  E* ring = smem + tile_rows * G::kSA;
+  E* tile = smem_base<C>(smem);
+  E* ring = tile + tile_rows * G::kSA;
   float acc[G::kNT][4];
   const bool sb = W16 && (a.bf16 & kBf16Src) != 0, bb = W16 && (a.bf16 & kBf16Bias) != 0;
   const E* src = a.src[z] + base;
   if constexpr (W16) src = elem(a.src[z], base, sb);
+  const int rs = tile_stride<C>(tile_rows);  // the bf16 tile's (`tile_at`)
 
-  stage_rows<C, THREADS>(tile, src, T, u_lo - m1, nu + 2 * m1, a.slope, false, sb);
+  stage<C, THREADS>(tile, rs, src, T, u_lo - m1, nu + 2 * m1, a.slope, false, sb);
 
   // u row i reads the staged rows i + k d
   const bool active_u = ln.group_m * 64 < nu;
   init_acc<C, WM, E>(acc, a.b1[z], ln, nullptr, bb);
-  conv_core<C, WM, ST, E, W16>(acc, tile, 0, d, a.w1[z], K1, ring, ln, active_u);
+  conv<C, WM, ST, E, W16, SLAB>(acc, tile, rs, d, a.w1[z], K1, ring, ln, active_u, nu + 2 * m1,
+                                a.slope);
   __syncthreads();  // the tile is read no more: u takes its rows
   E* u_out = a.u_dst[z];
   if (active_u) {
@@ -953,7 +1194,7 @@ __device__ __forceinline__ void pair_body(const PairArgsT<E>& a, int T, int R, i
           v = make_float2(leaky_fit<E>(fit<E>(acc[j][2 * half]), a.slope),
                           leaky_fit<E>(fit<E>(acc[j][2 * half + 1]), a.slope));
         }
-        store2(tile + r * G::kSA + col, v);
+        store2(tile_elem<C>(tile, rs, r, col), v);
         if (owned) store2(u_out + base + static_cast<size_t>(gr) * C + col, v);
       }
     }
@@ -963,7 +1204,7 @@ __device__ __forceinline__ void pair_body(const PairArgsT<E>& a, int T, int R, i
   // output row i reads u rows i + k
   const bool active_o = ln.group_m * 64 < no;
   init_acc<C, WM, E>(acc, a.b2[z], ln, nullptr, bb);
-  conv_core<C, WM, ST, E, W16>(acc, tile, 0, 1, a.w2[z], K2, ring, ln, active_o);
+  conv<C, WM, ST, E, W16, SLAB>(acc, tile, rs, 1, a.w2[z], K2, ring, ln, active_o);
   if (!active_o) return;
   auto store = [&](auto src_bf16) {
 #pragma unroll
@@ -1005,11 +1246,11 @@ typedef PairKernelT<float> PairKernel;
   }
 
 #define FVT_MMA_BF16_PAIR_KERNEL(name)                                          \
-  template <int C, int WM, int ST>                                              \
+  template <int C, int WM, int ST, int SLAB>                                    \
   __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
   name(fvt_mma::PairArgsT<fvt_mma::bf16> a, int T, int R, int tile_rows) {      \
     extern __shared__ __align__(16) unsigned char smem_raw[];                  \
-    fvt_mma::pair_body<C, WM, ST, fvt_mma::bf16>(                               \
+    fvt_mma::pair_body<C, WM, ST, fvt_mma::bf16, false, SLAB>(                  \
         a, T, R, tile_rows, reinterpret_cast<fvt_mma::bf16*>(smem_raw));        \
   }
 
@@ -1026,10 +1267,31 @@ typedef PairKernelT<float> PairKernel;
 // blocks in the order of blockIdx.z, and the kernels read it backwards:
 // HiFiGAN lists its branches by rising kernel size, so the longest blocks
 // start first and the short ones fill the launch's tail.
-template <int C, int WM, int ST, typename E>
+// elements of the weight ring of ST slabs: the float32 forms' Geo slabs, or
+// the bf16 forms' of about SLAB bytes
+template <int C, typename E, int ST, int SLAB>
+__host__ __device__ constexpr int ring_elems() {
+  using G = Geo<C, E>;
+  return ST * (is_bf16<E>() ? G::units_in(SLAB) * G::kUnitElems : G::kSlabElems);
+}
+
+// the rows of a tile of `rows` rows as the form lays it out: the swizzled
+// bf16 tile a multiple of its 8-row pattern
+template <int C, typename E>
+int tile_rows_of(int rows) {
+  return Geo<C, E>::kSwz ? (rows + 7) / 8 * 8 : rows;
+}
+
+// bytes of shared memory a pair or stack launch asks for
+template <int C, typename E, int ST, int SLAB>
+int body_smem(int tile_rows) {
+  return static_cast<int>(sizeof(E)) * (tile_rows * Geo<C, E>::kSA + ring_elems<C, E, ST, SLAB>()) +
+         (Geo<C, E>::kSwz ? 1024 : 0);
+}
+
+template <int C, int WM, int ST, typename E, int SLAB = 0>
 cudaError_t launch_pair(PairKernelT<E> kernel, const PairArgsT<E>& a, int nz, int B, int T,
                         cudaStream_t stream) {
-  using G = Geo<C, E>;
   constexpr int kRows = 64 * WM;
   int max_m1 = 0, max_m2 = 0;
   for (int z = 0; z < nz; ++z) {
@@ -1045,8 +1307,8 @@ cudaError_t launch_pair(PairKernelT<E> kernel, const PairArgsT<E>& a, int nz, in
   // kRows - 1 + 2 m2 of u (a warpgroup computes its 64 rows whole, so its
   // last rows may read past the rows staged; what they produce is never
   // stored)
-  const int tile_rows = kRows + 2 * (max_m1 > max_m2 ? max_m1 : max_m2);
-  const int smem = static_cast<int>(sizeof(E)) * (tile_rows * G::kSA + ST * G::kSlabElems);
+  const int tile_rows = tile_rows_of<C, E>(kRows + 2 * (max_m1 > max_m2 ? max_m1 : max_m2));
+  const int smem = body_smem<C, E, ST, SLAB>(tile_rows);
   if (R < 1 || smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
@@ -1096,7 +1358,7 @@ using StackArgs = StackArgsT<float>;
 // `FVT_MMA_W16_STACK_KERNEL`), which names it after its library and form,
 // so that a profile tells the forward's launches from the backward's
 // recompute.
-template <int C, int WM, int ST, typename E, bool W16 = false>
+template <int C, int WM, int ST, typename E, bool W16 = false, int SLAB = 0>
 __device__ __forceinline__ void stack_body(const StackArgsT<E>& a, int T, int tile_rows,
                                            E* smem) {
   using G = Geo<C, E>;
@@ -1110,15 +1372,17 @@ __device__ __forceinline__ void stack_body(const StackArgsT<E>& a, int T, int ti
   const bool sb = W16 && (a.bf16 & kBf16Src) != 0, bb = W16 && (a.bf16 & kBf16Bias) != 0;
   const E* src = a.src + base;
   if constexpr (W16) src = elem(a.src, base, sb);
-  E* tile = smem;
-  E* ring = smem + tile_rows * G::kSA;
+  E* tile = smem_base<C>(smem);
+  E* ring = tile + tile_rows * G::kSA;
+  const int rs = tile_stride<C>(tile_rows);  // the bf16 tile's (`tile_at`)
   float acc[G::kNT][4];
 
-  stage_rows<C, THREADS>(tile, src, T, q0 - m, no + 2 * m, a.slope, true, sb);
+  stage<C, THREADS>(tile, rs, src, T, q0 - m, no + 2 * m, a.slope, true, sb);
   // u row i reads the staged rows i + k d
   const bool active = ln.group_m * 64 < no;
   init_acc<C, WM, E>(acc, a.bd, ln, nullptr, bb);
-  conv_core<C, WM, ST, E, W16>(acc, tile, 0, d, a.wd, a.K, ring, ln, active);
+  conv<C, WM, ST, E, W16, SLAB>(acc, tile, rs, d, a.wd, a.K, ring, ln, active, no + 2 * m,
+                                a.slope);
   __syncthreads();  // the tile is read no more: u takes its rows
   if (active) {
 #pragma unroll
@@ -1129,7 +1393,7 @@ __device__ __forceinline__ void stack_body(const StackArgsT<E>& a, int T, int ti
         const int col = ln.n0 + j * 8 + 2 * ln.t;
         const float2 v = make_float2(leaky_fit<E>(fit<E>(acc[j][2 * half]), a.slope),
                                      leaky_fit<E>(fit<E>(acc[j][2 * half + 1]), a.slope));
-        store2(tile + r * G::kSA + col, v);
+        store2(tile_elem<C>(tile, rs, r, col), v);
         if (a.u_dst != nullptr && r < no) {
           store2(a.u_dst + base + static_cast<size_t>(q0 + r) * C + col, v);
         }
@@ -1141,7 +1405,7 @@ __device__ __forceinline__ void stack_body(const StackArgsT<E>& a, int T, int ti
   uint32_t t_kept[G::kNT][2];  // the bf16 form's t, rows g and g + 8
   if constexpr (is_bf16<E>()) {
     init_acc<C, WM, E>(acc, a.b1, ln);
-    conv_core<C, WM, ST>(acc, tile, 0, 1, a.w1, 1, ring, ln, active);
+    conv<C, WM, ST, E, W16, SLAB>(acc, tile, rs, 1, a.w1, 1, ring, ln, active);
 #pragma unroll
     for (int j = 0; j < G::kNT; ++j) {
       t_kept[j][0] = pack_bf16x2(acc[j][0], acc[j][1]);
@@ -1150,11 +1414,11 @@ __device__ __forceinline__ void stack_body(const StackArgsT<E>& a, int T, int ti
     init_acc<C, WM, E>(acc, a.bs, ln);
   } else {
     init_acc<C, WM, E>(acc, a.b1, ln, a.bs, bb);
-    conv_core<C, WM, ST, E, W16>(acc, tile, 0, 1, a.w1, 1, ring, ln, active);
+    conv<C, WM, ST, E, W16, SLAB>(acc, tile, rs, 1, a.w1, 1, ring, ln, active);
   }
   __syncthreads();  // u is read no more: the raw rows of h take its place
-  stage_rows<C, THREADS>(tile, src, T, q0, no, 1.0f, false, sb);
-  conv_core<C, WM, ST, E, W16>(acc, tile, 0, 1, a.ws, 1, ring, ln, active);
+  stage<C, THREADS>(tile, rs, src, T, q0, no, 1.0f, false, sb);
+  conv<C, WM, ST, E, W16, SLAB>(acc, tile, rs, 1, a.ws, 1, ring, ln, active);
   if (!active) return;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -1186,11 +1450,11 @@ typedef StackKernelT<float> StackKernel;
   }
 
 #define FVT_MMA_BF16_STACK_KERNEL(name)                                         \
-  template <int C, int WM, int ST>                                              \
+  template <int C, int WM, int ST, int SLAB>                                    \
   __global__ void __launch_bounds__(fvt_mma::block_threads<C, WM>())            \
   name(fvt_mma::StackArgsT<fvt_mma::bf16> a, int T, int tile_rows) {            \
     extern __shared__ __align__(16) unsigned char smem_raw[];                  \
-    fvt_mma::stack_body<C, WM, ST, fvt_mma::bf16>(                              \
+    fvt_mma::stack_body<C, WM, ST, fvt_mma::bf16, false, SLAB>(                 \
         a, T, tile_rows, reinterpret_cast<fvt_mma::bf16*>(smem_raw));           \
   }
 
@@ -1204,15 +1468,14 @@ typedef StackKernelT<float> StackKernel;
 
 // One launch of `kernel` (a FVT_MMA_STACK_KERNEL or FVT_MMA_BF16_STACK_KERNEL
 // at C, WM, ST) with `a` over (B, T, C).
-template <int C, int WM, int ST, typename E>
+template <int C, int WM, int ST, typename E, int SLAB = 0>
 cudaError_t launch_stack(StackKernelT<E> kernel, const StackArgsT<E>& a, int B, int T,
                          cudaStream_t stream) {
-  using G = Geo<C, E>;
   constexpr int R = 64 * WM;
   if (a.K < 1 || a.K % 2 == 0 || a.dil < 1) return cudaErrorInvalidValue;
   // conv_d reads up to row R - 1 + 2 m of the tile
-  const int tile_rows = R + 2 * ((a.K - 1) / 2 * a.dil);
-  const int smem = static_cast<int>(sizeof(E)) * (tile_rows * G::kSA + ST * G::kSlabElems);
+  const int tile_rows = tile_rows_of<C, E>(R + 2 * ((a.K - 1) / 2 * a.dil));
+  const int smem = body_smem<C, E, ST, SLAB>(tile_rows);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = fvt_smem::allow_max_smem(reinterpret_cast<const void*>(kernel));
   if (err != cudaSuccess) return err;
@@ -1575,15 +1838,31 @@ struct Tile {
   static constexpr int kWM = C >= 256 ? 1 : 2, kST = 2;
 };
 
-// `name`: a FVT_MMA_PAIR_KERNEL or a FVT_MMA_BF16_PAIR_KERNEL
+// the block of a form's pair launches: Tile, or TileBf16Pair for the bf16 forms
+template <int C, typename E>
+struct PairTile : Tile<C> {
+  static constexpr int kSlabBytes = 0;
+};
+template <int C>
+struct PairTile<C, bf16> : TileBf16Pair<C> {};
+
+// `name`: a FVT_MMA_PAIR_KERNEL or a FVT_MMA_W16_PAIR_KERNEL
 #define FVT_MMA_LAUNCH_PAIR(name, C, a, nz, B, T, stream)                    \
   fvt_mma::launch_pair<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>(     \
       name<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>, a, nz, B, T, stream)
 
-// `name`: a FVT_MMA_STACK_KERNEL or a FVT_MMA_BF16_STACK_KERNEL
+// `name`: a FVT_MMA_STACK_KERNEL or a FVT_MMA_W16_STACK_KERNEL
 #define FVT_MMA_LAUNCH_STACK(name, C, a, B, T, stream)                       \
   fvt_mma::launch_stack<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>(    \
       name<C, fvt_mma::Tile<C>::kWM, fvt_mma::Tile<C>::kST>, a, B, T, stream)
+
+// `name`: a FVT_MMA_BF16_STACK_KERNEL
+#define FVT_MMA_LAUNCH_BF16_STACK(name, C, a, B, T, stream)                              \
+  fvt_mma::launch_stack<C, fvt_mma::TileBf16Stack<C>::kWM, fvt_mma::TileBf16Stack<C>::kST,  \
+                        fvt_mma::bf16, fvt_mma::TileBf16Stack<C>::kSlabBytes>(             \
+      name<C, fvt_mma::TileBf16Stack<C>::kWM, fvt_mma::TileBf16Stack<C>::kST,              \
+           fvt_mma::TileBf16Stack<C>::kSlabBytes>,                                         \
+      a, B, T, stream)
 
 // `name`: a FVT_MMA_CONV_KERNEL
 #define FVT_MMA_LAUNCH_CONV(name, C, a, nz, B, T, stream)                    \

@@ -125,7 +125,8 @@ cudaError_t pack_stage(E* packed, const PairArgs* steps, int nb, int np, bool sw
 // `packed` and writing h' to scratch (2 nb B T C elements: two sets of nb
 // buffers used in turn).  The branches' outputs end in set (np - 1) % 2:
 // buffer br at scratch + ((np - 1) % 2 * nb + br) B T C.
-template <int C, typename E, int WM = fvt_mma::Tile<C>::kWM, int ST = fvt_mma::Tile<C>::kST>
+template <int C, typename E, int WM = fvt_mma::PairTile<C, E>::kWM,
+          int ST = fvt_mma::PairTile<C, E>::kST, int SLAB = fvt_mma::PairTile<C, E>::kSlabBytes>
 cudaError_t run_pairs(fvt_mma::PairKernelT<E> kernel, const PairArgs* steps, int nb, int np,
                       const E* packed, const E* x, E* scratch, int B, int T,
                       cudaStream_t stream) {
@@ -148,7 +149,7 @@ cudaError_t run_pairs(fvt_mma::PairKernelT<E> kernel, const PairArgs* steps, int
       a.dil[br] = steps[p].dil[z];
       a.k2[br] = steps[p].k2[z];
     }
-    const cudaError_t err = fvt_mma::launch_pair<C, WM, ST>(kernel, a, nb, B, T, stream);
+    const cudaError_t err = fvt_mma::launch_pair<C, WM, ST, E, SLAB>(kernel, a, nb, B, T, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -845,6 +845,60 @@ def test_fused_resstack_bf16_kernel_matches_plain_melgan_stages(cuda, melgan_ori
     _assert_bf16_close(fused_residual_stacks(x, stacks), fused_residual_stacks_plain(x, stacks))
 
 
+# The bf16 forms' blocks (mma_common.cuh, TileBf16Stack and TileBf16Pair):
+# rows a chain block owns (64 x its warpgroups over the rows; at C = 256
+# 128 where that grid runs in fewer waves, `wide_stack_blocks`) and a pair
+# block's output rows (less the 2 x 5 rows of u the k = 11 pairs
+# recompute), by width.
+BF16_CHAIN_ROWS = {32: 128, 64: 128, 128: 128, 256: 64}
+BF16_PAIR_ROWS = {16: 118, 32: 246, 64: 246, 128: 118, 256: 54}
+
+
+def _bf16_block_cases(rows):
+    """(B, T, C) at every width of `rows`: T below one block, one block less
+    a row, one block, one block and a row, several blocks and a ragged last
+    one; B from 1 to 4."""
+    cases = []
+    for C, R in rows.items():
+        cases += [(1, 1, C), (4, R // 2 + 3, C), (1, R - 1, C), (2, R, C), (3, R + 1, C),
+                  (2, 3 * R + 7, C)]
+    return cases
+
+
+@pytest.mark.parametrize("B,T,C", _bf16_block_cases(BF16_CHAIN_ROWS))
+def test_fused_resstack_bf16_kernel_matches_plain_on_its_blocks(cuda, B, T, C):
+    """Kernel 2b's blocks and slabs: every width at the edges of its bf16
+    blocks, with the stacks' kernel of 3 taps and of 5 (a last slab that
+    the units do not fill)."""
+    g = torch.Generator().manual_seed(T + C + B)
+    x = (0.3 * torch.randn(B, T, C, generator=g)).to(cuda).to(BF16)
+    for K in (3, 5):
+        stacks = _stacks(C, cuda, seed=C + K, K=K)
+        _assert_bf16_close(fused_residual_stacks(x, stacks), fused_residual_stacks_plain(x, stacks))
+
+
+# (B, T) at C = 256 on both sides of the choice of 128-row blocks on an
+# H100's 132 SMs: 132 blocks of 64 rows (one wave), 133 and 141 (two
+# waves, so 128-row blocks, the last one ragged)
+@pytest.mark.parametrize("B,T", [(1, 8448), (1, 8453), (3, 2950)])
+def test_fused_resstack_bf16_kernel_matches_plain_on_both_block_heights(cuda, B, T):
+    g = torch.Generator().manual_seed(T + B)
+    x = (0.3 * torch.randn(B, T, 256, generator=g)).to(cuda).to(BF16)
+    stacks = _stacks(256, cuda, seed=T)
+    _assert_bf16_close(fused_residual_stacks(x, stacks), fused_residual_stacks_plain(x, stacks))
+
+
+@pytest.mark.parametrize("B,T,C", _bf16_block_cases(BF16_PAIR_ROWS))
+def test_fused_mrf_bf16_kernel_matches_plain_on_its_blocks(cuda, B, T, C):
+    """Kernel 4b's blocks: every width at the edges of its bf16 pair blocks,
+    three branches (kernels 3, 7, 11) and two (3, 5: other margins)."""
+    g = torch.Generator().manual_seed(T + C + B)
+    x = (0.3 * torch.randn(B, T, C, generator=g)).to(cuda).to(BF16)
+    for kernels in ((3, 7, 11), (3, 5)):
+        blocks = _resblocks(C, cuda, seed=C + len(kernels), kernels=kernels)
+        _assert_bf16_close(fused_mrf_stage(x, blocks), fused_mrf_stage_plain(x, blocks))
+
+
 @pytest.mark.parametrize("stage,B,T", [(0, 1, 4680), (1, 1, 23400), (2, 1, 70200), (2, 4, 70200),
                                        (0, 1, 1), (1, 2, 7)])
 def test_fused_mrf_bf16_kernel_matches_plain_release_weights(cuda, hifigan_light, stage, B, T):
