@@ -776,6 +776,24 @@ def device_ms_by_name(torch, fn, n: int = 10, tries: int = 3) -> dict:
     return out
 
 
+def one_fused_tail(torch, fn, what: str) -> dict:
+    """One call of fn launches the one-launch bf16 tail once and none of
+    the five launches' kernels, by the library's own launch counts (the
+    profiler sees no device events in a profile of one call at that point
+    of this run); -> the launches by kernel."""
+    from fastvocoder_tpu_torch.ops.fused_tail import kernel_launches
+
+    torch.cuda.synchronize()
+    before = kernel_launches()
+    fn()
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in kernel_launches().items() if n != before[k]}
+    if ran != {"tail_fused_bf16_kernel": 1}:
+        raise AssertionError(f"{what} ran the tail as {ran}, not one launch of "
+                             "tail_fused_bf16_kernel")
+    return ran
+
+
 def host_us(torch, fn, n: int = 60) -> float:
     """Median host time of one call of fn, the device idle when it starts."""
     for _ in range(5):
@@ -1615,7 +1633,8 @@ def check_bf16_tail(torch, gen, frames: int):
     dev = next(gen.parameters()).device
     light = gen.tail_operands()
     T_main = frames * int(np.prod(gen.cfg.upsample_rates[:-1]))
-    cases = [(light, 1, T_main, 32), (light, 2, 35, 32), (light, 1, 1, 32)]
+    # batch 3 of 8000 rows: 126 planned tiles of 192 rows, the last ragged
+    cases = [(light, 1, T_main, 32), (light, 2, 35, 32), (light, 1, 1, 32), (light, 3, 4000, 32)]
     cases += [(light, 1, t, 32) for t in tail_edge_lengths(16)]
     worst = bf16_cases(torch, "fused_tail_bf16", cases, fused_hifigan_tail_bf16_cuda,
                        fused_hifigan_tail_plain, lambda B, T: T > 1000)
@@ -1630,22 +1649,29 @@ def check_bf16_tail(torch, gen, frames: int):
     ms = cuda_ms(lambda: fused_hifigan_tail_bf16_cuda(xb, *light, table=table), iters=20, warmup=3)
     plain = cuda_ms(lambda: fused_hifigan_tail_plain(xb, *light), iters=20, warmup=3)
     parts = device_ms_by_name(torch, lambda: fused_hifigan_tail_bf16_cuda(xb, *light, table=table))
+    # at C_out 16 the whole tail is one launch, none of the five launches' kernels
+    ran = one_fused_tail(torch, lambda: fused_hifigan_tail_bf16_cuda(xb, *light, table=table),
+                         "fused_tail_bf16")
     k_up, b_up, stride, _, blocks, k_post, b_post = light
     T, C = stride * T_main, k_up.shape[2]
     mrf_bytes, mrf_flops = mrf_work(1, T, blocks)
     nbytes = (mrf_bytes - 4 * 2 * T * C) / 2 + 2 * (xb.numel() + T) + 4 * (
         k_up.numel() + b_up.numel() + k_post.numel() + b_post.numel())
-    core_flops = (2 * T * (k_up.shape[0] // stride) * k_up.shape[1] * C
-                  + 2 * T * k_post.shape[0] * C * k_post.shape[2])
-    # the MRF on the tensor cores in bf16, the upsample and head on the CUDA cores
-    bms = max(nbytes / PEAK_BYTES_PER_S,
-              mrf_flops / PEAK_BF16_FLOP_PER_S + core_flops / PEAK_F32_FLOP_PER_S) * 1e3
+    up_flops = 2 * T * (k_up.shape[0] // stride) * k_up.shape[1] * C
+    head_flops = 2 * T * k_post.shape[0] * C * k_post.shape[2]
+    # the MRF and the upsample on the tensor cores in bf16 (the operands'
+    # type), the head on the CUDA cores at the float32 rate
+    bms = max(nbytes / PEAK_BYTES_PER_S, (mrf_flops + up_flops) / PEAK_BF16_FLOP_PER_S
+              + head_flops / PEAK_F32_FLOP_PER_S) * 1e3
     by = "bytes" if nbytes / PEAK_BYTES_PER_S * 1e3 >= bms else "operations"
+    plan = table.plan(1, T)
     log(f"  fused_tail_bf16 (1, {T_main}, 32) -> (1, {T}, 1): kernel {ms:.4f} ms with a kept "
-        f"table, plain {plain:.4f} ms; bound {bms:.4f} ms ({by}): {share(bms, ms)} of it")
-    log("  fused_tail_bf16 by kernel: " + ", ".join(
+        f"table ({plan.tiles} tiles of {plan.rows} rows, halo {plan.halo}), plain {plain:.4f} "
+        f"ms; bound {bms:.4f} ms ({by}): {share(bms, ms)} of it")
+    log(f"  fused_tail_bf16 launches of one call {ran}; device by kernel: " + (", ".join(
         f"{re.findall(r'(\w+(?:<[^()]*>)?)\(', k)[0]} {v:.4f} ms"
-        for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+        for k, v in sorted(parts.items(), key=lambda kv: -kv[1])) or "not measured (no device "
+        "events)"))
     return {
         "name": "fused_tail_bf16", "route": "cuda",
         "source": "fastvocoder_tpu_torch/csrc/fused_tail.cu",
@@ -1780,12 +1806,12 @@ def kernel_class(name: str) -> str:
     for key, label in (("resstack_bwd_bf16_", "fused_resstack_bwd_bf16 kernel"),
                        ("mrf_bwd_bf16_", "fused_mrf_bwd_bf16 kernel"),
                        ("resstack_bf16_kernel", "fused_resstack_bf16 kernel"),
-                       ("basis_decode_bf16_kernel", "basis_decode_bf16 kernel"),
+                       ("basis_decode_wgmma_bf16_kernel",
+                        "basis_decode_bf16 kernel (bf16 wgmma, persistent)"),
                        ("mrf_pair_bf16_kernel", "fused_mrf_bf16 kernel"),
                        ("mrf_mean_bf16_kernel", "fused_mrf_bf16 kernel"),
-                       ("tail_upsample_bf16_kernel", "fused_tail_bf16 kernel: upsample"),
-                       ("tail_pair_bf16_kernel", "fused_tail_bf16 kernel: MRF pairs (bf16 wgmma)"),
-                       ("tail_head_bf16_kernel", "fused_tail_bf16 kernel: mean and head"),
+                       ("tail_fused_bf16_kernel",
+                        "fused_tail_bf16 kernel: one launch (upsample, MRF, head)"),
                        ("resstack_bwd_", "fused_resstack_bwd kernel"),
                        ("resstack_kernel", "fused_resstack kernel"),
                        ("basis_decode_kernel", "basis_decode kernel (persistent, cp.async ring)"),
@@ -1863,6 +1889,21 @@ def profile_inference(torch, synth, mel: np.ndarray, n: int = 10) -> None:
         synth.test_rtf(mel)
     torch.cuda.synchronize()
     profile_device(torch, lambda: synth.test_rtf(mel), n, f"inference of {mel.shape[0]} frames")
+
+
+def kernel_name(name: str) -> str:
+    """A kernel's name from a profiler's, without its namespaces and types."""
+    return re.sub(r"\(anonymous namespace\)::|\w+::", "", name).split("(")[0].split("<")[0]
+
+
+def tail_in_one_launch(torch, synth, mel: np.ndarray) -> None:
+    """A bf16 HiFiGAN light inference runs its tail as one launch of
+    `tail_fused_bf16_kernel` and none of the five launches' kernels."""
+    ran = one_fused_tail(torch, lambda: synth.test_rtf(mel), "a bf16 HiFiGAN inference")
+    names = device_ms_by_name(torch, lambda: synth.test_rtf(mel), 3)
+    log(f"  tail kernels of one bf16 inference: launches {ran}; device " + (", ".join(
+        f"{kernel_name(k).replace('void ', '')} {v:.4f} ms" for k, v in names.items()
+        if "tail_" in k) or "not measured (no device events)"))
 
 
 def post(url: str, mel: np.ndarray):
@@ -3586,8 +3627,10 @@ def main() -> int:
     bf16_random_init_phase(torch)
     for model, ckpt, conf, _ in bf16_paths[:2]:
         log(f"[profile: {model} batch-1 inference in bf16 on the device]")
-        profile_inference(torch, Synthesizer(ckpt, conf, model, compute_dtype=torch.bfloat16),
-                          mel)
+        synth = Synthesizer(ckpt, conf, model, compute_dtype=torch.bfloat16)
+        profile_inference(torch, synth, mel)
+        if model == "hifigan":
+            tail_in_one_launch(torch, synth, mel)
     log(f"  rtf by model: {rtfs}")
     mesh_ms = mesh_serving_phase(torch, count_path, run_serve, ServingModel)
     lastlinear_phase(torch)

@@ -3,8 +3,8 @@ forms 2b, 4b and 6b, and of the two backward kernels, float32 (3, 5) and
 bf16 (3b, 5b), by pass, of the package in any checkout, on one NVIDIA GPU.
 
     python3 fastvocoder_tpu_torch/bin/chain_times.py --root <checkout> --label <name>
-        [--parts forward,bf16_forward,backward] [--json <path>] [--against <path>]
-        [--events]
+        [--parts forward,bf16_forward,backward] [--forms 2b,4b,6b] [--json <path>]
+        [--against <path>] [--events]
 
 Run as a file, once per checkout: it puts `--root` first on the module path
 and imports that checkout's `fastvocoder_tpu_torch`, so two commits (for
@@ -32,11 +32,13 @@ in one call by running it on each in turns.  With seeded weights:
   and 32 (`BF16_FORWARD`): 2b (seeded stacks, K = 3, dilations 1, 3, 9)
   at Basis-MelGAN light's and MelGAN original's stages, 4b (seeded
   branches, kernels 3, 7, 11, dilations 1, 3, 5) at HiFiGAN light's, 6b on
-  HiFiGAN light's release tail.  For each shape: the device ms of one call
+  HiFiGAN light's release tail and on a seeded tail of HiFiGAN large's
+  width (64 -> 32 channels, the width that keeps the five launches: 4b's
+  C = 32 branches, k 4, stride 2, a 7-tap head).  For each shape: the device ms of one call
   (torch.profiler's kernels, 10 calls, kept tables) beside the CUDA events'
   ms of a loop of calls (which at batch 1 may time the host), the bf16
   bound (the products at 989 TFLOP/s or the bf16 bytes at 3.35 TB/s, 6b's
-  upsample and head at the 67 TFLOP/s float32 rate), the max error against
+  head at the 67 TFLOP/s float32 rate), the max error against
   the plain version run in float64 on the same bf16 input (of its peak),
   the same for the plain bf16 version, a digest of the float32 form's
   output (2, 4, 6) on the same input widened, and, as a yardstick the port
@@ -45,9 +47,9 @@ in one call by running it on each in turns.  With seeded weights:
   leaky-relu, pad, residual and mean steps between them.  `--against`
   takes the `--json` of a run on another checkout and prints, per shape,
   whether the float32 digests are the same and the ratio of the bf16
-  forms' device times.  At batch 1, 4b's and 6b's device ms are also
-  printed by kernel (the pair launches, the branch mean, the tail's
-  upsample and head).
+  forms' device times.  4b's device ms at batch 1 and 6b's at both
+  batches are also printed by kernel (the pair launches, the branch mean,
+  the tail's launches).  `--forms` keeps the bf16 forward forms named.
 
 L2 is not flushed between calls.
 """
@@ -90,6 +92,7 @@ BF16_FORWARD = (
     ("4b", "HiFiGAN", ((1, 4680, 128), (1, 23400, 64), (1, 70200, 32), (32, 1120, 128),
                        (32, 5600, 64), (32, 16800, 32), (32, 33600, 16))),
     ("6b", "HiFiGAN", ((1, 70200, 32), (32, 16800, 32))),
+    ("6b", "HiFiGAN large", ((1, 70200, 64),)),
 )
 ALTERNATING = {"resstack_bwd": {"conv_kernel": ("1x1 adjoint", "dilated and skip adjoint"),
                                 "wgrad_kernel": ("weight gradients", "weight gradients")},
@@ -114,6 +117,16 @@ def resblocks_at(torch, C: int):
     return [[(_seeded(torch, g, K, C, C, fan_in=C * K), _seeded(torch, g, C, fan_in=C * K), d,
               _seeded(torch, g, K, C, C, fan_in=C * K), _seeded(torch, g, C, fan_in=C * K))
              for d in DILATIONS] for K in KERNELS]
+
+
+def large_tail_at(torch):
+    """A seeded tail of HiFiGAN large's width (conf/hifigan/large.yaml's last
+    stage and head): up (4, 64, 32), stride 2, padding 1, `resblocks_at(32)`,
+    post (7, 32, 1)."""
+    g = torch.Generator().manual_seed(64)
+    return (_seeded(torch, g, 4, 64, 32, fan_in=128), _seeded(torch, g, 32, fan_in=128), 2, 1,
+            resblocks_at(torch, 32), _seeded(torch, g, 7, 32, 1, fan_in=224),
+            _seeded(torch, g, 1, fan_in=224))
 
 
 def to_bf16(ops):
@@ -398,8 +411,10 @@ def cudnn_tail(torch, ops):
     return run
 
 
-def bf16_forward_times(torch, r, fm, ft, label: str, root: str) -> list:
-    """2b, 4b and 6b at `BF16_FORWARD`'s shapes (module docstring)."""
+def bf16_forward_times(torch, r, fm, ft, label: str, root: str, forms=("2b", "4b", "6b")
+                       ) -> list:
+    """2b, 4b and 6b (those in `forms`) at `BF16_FORWARD`'s shapes (module
+    docstring)."""
     from fastvocoder_tpu_torch.hparams import load_model_config
     from fastvocoder_tpu_torch.models.factory import load_generator
 
@@ -409,6 +424,8 @@ def bf16_forward_times(torch, r, fm, ft, label: str, root: str) -> list:
     tail_ops = hifi.tail_operands()
     rows = []
     for form, model, shapes in BF16_FORWARD:
+        if form not in forms:
+            continue
         for B, T, C in shapes:
             g = torch.Generator().manual_seed(B * T + C)
             xb = (0.3 * torch.randn(B, T, C, generator=g)).cuda().bfloat16()
@@ -435,7 +452,7 @@ def bf16_forward_times(torch, r, fm, ft, label: str, root: str) -> list:
                 mrf_flops, core_flops = flops, 0
                 args = (ops,)
             else:
-                ops = tail_ops
+                ops = tail_ops if model == "HiFiGAN" else large_tail_at(torch)
                 k_up, b_up, stride, _, blocks, k_post, b_post = ops
                 table = ft.TailTable(*ops, xb.device, torch.bfloat16)
                 run = lambda: ft.fused_hifigan_tail_bf16_cuda(xb, *ops, table=table)  # noqa: E731
@@ -444,9 +461,10 @@ def bf16_forward_times(torch, r, fm, ft, label: str, root: str) -> list:
                 To, Co = stride * T, k_up.shape[2]
                 taps = sum(k1.shape[0] + k2.shape[0] for pairs in blocks
                            for k1, _, _, k2, _ in pairs)
-                mrf_flops = 2 * B * To * taps * Co * Co
-                core_flops = (2 * B * To * (k_up.shape[0] // stride) * C * Co
-                              + 2 * B * To * k_post.shape[0] * Co * k_post.shape[2])
+                # the upsample's bf16 operands count at the tensor cores' rate, as
+                # the MRF's; the head (CUDA cores) at the float32 rate
+                mrf_flops = 2 * B * To * (taps * Co + (k_up.shape[0] // stride) * C) * Co
+                core_flops = 2 * B * To * k_post.shape[0] * Co * k_post.shape[2]
                 flops = mrf_flops + core_flops
                 nbytes = 2 * (B * T * C + B * To * k_post.shape[2] + taps * Co * Co) + 4 * (
                     k_up.numel() + k_post.numel())
@@ -462,7 +480,7 @@ def bf16_forward_times(torch, r, fm, ft, label: str, root: str) -> list:
                 err = ((run().double() - y64).abs().max() / peak).item()
                 err_plain = ((plain(xb, *args).double() - y64).abs().max() / peak).item()
                 y32 = f32(xb.float())
-                parts = kernel_ms(torch, run) if form != "2b" and batch1 else {}
+                parts = kernel_ms(torch, run) if form == "6b" or form == "4b" and batch1 else {}
                 torch.cuda.synchronize()
             bound = max(nbytes / BYTES_PER_S, mrf_flops / BF16_FLOP_PER_S
                         + core_flops / F32_FLOP_PER_S) * 1e3
@@ -505,6 +523,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", required=True)
     ap.add_argument("--label", required=True)
     ap.add_argument("--parts", default="forward,bf16_forward,backward")
+    ap.add_argument("--forms", default="2b,4b,6b", help="bf16 forward forms to time")
     ap.add_argument("--json", default="")
     ap.add_argument("--against", default="", help="--json of a run on another checkout")
     ap.add_argument("--events", action="store_true")
@@ -530,7 +549,8 @@ def main(argv=None) -> int:
     if "forward" in parts:
         forward_times(torch, r, args.label)
     if "bf16_forward" in parts:
-        rows += bf16_forward_times(torch, r, fm, ft, args.label, os.path.abspath(args.root))
+        rows += bf16_forward_times(torch, r, fm, ft, args.label, os.path.abspath(args.root),
+                                   tuple(args.forms.split(",")))
     if "backward" in parts:
         rows += backward_times(torch, r, fm, args.label, args.events)
     if args.against:

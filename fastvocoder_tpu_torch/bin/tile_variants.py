@@ -36,6 +36,17 @@ and prints, per shape, device ms, share of the bf16 bound and error against
 float64.  `--probes` adds `BF16_PROBES`: builds that skip the weights'
 copies or the products on purpose (their results are wrong), to show what
 a call's time is made of.
+
+    python3 -m fastvocoder_tpu_torch.bin.tile_variants --one-launch [--once]
+        [--variants <name>,...]
+
+does the same for the bf16 tail's one launch (`tail_fused_bf16_kernel`,
+`csrc/fused_tail.cu`) and the bf16 decode on the tensor cores
+(`basis_decode_wgmma_bf16_kernel`, `csrc/basis_decode.cu`):
+`ONE_LAUNCH_VARIANTS`, edits of those two sources, and with `--probes`
+`ONE_LAUNCH_PROBES`, each timed by `bin/chain_times.py --parts bf16_forward
+--forms 6b` (the tail's) or `bin/tail_times.py --parts decode` (the
+decode's), the shipped build by both.
 """
 
 from __future__ import annotations
@@ -124,6 +135,139 @@ BF16_PROBES = {
 BF16_SOURCES = ("fused_resstack.cu", "fused_mrf.cu", "fused_tail.cu")
 
 
+# The `--one-launch` mode: name -> {source: [(old, new), ...]}; the first,
+# {}, is the shipped build.  The variants are choices the redesign of these
+# two kernels measured; the probes break the results on purpose.
+_TAIL_WM = ("constexpr int kWM = 6;             // warpgroups over the rows\n"
+            "constexpr int kThreads = 128 * kWM;\n"
+            "constexpr int kMaxB = 2;  ", "constexpr int kWM = 4;\n"
+            "constexpr int kThreads = 128 * kWM;\nconstexpr int kMaxB = 3;  ")
+_DECODE_GROUPS = "constexpr int kGroups = 4; "
+_TAIL_PACK = [
+    ("  return fvt_mma::unpack_bf16x2(fvt_mma::pack_bf16x2(v0, v1));\n",
+     "  return make_float2(__uint_as_float(rn_bits(v0)), __uint_as_float(rn_bits(v1)));\n"),
+    ("__device__ __forceinline__ float2 rounded(",
+     "__device__ __forceinline__ uint32_t rn_bits(float v) {\n"
+     "  const uint32_t b = __float_as_uint(v);\n"
+     "  return (b + 0x7FFFu + ((b >> 16) & 1u)) & 0xFFFF0000u;\n}\n"
+     "__device__ __forceinline__ uint32_t pack2(float v0, float v1) {\n"
+     "  return (rn_bits(v0) >> 16) | rn_bits(v1);\n}\n"
+     "__device__ __forceinline__ float2 rounded("),
+    ("  return fvt_mma::pack_bf16x2(fmaxf(v.x, v.x * slope), fmaxf(v.y, v.y * slope));",
+     "  return pack2(fmaxf(v.x, v.x * slope), fmaxf(v.y, v.y * slope));"),
+    ("  return fvt_mma::pack_bf16x2(f.x + b.x, f.y + b.y);", "  return pack2(f.x + b.x, f.y + b.y);"),
+    ("ok ? fvt_mma::pack_bf16x2(acc[i][j][2 * half], acc[i][j][2 * half + 1]) : 0u;",
+     "ok ? pack2(acc[i][j][2 * half], acc[i][j][2 * half + 1]) : 0u;"),
+]
+ONE_LAUNCH_VARIANTS = {
+    "shipped": {},
+    "tail: 4 warpgroups": {"fused_tail.cu": [_TAIL_WM]},
+    # the epilogues' bf16 rounding in integer operations, the same bits
+    "tail: integer rounding": {"fused_tail.cu": _TAIL_PACK},
+    "decode: 2 copy groups": {"basis_decode.cu": [
+        (_DECODE_GROUPS, "constexpr int kGroups = 2; ")]},
+    "decode: 1 copy group": {"basis_decode.cu": [
+        (_DECODE_GROUPS, "constexpr int kGroups = 1; ")]},
+}
+ONE_LAUNCH_PROBES = {
+    "probe: tail without the MRF products": {"fused_tail.cu": [
+        ("      WgmmaBf16<kC>::run(acc[i], a0[i] + static_cast<uint64_t>(k * step),\n"
+         "                         b0 + static_cast<uint64_t>(k * (kUnit / 8)));\n", "")]},
+    "probe: tail without the per-row passes": {"fused_tail.cu": [
+        ("      for (int j = 0; j < 2; ++j) fn(i, half, j, r, 8 * j + 2 * ln.t);",
+         "      (void)fn;")]},
+    "probe: decode without products": {"basis_decode.cu": [
+        ("      issue_products<N>(part[g], a0, b0, lay.rsa, lay.rsb, c_lo / 2,\n"
+         "                        min(c_lo + lay.per_group, lay.cols) / 2);\n", "")]},
+    "probe: decode without weight rows": {"basis_decode.cu": [
+        ("      stage_cols(ring + q * lay.cols * lay.rsa, lay.rsa, w + static_cast<size_t>(b) * F"
+         " * C, F,\n                 f0 - 1, kRowsA, C, c_lo, c_hi);\n",
+         "      (void)b;\n      (void)f0;\n")]},
+    "probe: decode without the basis": {"basis_decode.cu": [
+        ("        stage_cols(bs, lay.rsb, basis, L, 0, N, C, c_lo, c_hi, blockIdx.x % (c_hi - "
+         "c_lo));\n", "")]},
+}
+
+
+def _package_copy(out_dir: Path, name: str, sources, edit) -> Path:
+    """A copy of the package under out_dir with only `sources` of its
+    kernels (and their headers), edit(pkg) applied, `conf/` and `docs/`
+    linked; -> its root."""
+    from fastvocoder_tpu_torch.ops import _build
+
+    d = out_dir / name.replace(" ", "_").replace(":", "").replace("<=", "le").replace(">=", "ge")
+    if d.exists():
+        shutil.rmtree(d)
+    pkg = d / "fastvocoder_tpu_torch"
+    shutil.copytree(_build.PACKAGE_DIR, pkg,
+                    ignore=shutil.ignore_patterns("__pycache__", "*.cu", "*.cuh"))
+    for src in sources:
+        for f in [_build.CSRC / src] + _build.local_includes(_build.CSRC / src):
+            shutil.copy(f, pkg / "csrc" / f.name)
+    edit(pkg)
+    root = Path(_build.PACKAGE_DIR).parent
+    for link in ("conf", "docs"):
+        (d / link).symlink_to(root / link)
+    return d
+
+
+def _build_copies(roots) -> None:
+    """Builds every copy's kernels, all at once."""
+    procs = [(name, subprocess.Popen(
+        [sys.executable, "-c", "from fastvocoder_tpu_torch.ops import _build; _build.build_all()"],
+        cwd=d, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, d in roots.items()]
+    for name, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: build failed:\n{log}")
+
+
+def _replacing(edits):
+    """edit(pkg) that applies {source: [(old, new), ...]} to a copy's csrc/."""
+    def edit(pkg):
+        for src, pairs in edits.items():
+            path = pkg / "csrc" / src
+            text = path.read_text()
+            for old, new in pairs:
+                if old not in text:
+                    raise RuntimeError(f"{src} no longer holds {old!r}")
+                text = text.replace(old, new)
+            path.write_text(text)
+    return edit
+
+
+def one_launch_variants(args) -> int:
+    """The `--one-launch` mode (module docstring)."""
+    from fastvocoder_tpu_torch.ops import _build
+
+    table = {**ONE_LAUNCH_VARIANTS, **(ONE_LAUNCH_PROBES if args.probes else {})}
+    names = args.variants.split(",") if args.variants else list(table)
+    out_dir = _build.BUILD_DIR.parent / "tile_variants"
+    roots = {name: _package_copy(out_dir, name, ("fused_tail.cu", "basis_decode.cu"),
+                                 _replacing(table[name])) for name in names}
+    _build_copies(roots)
+    here = Path(__file__).resolve().parent
+    failed = 0
+    for i, name in enumerate(names if args.once else names + names[::-1]):
+        touched = set(table[name]) or {"fused_tail.cu", "basis_decode.cu"}
+        runs = []
+        if "fused_tail.cu" in touched:
+            runs.append(([str(here / "chain_times.py"), "--parts", "bf16_forward", "--forms",
+                          "6b"], lambda line: " 6b " in line))
+        if "basis_decode.cu" in touched:
+            runs.append(([str(here / "tail_times.py"), "--parts", "decode"],
+                         lambda line: "decode bf16" in line))
+        for cmd, keep in runs:
+            run = subprocess.run([sys.executable, *cmd, "--root", str(roots[name]), "--label",
+                                  f"{name} #{i}"], capture_output=True, text=True)
+            print("\n".join(line for line in run.stdout.splitlines() if keep(line)), flush=True)
+            if run.returncode != 0:
+                print(f"{name}: exit {run.returncode}\n{run.stderr[-3000:]}", flush=True)
+                failed += 1
+    return 1 if failed else 0
+
+
 def tile_bf16_source(src: str, over) -> str:
     """mma_common.cuh with the TileBf16Pair / TileBf16Stack lines of `over`
     changed."""
@@ -145,43 +289,20 @@ def bf16_forward_variants(args) -> int:
     """The `--bf16-forward` mode (module docstring)."""
     from fastvocoder_tpu_torch.ops import _build
 
-    root = Path(_build.PACKAGE_DIR).parent
     names = args.variants.split(",") if args.variants else list(BF16_VARIANTS)
     names += list(BF16_PROBES) if args.probes else []
     out_dir = _build.BUILD_DIR.parent / "tile_variants"
-    roots, procs = {}, []
     header = (_build.CSRC / "mma_common.cuh").read_text()
-    for name in names:
-        d = out_dir / name.replace(" ", "_").replace("<=", "le").replace(">=", "ge")
-        if d.exists():
-            shutil.rmtree(d)
-        pkg = d / "fastvocoder_tpu_torch"
-        shutil.copytree(_build.PACKAGE_DIR, pkg,
-                        ignore=shutil.ignore_patterns("__pycache__", "*.cu", "*.cuh"))
-        for src in BF16_SOURCES:
-            for f in [_build.CSRC / src] + _build.local_includes(_build.CSRC / src):
-                shutil.copy(f, pkg / "csrc" / f.name)
+
+    def edit_of(name):
         edits = BF16_PROBES.get(name, BF16_VARIANTS.get(name))
         if isinstance(edits, list):
-            probed = header
-            for old, edit in edits:
-                if old not in probed:
-                    raise RuntimeError(f"{name}: mma_common.cuh no longer holds {old!r}")
-                probed = probed.replace(old, edit)
-        else:
-            probed = tile_bf16_source(header, BF16_VARIANTS[name])
-        (pkg / "csrc" / "mma_common.cuh").write_text(probed)
-        for link in ("conf", "docs"):
-            (d / link).symlink_to(root / link)
-        roots[name] = d
-        procs.append((name, subprocess.Popen(
-            [sys.executable, "-c", "from fastvocoder_tpu_torch.ops import _build; "
-             "_build.build_all()"], cwd=d, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    for name, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: build failed:\n{log}")
+            return _replacing({"mma_common.cuh": edits})
+        return lambda pkg: (pkg / "csrc" / "mma_common.cuh").write_text(
+            tile_bf16_source(header, edits))
+
+    roots = {name: _package_copy(out_dir, name, BF16_SOURCES, edit_of(name)) for name in names}
+    _build_copies(roots)
     order = names if args.once else names + names[::-1]
     tool = Path(__file__).resolve().parent / "chain_times.py"
     failed = 0
@@ -202,11 +323,15 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bf16-forward", action="store_true")
+    ap.add_argument("--one-launch", action="store_true")
     ap.add_argument("--once", action="store_true")
-    ap.add_argument("--probes", action="store_true", help="also time BF16_PROBES")
+    ap.add_argument("--probes", action="store_true",
+                    help="also time BF16_PROBES (ONE_LAUNCH_PROBES)")
     ap.add_argument("--variants", default="",
-                    help="names of BF16_VARIANTS or BF16_PROBES, comma separated")
+                    help="names of the mode's variants or probes, comma separated")
     args = ap.parse_args(argv)
+    if args.one_launch:
+        return one_launch_variants(args)
     if args.bf16_forward:
         return bf16_forward_variants(args)
     import torch

@@ -16,8 +16,9 @@ XLA VJP.
 
 The kernel has a bf16 form (`basis_decode_bf16_cuda`, counted as
 `NAME_BF16`), the Pallas kernel's bf16 instantiation
-(`fastvocoder_tpu/ops/basis_decode.py:113-143`): bf16 weights and a bf16
-basis in, float32 products and sums, a float32 waveform out, at every size
+(`fastvocoder_tpu/ops/basis_decode.py:113-143`), on the tensor cores: bf16
+weights and a bf16 basis in, exact products summed in float32, a float32
+waveform out, at every size
 (the JAX package's `auto` route sends more than 65,536 rows to an einsum
 that writes bf16; the port follows the kernel).  Its plain version is
 `basis_decode_plain` given bf16 weights.  In training with compute_dtype

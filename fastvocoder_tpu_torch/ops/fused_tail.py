@@ -28,12 +28,22 @@ bf16 where the JAX package's Pallas body rounds (`fused_tail.py:121-174`:
 the upsample's output, the MRF as `ops/fused_mrf.py`'s bf16 form, the
 branches' mean, the head's leaky-relu, tanh of the float32 sum).  Its plain
 version is `fused_hifigan_tail_plain` given bf16 x.
+
+At HiFiGAN light's width (C_out 16, stride 2, C_in 32) the bf16 form is
+one launch, the TPU kernel's dataflow: a persistent block takes tiles of R
+output rows and stages x's rows for the tile and a halo of H rows of h0
+each side (`TailTable.plan`), then runs the upsample (a dense conv over input
+rows with the block-Toeplitz weight of `blocked_upsample`), every branch's
+pairs, the mean and the head from shared memory, and writes y once.  The
+table then holds the upsample's taps packed after the MRF's
+(`pack_blocked_upsample`).  Other widths run the five launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,6 +63,9 @@ from fastvocoder_tpu_torch.ops.precision import fit, widen
 NAME = "fused_tail"
 NAME_BF16 = "fused_tail_bf16"
 HEAD_SLOPE = 0.01  # torch's default leaky slope before conv_post
+# the shape the one-launch bf16 form takes (`csrc/fused_tail.cu`, fused::kC, kU)
+FUSED_WIDTH, FUSED_STRIDE = 16, 2
+CORE = 8  # rows and bf16 channels of a wgmma core matrix (16 bytes a row)
 
 
 def _or_zeros(bias: Optional[torch.Tensor], n: int, like: torch.Tensor) -> torch.Tensor:
@@ -93,15 +106,122 @@ def fused_hifigan_tail_plain(
     return torch.tanh(h).to(dt)
 
 
+def blocked_upsample(up_kernel: torch.Tensor, stride: int, padding: int
+                     ) -> Tuple[torch.Tensor, int, int]:
+    """The transposed conv (K, Cin, Cout) of stride u as a dense conv over
+    input rows: (W (Wj, Cin, u Cout), off, right) with output rows u q ..
+    u q + u - 1 = sum_j x[q + j - off] @ W[j], channel block r of W's
+    columns the output row u q + r (torch's semantics: out[t] = sum_k
+    x[(t + padding - k) / u] kernel[k]).  The JAX package's
+    `blocked_upconv_weight` at s_in = 1, s_out = u."""
+    K, cin, cout = up_kernel.shape
+    entries = []  # (input row offset, output row in the pair, tap)
+    for rout in range(stride):
+        for k in range(K):
+            num = rout + padding - k
+            if num % stride == 0:
+                entries.append((num // stride, rout, k))
+    jmin = min(e[0] for e in entries)
+    jmax = max(e[0] for e in entries)
+    w = up_kernel.new_zeros(jmax - jmin + 1, cin, stride * cout)
+    for j, rout, k in entries:
+        w[j - jmin, :, rout * cout:(rout + 1) * cout] += up_kernel[k]
+    return w, -jmin, jmax
+
+
+def pack_blocked_upsample(w: torch.Tensor) -> torch.Tensor:
+    """W (Wj, K, N) (contracted, produced) -> bf16, flat, in the order the
+    one-launch kernel reads it as a wgmma B operand: per tap, core matrices
+    [K / 8][N / 8][8 produced][8 contracted] (`csrc/mma_common.cuh`, the
+    unit of `Geo<N, bf16>` at N = K = 32: `pack_kernel`'s layout)."""
+    wj, k, n = w.shape
+    cores = w.reshape(wj, k // CORE, CORE, n // CORE, CORE)  # (j, kg, kk, ng, r8)
+    return cores.permute(0, 1, 3, 4, 2).to(torch.bfloat16).reshape(-1).contiguous()
+
+
+@dataclass(frozen=True)
+class TailPlan:
+    """How the one-launch tail tiles a call: `rows` (R) output rows a tile,
+    `halo` (H) rows of h0 each side of it, a multiple of the stride; in
+    output rows, the margins each branch's pairs consume on each side
+    (`branch_margins`) and conv_post's (`post_margin`); the blocked
+    upsample's `taps` and its margins in input rows (`up_margins`)."""
+
+    rows: int
+    halo: int
+    branch_margins: Tuple[int, ...]
+    post_margin: int
+    taps: int
+    up_margins: Tuple[int, int]
+    tiles: int
+
+
+def tail_margins(up_size: int, stride: int, padding: int, pair_sizes, post_size: int):
+    """(halo, branch margins, post margin, taps, up margins) of a tail:
+    `pair_sizes` per branch [(K1, dilation, K2), ...].  A same-padded conv
+    of K taps at dilation d consumes (K - 1) d / 2 rows each side; h0's halo
+    covers the largest branch plus conv_post, rounded up to whole input
+    rows; the upsample's taps and margins are those of `blocked_upsample`."""
+    branch = tuple(sum((k1 - 1) * d // 2 + (k2 - 1) // 2 for k1, d, k2 in pairs)
+                   for pairs in pair_sizes)
+    post = (post_size - 1) // 2
+    halo = -(-(max(branch) + post) // stride) * stride
+    offs = [(rout + padding - k) // stride for rout in range(stride) for k in range(up_size)
+            if (rout + padding - k) % stride == 0]
+    off, right = -min(offs), max(offs)
+    return halo, branch, post, off + right + 1, (off, right)
+
+
+def tile_rows(B: int, T: int, slots: int, rows_max: int) -> int:
+    """R for B sequences of T output rows on `slots` persistent blocks, at
+    most `rows_max` rows a tile: as few rounds of the grid as the largest
+    tile allows, and then the smallest tile (a multiple of 16 rows) that
+    keeps them, so that the rounds are evenly full."""
+    if rows_max < 16:
+        raise ValueError(f"{NAME_BF16}: no tile fits a block (at most {rows_max} rows)")
+    per_seq = -(-T // rows_max)
+    rounds = -(-B * per_seq // slots)
+    per_seq = max(per_seq, rounds * slots // B)
+    return min(rows_max, -(-(-(-T // per_seq)) // 16) * 16)
+
+
+# the tail's kernels by role, as `fvt_fused_tail_launches` counts their launches
+KERNEL_ROLES = ("tail_fused_bf16_kernel", "tail_upsample", "tail_pair", "tail_head")
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches of each of the tail's kernels in this process (`KERNEL_ROLES`;
+    the pair launches one a pair, both forms), as the library counts them
+    where a launch succeeds: one call's kernels are the difference of two
+    readings."""
+    fn = _build.library(NAME).fvt_fused_tail_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return {name: fn(i) for i, name in enumerate(KERNEL_ROLES)}
+
+
+_SLOTS: Dict[torch.device, int] = {}
+
+
+def _slots(device: torch.device) -> int:
+    """Persistent blocks of the one-launch tail on `device`: one an SM."""
+    if device not in _SLOTS:
+        _SLOTS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SLOTS[device]
+
+
 class TailTable:
     """What the kernel's C entry point takes of a tail's operands, checked
     once: the MRF's (K1, dilation, K2) table and pointers, its kernels
     packed for the tensor cores (split into TF32 halves, or with `dtype`
     bf16 rounded to bf16, in the order the pair launches read them, by one
     launch), and the upsample's and head's weights (for bf16 rounded copies).
-    It keeps the operands alive.  A caller whose operands stay (a served
-    model) builds it once and hands it to the form of its `dtype`; built on
-    every call it costs the checks of 41 tensors and one launch."""
+    For the one-launch bf16 form (`fused`) the packed kernels are followed by
+    the upsample's blocked taps (`up_off`), and the table holds the tile
+    plan's fixed parts (`margins`: `tail_margins` of the tail; `rows_max`),
+    so that a call only chooses R (`rows`).  It keeps the operands alive.  A caller whose
+    operands stay (a served model) builds it once and hands it to the form
+    of its `dtype`; built on every call it costs the checks of 41 tensors
+    and one launch."""
 
     def __init__(self, up_kernel: torch.Tensor, up_bias: Optional[torch.Tensor], stride: int,
                  padding: int, resblocks: Sequence[Sequence[Pair]], post_kernel: torch.Tensor,
@@ -153,6 +273,23 @@ class TailTable:
         n_packed = size_fn(C, self.nb, self.np_, ctypes.addressof(self.ints))
         if n_packed < 0:
             raise ValueError(f"{NAME}: the kernel refuses this tail's MRF")
+        # the one-launch bf16 form where its block takes the tail: the
+        # upsample's blocked taps after the MRF's
+        self.fused, up_packed = False, None
+        if bf16 and (C, stride, cin) == (FUSED_WIDTH, FUSED_STRIDE, FUSED_STRIDE * FUSED_WIDTH):
+            pair_sizes = [[(p[0].shape[0], int(p[2]), p[3].shape[0]) for p in pairs]
+                          for pairs in resblocks]
+            self.margins = tail_margins(K, stride, padding, pair_sizes, Kp)
+            self.halo, _, _, self.taps, (self.off_up, _) = self.margins
+            reach = max(max((k1 - 1) * d // 2, (k2 - 1) // 2)
+                        for pairs in pair_sizes for k1, d, k2 in pairs)
+            self.up_off = -(-n_packed // 64) * 64  # on 128 bytes
+            n_fused = self.up_off + self.taps * cin * stride * C
+            self.rows_max = lib.fvt_tail_fused_max_rows(self.halo, self.taps, n_fused, reach)
+            self.fused = self.rows_max >= 16
+        if self.fused:
+            up_packed = pack_blocked_upsample(blocked_upsample(self.up[0], stride, padding)[0])
+            n_packed = n_fused
         self.packed = torch.empty(n_packed, dtype=dtype, device=device)
         fn = lib.fvt_fused_tail_bf16_pack if bf16 else lib.fvt_fused_tail_pack
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
@@ -163,6 +300,36 @@ class TailTable:
                      ctypes.addressof(self.ptrs), stream)
         if err != 0:
             raise RuntimeError(f"{NAME} kernel packing failed: CUDA error {err}")
+        if up_packed is not None:
+            self.packed[self.up_off:].copy_(up_packed)
+
+    def rows(self, B: int, T: int) -> int:
+        """R of the one-launch form's tiles for B sequences of T output rows."""
+        return tile_rows(B, T, _slots(self.device), self.rows_max)
+
+    def plan(self, B: int, T: int) -> TailPlan:
+        """The tiles of the one-launch form for B sequences of T output rows."""
+        halo, branch, post, taps, up = self.margins
+        rows = self.rows(B, T)
+        return TailPlan(rows, halo, branch, post, taps, up, B * -(-T // rows))
+
+
+# the C entries' arguments: the five launches' (`fvt_fused_tail`, its bf16
+# form) and the one launch's (`fvt_fused_tail_bf16_tiled`)
+_FIVE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+              + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+              + [ctypes.c_void_p])
+_TILED_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+               + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+               + [ctypes.c_void_p])
+
+
+def _declared(fn, argtypes):
+    """fn with its argument types, declared once a loaded library (ctypes
+    keeps the function object): a call then builds no list of types."""
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
 
 
 def _run_tail(op: str, dtype: torch.dtype, x: torch.Tensor, args,
@@ -192,15 +359,23 @@ def _run_tail(op: str, dtype: torch.dtype, x: torch.Tensor, args,
     y = torch.empty(B, T, table.bands, dtype=dtype, device=dev)
     if B == 0 or T_in == 0:
         return y
+    lib = _build.library(NAME)
+    (k_up, b_up), (k_post, b_post) = table.up, table.post
+    if table.fused:
+        fn = _declared(lib.fvt_fused_tail_bf16_tiled, _TILED_ARGS)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(x.data_ptr(), y.data_ptr(), table.packed.data_ptr(), table.packed.numel(),
+                     table.up_off, B, T_in, cin, C, b_up.data_ptr(), table.stride, table.taps,
+                     table.off_up, table.nb, table.np_, ctypes.addressof(table.ints),
+                     ctypes.addressof(table.ptrs), k_post.data_ptr(), b_post.data_ptr(),
+                     table.Kp, table.bands, table.rows(B, T), table.halo, _slots(dev), stream)
+        _build.check_launch(op, err)
+        return y
     # the caching allocator hands the same block back on every call
     scratch = torch.empty((2 * table.nb + 1) * B * T * C, dtype=dtype, device=dev)
-    lib = _build.library(NAME)
-    fn = lib.fvt_fused_tail_bf16 if dtype == torch.bfloat16 else lib.fvt_fused_tail
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    (k_up, b_up), (k_post, b_post) = table.up, table.post
+    fn = _declared(lib.fvt_fused_tail_bf16 if dtype == torch.bfloat16 else lib.fvt_fused_tail,
+                   _FIVE_ARGS)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), y.data_ptr(), scratch.data_ptr(), table.packed.data_ptr(), B,
@@ -243,9 +418,10 @@ def fused_hifigan_tail_bf16_cuda(
     table: Optional[TailTable] = None,
 ) -> torch.Tensor:
     """The kernel's bf16 form on x (B, T_in, C_in) bf16: y (B, u T_in,
-    bands) bf16.  The operands are float32, as a model's parameters;
-    `table`: `TailTable(<the other operands>, x.device, torch.bfloat16)`
-    where the caller keeps it."""
+    bands) bf16, in one launch at C_out 16, stride 2 and C_in 32 (HiFiGAN
+    light), in five at the other widths.  The operands are float32, as a
+    model's parameters; `table`: `TailTable(<the other operands>, x.device,
+    torch.bfloat16)` where the caller keeps it."""
     return _run_tail(NAME_BF16, torch.bfloat16, x, (up_kernel, up_bias, stride, padding,
                                                     resblocks, post_kernel, post_bias), table)
 

@@ -41,9 +41,11 @@ def test_port_kernels_that_share_the_mrf_header():
     mrf = ["bwd_common.cuh", "mma_common.cuh", "mrf_common.cuh", "smem_attr.cuh"]
     assert names["fused_tail"] == mrf
     assert names["fused_mrf"] == mrf
-    assert names["basis_decode"] == ["smem_attr.cuh"]
-    # the chain's forward runs on the tensor-core core too
-    assert names["fused_resstack"] == ["bwd_common.cuh", "mma_common.cuh", "smem_attr.cuh"]
+    # the chain's forward and the decode (its bf16 form's wgmma and copies)
+    # run on the tensor-core core too, without the MRF's table
+    core = ["bwd_common.cuh", "mma_common.cuh", "smem_attr.cuh"]
+    assert names["basis_decode"] == core
+    assert names["fused_resstack"] == core
 
 
 def test_backward_kernels_share_one_header_and_its_hash():
@@ -75,7 +77,7 @@ def test_a_backward_library_is_rebuilt_when_the_shared_header_changes(tmp_path, 
     # through mma_common.cuh
     assert after["fused_mrf"] != before["fused_mrf"]
     assert after["fused_tail"] != before["fused_tail"]
-    assert after["basis_decode"] == before["basis_decode"]
+    assert after["basis_decode"] != before["basis_decode"]
 
 
 def test_both_mrf_libraries_are_rebuilt_when_the_tensor_core_header_changes(tmp_path):
@@ -88,23 +90,24 @@ def test_both_mrf_libraries_are_rebuilt_when_the_tensor_core_header_changes(tmp_
     after = {n: _build._target(csrc / f"{n}.cu") for n in names}
     assert after["fused_mrf"] != before["fused_mrf"]
     assert after["fused_mrf_bwd"] != before["fused_mrf_bwd"]
-    # and the tail's MRF and both chain libraries, which contract on the same core
+    # and the tail, both chain libraries and the decode, which contract on the same core
     assert after["fused_tail"] != before["fused_tail"]
     assert after["fused_resstack"] != before["fused_resstack"]
     assert after["fused_resstack_bwd"] != before["fused_resstack_bwd"]
-    assert after["basis_decode"] == before["basis_decode"]
+    assert after["basis_decode"] != before["basis_decode"]
 
 
 def test_the_tail_library_alone_is_rebuilt_when_the_mrf_header_changes(tmp_path):
     csrc = _copied_csrc(tmp_path)
-    names = ("fused_tail", "fused_mrf", "fused_resstack", "fused_resstack_bwd", "fused_mrf_bwd")
+    names = ("fused_tail", "fused_mrf", "fused_resstack", "fused_resstack_bwd", "fused_mrf_bwd",
+             "basis_decode")
     before = {n: _build._target(csrc / f"{n}.cu") for n in names}
     with open(csrc / "mrf_common.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: _build._target(csrc / f"{n}.cu") for n in names}
     assert after["fused_tail"] != before["fused_tail"]
     assert after["fused_mrf"] != before["fused_mrf"]
-    for n in ("fused_resstack", "fused_resstack_bwd", "fused_mrf_bwd"):
+    for n in ("fused_resstack", "fused_resstack_bwd", "fused_mrf_bwd", "basis_decode"):
         assert after[n] == before[n]
 
 

@@ -948,6 +948,122 @@ def test_fused_tail_bf16_kernel_matches_plain_at_tile_edges(cuda, B, T_in, cin, 
     _assert_bf16_close(fused_hifigan_tail_bf16_cuda(x, *ops), fused_hifigan_tail_plain(x, *ops))
 
 
+# The one-launch bf16 tail (C_out 16, `tail_fused_bf16_kernel`) on tiles of
+# TAIL_ROWS output rows with H = 64 rows of halo (`_fixed_rows`): output
+# lengths T = 2 T_in of 2, below H, R - 2, R, R + 2 and 2 R + 2, B up to 4,
+# bands 1 and 4; the same lengths at C_out 32 and one at 64, which run the
+# five launches.
+TAIL_ROWS = 96
+
+
+def _fixed_rows(table, rows: int):
+    """`table` with every call's tiles of `rows` output rows, in place of
+    the R its plan chooses (`TailTable.rows`)."""
+    table.rows = lambda B, T: rows
+    return table
+
+
+def _fused_tail_cases():
+    cases = []
+    for cin, cout in ((32, 16), (64, 32)):
+        for i, T_in in enumerate((1, 31, TAIL_ROWS // 2 - 1, TAIL_ROWS // 2, TAIL_ROWS // 2 + 1,
+                                  TAIL_ROWS + 1)):
+            cases.append((1 + i % 4, T_in, cin, cout, 4 if i % 2 else 1))
+    return cases + [(2, TAIL_ROWS + 1, 128, 64, 4)]
+
+
+@pytest.mark.parametrize("B,T_in,cin,cout,bands", _fused_tail_cases())
+def test_fused_tail_bf16_one_launch_at_its_tile_edges(cuda, B, T_in, cin, cout, bands):
+    from fastvocoder_tpu_torch.ops.fused_tail import (
+        TailTable,
+        fused_hifigan_tail_bf16_cuda,
+        kernel_launches,
+    )
+
+    ops = _tail_operands(cin, cout, cuda, seed=cout + T_in + bands, bands=bands)
+    table = TailTable(*ops, cuda, BF16)
+    assert table.fused == (cout == 16)
+    if table.fused:
+        assert _fixed_rows(table, TAIL_ROWS).plan(B, 2 * T_in).rows == TAIL_ROWS
+    g = torch.Generator().manual_seed(T_in + bands)
+    x = (0.3 * torch.randn(B, T_in, cin, generator=g)).to(cuda).to(BF16)
+    before = kernel_launches()
+    with torch.no_grad():
+        got = fused_hifigan_tail_bf16_cuda(x, *ops, table=table)
+    ran = {k: n - before[k] for k, n in kernel_launches().items() if n != before[k]}
+    # one launch, or the five: the upsample, a launch a pair (three), the head
+    assert ran == ({"tail_fused_bf16_kernel": 1} if table.fused else
+                   {"tail_upsample": 1, "tail_pair": 3, "tail_head": 1}), ran
+    assert got.shape == (B, 2 * T_in, bands)
+    _assert_bf16_close(got, fused_hifigan_tail_plain(x, *ops))
+
+
+def test_fused_tail_bf16_more_tiles_than_blocks(cuda, hifigan_light):
+    """A persistent block takes several tiles in turn: 16-row tiles of three
+    sequences, about 4.3 tiles a block; and the planned tiles of a batch-32
+    call agree with one-tile-a-block ones."""
+    from fastvocoder_tpu_torch.ops.fused_tail import TailTable, fused_hifigan_tail_bf16_cuda
+
+    ops = hifigan_light.tail_operands()
+    planned_table = TailTable(*ops, cuda, BF16)
+    table = _fixed_rows(TailTable(*ops, cuda, BF16), 16)
+    g = torch.Generator().manual_seed(5)
+    x = (0.3 * torch.randn(3, 1500, 32, generator=g)).to(cuda).to(BF16)
+    assert table.plan(3, 3000).tiles > 4 * torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert planned_table.plan(3, 3000).rows > 16
+    with torch.no_grad():
+        got = fused_hifigan_tail_bf16_cuda(x, *ops, table=table)
+        planned = fused_hifigan_tail_bf16_cuda(x, *ops, table=planned_table)
+    _assert_bf16_close(got, fused_hifigan_tail_plain(x, *ops))
+    assert torch.equal(got, planned)
+
+
+def test_bf16_hifigan_runs_its_tail_in_one_launch(cuda, hifigan_light):
+    """A bf16 HiFiGAN light inference launches the one-launch tail once and
+    none of the five launches' kernels: by the library's launch counts and
+    by the profiler's device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastvocoder_tpu_torch.ops.fused_tail import (
+        TailTable,
+        fused_hifigan_tail_bf16_cuda,
+        kernel_launches,
+    )
+
+    ops = hifigan_light.tail_operands()
+    table = TailTable(*ops, cuda, BF16)
+    x = (0.3 * torch.randn(1, 2000, 32)).to(cuda).to(BF16)
+    with torch.no_grad():
+        before = kernel_launches()
+        fused_hifigan_tail_bf16_cuda(x, *ops, table=table)
+        torch.cuda.synchronize()
+        ran = {k: n - before[k] for k, n in kernel_launches().items() if n != before[k]}
+        assert ran == {"tail_fused_bf16_kernel": 1}, ran
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fused_hifigan_tail_bf16_cuda(x, *ops, table=table)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        pytest.skip("torch.profiler saw no device events")
+    assert sum("tail_fused_bf16_kernel" in n for n in names) == 1, names
+    assert not any(k in n for n in names for k in ("tail_upsample", "tail_pair", "tail_head"))
+
+
+@pytest.mark.parametrize("F", [63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("L", [12, 30, 40])
+def test_basis_decode_bf16_kernel_at_its_tile_edges(cuda, F, L):
+    """The decode's blocks of 63 output frames (64 weight rows with the one
+    before them): F + 1 frames on both sides of one and two blocks, B = 3,
+    hop 6, 15 and 20."""
+    g = torch.Generator().manual_seed(F * L)
+    w = torch.relu(torch.randn(3, F, 256, generator=g)).to(cuda).to(BF16)
+    basis = (0.1 * torch.randn(L, 256, generator=g)).to(cuda).to(BF16)
+    got = basis_decode(w, basis)
+    want = basis_decode_plain(w, basis)
+    assert got.shape == want.shape == (3, (F + 1) * (L // 2))
+    assert torch.all((got - want).abs() <= 4 * 256 * EPS * basis_decode_plain(w.abs(), basis.abs()))
+
+
 def test_each_form_refuses_the_other_type_and_the_other_tables(cuda):
     """A form never casts: bf16 x to a float32 form, or float32 x to a bf16
     form, raises, and so does a kept table packed for the other type."""
