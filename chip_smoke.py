@@ -78,7 +78,17 @@ the data pipeline reads:
     against float32 on the card and on the CPU (the card's gradients may
     deviate from float32 by at most twice the CPU's), ms a step in bf16
     beside float32 of the same call, and a profile of one bf16 HiFiGAN GAN
-    step.
+    step;
+  * `--fused_train 0` (`fused_train_phase`: the generator's stages as the
+    modules' cuDNN convs): one step from the same weights under 0 and under
+    1 for HiFiGAN light (GAN and pre-adversarial, float32 and bf16),
+    Basis-MelGAN light and MelGAN original (pre-adversarial, float32), held
+    to the one-step bounds in float32, in bf16 each against its own float32
+    step (the RMS rule above) and the two within 5e-3; ms a step and peak
+    memory of both and their ratio; `run_train --fused_train 0` for HiFiGAN
+    light and Basis-MelGAN light, 2 pre-adversarial and 1 GAN step with a
+    validation pass, launching none of kernels 2-5 or their bf16 forms, the
+    decode as often as Basis-MelGAN's same run under -1.
 
 Then the training runtime (`bin/train.py`'s runtime flags), at the same
 geometry on the same corpus:
@@ -257,6 +267,10 @@ BF16_BWD_ROWS, KINK_BAND = 0.9, 1e-5
 # of the generator's or the discriminator's gradients), on BF16_CPU_BATCH
 # crops (a CPU step of 32 takes minutes in bf16)
 BF16_STEP_RATIO, BF16_CPU_BATCH = 2.0, 4
+# --fused_train 0 against 1 in bf16: the two paths' logged values within
+# FUSED_BF16_LOSS_RTOL (the JAX package's comparison of its two bf16 paths,
+# tests/test_fused_mrf.py:259-297)
+FUSED_BF16_LOSS_RTOL = 5e-3
 # the training runtime on the card: a remat GAN step against the standard
 # one from the same weights on the same batch (the same kernels on the same
 # inputs; cuDNN's algorithm choice is the only source of difference): losses
@@ -2149,12 +2163,13 @@ def train_argv(model: str, conf: str, index, run_dir: str, steps: int, start_ste
 
 def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, steps: int,
                 start_steps: int, kernels, basis_dir: str = "", use_mpd: bool = False,
-                mixprecision: bool = False, absent=()):
+                mixprecision: bool = False, absent=(), extra=()):
     """`run_train` as a user calls it, at full width on the card (with
-    `use_mpd`, `--use_mpd 1`; with `mixprecision`, `--mixprecision 1`,
-    launching none of `absent`); checks the losses, that the weights moved,
-    and that the checkpoint loads back (a bf16 run's also in `Synthesizer`
-    in bf16).  -> (configuration, basis or None, the run's logged history)."""
+    `use_mpd`, `--use_mpd 1`; with `mixprecision`, `--mixprecision 1`;
+    `extra`: more arguments; launching none of `absent`); checks the
+    losses, that the weights moved, and that the checkpoint loads back (a
+    bf16 run's also in `Synthesizer` in bf16).  -> (configuration, basis or
+    None, the run's logged history)."""
     import dataclasses
 
     from fastvocoder_tpu_torch.bin.train import run_train
@@ -2164,9 +2179,13 @@ def train_phase(torch, count_path, model: str, conf: str, corpus: str, index, st
 
     kind = "bf16 mixed-precision training (bin/train.py --mixprecision 1)" if mixprecision \
         else "training (bin/train.py)"
+    if extra:
+        kind = kind[:-1] + " " + " ".join(map(str, extra)) + ")"
     log(f"[{model}: {kind}, {steps} steps of {TRAIN_BATCH} x {TRAIN_FRAMES} frames]")
-    run_dir = os.path.join(corpus, f"run_{model}" + ("_bf16" if mixprecision else ""))
+    run_dir = os.path.join(corpus, f"run_{model}" + ("_bf16" if mixprecision else "")
+                           + "".join(f"_{a}".replace("--", "") for a in extra))
     argv = train_argv(model, conf, index, run_dir, steps, start_steps, basis_dir)
+    argv += [str(a) for a in extra]
     if use_mpd:
         argv += ["--use_mpd", "1"]
     if mixprecision:
@@ -2238,46 +2257,67 @@ def fixed_batch(cfg, index, basis_dir: str = ""):
     return next(d.batch_iterator(ds, hp, seed=1))
 
 
+def one_step(torch, cfg, basis, step: str, batch, dev, compute_dtype=None,
+             fused_train: bool = True, rows=None, start=None):
+    """One `step` from seed 0's weights (the generator's from the state
+    dict `start`, if given) on `batch` (its first `rows` crops) on `dev`:
+    -> (logged values, {who: {name: gradient on the CPU}})."""
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    trainer = make_trainer(cfg, basis_signal_weight=basis, device=dev, keep_grads=True,
+                           compute_dtype=compute_dtype, fused_train=fused_train)
+    state = trainer.init_state(0)
+    if start is not None:
+        state.generator.load_state_dict(start)
+    args = [torch.from_numpy(batch[k][:rows]).to(dev) if k in batch else None
+            for k in ("mel", "wav", "weight")]
+    _, metrics = getattr(trainer, step)(state, *args)
+    out = ({k: float(v) for k, v in metrics.items()},
+           {who: {n: g_.cpu() for n, g_ in grads.items()}
+            for who, grads in trainer.last_grads.items()})
+    if not all(np.isfinite(v) for v in out[0].values()):
+        raise AssertionError(f"{cfg.model_name} {step} on {dev}: a loss is not finite")
+    return out
+
+
+def hold_step(what: str, got, want) -> None:
+    """One step's (logged values, gradients) against another's: every value
+    within STEP_LOSS_RTOL, every gradient within STEP_GRAD_TOL of its peak (a
+    gain's or bias's of its conv's weight gradient's peak, if larger)."""
+    (m_got, g_got), (m_want, g_want) = got, want
+    for k, w in m_want.items():
+        # relative to the wanted value, or to 1e-2 where that is smaller
+        # (`weight_average_value` is a mean that cancels to about 1e-6)
+        rel = abs(m_got[k] - w) / max(abs(w), 1e-2)
+        log(f"  {k}: {m_got[k]:.6f} against {w:.6f} (relative {rel:.2e}, tol {STEP_LOSS_RTOL:.0e})")
+        if not (np.isfinite(m_got[k]) and rel <= STEP_LOSS_RTOL):
+            raise AssertionError(f"{what}: {k} disagrees")
+    for who, want_g in g_want.items():
+        worst, worst_name = 0.0, ""
+        for name, w in want_g.items():
+            peak = w.abs().max().item()
+            sibling = name.rsplit(".", 1)[0] + ".weight"
+            if sibling in want_g:
+                peak = max(peak, want_g[sibling].abs().max().item())
+            rel = (g_got[who][name] - w).abs().max().item() / max(peak, 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, name
+        log(f"  {who} gradients ({len(want_g)} tensors): worst {worst:.2e} of its peak "
+            f"({worst_name}), tol {STEP_GRAD_TOL:.0e}")
+        if not worst <= STEP_GRAD_TOL:
+            raise AssertionError(f"{what}: {who} gradients disagree")
+
+
 def step_against_cpu(torch, cfg, basis, step: str, batch) -> None:
     """One step from the same initial weights on the same batch, on the card
     (through the kernels) and on the CPU (through the plain versions)."""
-    from fastvocoder_tpu_torch.train.trainer import make_trainer
-
     log(f"[{cfg.model_name}: one {step} on the card against the CPU plain path]")
     out = {}
     for dev in ("cuda", "cpu"):
-        trainer = make_trainer(cfg, basis_signal_weight=basis, device=dev, keep_grads=True)
-        state = trainer.init_state(0)
-        args = [torch.from_numpy(batch[k]).to(dev) if k in batch else None
-                for k in ("mel", "wav", "weight")]
         t0 = time.perf_counter()
-        _, metrics = getattr(trainer, step)(state, *args)
-        out[dev] = ({k: float(v) for k, v in metrics.items()},
-                    {who: {n: g_.cpu() for n, g_ in grads.items()}
-                     for who, grads in trainer.last_grads.items()})
+        out[dev] = one_step(torch, cfg, basis, step, batch, dev)
         log(f"  on {dev}: {time.perf_counter() - t0:.2f} s")
-    (m_gpu, g_gpu), (m_cpu, g_cpu) = out["cuda"], out["cpu"]
-    for k, want in m_cpu.items():
-        # relative to the CPU's value, or to 1e-2 where that is smaller
-        # (`weight_average_value` is a mean that cancels to about 1e-6)
-        rel = abs(m_gpu[k] - want) / max(abs(want), 1e-2)
-        log(f"  {k}: card {m_gpu[k]:.6f}, CPU {want:.6f} (relative {rel:.2e}, tol {STEP_LOSS_RTOL:.0e})")
-        if not (np.isfinite(m_gpu[k]) and rel <= STEP_LOSS_RTOL):
-            raise AssertionError(f"{cfg.model_name} {step}: {k} disagrees with the CPU")
-    for who, want in g_cpu.items():
-        worst, worst_name = 0.0, ""
-        for name, w in want.items():
-            peak = w.abs().max().item()
-            sibling = name.rsplit(".", 1)[0] + ".weight"
-            if sibling in want:
-                peak = max(peak, want[sibling].abs().max().item())
-            rel = (g_gpu[who][name] - w).abs().max().item() / max(peak, 1e-30)
-            if rel > worst:
-                worst, worst_name = rel, name
-        log(f"  {who} gradients ({len(want)} tensors): worst {worst:.2e} of its peak "
-            f"({worst_name}), tol {STEP_GRAD_TOL:.0e}")
-        if not worst <= STEP_GRAD_TOL:
-            raise AssertionError(f"{cfg.model_name} {step}: {who} gradients disagree with the CPU")
+    hold_step(f"{cfg.model_name} {step} against the CPU", out["cuda"], out["cpu"])
 
 
 def rel_rms(got: dict, want: dict) -> float:
@@ -2306,30 +2346,17 @@ def bf16_step_against_float32(torch, cfg, basis, step: str, batch, release: str 
     init or, given `release`, from that release checkpoint's weights (where
     a random init's bf16 gradient is rounding noise on every
     implementation, as Basis-MelGAN's is: tests/test_torch_bf16_train.py)."""
-    from fastvocoder_tpu_torch.train.trainer import make_trainer
-
     start = release_generator_state(release) if release else None
     log(f"[{cfg.model_name}: one {step} in bf16 against float32, on the card and on the CPU, "
         f"{BF16_CPU_BATCH} crops, from {os.path.basename(release) if release else 'seed 0'}]")
     out = {}
     for dev in ("cuda", "cpu"):
         for dt in (None, torch.bfloat16):
-            trainer = make_trainer(cfg, basis_signal_weight=basis, device=dev, keep_grads=True,
-                                   compute_dtype=dt)
-            state = trainer.init_state(0)
-            if start is not None:
-                state.generator.load_state_dict(start)
-            args = [torch.from_numpy(batch[k][:BF16_CPU_BATCH]).to(dev) if k in batch else None
-                    for k in ("mel", "wav", "weight")]
             t0 = time.perf_counter()
-            _, metrics = getattr(trainer, step)(state, *args)
-            out[(dev, dt)] = ({k: float(v) for k, v in metrics.items()},
-                              {who: {n: g_.cpu() for n, g_ in grads.items()}
-                               for who, grads in trainer.last_grads.items()})
+            out[(dev, dt)] = one_step(torch, cfg, basis, step, batch, dev, dt,
+                                      rows=BF16_CPU_BATCH, start=start)
             log(f"  {dev} {'bf16' if dt else 'float32'}: {time.perf_counter() - t0:.2f} s, "
                 + " ".join(f"{k}={v:.5f}" for k, v in sorted(out[(dev, dt)][0].items())))
-            if not all(np.isfinite(v) for v in out[(dev, dt)][0].values()):
-                raise AssertionError(f"{cfg.model_name} {step}: a loss is not finite")
     bf = torch.bfloat16
     for who in out[("cuda", bf)][1]:
         card = rel_rms(out[("cuda", bf)][1][who], out[("cuda", None)][1][who])
@@ -2342,13 +2369,15 @@ def bf16_step_against_float32(torch, cfg, basis, step: str, batch, release: str 
 
 
 def time_steps(torch, cfg, basis, step: str, batch, n: int = 5, profile: bool = False,
-               compute_dtype=None) -> float:
+               compute_dtype=None, fused_train: bool = True) -> float:
     """Median ms of steps 2..n of `step` on the card on one batch, each
     window closed by torch.cuda.synchronize(), in `compute_dtype` (bf16:
-    mixed precision); with `profile`, one more step under torch.profiler."""
+    mixed precision), through the kernels or, with `fused_train` False, the
+    modules; with `profile`, one more step under torch.profiler."""
     from fastvocoder_tpu_torch.train.trainer import make_trainer
 
-    trainer = make_trainer(cfg, basis_signal_weight=basis, compute_dtype=compute_dtype)
+    trainer = make_trainer(cfg, basis_signal_weight=basis, compute_dtype=compute_dtype,
+                           fused_train=fused_train)
     state = trainer.init_state(0)
     args = [torch.from_numpy(batch[k]).cuda() if k in batch else None
             for k in ("mel", "wav", "weight")]
@@ -2361,7 +2390,7 @@ def time_steps(torch, cfg, basis, step: str, batch, n: int = 5, profile: bool = 
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     ms = float(np.median(times[1:]))
-    kind = " in bf16" if compute_dtype else ""
+    kind = (" in bf16" if compute_dtype else "") + ("" if fused_train else ", --fused_train 0")
     log(f"  {cfg.model_name} {step}{kind}: {ms:.2f} ms a step (median of steps 2..{n}: "
         f"{', '.join(f'{t:.1f}' for t in times[1:])}; first {times[0]:.1f}), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2369,6 +2398,110 @@ def time_steps(torch, cfg, basis, step: str, batch, n: int = 5, profile: bool = 
         log(f"[profile: one {cfg.model_name} {step}{kind} on the device]")
         profile_device(torch, lambda: getattr(trainer, step)(state, *args), 1, step)
     return ms
+
+
+def fused_train_pair(torch, cfg, basis, step: str, batch, compute_dtype=None) -> None:
+    """One `step` under `--fused_train 0` (the generator's stages as the
+    modules' cuDNN convs) against the same step under 1 (the kernels), from
+    the same weights on the same batch.  Float32, all TRAIN_BATCH crops: the
+    one-step bounds (`hold_step`).  bf16, BF16_CPU_BATCH crops: each path's
+    gradients against its own float32 step's, at most BF16_STEP_RATIO times
+    the CPU's bf16 deviation (the module path rounds to bf16 between every
+    conv, kernels 3b and 5b compute in float32 inside: the two bf16 steps are
+    not held to each other at the float32 bounds), the two paths' logged
+    values within FUSED_BF16_LOSS_RTOL of each other."""
+    what = f"{cfg.model_name} {step}" + (" in bf16" if compute_dtype else "")
+    if compute_dtype is None:
+        log(f"[{what}: --fused_train 0 against 1, {TRAIN_BATCH} crops]")
+        hold_step(f"{what}, --fused_train 0 against 1",
+                  one_step(torch, cfg, basis, step, batch, "cuda", fused_train=False),
+                  one_step(torch, cfg, basis, step, batch, "cuda", fused_train=True))
+        return
+    log(f"[{what}: --fused_train 0 and 1, each against its float32 step, {BF16_CPU_BATCH} crops]")
+    rows = BF16_CPU_BATCH
+    cpu = {dt: one_step(torch, cfg, basis, step, batch, "cpu", dt, rows=rows)
+           for dt in (None, compute_dtype)}
+    got = {}
+    for fused_train in (False, True):
+        f32 = one_step(torch, cfg, basis, step, batch, "cuda", None, fused_train, rows)
+        got[fused_train] = one_step(torch, cfg, basis, step, batch, "cuda", compute_dtype,
+                                    fused_train, rows)
+        for who, grads in got[fused_train][1].items():
+            card = rel_rms(grads, f32[1][who])
+            ref = rel_rms(cpu[compute_dtype][1][who], cpu[None][1][who])
+            log(f"  --fused_train {int(fused_train)}: {who} gradients' relative RMS deviation "
+                f"from float32 {card:.3e}, the CPU's {ref:.3e} (at most {BF16_STEP_RATIO} x)")
+            if not card <= BF16_STEP_RATIO * ref:
+                raise AssertionError(f"{what}, --fused_train {int(fused_train)}: the {who} "
+                                     f"gradients deviate more than the rule allows")
+    for k, want in got[True][0].items():
+        rel = abs(got[False][0][k] - want) / max(abs(want), 1e-2)
+        log(f"  {k}: --fused_train 0 {got[False][0][k]:.6f}, 1 {want:.6f} (relative {rel:.2e}, "
+            f"tol {FUSED_BF16_LOSS_RTOL:.0e})")
+        if not rel <= FUSED_BF16_LOSS_RTOL:
+            raise AssertionError(f"{what}: {k} of --fused_train 0 and 1 disagree")
+
+
+def fused_train_phase(torch, count_path, path_counts, corpus: str, index, hifi_cfg, basis_cfg,
+                      basis, melgan_cfg) -> dict:
+    """`--fused_train 0` on the card: each step kind of HiFiGAN light
+    (float32 and bf16), Basis-MelGAN light and MelGAN original held against
+    the kernels' step (`fused_train_pair`) and timed both ways (ms a step,
+    peak device memory, the ratio); then `run_train --fused_train 0` for
+    HiFiGAN light and Basis-MelGAN light across the discriminator boundary
+    with a validation pass, launching none of kernels 2-5 or their bf16
+    forms, Basis-MelGAN's decode (not gated, as in the JAX package) as often
+    as in the same run under -1.  -> {step: ms and GiB both ways}."""
+    bf16 = torch.bfloat16
+    stages = ("fused_resstack", "fused_resstack_bwd", "fused_mrf", "fused_mrf_bwd")
+    absent = stages + tuple(k + "_bf16" for k in stages)
+    hifi_batch = fixed_batch(hifi_cfg, index)
+    cases = ((hifi_cfg, None, "gan_step", hifi_batch, None),
+             (hifi_cfg, None, "pre_adv_step", hifi_batch, None),
+             (hifi_cfg, None, "gan_step", hifi_batch, bf16),
+             (hifi_cfg, None, "pre_adv_step", hifi_batch, bf16),
+             (basis_cfg, basis, "pre_adv_step", fixed_batch(basis_cfg, index, basis_dir=corpus),
+              None),
+             (melgan_cfg, None, "pre_adv_step", fixed_batch(melgan_cfg, index), None))
+    out = {}
+    for cfg, b, step, batch, dt in cases:
+        fused_train_pair(torch, cfg, b, step, batch, dt)
+        log("[ms a step on the card, --fused_train 0 and 1]")
+        ms, gib = {}, {}
+        for fused_train in (False, True):
+            ms[fused_train] = time_steps(torch, cfg, b, step, batch, compute_dtype=dt,
+                                         fused_train=fused_train)
+            gib[fused_train] = torch.cuda.max_memory_allocated() / 2**30
+        name = f"{cfg.model_name} {step}" + (" bf16" if dt else "")
+        out[name] = {"modules_ms": ms[False], "kernels_ms": ms[True],
+                     "modules_over_kernels": ms[False] / ms[True],
+                     "modules_peak_gib": gib[False], "kernels_peak_gib": gib[True]}
+        log(f"  {name}: --fused_train 0 {ms[False]:.2f} ms, 1 {ms[True]:.2f} ms a step (0 / 1 "
+            f"{ms[False] / ms[True]:.3f}); peak {gib[False]:.2f} / {gib[True]:.2f} GiB")
+        torch.cuda.empty_cache()
+
+    flag = ("--fused_train", 0)
+    train_phase(torch, count_path, "hifigan", HIFI_CONF, corpus, index, steps=3, start_steps=2,
+                kernels=(), absent=absent, extra=flag)
+    histories = {}
+    for extra in (flag, ("--fused_train", -1)):
+        histories[extra] = train_phase(
+            torch, count_path, "basis-melgan", CONF, corpus, index, steps=3, start_steps=2,
+            kernels=("basis_decode",), basis_dir=corpus, extra=extra,
+            absent=absent if extra == flag else ())[2]
+    decode = [path_counts[f"basis-melgan training (bin/train.py --fused_train {v})"]
+              ["basis_decode"] for v in (0, -1)]
+    log(f"  basis_decode launches: --fused_train 0 {decode[0]}, -1 {decode[1]}")
+    if decode[0] != decode[1]:
+        raise AssertionError("--fused_train 0 changed the decode's launches")
+    first = [dict(histories[e])[1] for e in (flag, ("--fused_train", -1))]
+    for k, want in first[1].items():
+        rel = abs(first[0][k] - want) / max(abs(want), 1e-2)
+        log(f"  step 1 {k}: --fused_train 0 {first[0][k]:.6f}, -1 {want:.6f} (relative "
+            f"{rel:.2e}, tol {STEP_LOSS_RTOL:.0e})")
+        if not rel <= STEP_LOSS_RTOL:
+            raise AssertionError(f"run_train --fused_train 0: step 1's {k} disagrees with -1's")
+    return out
 
 
 def h2d_bytes(torch, fn) -> int:
@@ -3746,6 +3879,10 @@ def main() -> int:
         step_ms["melgan gan_step (MSD + MFD + MPD) bf16"] = time_steps(
             torch, melgan_cfg, None, "gan_step", batch, compute_dtype=bf16)
         torch.cuda.empty_cache()
+
+        # --fused_train 0: the generator's stages through the modules' cuDNN convs
+        step_ms["--fused_train 0 against 1"] = fused_train_phase(
+            torch, count_path, path_counts, corpus, index, hifi_cfg, basis_cfg, basis, melgan_cfg)
 
         # the training runtime: input paths, remat, resume (reference layout)
         step_ms["basis-melgan pre_adv_step by input path (ms, H2D bytes)"] = input_paths_phase(

@@ -27,7 +27,14 @@ in one call by running it on each in turns.  With seeded weights:
   chain is the 1x1 conv's adjoint or the dilated and skip adjoint in turn,
   the MRF's conv2's or conv1's adjoint, its weight gradients dW2 and dW1.
   With `--events` it also prints every launch of one call in order, with
-  its pass and device ms;
+  its pass and device ms.  Beside each, as a yardstick the port calls only
+  under `--fused_train 0` and never as the kernel's replacement, the ms of
+  the same stage's forward and backward through the module path under
+  autograd (`stage_modules`: the port's `ResidualStack` / `ResBlock1`
+  modules in the fused form holding the same weights, cuDNN convs with
+  their (B, T, C) transposes, in bf16 the modules' `compute_dtype` casts),
+  the gradients of x and of every weight and bias, CUDA events as the
+  kernels';
 * the bf16 forward forms at the shapes of their rows in PERF.md, batch 1
   and 32 (`BF16_FORWARD`): 2b (seeded stacks, K = 3, dilations 1, 3, 9)
   at Basis-MelGAN light's and MelGAN original's stages, 4b (seeded
@@ -127,6 +134,48 @@ def large_tail_at(torch):
     return (_seeded(torch, g, 4, 64, 32, fan_in=128), _seeded(torch, g, 32, fan_in=128), 2, 1,
             resblocks_at(torch, 32), _seeded(torch, g, 7, 32, 1, fan_in=224),
             _seeded(torch, g, 1, fan_in=224))
+
+
+def stage_modules(torch, family: str, ops, bf16: bool):
+    """The stage of `ops` as the port's modules in the fused form, on the
+    card, computing in bf16 with `bf16`: -> (fn(x (B, T, C)) -> y, the
+    modules' parameters).  The chain is its stacks in turn, the MRF stage
+    its blocks' mean, as `models.layers`' module path runs them."""
+    from fastvocoder_tpu_torch.models.layers import ResBlock1, ResidualStack
+
+    dt = torch.bfloat16 if bf16 else None
+
+    def load(conv, k, b):
+        with torch.no_grad():
+            conv.weight.copy_(k.permute(2, 1, 0))
+            conv.bias.copy_(b)
+
+    if family == "resstack_bwd":
+        mods = []
+        for kd, bd, d, k1, b1, ks, bs in ops:
+            m = ResidualStack(kd.shape[1], kernel_size=kd.shape[0], dilation=d,
+                              compute_dtype=dt).cuda()
+            for conv, k, b in ((m.conv_dilated, kd, bd), (m.conv_1x1, k1, b1), (m.skip, ks, bs)):
+                load(conv, k, b)
+            mods.append(m)
+
+        def run(x):
+            for m in mods:
+                x = m(x)
+            return x
+    else:
+        mods = []
+        for pairs in ops:
+            m = ResBlock1(pairs[0][0].shape[1], kernel_size=pairs[0][0].shape[0],
+                          dilations=[p[2] for p in pairs], compute_dtype=dt).cuda()
+            for (k1, b1, _, k2, b2), c1, c2 in zip(pairs, m.convs1, m.convs2):
+                load(c1, k1, b1)
+                load(c2, k2, b2)
+            mods.append(m)
+
+        def run(x):
+            return sum(m(x) for m in mods) / len(mods)
+    return run, [p for m in mods for p in m.parameters()]
 
 
 def to_bf16(ops):
@@ -242,6 +291,12 @@ def backward_times(torch, r, fm, label: str, events: bool) -> list:
             flops = 3 * 2 * BATCH * T * len(DILATIONS) * 2 * sum(KERNELS) * C * C
             runs.append((model, "mrf_bwd", (T, C), resblocks_at(torch, C), flops,
                          fm.fused_mrf_stage_vjp_cuda, fm.fused_mrf_stage_vjp_bf16_cuda))
+
+    def module_path(family, ops, x, cot, bf16):
+        run, params = stage_modules(torch, family, ops, bf16)
+        xr = x.detach().requires_grad_(True)
+        return lambda: torch.autograd.grad(run(xr), [xr] + params, cot)
+
     rows = []
     for model, family, (T, C), ops, flops, f32, bf16 in runs:
         g = torch.Generator().manual_seed(T + C)
@@ -249,9 +304,12 @@ def backward_times(torch, r, fm, label: str, events: bool) -> list:
         cot = torch.randn(BATCH, T, C, generator=g).cuda()
         xb, cb, ob = x.bfloat16(), cot.bfloat16(), to_bf16(ops)
         bound3 = 3 * flops / TF32_FLOP_PER_S * 1e3
-        for form, fn in (("float32", lambda: f32(x, ops, cot)),
-                         ("bf16", lambda: bf16(xb, ob, cb))):
+        for form, fn, yardstick in (
+                ("float32", lambda: f32(x, ops, cot), module_path(family, ops, x, cot, False)),
+                ("bf16", lambda: bf16(xb, ob, cb), module_path(family, ops, xb, cb, True))):
             t = ms(fn)
+            cudnn = ms(yardstick)
+            del yardstick
             launches = [] if events else None
             passes = by_pass(torch, fn, family, launches=launches)
             for name, kernel, lms in launches or ():
@@ -259,9 +317,10 @@ def backward_times(torch, r, fm, label: str, events: bool) -> list:
             bound = bound3 * 7 / 9 if form == "bf16" else bound3
             rows.append({"label": label, "model": model, "kernel": family, "form": form,
                          "shape": [BATCH, T, C], "ms": t, "bound_3xtf32_ms": bound3,
-                         "bound_ms": bound, "passes": passes})
+                         "bound_ms": bound, "passes": passes, "module_path_ms": cudnn})
             print(f"[{label}] {family} {form} {model} ({BATCH}, {T}, {C}): {t:.3f} ms, "
                   f"bound {bound:.3f} ms (3xTF32 {bound3:.3f}), share {bound / t:.3f}; "
+                  f"module path (cuDNN, forward and backward) {cudnn:.3f} ms; "
                   + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()), flush=True)
         del x, cot, xb, cb, ob
         torch.cuda.empty_cache()
@@ -271,13 +330,14 @@ def backward_times(torch, r, fm, label: str, events: bool) -> list:
             sel = [r_ for r_ in rows if (r_["kernel"], r_["form"], r_["model"]) ==
                    (family, form, model)]
             t, b = sum(r_["ms"] for r_ in sel), sum(r_["bound_ms"] for r_ in sel)
+            cudnn = sum(r_["module_path_ms"] for r_ in sel)
             passes = {}
             for r_ in sel:
                 for k, v in r_["passes"].items():
                     passes[k] = passes.get(k, 0.0) + v
             print(f"[{label}] {family} {form} {model} summed: {t:.3f} ms, bound {b:.3f} ms, "
-                  f"share {b / t:.3f}; " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()),
-                  flush=True)
+                  f"share {b / t:.3f}, module path {cudnn:.3f} ms; "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()), flush=True)
     return rows
 
 

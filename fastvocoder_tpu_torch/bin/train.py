@@ -38,8 +38,13 @@ off) arms a watchdog that exits the process with code 17 when no step has
 completed for that long; `TRAIN_DEADLINE_EPOCH` (else `DEADLINE_EPOCH`), a
 Unix time, stops the run at the first step boundary past it with a tail
 checkpoint.  `--fused_train` -1 or 1 trains through the kernels, the
-port's path on the card; 0, the JAX script's module path, is not ported
-(`WAITING`).
+port's path on the card; 0 runs the generator's residual-stack and MRF
+stages as the modules' library convs instead (`make_trainer(fused_train=
+False)`: cuDNN on the card, in every pass of a step; Basis-MelGAN's decode
+keeps its kernel), as the JAX script's 0 runs them as XLA convs.  A float32
+run computes its cuDNN convs under the caller's
+`torch.backends.cudnn.allow_tf32`, True unless changed (PyTorch's default:
+TF32 convs); this script leaves it as it is and logs it.
 
 Data parallelism: started by `torchrun --nproc_per_node N -m
 fastvocoder_tpu_torch.bin.train ...` (or any launcher that sets RANK,
@@ -98,12 +103,6 @@ from fastvocoder_tpu_torch.train.trainer import make_trainer
 
 logger = logging.getLogger(__name__)
 
-# arguments of the JAX script with a value this package refuses:
-# name -> (the value, what it asks for)
-WAITING = {
-    "fused_train": (0, "training through the modules' library convs instead of the kernels "
-                       "(an open question, ROADMAP.md C)"),
-}
 DEVICE_CACHE_MAX_BYTES = 6e9  # the JAX script's auto rule (sized for a 16 GB TPU)
 STALL_EXIT_CODE = 17
 
@@ -208,10 +207,6 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
     """Train as `args` (the namespace `run_train` parses) says; -> the final
     `TrainState`, with the logged metrics of every step in
     `state.history`."""
-    for name, (value, what) in WAITING.items():
-        if getattr(args, name, None) == value:
-            raise NotImplementedError(
-                f"--{name} {value}: {what} is not ported (ROADMAP.md C)")
     rank, world = maybe_initialize_distributed(args.device or "cuda")
     dp = DataParallel.current()
     is_main = rank == 0
@@ -253,12 +248,16 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
     if args.mixprecision:
         logger.info("Start bf16 mixed precision training...")
         compute_dtype = torch.bfloat16
+    fused_train = args.fused_train != 0
+    if not fused_train:
+        logger.info("--fused_train 0: the generator's stages run as the modules' library convs "
+                    f"(cuDNN TF32 {'on' if torch.backends.cudnn.allow_tf32 else 'off'})")
     trainer = make_trainer(
         cfg, hp=hp, basis_signal_weight=basis_signal_weight,
         use_scheduler=bool(args.use_scheduler), learning_rate=args.learning_rate,
         learning_rate_discriminator=args.learning_rate_discriminator,
         disc_cfg=disc_cfg, device=device, seed=args.seed,
-        compute_dtype=compute_dtype, remat=bool(args.remat), dp=dp,
+        compute_dtype=compute_dtype, remat=bool(args.remat), dp=dp, fused_train=fused_train,
     )
     device = trainer.device
     state = trainer.init_state(args.seed)
@@ -552,7 +551,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "(the first step gets twice as long); 0 disables")
     parser.add_argument("--fused_train", type=int, default=-1,
                         help="-1 or 1 trains through the kernels (this package's path on the "
-                             "card); 0, the module path, is not ported and raises")
+                             "card); 0 runs the generator's residual-stack and MRF stages as "
+                             "the modules' library convs (cuDNN on the card)")
     return parser
 
 

@@ -44,10 +44,13 @@ from fastvocoder_tpu_torch.ops.fused_resstack import leaky_relu
 
 class BasisMelGANGenerator(nn.Module):
     def __init__(self, cfg: BasisMelGANConfig, weight_norm: bool = False,
-                 basis_signal_weight=None, compute_dtype=None):
+                 basis_signal_weight=None, compute_dtype=None, fused_train: bool = True):
         """`basis_signal_weight` (L, out_channels) fills the frozen basis, as
         training from scratch needs; a checkpoint's `load_state_dict` fills
-        it otherwise.  `compute_dtype`: None or torch.bfloat16."""
+        it otherwise.  `compute_dtype`: None or torch.bfloat16.
+        `fused_train=False` runs the training form's stacks as the modules
+        (`models.layers.stage_runs_kernels`); the decode is not gated by it,
+        as in the JAX package."""
         super().__init__()
         self.cfg = cfg
         kw = dict(bias=cfg.bias, weight_norm=weight_norm, compute_dtype=compute_dtype)
@@ -71,7 +74,7 @@ class BasisMelGANGenerator(nn.Module):
                 stack = ResidualStack(
                     cfg.channels[i + 1], kernel_size=cfg.stack_kernel_size,
                     dilation=cfg.stack_kernel_size ** j,
-                    use_causal_conv=cfg.use_causal_conv, **kw,
+                    use_causal_conv=cfg.use_causal_conv, fused_train=fused_train, **kw,
                 )
                 self.add_module(f"stack_{i}_{j}", stack)
                 group.append(stack)

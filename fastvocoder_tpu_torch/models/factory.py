@@ -32,23 +32,29 @@ from fastvocoder_tpu_torch.train.checkpoint import generator_tree
 
 
 def build_generator(cfg: ModelConfig, weight_norm: bool = False,
-                    basis_signal_weight=None, compute_dtype=None) -> nn.Module:
+                    basis_signal_weight=None, compute_dtype=None,
+                    fused_train: bool = True) -> nn.Module:
     """The generator for `cfg.model_name`: the fused (weight-norm-removed)
     form that serves, or with `weight_norm=True` the form that trains.
     `basis_signal_weight` (L, 256) fills Basis-MelGAN's frozen basis.
     `compute_dtype` (None, or torch.bfloat16 for bf16 inference): the type
     it computes in, as the JAX package's `compute_dtype`; parameters stay
-    float32 and the waveform is float32."""
+    float32 and the waveform is float32.  `fused_train=False` (the
+    trainer's, `--fused_train 0`) runs the training form's residual-stack
+    and MRF stages as the modules' library convs on every device
+    (`models.layers.stage_runs_kernels`); the fused form runs its kernels
+    under either value."""
     compute_dtype = check_compute_dtype(compute_dtype)
     kw = dict(weight_norm=weight_norm, compute_dtype=compute_dtype)
+    stages = dict(kw, fused_train=fused_train)
     if cfg.model_name == "basis-melgan":
-        return BasisMelGANGenerator(cfg.arch, basis_signal_weight=basis_signal_weight, **kw)
+        return BasisMelGANGenerator(cfg.arch, basis_signal_weight=basis_signal_weight, **stages)
     if cfg.model_name == "hifigan":
-        return HiFiGANGenerator(cfg.arch, **kw)
+        return HiFiGANGenerator(cfg.arch, **stages)
     if cfg.model_name == "multiband-hifigan":
-        return MultiBandHiFiGANGenerator(cfg.arch, **kw)
+        return MultiBandHiFiGANGenerator(cfg.arch, **stages)
     if cfg.model_name == "melgan":
-        return MelGANGenerator(cfg.arch, **kw)
+        return MelGANGenerator(cfg.arch, **stages)
     if cfg.model_name == "nhv":
         return NHVGenerator(cfg.arch, **kw)
     raise ValueError(f"no model {cfg.model_name!r}")

@@ -13,7 +13,9 @@ stage runs the tail kernel (`ops/fused_tail.py`) with the output head
 whenever the JAX package would fuse it: a transposed conv with stride 2 and
 ResBlock1 blocks.  The training form (`weight_norm=True`) runs the last
 stage like the others, its MRF through the MRF kernel: the tail kernel is
-inference only, in the JAX package too.  A width the kernels do not take
+inference only, in the JAX package too.  Built with `fused_train=False`
+(`--fused_train 0`), the training form runs every MRF stage as the modules
+(`models.layers.stage_runs_kernels`).  A width the kernels do not take
 raises there.
 
 With `compute_dtype=torch.bfloat16` the generator computes in bf16 as the
@@ -56,7 +58,7 @@ def _tensors(ops):
 
 class HiFiGANGenerator(nn.Module):
     def __init__(self, cfg: HiFiGANConfig, in_channels: int = 80, weight_norm: bool = False,
-                 compute_dtype=None):
+                 compute_dtype=None, fused_train: bool = True):
         super().__init__()
         self.cfg = cfg
         self.weight_norm = weight_norm
@@ -78,7 +80,8 @@ class HiFiGANGenerator(nn.Module):
             blocks = []
             for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes,
                                              cfg.resblock_dilation_sizes)):
-                block = resblock(ch, kernel_size=rk, dilations=rd, **kw)
+                block = resblock(ch, kernel_size=rk, dilations=rd, fused_train=fused_train,
+                                 **kw)
                 self.add_module(f"resblock_{i}_{j}", block)
                 blocks.append(block)
             self.mrfs.append(blocks)

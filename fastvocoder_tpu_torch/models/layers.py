@@ -26,6 +26,14 @@ so that their gradients reach the float32 parameters through the casts).
 `apply_residual_stacks`, `apply_mrf` and `BasisSignalLayer` hand the
 kernels' bf16 forms bf16 activations, as the JAX package casts before its
 Pallas calls.
+
+`fused_train` (True by default) is the JAX package's `--fused_train` gate
+(`fastvocoder_tpu/ops/fused_resstack.py:56-100`,
+`fastvocoder_tpu/models/hifigan.py:41-62`) held by the stage modules
+(`ResidualStack`, `ResBlock1`; `ResBlock2` runs no kernel either way):
+False makes a training-form stage (`weight_norm=True`) run as the modules'
+library convs on every device and in every grad mode; the fused form
+ignores it (`stage_runs_kernels`).
 """
 
 from __future__ import annotations
@@ -246,15 +254,17 @@ class ResidualStack(nn.Module):
     """MelGAN residual stack (reference modules.py:320-382):
     leaky(0.2) -> reflect-pad -> dilated conv -> leaky(0.2) -> 1x1 conv,
     plus a 1x1 skip conv.  With `use_causal_conv` the dilated conv is a
-    `CausalConv1d` (left-only reflect pad)."""
+    `CausalConv1d` (left-only reflect pad).  `fused_train=False` keeps the
+    training form off the chain kernels (`stage_runs_kernels`)."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilation: int = 1,
                  bias: bool = True, weight_norm: bool = False, use_causal_conv: bool = False,
-                 compute_dtype=None):
+                 compute_dtype=None, fused_train: bool = True):
         super().__init__()
         self.kernel_size = kernel_size
         self.dilation = dilation
         self.causal = use_causal_conv
+        self.weight_norm, self.fused_train = weight_norm, fused_train
         self.compute_dtype = check_compute_dtype(compute_dtype)
         kw = dict(bias=bias, weight_norm=weight_norm, compute_dtype=compute_dtype)
         if use_causal_conv:
@@ -281,18 +291,41 @@ class ResidualStack(nn.Module):
                                         *self.conv_1x1.tap_major(), *self.skip.tap_major()))
 
 
-def apply_residual_stacks(x: torch.Tensor, stacks: Sequence[ResidualStack]) -> torch.Tensor:
-    """Run a stage's sequential ResidualStacks: the chain kernels on CUDA
-    (its backward kernel under autograd), the modules on the CPU.
+def stage_runs_kernels(device, stages: Sequence[nn.Module]) -> bool:
+    """Whether a stage (a group's ResidualStacks, or an MRF stage's blocks)
+    on `device` runs its kernels, rather than the modules' library convs.
+    Decided from the device and the stages' configuration alone, before
+    any kernel is tried, never as a fallback from a kernel that failed:
 
-    Causal stacks compute another function (a left-only reflect pad, which
-    the chain kernels do not mirror), so they run as the modules, library
-    convs, on every device, as the JAX package runs them as plain XLA convs
-    (`use_fused_stacks` refuses them): decided from the stacks'
-    configuration before any kernel is tried, never as a fallback from a
-    kernel that failed.  Every non-causal width runs the kernels; a width
+      * not on a CUDA device: the modules (the kernels' plain versions are
+        the modules' own arithmetic);
+      * causal stacks: the modules, on every device (a left-only reflect
+        pad, which the chain kernels do not mirror; the JAX package's
+        `use_fused_stacks` refuses them too);
+      * ResBlock2 blocks: the modules (no kernel covers them, in the JAX
+        package neither);
+      * the training form (`weight_norm=True`) built with
+        `fused_train=False` (`--fused_train 0`): the modules, in every grad
+        mode, as the JAX package's `FASTVOCODER_FUSED_TRAIN=0` runs its
+        weight-norm graph through XLA convs;
+      * anything else runs the kernels: the fused form under either value
+        of `fused_train`, the training form under True."""
+    if torch.device(device).type != "cuda":
+        return False
+    for m in stages:
+        if not isinstance(m, (ResidualStack, ResBlock1)) or getattr(m, "causal", False):
+            return False
+        if m.weight_norm and not m.fused_train:
+            return False
+    return True
+
+
+def apply_residual_stacks(x: torch.Tensor, stacks: Sequence[ResidualStack]) -> torch.Tensor:
+    """Run a stage's sequential ResidualStacks: the chain kernels where
+    `stage_runs_kernels` says so (its backward kernel under autograd), the
+    modules otherwise.  Every non-causal width runs the kernels; a width
     outside `ops.fused_resstack.KERNEL_WIDTHS` raises there."""
-    if not x.is_cuda or any(m.causal for m in stacks):
+    if not stage_runs_kernels(x.device, stacks):
         for m in stacks:
             x = m(x)
         return x
@@ -315,12 +348,15 @@ def apply_residual_stacks(x: torch.Tensor, stacks: Sequence[ResidualStack]) -> t
 class ResBlock1(nn.Module):
     """HiFiGAN type-1 MRF block (reference modules.py:190-230): per dilation
     d_i, x += conv2_i(leaky(conv1_i(leaky(x)))), conv1_i dilated by d_i,
-    leaky slope 0.1, zero "same" padding."""
+    leaky slope 0.1, zero "same" padding.  `fused_train=False` keeps the
+    training form off the MRF kernels (`stage_runs_kernels`)."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3, 5),
-                 bias: bool = True, weight_norm: bool = False, compute_dtype=None):
+                 bias: bool = True, weight_norm: bool = False, compute_dtype=None,
+                 fused_train: bool = True):
         super().__init__()
         self.dilations = tuple(dilations)
+        self.weight_norm, self.fused_train = weight_norm, fused_train
         self.compute_dtype = check_compute_dtype(compute_dtype)
         self.convs1, self.convs2 = [], []
         for i, d in enumerate(self.dilations):
@@ -376,10 +412,11 @@ class ResBlock1(nn.Module):
 class ResBlock2(nn.Module):
     """HiFiGAN type-2 MRF block (reference modules.py:233-252): per dilation
     d_i, x += conv_i(leaky(x)).  No kernel covers it, in the JAX package
-    neither; it runs as modules on every device."""
+    neither; it runs as modules on every device, whatever `fused_train`."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilations: Sequence[int] = (1, 3),
-                 bias: bool = True, weight_norm: bool = False, compute_dtype=None):
+                 bias: bool = True, weight_norm: bool = False, compute_dtype=None,
+                 fused_train: bool = True):
         super().__init__()
         self.convs = []
         for i, d in enumerate(dilations):
@@ -396,10 +433,10 @@ class ResBlock2(nn.Module):
 
 
 def apply_mrf(x: torch.Tensor, blocks: Sequence[nn.Module]) -> torch.Tensor:
-    """Run an MRF stage, the mean of its blocks: the MRF kernel on CUDA for
-    ResBlock1 stages (its backward kernel under autograd), the modules
-    otherwise."""
-    if x.is_cuda and all(isinstance(b, ResBlock1) for b in blocks):
+    """Run an MRF stage, the mean of its blocks: the MRF kernel where
+    `stage_runs_kernels` says so (its backward kernel under autograd), the
+    modules otherwise."""
+    if stage_runs_kernels(x.device, blocks):
         if blocks[0].compute_dtype is not None:  # the kernel's bf16 form
             x = x.to(blocks[0].compute_dtype)
         operands, swapped = zip(*(b.kernel_operands() for b in blocks))

@@ -10,7 +10,8 @@ and tanh: mel (B, T, 80) -> waveform (B, T * prod(scales)).
 The stacks of a stage run the residual-stack chain kernels on CUDA (forward,
 and backward under autograd) at every width of `conf/melgan/original.yaml`
 (256, 128, 64, 32); causal stacks run as library convs
-(`models.layers.apply_residual_stacks`).  With `compute_dtype=torch.bfloat16`
+(`models.layers.apply_residual_stacks`), and so does the training form built
+with `fused_train=False`.  With `compute_dtype=torch.bfloat16`
 it computes in bf16 as the JAX package's does (library convs, the chain
 kernel's bf16 form, tanh in bf16), the waveform float32.  Submodules are
 named as in the JAX package, so a parameter's path there is its
@@ -35,7 +36,8 @@ from fastvocoder_tpu_torch.ops.fused_resstack import leaky_relu
 
 
 class MelGANGenerator(nn.Module):
-    def __init__(self, cfg: MelGANConfig, weight_norm: bool = False, compute_dtype=None):
+    def __init__(self, cfg: MelGANConfig, weight_norm: bool = False, compute_dtype=None,
+                 fused_train: bool = True):
         super().__init__()
         self.cfg = cfg
         kw = dict(bias=cfg.bias, weight_norm=weight_norm, compute_dtype=compute_dtype)
@@ -52,7 +54,8 @@ class MelGANGenerator(nn.Module):
             for j in range(cfg.stacks):
                 stack = ResidualStack(ch, kernel_size=cfg.stack_kernel_size,
                                       dilation=cfg.stack_kernel_size ** j,
-                                      use_causal_conv=cfg.use_causal_conv, **kw)
+                                      use_causal_conv=cfg.use_causal_conv,
+                                      fused_train=fused_train, **kw)
                 self.add_module(f"stack_{i}_{j}", stack)
                 group.append(stack)
             self.stacks.append(group)

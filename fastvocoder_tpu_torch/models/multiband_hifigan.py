@@ -20,10 +20,12 @@ from fastvocoder_tpu_torch.ops.pqmf import PQMF
 
 
 class MultiBandHiFiGANGenerator(nn.Module):
-    def __init__(self, cfg: HiFiGANConfig, weight_norm: bool = False, compute_dtype=None):
+    def __init__(self, cfg: HiFiGANConfig, weight_norm: bool = False, compute_dtype=None,
+                 fused_train: bool = True):
         super().__init__()
         self.cfg = cfg
-        self.trunk = HiFiGANGenerator(cfg, weight_norm=weight_norm, compute_dtype=compute_dtype)
+        self.trunk = HiFiGANGenerator(cfg, weight_norm=weight_norm, compute_dtype=compute_dtype,
+                                      fused_train=fused_train)
         self.pqmf = PQMF(subbands=cfg.out_bands)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:

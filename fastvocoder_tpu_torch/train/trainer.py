@@ -25,7 +25,13 @@ bin/train.py:133).
 PyTorch is eager and stateful: a `TrainState` holds the two modules and the
 two optimisers, and a step updates them in place.  The generator is the
 training form (`weight_norm=True`), whose MRF and residual-stack stages run
-the port's CUDA kernels on the card, forward and backward.
+the port's CUDA kernels on the card, forward and backward.  With
+`fused_train=False` (`--fused_train 0`, the JAX package's
+`FASTVOCODER_FUSED_TRAIN=0`) the generator is built so that those stages
+run as the modules' library convs (cuDNN on the card) in every pass of a
+step: the one a gradient is taken through, `gan_step`'s re-run without a
+gradient and validation.  Basis-MelGAN's decode runs its kernel either way,
+as the JAX flag does not gate it.  On the CPU both values run the modules.
 
 NHV's noise source is drawn once a step by `Trainer.noise(step, shape)`
 (by default seeded from the run's seed and the step) and goes into every
@@ -191,16 +197,19 @@ class Trainer:
     compute_dtype: Optional[torch.dtype] = None  # None (float32) or torch.bfloat16
     remat: bool = False  # recompute the generator forward in the backward
     dp: Optional[DataParallel] = None  # data parallelism: gradients reduced over the ranks
+    fused_train: bool = True  # False: the generator's stages run as the modules
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh modules on the trainer's device, initialised from `seed`
         (torch's default conv init, gains at the weights' norms), computing
-        in the trainer's `compute_dtype` with float32 parameters."""
+        in the trainer's `compute_dtype` with float32 parameters, its stages
+        routed by `fused_train`."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             generator = build_generator(self.cfg, weight_norm=True,
                                         basis_signal_weight=self.basis_signal_weight,
-                                        compute_dtype=self.compute_dtype)
+                                        compute_dtype=self.compute_dtype,
+                                        fused_train=self.fused_train)
             discriminator = build_discriminator(self.disc_cfg,
                                                 compute_dtype=self.compute_dtype)
         generator.to(self.device).train()
@@ -373,6 +382,7 @@ def make_trainer(
     compute_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
     dp: Optional[DataParallel] = None,
+    fused_train: bool = True,
 ) -> Trainer:
     """The trainer of `cfg` on `device`: the CUDA device by default, and a
     RuntimeError without one unless `device="cpu"` is asked for.  `noise`
@@ -381,8 +391,9 @@ def make_trainer(
     says so.  `compute_dtype=torch.bfloat16` trains in bf16 mixed precision
     (the module docstring says what stays float32); `remat=True`
     recomputes the generator forward in the backward (module docstring);
-    `dp` reduces the gradients over a process group's ranks (module
-    docstring)."""
+    `dp` reduces the gradients over a process group's ranks;
+    `fused_train=False` runs the generator's stages as the modules instead
+    of the kernels (both: module docstring)."""
     compute_dtype = check_compute_dtype(compute_dtype)
     if device is None:
         if not torch.cuda.is_available():
@@ -405,5 +416,5 @@ def make_trainer(
         pqmf=PQMF().to(device) if cfg.multiband else None,
         noise=noise if noise is not None else seeded_noise(seed, device),
         basis_signal_weight=basis_signal_weight, keep_grads=keep_grads,
-        compute_dtype=compute_dtype, remat=remat, dp=dp,
+        compute_dtype=compute_dtype, remat=remat, dp=dp, fused_train=fused_train,
     )

@@ -139,7 +139,9 @@ def _np_state_dict(tree):
 def runs(tmp_path_factory):
     """Every (case, type) of `RUNS`: the JAX mesh run, the port in one
     process on the whole batch, and the port's two gloo ranks (one pair of
-    processes for all)."""
+    processes for all), on one intra-op thread, the count before it restored
+    at teardown."""
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
     work = str(tmp_path_factory.mktemp("dp"))
     out = {}
@@ -152,7 +154,8 @@ def runs(tmp_path_factory):
         for r in range(WORLD):
             with np.load(os.path.join(work, f"{case}.{dtype}.rank{r}.npz")) as z:
                 out[case, dtype][f"rank{r}"] = dict(z)
-    return out
+    yield out
+    torch.set_num_threads(threads)
 
 
 def _by_prefix(res, prefix):

@@ -68,6 +68,14 @@ printed (where many pre-activations lie near the kink their flips' moves
 may cancel in the two runs, and the bounds stand in).
 Their autograd paths, the differentiable bf16 decode and a bf16 training
 step close the section.
+
+Last, `--fused_train 0` (`make_trainer(fused_train=False)`: the generator's
+stages as the modules' cuDNN convs) against the kernels' path, one
+pre-adversarial step from the same weights at each family's release width:
+in float32 the one-step bounds (losses 1e-4, gradients 1e-2 of the peak),
+in bf16 each path against its own float32 step (gradients within twice the
+CPU's RMS deviation) and the two paths' losses within 5e-3; under 0 no
+kernel 2-5 launches in either type, and the decode as often as under 1.
 """
 
 import os
@@ -1523,3 +1531,123 @@ def test_bf16_training_step_runs_the_bf16_forms_and_keeps_float32_state(cuda, fa
         assert all(p.dtype == torch.float32 for p in module.parameters())
         assert all(v.dtype == torch.float32 for st in opt.state.values() for v in st.values()
                    if isinstance(v, torch.Tensor) and v.dim() > 0)
+
+
+# ---- --fused_train 0 against 1: the modules' library convs against the kernels ----
+
+# one pre-adversarial step from the same weights on the same batch, TF32 off
+# (the `cuda` fixture): every logged value within STEP_LOSS_RTOL of the
+# kernels' (of 1e-2 where the value is smaller: `weight_average_value` is a
+# mean that cancels), every gradient within STEP_GRAD_TOL of its peak (a
+# gain's or bias's of its conv's weight gradient's peak, if larger), the
+# one-step bounds of `chip_smoke.py` and PERF.md section 2: a leaky-relu flip
+# between cuDNN and the 3xTF32 kernels moves a dW by about 1e-2 of its peak
+STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-2
+# bf16: each value of the flag held to its own float32 step, its gradients'
+# relative RMS deviation at most BF16_STEP_RATIO times the CPU's (the module
+# path rounds to bf16 between cuDNN's convs, kernels 3b and 5b compute in
+# float32 inside: the two bf16 steps are not held to each other at the
+# float32 bounds), their losses to each other within BF16_LOSS_RTOL (the JAX
+# package's comparison, tests/test_fused_mrf.py:259-297)
+BF16_STEP_RATIO, BF16_LOSS_RTOL = 2.0, 5e-3
+FUSED_TRAIN_CONFS = {"hifigan": "hifigan/light.yaml", "basis-melgan": "basis-melgan/light.yaml",
+                     "melgan": "melgan/original.yaml"}
+STAGE_KERNELS = ("fused_resstack", "fused_resstack_bwd", "fused_mrf", "fused_mrf_bwd")
+
+
+def _pre_adv_step(family, fused_train, device, compute_dtype=None, B=4, T=32):
+    """One `pre_adv_step` of `family` at its release configuration's width
+    from seed 0's weights on a seeded batch of B crops of T frames: ->
+    (logged values, {who: {name: gradient on the CPU}}, launches by kernel)."""
+    from fastvocoder_tpu_torch.hparams import load_model_config
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    root = os.path.join(os.path.dirname(__file__), "..")
+    cfg = load_model_config(family, os.path.join(root, "conf", FUSED_TRAIN_CONFS[family]))
+    basis = None
+    if family == "basis-melgan":
+        basis = np.load(os.path.join(root, "dataset", "clean_basis", "basis_signal_weight.npy"))
+    tr = make_trainer(cfg, basis_signal_weight=basis, device=device, keep_grads=True,
+                      compute_dtype=compute_dtype, fused_train=fused_train)
+    state = tr.init_state(0)
+    rng = np.random.default_rng(5)
+    mel = np.clip(0.5 + 0.25 * rng.standard_normal((B, T, 80)), 0, 1).astype(np.float32)
+    wav = (0.1 * rng.standard_normal((B, T * 240))).astype(np.float32)
+    args = [torch.from_numpy(mel).to(device), torch.from_numpy(wav).to(device), None]
+    if basis is not None:
+        weight = rng.random((B, T * 16, cfg.arch.out_channels)).astype(np.float32)
+        args[2] = torch.from_numpy(weight).to(device)
+    before = dict(_build.launch_counts)
+    _, metrics = tr.pre_adv_step(state, *args)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: v - before.get(k, 0) for k, v in _build.launch_counts.items()}
+    grads = {who: {n: g.float().cpu() for n, g in gs.items()} for who, gs in tr.last_grads.items()}
+    return {k: float(v) for k, v in metrics.items()}, grads, launches
+
+
+def _worst_grad(got, want):
+    """The largest |got - want| over each gradient's peak (a gain's or
+    bias's: its conv's weight gradient's, if larger) -> (share, name)."""
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        peak = w.abs().max().item()
+        sibling = name.rsplit(".", 1)[0] + ".weight"
+        if sibling in want:
+            peak = max(peak, want[sibling].abs().max().item())
+        rel = (got[name] - w).abs().max().item() / max(peak, 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def _rel_rms(got, want):
+    num = sum(float((got[k].double() - want[k].double()).pow(2).sum()) for k in want)
+    return float(np.sqrt(num / sum(float(want[k].double().pow(2).sum()) for k in want)))
+
+
+@pytest.mark.parametrize("family", ["hifigan", "basis-melgan", "melgan"])
+def test_fused_train_0_step_matches_the_kernels_step(cuda, family):
+    """A float32 pre-adversarial step through the modules (cuDNN) against
+    the same step through the kernels: the one-step bounds; under 0 no
+    launch of kernels 2-5 or their bf16 forms, and the decode's launches
+    those of the kernels' step (it is not gated)."""
+    m0, g0, n0 = _pre_adv_step(family, False, cuda)
+    m1, g1, n1 = _pre_adv_step(family, True, cuda)
+    for k, want in m1.items():
+        rel = abs(m0[k] - want) / max(abs(want), 1e-2)
+        assert np.isfinite(m0[k]) and rel <= STEP_LOSS_RTOL, (k, m0[k], want)
+    worst, name = _worst_grad(g0["generator"], g1["generator"])
+    print(f"\n{family} float32 pre_adv_step, --fused_train 0 against 1: worst gradient "
+          f"{worst:.2e} of its peak ({name})")
+    assert worst <= STEP_GRAD_TOL, (name, worst)
+    for k in STAGE_KERNELS:
+        assert n0.get(k, 0) == 0 and n0.get(k + "_bf16", 0) == 0, (k, n0)
+    kernels = {"hifigan": ("fused_mrf", "fused_mrf_bwd"),
+               "basis-melgan": ("fused_resstack", "fused_resstack_bwd"),
+               "melgan": ("fused_resstack", "fused_resstack_bwd")}[family]
+    assert all(n1.get(k, 0) > 0 for k in kernels), n1
+    assert n0.get("basis_decode", 0) == n1.get("basis_decode", 0)
+    assert (n0.get("basis_decode", 0) > 0) == (family == "basis-melgan")
+
+
+def test_fused_train_0_bf16_step_against_its_float32_step(cuda):
+    """A bf16 HiFiGAN light pre-adversarial step under 0 (cuDNN bf16 convs)
+    and under 1 (kernels 4b, 5b), each against its own float32 step: the
+    gradients' RMS deviation at most twice the CPU's bf16 module path's
+    from its float32 step; the two bf16 steps' losses within 5e-3."""
+    cpu = {dt: _pre_adv_step("hifigan", True, "cpu", dt, B=2) for dt in (None, BF16)}
+    cpu_dev = _rel_rms(cpu[BF16][1]["generator"], cpu[None][1]["generator"])
+    bf16 = {}
+    for fused_train in (False, True):
+        f32 = _pre_adv_step("hifigan", fused_train, cuda, B=2)
+        bf16[fused_train] = _pre_adv_step("hifigan", fused_train, cuda, BF16, B=2)
+        dev = _rel_rms(bf16[fused_train][1]["generator"], f32[1]["generator"])
+        print(f"\nbf16 hifigan pre_adv_step, --fused_train {int(fused_train)}: gradients' "
+              f"relative RMS from float32 {dev:.3e} (CPU {cpu_dev:.3e})")
+        assert dev <= BF16_STEP_RATIO * cpu_dev
+    for k, want in bf16[True][0].items():
+        assert abs(bf16[False][0][k] - want) <= BF16_LOSS_RTOL * abs(want), k
+    for k in STAGE_KERNELS:
+        assert bf16[False][2].get(k + "_bf16", 0) == 0 and bf16[False][2].get(k, 0) == 0, k
+    assert bf16[True][2].get("fused_mrf_bwd_bf16", 0) > 0

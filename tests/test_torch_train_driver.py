@@ -2,10 +2,10 @@
 CPU: `run_train` over a corpus of 8 utterances in the reference's file
 format, a tiny discriminator, a few steps across the
 `discriminator_train_start_steps` boundary, checkpoints, a resume that
-continues as the unbroken run does, a validation pass, and the flags that
-wait.  Then the checkpoint a run wrote loads where a release checkpoint
-does (`Synthesizer`, `bin/test.py`, `ServingModel`) and synthesizes what
-the trained generator computes; a file of neither format is refused.
+continues as the unbroken run does, and a validation pass.  Then the
+checkpoint a run wrote loads where a release checkpoint does
+(`Synthesizer`, `bin/test.py`, `ServingModel`) and synthesizes what the
+trained generator computes; a file of neither format is refused.
 MelGAN trains with `--use_mpd 1` (its GAN step against MSD + MFD + MPD),
 NHV on the corpus's `<name>.f0.npy` files (f0 packed as mel channel 80,
 validation included), and each is then served from its own checkpoint.
@@ -20,7 +20,7 @@ import torch
 
 from fastvocoder_tpu_torch.bin.synthesize import Synthesizer
 from fastvocoder_tpu_torch.bin.test import run_test
-from fastvocoder_tpu_torch.bin.train import WAITING, run_train
+from fastvocoder_tpu_torch.bin.train import run_train
 from fastvocoder_tpu_torch.data.dataset import (
     BufferDataset,
     WeightDataset,
@@ -167,14 +167,6 @@ def test_run_train_basis_melgan_drops_the_weight_target_past_the_boundary(corpus
     assert "weight_loss" not in history[3] and "adversarial_loss" in history[3]
     basis = np.load(corpus / "basis_signal_weight.npy")
     np.testing.assert_array_equal(state.generator.basis_signal.basis.detach().numpy(), basis)
-
-
-@pytest.mark.parametrize("flag", sorted(WAITING))
-def test_a_waiting_flag_raises(corpus, flag):
-    value = WAITING[flag][0]  # the value that asks for what is not ported
-    with pytest.raises(NotImplementedError, match=flag):
-        run_train(_argv(corpus, "hifigan", corpus / "run_w", max_steps=1, **{flag: value}),
-                  disc_cfg=TINY_DISC)
 
 
 def test_run_train_raises_without_a_card_unless_asked_for_the_cpu(corpus):

@@ -189,7 +189,7 @@ def test_device_cache_auto_takes_the_jax_rule(corpus, caplog):
 
 
 @pytest.mark.parametrize("flags", [{"device_cache": 1}, {"device_cache": 0}, {"remat": 1},
-                                   {"fused_train": 1}, {"restore_step": 2}])
+                                   {"fused_train": 1}, {"fused_train": 0}, {"restore_step": 2}])
 def test_the_runtime_flags_need_a_card_unless_told_the_cpu(corpus, flags):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
