@@ -1,0 +1,8 @@
+"""Generator kernels (`ops/`, `csrc/`, cuDNN): the forwards' roofline bound
+(the reference's FLOPs at the peak, or the mels, waveforms and weights
+moved once) over the device time of every kernel launched inside the
+benchmark's span around each generator call."""
+
+
+def read(run):
+    return run.forward_roofline()

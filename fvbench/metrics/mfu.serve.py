@@ -1,0 +1,6 @@
+"""The whole step: the reference's FLOPs of the audio completed in the
+traced window, at the requests' own lengths, over the window at the peak."""
+
+
+def read(run):
+    return run.served_mfu()
