@@ -93,7 +93,7 @@ from fastvocoder_tpu_torch.parallel import (
     reduce_metrics,
     replicate_state,
 )
-from fastvocoder_tpu_torch.runtime import StepTimer, prefetch_to_device
+from fastvocoder_tpu_torch.runtime import prefetch_to_device
 from fastvocoder_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter,
     latest_checkpoint,
@@ -425,9 +425,7 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
     if is_main and args.stall_exit_s > 0:
         _start_stall_watchdog(heartbeat, args.stall_exit_s, current_logger_path,
                               stop=stop_watchdog)
-    timer = StepTimer(clear_time=hp.clear_time)
-    window_steps = 0
-    timer.start()
+    window_steps, window_t0 = 0, time.perf_counter()
     try:
         for batch in batch_stream:
             heartbeat[0] = time.monotonic()
@@ -441,9 +439,9 @@ def run(args, disc_cfg: DiscriminatorConfig = DISC):
 
             if state.step % hp.log_step == 0:
                 drained = drain_metrics()  # waits for the window's steps
-                mean_t = timer.stop() / max(window_steps, 1)
-                timer.start()
-                window_steps = 0
+                now = time.perf_counter()
+                mean_t = (now - window_t0) / max(window_steps, 1)
+                window_steps, window_t0 = 0, now
                 m = drained[-1][1]
                 epoch = (state.step - 1) // steps_per_epoch
                 eta = (total_step - state.step) * mean_t

@@ -41,6 +41,7 @@ import torch
 
 from fastvocoder_tpu_torch import resolve_device
 from fastvocoder_tpu_torch.hparams import HP, Hparams
+from fastvocoder_tpu_torch.runtime.profiler import annotate
 
 
 class DeviceCorpus:
@@ -96,20 +97,23 @@ class DeviceCorpus:
         """The batch of crops `starts[b]` of utterances `idx[b]`: mel (B,
         fixed, C), wav (B, fixed * hop) and, with `with_weight` on a weight
         corpus, weight (B, fixed * wstep, C) in bf16.  The host sends the two
-        index vectors (pinned, without a sync); the rest is on the device."""
-        pair = torch.from_numpy(np.stack([np.asarray(idx, np.int64),
-                                          np.asarray(starts, np.int64)]))
-        if self.device.type == "cuda":
-            pair = pair.pin_memory().to(self.device, non_blocking=True)
-        fixed = self.hp.fixed_length
-        B = pair.shape[1]
-        rows = ((pair[0] * self.F + pair[1])[:, None] + self._rows[None, :]).reshape(-1)
-        out = {"mel": self.arrays["mel"].index_select(0, rows).reshape(B, fixed, -1),
-               "wav": self.arrays["wav"].index_select(0, rows).reshape(B, -1)}
-        if with_weight and self.wstep is not None:
-            w = self.arrays["weight"]
-            out["weight"] = w.index_select(0, rows).reshape(B, fixed * self.wstep, w.shape[-1])
-        return out
+        index vectors (pinned, without a sync); the rest is on the device.
+        The span `data.gather` (`runtime/profiler.py`)."""
+        with annotate("data.gather"):
+            pair = torch.from_numpy(np.stack([np.asarray(idx, np.int64),
+                                              np.asarray(starts, np.int64)]))
+            if self.device.type == "cuda":
+                pair = pair.pin_memory().to(self.device, non_blocking=True)
+            fixed = self.hp.fixed_length
+            B = pair.shape[1]
+            rows = ((pair[0] * self.F + pair[1])[:, None] + self._rows[None, :]).reshape(-1)
+            out = {"mel": self.arrays["mel"].index_select(0, rows).reshape(B, fixed, -1),
+                   "wav": self.arrays["wav"].index_select(0, rows).reshape(B, -1)}
+            if with_weight and self.wstep is not None:
+                w = self.arrays["weight"]
+                out["weight"] = w.index_select(0, rows).reshape(B, fixed * self.wstep,
+                                                                w.shape[-1])
+            return out
 
     # ---- the training stream ----
 

@@ -11,6 +11,13 @@ group's rows over them, as the JAX package's mesh shards a batch along its
 first axis: the rows are padded to a multiple of the mesh's size by
 repeating the last row, every replica's chunk is launched before any is
 copied back, and the waveforms come back in input order.
+
+With the recorder on (`runtime/profiler.py`) a call is a `synth.call` span
+and each (bucket, group), one generator call, a `synth.group` (its
+`bucket`, `rows` computed, padding rows included, `utterances` and their
+own `frames`) -> `synth.pad` (pad, stack, cast, pow2 repeat), `synth.h2d`,
+`synth.launch` (the forward's enqueue), `synth.d2h` (the copy back, which
+waits on the card), `synth.trim`.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from fastvocoder_tpu_torch.parallel.mesh import shard_batch
+from fastvocoder_tpu_torch.runtime.profiler import annotate
 
 Forward = Callable[[torch.Tensor], torch.Tensor]
 
@@ -97,31 +105,45 @@ class BatchedSynthesizer:
         """The forwards over a padded batch, its rows split over the mesh."""
         with torch.inference_mode():
             if self.n_dev == 1:
-                return self.forwards[0](torch.from_numpy(batch).to(self.device)).cpu().numpy()
-            chunks = shard_batch({"mel": batch}, self.mesh, dp=None)
-            outs = [fwd(c["mel"]) for fwd, c in zip(self.forwards, chunks)]  # all launched
-            return np.concatenate([o.cpu().numpy() for o in outs])
+                with annotate("synth.h2d"):
+                    mel = torch.from_numpy(batch).to(self.device)
+                with annotate("synth.launch"):
+                    wav = self.forwards[0](mel)
+                with annotate("synth.d2h"):
+                    return wav.cpu().numpy()
+            with annotate("synth.h2d"):
+                chunks = shard_batch({"mel": batch}, self.mesh, dp=None)
+            with annotate("synth.launch"):
+                outs = [fwd(c["mel"]) for fwd, c in zip(self.forwards, chunks)]  # all launched
+            with annotate("synth.d2h"):
+                return np.concatenate([o.cpu().numpy() for o in outs])
 
     def __call__(self, mels: Sequence[np.ndarray]) -> List[np.ndarray]:
         """mels: list of (T_i, C) -> list of (T_i * samples_per_frame,)
         float32 wavs, in input order."""
-        order: Dict[int, List[int]] = {}
-        for i, m in enumerate(mels):
-            order.setdefault(bucket_length(m.shape[0], self.bucket_frames), []).append(i)
+        with annotate("synth.call"):
+            order: Dict[int, List[int]] = {}
+            for i, m in enumerate(mels):
+                order.setdefault(bucket_length(m.shape[0], self.bucket_frames), []).append(i)
 
-        out: List[np.ndarray] = [None] * len(mels)  # type: ignore[list-item]
-        for Tb, idxs in sorted(order.items()):
-            for start in range(0, len(idxs), self.max_batch):
-                group = idxs[start : start + self.max_batch]
-                batch = np.stack(
-                    [np.pad(mels[i], ((0, Tb - mels[i].shape[0]), (0, 0))) for i in group]
-                ).astype(np.float32)
-                want_rows = self._group_size(batch.shape[0])
-                if want_rows > batch.shape[0]:
-                    batch = np.concatenate(
-                        [batch, np.repeat(batch[-1:], want_rows - batch.shape[0], axis=0)]
-                    )
-                wavs = self._run(batch)
-                for row, i in enumerate(group):
-                    out[i] = wavs[row, : mels[i].shape[0] * self.spf]
-        return out
+            out: List[np.ndarray] = [None] * len(mels)  # type: ignore[list-item]
+            for Tb, idxs in sorted(order.items()):
+                for start in range(0, len(idxs), self.max_batch):
+                    group = idxs[start : start + self.max_batch]
+                    rows = self._group_size(len(group))
+                    with annotate("synth.group", bucket=Tb, rows=rows, utterances=len(group),
+                                  frames=sum(mels[i].shape[0] for i in group)):
+                        with annotate("synth.pad"):
+                            batch = np.stack(
+                                [np.pad(mels[i], ((0, Tb - mels[i].shape[0]), (0, 0)))
+                                 for i in group]
+                            ).astype(np.float32)
+                            if rows > batch.shape[0]:
+                                batch = np.concatenate(
+                                    [batch, np.repeat(batch[-1:], rows - batch.shape[0], axis=0)]
+                                )
+                        wavs = self._run(batch)
+                        with annotate("synth.trim"):
+                            for row, i in enumerate(group):
+                                out[i] = wavs[row, : mels[i].shape[0] * self.spf]
+            return out

@@ -10,7 +10,11 @@ background worker that collects requests for up to `max_wait_ms` (or until
 one group, trading a bounded latency budget for larger batches.
 
 Pure stdlib (threads + futures) — host-side coalescing only; all device
-work stays in the synthesizer.
+work stays in the synthesizer.  With the recorder on (`runtime/profiler.py`)
+each request's `batcher.submit` and the worker's `batcher.wait` (nothing
+pending), `batcher.collect` (first request taken -> group closed by size or
+deadline) and `batcher.call` (the synthesize call, its request ids) ->
+`batcher.resolve` (futures set) are spans.
 
 The port's copy of `fastvocoder_tpu/serving/batcher.py`.
 """
@@ -18,6 +22,7 @@ The port's copy of `fastvocoder_tpu/serving/batcher.py`.
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 import time
@@ -25,6 +30,8 @@ from concurrent.futures import Future
 from typing import Callable, List, Sequence
 
 import numpy as np
+
+from fastvocoder_tpu_torch.runtime.profiler import annotate
 
 _CLOSE = object()
 
@@ -59,6 +66,7 @@ class DynamicBatcher:
         self._batch_sizes: "collections.deque" = collections.deque(maxlen=1024)
         self._q: "queue.Queue" = queue.Queue(maxsize=max_pending)
         self._closed = False
+        self._request_ids = itertools.count(1)
         # guards the closed-check-then-enqueue pair (a submit racing close
         # could otherwise land a Future behind the sentinel that nothing
         # ever resolves) and the stats deques (iterating while the worker
@@ -69,11 +77,12 @@ class DynamicBatcher:
 
     def submit(self, mel: np.ndarray) -> "Future[np.ndarray]":
         fut: "Future[np.ndarray]" = Future()
-        with self._lock:
+        rid = next(self._request_ids)
+        with annotate("batcher.submit", request=rid), self._lock:
             if self._closed:
                 raise RuntimeError("DynamicBatcher is closed")
             try:
-                self._q.put_nowait((mel, fut, time.monotonic()))
+                self._q.put_nowait((mel, fut, time.monotonic(), rid))
             except queue.Full:
                 raise QueueFull(
                     f"{self._q.maxsize} requests already pending"
@@ -116,24 +125,26 @@ class DynamicBatcher:
 
     def _worker(self):
         while True:
-            item = self._q.get()
+            with annotate("batcher.wait"):
+                item = self._q.get()
             if item is _CLOSE:
                 return
             batch = [item]
             closing = False
-            deadline = time.monotonic() + self.max_wait
-            while len(batch) < self.max_batch:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    nxt = self._q.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if nxt is _CLOSE:
-                    closing = True
-                    break
-                batch.append(nxt)
+            with annotate("batcher.collect"):
+                deadline = time.monotonic() + self.max_wait
+                while len(batch) < self.max_batch:
+                    timeout = deadline - time.monotonic()
+                    if timeout <= 0:
+                        break
+                    try:
+                        nxt = self._q.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                    if nxt is _CLOSE:
+                        closing = True
+                        break
+                    batch.append(nxt)
             self._run(batch)
             if closing:
                 # drain whatever raced in behind the close sentinel
@@ -150,17 +161,18 @@ class DynamicBatcher:
                 return
 
     def _run(self, batch):
-        mels = [m for m, _, _ in batch]
-        try:
-            wavs = self.synthesize(mels)
-            done = time.monotonic()
-            with self._lock:
-                for (_, fut, t0), wav in zip(batch, wavs):
-                    fut.set_result(wav)
-                    self._latencies.append((done - t0) * 1e3)
-                self._batch_sizes.append(len(batch))
-                self.requests_served += len(batch)
-                self.batches_run += 1
-        except Exception as e:  # deliver to every waiter, keep serving
-            for _, fut, _ in batch:
-                fut.set_exception(e)
+        mels = [m for m, _, _, _ in batch]
+        with annotate("batcher.call", requests=[rid for _, _, _, rid in batch]):
+            try:
+                wavs = self.synthesize(mels)
+                done = time.monotonic()
+                with annotate("batcher.resolve"), self._lock:
+                    for (_, fut, t0, _), wav in zip(batch, wavs):
+                        fut.set_result(wav)
+                        self._latencies.append((done - t0) * 1e3)
+                    self._batch_sizes.append(len(batch))
+                    self.requests_served += len(batch)
+                    self.batches_run += 1
+            except Exception as e:  # deliver to every waiter, keep serving
+                for _, fut, _, _ in batch:
+                    fut.set_exception(e)

@@ -14,7 +14,8 @@ takes its conditioning (T, 81), the mel and f0 (`dsp.f0.f0_to_condition`).
 JAX package's `compute_dtype` (`bin/serve.py --bf16`).  `mesh` (a list of
 devices, `parallel.make_mesh`) serves data-parallel: the checkpoint is
 loaded once a device of the mesh, and each batch's rows are split over
-the replicas (`models/batched.py`).
+the replicas (`models/batched.py`).  The pattern's subtraction is the
+span `serve.pattern` (`runtime/profiler.py`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from fastvocoder_tpu_torch.hparams import HP, Hparams, load_model_config
 from fastvocoder_tpu_torch.models.batched import BatchedSynthesizer
 from fastvocoder_tpu_torch.models.factory import load_generator
 from fastvocoder_tpu_torch.models.streaming import check_pattern_covers
+from fastvocoder_tpu_torch.runtime.profiler import annotate
 
 
 class ServingModel:
@@ -97,8 +99,9 @@ class ServingModel:
     def __call__(self, mels: Sequence[np.ndarray]) -> List[np.ndarray]:
         wavs = self.batched(mels)
         if self.pattern is not None:
-            for i, w in enumerate(wavs):
-                n = w.shape[0]
-                check_pattern_covers(self.pattern, n)
-                wavs[i] = w - self.pattern[:n]
+            with annotate("serve.pattern"):
+                for i, w in enumerate(wavs):
+                    n = w.shape[0]
+                    check_pattern_covers(self.pattern, n)
+                    wavs[i] = w - self.pattern[:n]
         return wavs

@@ -70,6 +70,15 @@ the reduced values).  The losses are the global batch's
 this rank's (`parallel.reduce_metrics` makes them global).  NHV's noise is
 the global batch's draw of the step, of which each rank takes its rows, as
 JAX draws it once for the whole mesh.
+
+With the recorder on (`runtime/profiler.py`) a step is a `train.step` span
+holding its phases, in order: `train.gen_forward`, `train.recon_loss`
+(MR-STFT, the weight L1), in `gan_step` `train.disc` (the discriminator on
+the estimate and the real audio, the adversarial and feature-map losses),
+`train.gen_backward` (the gradient), `train.gen_update` (clip and Adam),
+then `train.gen_rerun` (the estimate without a gradient),
+`train.disc_forward_loss`, `train.disc_backward`, `train.disc_update`.
+Every span of a step carries its number.
 """
 
 from __future__ import annotations
@@ -96,6 +105,7 @@ from fastvocoder_tpu_torch.models.nhv import NOISE_SCALE
 from fastvocoder_tpu_torch.ops.pqmf import PQMF
 from fastvocoder_tpu_torch.ops.precision import check_compute_dtype
 from fastvocoder_tpu_torch.parallel.distributed import DataParallel
+from fastvocoder_tpu_torch.runtime.profiler import annotate
 
 Metrics = Dict[str, torch.Tensor]
 Noise = Callable[[int, Sequence[int]], torch.Tensor]
@@ -276,77 +286,95 @@ class Trainer:
         opt.step()
         opt.zero_grad(set_to_none=True)
 
-    def _update_generator(self, state: TrainState, total: torch.Tensor) -> None:
+    def _update_generator(self, state: TrainState, total: torch.Tensor, step: int) -> None:
         named = [(n, p) for n, p in state.generator.named_parameters()]
-        grads = self._reduced(torch.autograd.grad(total, [p for _, p in named]))
-        if self.keep_grads:
-            self.last_grads["generator"] = {n: g.clone() for (n, _), g in zip(named, grads)}
-        frozen = tuple(g.contiguous() for (n, _), g in zip(named, grads)
-                       if n.startswith("basis_signal."))
-        trained = [(p, g) for (n, p), g in zip(named, grads)
-                   if not n.startswith("basis_signal.")]
-        self._update("generator", [p for p, _ in trained], [g for _, g in trained],
-                     state.gen_opt, self.gen_schedule(state.gen_updates), frozen)
+        with annotate("train.gen_backward", step=step):
+            grads = self._reduced(torch.autograd.grad(total, [p for _, p in named]))
+        with annotate("train.gen_update", step=step):
+            if self.keep_grads:
+                self.last_grads["generator"] = {n: g.clone() for (n, _), g in zip(named, grads)}
+            frozen = tuple(g.contiguous() for (n, _), g in zip(named, grads)
+                           if n.startswith("basis_signal."))
+            trained = [(p, g) for (n, p), g in zip(named, grads)
+                       if not n.startswith("basis_signal.")]
+            self._update("generator", [p for p, _ in trained], [g for _, g in trained],
+                         state.gen_opt, self.gen_schedule(state.gen_updates), frozen)
         state.gen_updates += 1
 
     # ---- the two steps ----
 
     def pre_adv_step(self, state: TrainState, mel, wav, weight=None) -> Tuple[TrainState, Metrics]:
         """Generator-only phase (step <= discriminator_train_start_steps)."""
-        est, est_weight = self._gen_forward(state.generator, mel, self._step_noise(state, mel))
-        stft_l, weight_l = reconstruction_loss(est, wav, est_weight=est_weight, weight=weight,
-                                               pqmf=self.pqmf, dp=self.dp)
-        total = self.cfg.lambda_stft * stft_l
-        metrics = {"stft_loss": stft_l}
-        if weight_l is not None:
-            total = total + weight_l  # unscaled (reference bin/train.py:89)
-            metrics["weight_loss"] = weight_l
-            metrics["weight_average_value"] = est_weight.mean()
-        metrics["total_loss"] = total
-        self._update_generator(state, total)
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        n = state.step + 1
+        with annotate("train.step", step=n):
+            with annotate("train.gen_forward", step=n):
+                est, est_weight = self._gen_forward(state.generator, mel,
+                                                    self._step_noise(state, mel))
+            with annotate("train.recon_loss", step=n):
+                stft_l, weight_l = reconstruction_loss(est, wav, est_weight=est_weight,
+                                                       weight=weight, pqmf=self.pqmf, dp=self.dp)
+                total = self.cfg.lambda_stft * stft_l
+                metrics = {"stft_loss": stft_l}
+                if weight_l is not None:
+                    total = total + weight_l  # unscaled (reference bin/train.py:89)
+                    metrics["weight_loss"] = weight_l
+                    metrics["weight_average_value"] = est_weight.mean()
+                metrics["total_loss"] = total
+            self._update_generator(state, total, n)
+            state.step += 1
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     def gan_step(self, state: TrainState, mel, wav, weight=None) -> Tuple[TrainState, Metrics]:
         """Full GAN phase (step > discriminator_train_start_steps): the
         generator update (stft + adv + fm), then the discriminator update on
         the estimate of the updated generator.  The discriminator always
         sees full-band waveforms."""
+        n = state.step + 1
+        with annotate("train.step", step=n):
+            return self._gan_step(state, mel, wav, weight, n)
+
+    def _gan_step(self, state: TrainState, mel, wav, weight, n: int) -> Tuple[TrainState, Metrics]:
         disc = state.discriminator
-        noise = self._step_noise(state, mel)  # one draw for both generator forwards
-        est, est_weight = self._gen_forward(state.generator, mel, noise)
-        stft_l, _ = reconstruction_loss(est, wav, est_weight=est_weight, weight=weight,
-                                        pqmf=self.pqmf, dp=self.dp)
-        total = self.cfg.lambda_stft * stft_l
-        metrics = {"stft_loss": stft_l}
-        if self.remat:  # the discriminator's features of the estimate, recomputed too
-            est_p = checkpoint(disc, self._to_fullband(est), use_reentrant=False)
-        else:
-            est_p = disc(self._to_fullband(est))
-        adv_l = adversarial_loss(est_p)
-        total = total + self.hp.lambda_adv * adv_l
-        metrics["adversarial_loss"] = adv_l
-        if self.cfg.use_feature_map_loss:
-            with torch.no_grad():
-                real_p = disc(wav)
-            fm_l = feature_map_loss(est_p, real_p)
-            total = total + self.hp.lambda_fm * fm_l
-            metrics["feature_map_loss"] = fm_l
-        metrics["total_loss"] = total
-        self._update_generator(state, total)
+        with annotate("train.gen_forward", step=n):
+            noise = self._step_noise(state, mel)  # one draw for both generator forwards
+            est, est_weight = self._gen_forward(state.generator, mel, noise)
+        with annotate("train.recon_loss", step=n):
+            stft_l, _ = reconstruction_loss(est, wav, est_weight=est_weight, weight=weight,
+                                            pqmf=self.pqmf, dp=self.dp)
+            total = self.cfg.lambda_stft * stft_l
+            metrics = {"stft_loss": stft_l}
+        with annotate("train.disc", step=n):
+            if self.remat:  # the discriminator's features of the estimate, recomputed too
+                est_p = checkpoint(disc, self._to_fullband(est), use_reentrant=False)
+            else:
+                est_p = disc(self._to_fullband(est))
+            adv_l = adversarial_loss(est_p)
+            total = total + self.hp.lambda_adv * adv_l
+            metrics["adversarial_loss"] = adv_l
+            if self.cfg.use_feature_map_loss:
+                with torch.no_grad():
+                    real_p = disc(wav)
+                fm_l = feature_map_loss(est_p, real_p)
+                total = total + self.hp.lambda_fm * fm_l
+                metrics["feature_map_loss"] = fm_l
+            metrics["total_loss"] = total
+        self._update_generator(state, total, n)
         del est_p, est, est_weight
 
-        with torch.no_grad():
+        with annotate("train.gen_rerun", step=n), torch.no_grad():
             est_for_d = self._to_fullband(self._gen_forward(state.generator, mel, noise)[0])
-        real_l, fake_l = discriminator_loss(disc(wav), disc(est_for_d))
-        d_loss = real_l + fake_l
+        with annotate("train.disc_forward_loss", step=n):
+            real_l, fake_l = discriminator_loss(disc(wav), disc(est_for_d))
+            d_loss = real_l + fake_l
         params = list(disc.parameters())
-        d_grads = self._reduced(torch.autograd.grad(d_loss, params))
-        if self.keep_grads:
-            self.last_grads["discriminator"] = {
-                n: g.clone() for (n, _), g in zip(disc.named_parameters(), d_grads)}
-        self._update("discriminator", params, d_grads,
-                     state.disc_opt, self.disc_schedule(state.disc_updates))
+        with annotate("train.disc_backward", step=n):
+            d_grads = self._reduced(torch.autograd.grad(d_loss, params))
+        with annotate("train.disc_update", step=n):
+            if self.keep_grads:
+                self.last_grads["discriminator"] = {
+                    k: g.clone() for (k, _), g in zip(disc.named_parameters(), d_grads)}
+            self._update("discriminator", params, d_grads,
+                         state.disc_opt, self.disc_schedule(state.disc_updates))
         state.disc_updates += 1
         metrics["discriminator_loss"] = d_loss
         state.step += 1

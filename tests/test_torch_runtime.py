@@ -1,5 +1,5 @@
 """The port's training input on the CPU: `data/device_cache.py`'s
-`DeviceCorpus` and `runtime/`'s `prefetch_to_device` and `StepTimer`.
+`DeviceCorpus` and `runtime/`'s `prefetch_to_device` and `trace`.
 
 The cases of `tests/test_device_cache.py` and `tests/test_runtime.py`,
 mirrored (crops equal to the host pipeline's exactly, the weight target
@@ -19,7 +19,7 @@ import torch
 from fastvocoder_tpu_torch.data.dataset import BufferDataset, collate, num_batches_per_epoch
 from fastvocoder_tpu_torch.data.device_cache import DeviceCorpus
 from fastvocoder_tpu_torch.hparams import HP
-from fastvocoder_tpu_torch.runtime import StepTimer, annotate, prefetch_to_device, trace
+from fastvocoder_tpu_torch.runtime import annotate, prefetch_to_device, trace
 
 L = 30
 
@@ -155,16 +155,6 @@ def test_device_corpus_batches_equal_jax(hp, buffer):
             np.testing.assert_array_equal(_np(g[k]), np.asarray(jax.device_get(w[k]), np.float32),
                                           err_msg=k)
     assert ["weight" in g for g in got] == [True] * 3 + [False] * 3
-
-
-def test_step_timer_window_compaction():
-    t = StepTimer(clear_time=3)
-    for _ in range(5):
-        t.start()
-        t.stop()
-    assert len(t.window) <= 3 + 1  # compacted, as the reference's time_list
-    assert t.mean >= 0
-    assert t.eta_seconds(10, 20) == 10 * t.mean
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
