@@ -14,7 +14,11 @@ rate of the CUDA cores, as every kernel, and a third of the tensor cores'
 TF32 rate.  The tail kernel, whose MRF contracts the same way, gets both
 bounds too, is held on the edges of its tiles at C_out = 16 and 32, and its
 MRF launches are timed beside kernel 4 on the same MRF; the decode is also
-timed at the training batch's shape.  Then the script drives each ported
+timed at the training batch's shape.  Kernel 7, the discriminators' grouped
+strided conv, is held against its plain version in float64 at the 18
+grouped layers of the default discriminators at the GAN cell's batch, each
+pass timed beside its plain version, cuDNN and its float32 bound.  Then
+the script drives each ported
 model at full width on its release checkpoint (`docs/checkpoints/`)
 through the entry points a user calls:
 
@@ -53,7 +57,9 @@ the data pipeline reads:
 
   * HiFiGAN light: `bin/train.py::run_train` for 6 steps, 2 pre-adversarial
     and 4 GAN steps with the full-size discriminator, a validation pass and
-    a checkpoint (kernels: fused_mrf, fused_mrf_bwd); then one GAN step on
+    a checkpoint (kernels: fused_mrf, fused_mrf_bwd, and kernel 7's three,
+    grouped_conv_fwd, _dgrad and _wgrad, 72, 54 and 36 times a GAN step);
+    then one GAN step on
     the card against the same step on the CPU through the plain versions;
   * Basis-MelGAN light: `run_train` for 4 pre-adversarial steps with the
     weight L1 (kernels: fused_resstack, fused_resstack_bwd, basis_decode);
@@ -1106,6 +1112,97 @@ def check_melgan_chain_bwd(torch, gen):
     return {k: v for k, v in entry.items() if k in keep}, fwd
 
 
+GROUPED_TOLS = {"forward": 1e-5, "dgrad": 1e-5, "wgrad": 1e-4}  # of the float64 result's peak
+GROUPED_NAMES = {"forward": "grouped_conv_fwd", "dgrad": "grouped_conv_dgrad",
+                 "wgrad": "grouped_conv_wgrad"}
+
+
+def check_grouped_conv(torch):
+    """Kernel 7 against its plain version run in float64 at the 18 grouped
+    downsample layers of the default discriminators, at the GAN cell's batch
+    (32 crops of 33,600 samples): the forward and the input gradient (sums
+    of 4 K products an element) within 1e-5 of their peak, the weight and
+    bias gradients (sums over up to 268,800 rows) within 1e-4; each pass
+    timed as the kernel, the plain version in float32 and cuDNN as the port
+    ran these convs before the kernels (`F.conv1d` on transposed views),
+    beside its float32 bound.  -> three entries for the kernels line, one a
+    pass, with the sums over a `gan_step`'s passes (4 forward, 3 input and 2
+    weight gradients of each layer)."""
+    from fastvocoder_tpu_torch.bin.kernel_times import (
+        DISC_CROPS,
+        DISC_PASSES,
+        DISC_SAMPLES,
+        disc_bounds,
+        disc_layers,
+        disc_passes,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(21)
+    per_pass = {p: {"max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                    "bound_ms": 0.0, "bound_3xtf32_ms": 0.0, "layers": []}
+                for p, _ in DISC_PASSES}
+    for name, x_shape, w_shape, stride, padding in disc_layers(torch):
+        B, T, _ = x_shape
+        K = w_shape[2]
+        T_out = (T + 2 * padding - K) // stride + 1
+        x = torch.randn(x_shape, generator=g).to(dev)
+        w = (torch.randn(w_shape, generator=g) / np.sqrt(4 * K)).to(dev)
+        b = (0.1 * torch.randn(w_shape[0], generator=g)).to(dev)
+        dy = torch.randn(B, T_out, w_shape[0], generator=g).to(dev)
+        kernel = disc_passes(torch, "kernel", x, w, b, dy, stride, padding)
+        want = disc_passes(torch, "plain", *(t.double() for t in (x, w, b, dy)), stride, padding)
+        plain = disc_passes(torch, "plain", x, w, b, dy, stride, padding)
+        cudnn = disc_passes(torch, "cudnn", x, w, b, dy, stride, padding)
+        bounds = disc_bounds(x_shape, w_shape, stride, padding)
+        for p, _ in DISC_PASSES:
+            got, ref = kernel[p](), want[p]()
+            got, ref = (got if isinstance(got, tuple) else (got,)), (
+                ref if isinstance(ref, tuple) else (ref,))
+            err = max(((a.double() - r).abs().max() / r.abs().max()).item()
+                      for a, r in zip(got, ref))
+            if not err <= GROUPED_TOLS[p]:
+                raise AssertionError(f"grouped conv {p} at {name} {x_shape}: {err:.3e} of the "
+                                     f"peak, want at most {GROUPED_TOLS[p]:.0e}")
+            del got, ref
+            ms = cuda_ms(kernel[p], iters=5, warmup=2)
+            plain_ms = cuda_ms(plain[p], iters=5, warmup=2)
+            library_ms = cuda_ms(cudnn[p], iters=5, warmup=2)
+            entry = per_pass[p]
+            entry["max_rel_err"] = max(entry["max_rel_err"], err)
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                           ("bound_ms", bounds[p][0]), ("bound_3xtf32_ms", bounds[p][1])):
+                entry[key] += v
+            entry["layers"].append({"layer": name, "x": list(x_shape), "weight": list(w_shape),
+                                    "max_rel_err": err, "ms": ms, "plain_ms": plain_ms,
+                                    "library_ms": library_ms, "bound_ms": bounds[p][0]})
+        log(f"  grouped conv {name} {x_shape} -> {(B, T_out, w_shape[0])}: " + ", ".join(
+            f"{p} {per_pass[p]['layers'][-1]['ms']:.4f} ms (plain "
+            f"{per_pass[p]['layers'][-1]['plain_ms']:.4f}, cuDNN "
+            f"{per_pass[p]['layers'][-1]['library_ms']:.4f}, bound {bounds[p][0]:.4f}; "
+            f"{per_pass[p]['layers'][-1]['max_rel_err']:.1e} of the peak)" for p, _ in DISC_PASSES))
+        torch.cuda.empty_cache()
+    entries = []
+    for p, n in DISC_PASSES:
+        e = per_pass[p]
+        log(f"  {GROUPED_NAMES[p]}: the 18 layers once {e['ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f}, cuDNN {e['library_ms']:.4f}, float32 bound "
+            f"{e['bound_ms']:.4f} ({share(e['bound_ms'], e['ms'])} of it); a gan_step's {n} "
+            f"passes {n * e['ms']:.4f} ms against cuDNN's {n * e['library_ms']:.4f}")
+        entries.append({
+            "name": GROUPED_NAMES[p], "route": "cuda",
+            "source": "fastvocoder_tpu_torch/csrc/grouped_conv.cu", "replaces": None,
+            "new": "the JAX package runs these convs through XLA "
+                   "(fastvocoder_tpu/ops/conv.py::conv1d)",
+            "shape": f"the default discriminators' 18 grouped downsample convs, {p}, at "
+                     f"{DISC_CROPS} crops of {DISC_SAMPLES} samples, summed over the layers",
+            "max_rel_err": e["max_rel_err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound_ms"], "bound_f32_ms": e["bound_ms"],
+            "bound_3xtf32_ms": e["bound_3xtf32_ms"], "bound_by": "each layer's operations or bytes",
+            "library_ms": e["library_ms"], "passes_a_gan_step": n, "layers": e["layers"]})
+    return entries
+
+
 def bound_bf16_ms(nbytes: float, flops: float):
     """The bound of a bf16 form: bytes at bf16 widths (as the caller counts
     them) or every product at the dense bf16 rate of the tensor cores."""
@@ -1836,6 +1933,7 @@ def kernel_class(name: str) -> str:
                        ("tail_pair_kernel", "fused_tail kernel: MRF pairs (wgmma, 3xTF32)"),
                        ("tail_head_kernel", "fused_tail kernel: mean and head"),
                        ("pack_kernel", "weight packing of the tensor-core kernels (2-6)"),
+                       ("grouped_conv_", "grouped_conv kernel (the discriminators' grouped convs)"),
                        ("fvt_bwd", "sums of the backward kernels (dW reduction, MRF branches)")):
         if key in name:
             return label
@@ -3675,6 +3773,8 @@ def main() -> int:
     log("[bf16 forms of the backward kernels against their plain versions]")
     entries += [check_bf16_chain_bwd(torch, basis_gen, melgan_gen),
                 check_bf16_mrf_bwd(torch, hifi_gen)]
+    log("[kernel 7, the discriminators' grouped convs, against float64]")
+    entries += check_grouped_conv(torch)
     log("[the MRF kernels' 3xTF32 against float64]")
     mrf_errors_against_f64(torch, torch.device("cuda"))
     log("[the chain kernels' 3xTF32 against float64]")
@@ -3777,13 +3877,19 @@ def main() -> int:
                 np.load(os.path.join(ROOT, "dataset", "clean_basis", "basis_signal_weight.npy")))
         log(f"[corpus: 64 seeded utterances of 160-220 frames written in "
             f"{time.perf_counter() - t0:.2f} s]")
+        grouped = tuple(GROUPED_NAMES.values())
         hifi_cfg, _, _ = train_phase(torch, count_path, "hifigan", HIFI_CONF, corpus, index, steps=6,
-                                  start_steps=2, kernels=("fused_mrf", "fused_mrf_bwd"))
+                                  start_steps=2, kernels=("fused_mrf", "fused_mrf_bwd") + grouped)
         # 2 + 2 * 4 generator passes of 4 MRF stages (the validation's come
         # on top), one backward of each stage a step
         if launches["fused_mrf_bwd"] != 4 * 6:
             raise AssertionError(f"6 HiFiGAN steps launched fused_mrf_bwd "
                                  f"{launches['fused_mrf_bwd']} times, want 24")
+        # the 18 grouped layers in each of the 4 GAN steps: 4 passes forward,
+        # 3 to the input, 2 to the weights (none in the generator's update)
+        if [launches[k] for k in grouped] != [4 * 4 * 18, 4 * 3 * 18, 4 * 2 * 18]:
+            raise AssertionError(f"4 HiFiGAN GAN steps launched {grouped} "
+                                 f"{[launches[k] for k in grouped]} times, want 288, 216, 144")
         batch = fixed_batch(hifi_cfg, index)
         step_against_cpu(torch, hifi_cfg, None, "gan_step", batch)
         log("[ms a step on the card]")
@@ -3811,7 +3917,7 @@ def main() -> int:
         seen = dict(launches)
         melgan_cfg, _, _ = train_phase(
             torch, count_path, "melgan", MELGAN_CONF, corpus, index, steps=4, start_steps=2,
-            kernels=("fused_resstack", "fused_resstack_bwd"), use_mpd=True)
+            kernels=("fused_resstack", "fused_resstack_bwd") + grouped, use_mpd=True)
         # one generator backward a step, 4 stages each
         if launches["fused_resstack_bwd"] - seen["fused_resstack_bwd"] != 4 * 4:
             raise AssertionError("4 MelGAN steps did not launch fused_resstack_bwd 16 times")
@@ -3835,7 +3941,7 @@ def main() -> int:
         # forward and backward, and no float32 form of any kernel
         bf16 = torch.bfloat16
         f32_kernels = ("basis_decode", "fused_resstack", "fused_resstack_bwd", "fused_mrf",
-                       "fused_mrf_bwd")
+                       "fused_mrf_bwd") + grouped
         seen = dict(launches)
         train_phase(torch, count_path, "hifigan", HIFI_CONF, corpus, index, steps=6,
                     start_steps=2, kernels=("fused_mrf_bf16", "fused_mrf_bwd_bf16"),

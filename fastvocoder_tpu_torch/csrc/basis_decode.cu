@@ -18,7 +18,7 @@
 // each SM about 70 frames, so what sets its time is latency: how soon every
 // SM has its rows in flight, and how little it waits between them.  Hence:
 //   * a persistent grid, as many blocks as fit on the card at once (two an
-//     SM at C = 256, 99 KB of shared memory each; `grid_blocks`), each
+//     SM at C = 256, 99 KB of shared memory each; `fvt_smem::grid_blocks`), each
 //     taking the tiles of kRows frames blockIdx.x, + gridDim.x, ... in turn;
 //   * the basis staged once a block, and the weight rows of its tiles
 //     streamed through a ring of kStages tiles by cp.async (16-byte copies,
@@ -74,10 +74,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <map>
-#include <mutex>
-#include <tuple>
 
 #include "mma_common.cuh"
 #include "smem_attr.cuh"
@@ -231,32 +227,6 @@ basis_decode_kernel(const float* __restrict__ w, const float* __restrict__ basis
                     int n_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   decode_body(w, basis, out, F, C, hop, tiles_per_seq, n_tiles, smem);
-}
-
-// Blocks of the persistent grid of `kernel` on the current device: as many
-// as fit at once, cached per device, kernel and shape (the occupancy query
-// costs host time).
-cudaError_t grid_blocks(const void* kernel, int threads, int smem, int* blocks) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int>, int> known;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(kernel, dev, threads, smem);
-  const auto it = known.find(key);
-  if (it != known.end()) {
-    *blocks = it->second;
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = known[key] = sms * per_sm;
-  return cudaSuccess;
 }
 
 namespace wg {
@@ -440,7 +410,7 @@ int launch(const bf16* w, const bf16* basis, float* out, int B, int F, int C, in
   cudaError_t err = fvt_smem::allow_max_smem(k);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = grid_blocks(k, kThreads, smem, &blocks);
+  err = fvt_smem::grid_blocks(k, kThreads, smem, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_per_seq = (F + 1 + kFrames - 1) / kFrames;
   const long long n_tiles = static_cast<long long>(B) * tiles_per_seq;
@@ -469,7 +439,7 @@ int launch(const float* w, const float* basis, float* out, int B, int F, int C, 
   cudaError_t err = fvt_smem::allow_max_smem(k);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = grid_blocks(k, threads, static_cast<int>(smem), &blocks);
+  err = fvt_smem::grid_blocks(k, threads, static_cast<int>(smem), &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles_per_seq = (F + 1 + kRows - 1) / kRows;
   const long long n_tiles = static_cast<long long>(B) * tiles_per_seq;

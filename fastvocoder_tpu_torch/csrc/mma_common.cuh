@@ -115,6 +115,7 @@
 #include <type_traits>
 
 #include "bwd_common.cuh"
+#include "cp_async.cuh"
 #include "smem_attr.cuh"
 
 namespace fvt_mma {
@@ -484,22 +485,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem));
-}
-// the same copy, or 16 bytes of zeros where `valid` is false (gmem is not read)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-// waits until at most N of the thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N));
-}
+using fvt_async::cp_async16;
+using fvt_async::cp_async16_zfill;
+using fvt_async::cp_async_commit;
+using fvt_async::cp_async_wait;
 
 __device__ __forceinline__ float leaky(float v, float slope) {
   return v >= 0.0f ? v : v * slope;

@@ -4,7 +4,10 @@ Counterpart of `fastvocoder_tpu/ops/conv.py`.  Weights are in PyTorch's
 layout: `(Cout, Cin // groups, K)` for a convolution, `(Cin, Cout, K)` for a
 transposed one.  The convolutions themselves are `F.conv1d` and
 `F.conv_transpose1d` on a (B, C, T) view; the results are made contiguous
-again in (B, T, C), the layout the port's kernels take.
+again in (B, T, C), the layout the port's kernels take.  A CUDA float32
+conv of 4 input channels a group (the discriminators' downsample convs) goes
+to the kernels of `ops/grouped_conv.py` instead, which read and write
+(B, T, C) themselves (`grouped_conv.kernel_takes` says which).
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from fastvocoder_tpu_torch.ops.grouped_conv import grouped_conv1d, kernel_takes
 
 Pad = Union[int, Tuple[int, int]]
 
@@ -33,6 +38,9 @@ def conv1d(
     """`torch.nn.functional.conv1d` on x (B, T, Cin) -> (B, T', Cout);
     zero `padding` may be asymmetric."""
     left, right = _pair(padding)
+    if kernel_takes(x.device.type, x.dtype, x.shape[-1], weight.shape[0], groups,
+                    weight.shape[-1], stride, dilation, left, right):
+        return grouped_conv1d(x.contiguous(), weight.contiguous(), bias, stride, left)
     xt = x.transpose(1, 2)
     if left != right:
         xt = F.pad(xt, (left, right))

@@ -11,7 +11,10 @@ Counterpart of `fastvocoder_tpu/train/trainer.py` (the reference's per-step
     under the discriminator's weights from before its update; then the
     generator runs again with its *updated* weights under `no_grad` ("which
     leads better quality", bin/train.py:148), and the discriminator updates
-    on that estimate.
+    on that estimate.  The discriminator's parameters are frozen
+    (`requires_grad` off) from its forward on the estimate to the end of
+    the generator's update: that backward passes through it for the
+    generator's parameters, and so computes no weight gradient of it.
 
 Both optimisers are Adam(b1 0.9, b2 0.999, eps 1e-6) behind a global-norm
 clip at `grad_clip_thresh`, written by hand to the JAX package's rule
@@ -83,6 +86,7 @@ Every span of a step carries its number.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -286,6 +290,20 @@ class Trainer:
         opt.step()
         opt.zero_grad(set_to_none=True)
 
+    @staticmethod
+    @contextlib.contextmanager
+    def _frozen(module: nn.Module):
+        """`module`'s parameters out of autograd for the block: a backward
+        through it computes no gradient of them."""
+        params = [p for p in module.parameters() if p.requires_grad]
+        for p in params:
+            p.requires_grad_(False)
+        try:
+            yield
+        finally:
+            for p in params:
+                p.requires_grad_(True)
+
     def _update_generator(self, state: TrainState, total: torch.Tensor, step: int) -> None:
         named = [(n, p) for n, p in state.generator.named_parameters()]
         with annotate("train.gen_backward", step=step):
@@ -343,22 +361,23 @@ class Trainer:
                                             pqmf=self.pqmf, dp=self.dp)
             total = self.cfg.lambda_stft * stft_l
             metrics = {"stft_loss": stft_l}
-        with annotate("train.disc", step=n):
-            if self.remat:  # the discriminator's features of the estimate, recomputed too
-                est_p = checkpoint(disc, self._to_fullband(est), use_reentrant=False)
-            else:
-                est_p = disc(self._to_fullband(est))
-            adv_l = adversarial_loss(est_p)
-            total = total + self.hp.lambda_adv * adv_l
-            metrics["adversarial_loss"] = adv_l
-            if self.cfg.use_feature_map_loss:
-                with torch.no_grad():
-                    real_p = disc(wav)
-                fm_l = feature_map_loss(est_p, real_p)
-                total = total + self.hp.lambda_fm * fm_l
-                metrics["feature_map_loss"] = fm_l
-            metrics["total_loss"] = total
-        self._update_generator(state, total, n)
+        with self._frozen(disc):
+            with annotate("train.disc", step=n):
+                if self.remat:  # the discriminator's features of the estimate, recomputed too
+                    est_p = checkpoint(disc, self._to_fullband(est), use_reentrant=False)
+                else:
+                    est_p = disc(self._to_fullband(est))
+                adv_l = adversarial_loss(est_p)
+                total = total + self.hp.lambda_adv * adv_l
+                metrics["adversarial_loss"] = adv_l
+                if self.cfg.use_feature_map_loss:
+                    with torch.no_grad():
+                        real_p = disc(wav)
+                    fm_l = feature_map_loss(est_p, real_p)
+                    total = total + self.hp.lambda_fm * fm_l
+                    metrics["feature_map_loss"] = fm_l
+                metrics["total_loss"] = total
+            self._update_generator(state, total, n)
         del est_p, est, est_weight
 
         with annotate("train.gen_rerun", step=n), torch.no_grad():

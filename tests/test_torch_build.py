@@ -38,12 +38,12 @@ def test_port_kernels_that_share_the_mrf_header():
     # header and contract on the tensor-core core, which brings the weight
     # gradient's reduction header with it; every kernel opts into its shared
     # memory through one header
-    mrf = ["bwd_common.cuh", "mma_common.cuh", "mrf_common.cuh", "smem_attr.cuh"]
+    mrf = ["bwd_common.cuh", "cp_async.cuh", "mma_common.cuh", "mrf_common.cuh", "smem_attr.cuh"]
     assert names["fused_tail"] == mrf
     assert names["fused_mrf"] == mrf
     # the chain's forward and the decode (its bf16 form's wgmma and copies)
     # run on the tensor-core core too, without the MRF's table
-    core = ["bwd_common.cuh", "mma_common.cuh", "smem_attr.cuh"]
+    core = ["bwd_common.cuh", "cp_async.cuh", "mma_common.cuh", "smem_attr.cuh"]
     assert names["basis_decode"] == core
     assert names["fused_resstack"] == core
 
@@ -51,10 +51,13 @@ def test_port_kernels_that_share_the_mrf_header():
 def test_backward_kernels_share_one_header_and_its_hash():
     names = {src.stem: [p.name for p in _build.local_includes(src)]
              for src in _build.CSRC.glob("*.cu")}
-    assert names["fused_resstack_bwd"] == ["bwd_common.cuh", "mma_common.cuh", "smem_attr.cuh"]
-    assert names["fused_mrf_bwd"] == ["bwd_common.cuh", "mma_common.cuh", "smem_attr.cuh"]
+    core = ["bwd_common.cuh", "cp_async.cuh", "mma_common.cuh", "smem_attr.cuh"]
+    assert names["fused_resstack_bwd"] == core
+    assert names["fused_mrf_bwd"] == core
+    # the discriminators' grouped conv takes the copies alone, not the core
+    assert names["grouped_conv"] == ["cp_async.cuh", "smem_attr.cuh"]
     assert sorted(names) == ["basis_decode", "fused_mrf", "fused_mrf_bwd", "fused_resstack",
-                             "fused_resstack_bwd", "fused_tail"]
+                             "fused_resstack_bwd", "fused_tail", "grouped_conv"]
 
 
 def _copied_csrc(tmp_path):
@@ -83,7 +86,7 @@ def test_a_backward_library_is_rebuilt_when_the_shared_header_changes(tmp_path, 
 def test_both_mrf_libraries_are_rebuilt_when_the_tensor_core_header_changes(tmp_path):
     csrc = _copied_csrc(tmp_path)
     names = ("fused_mrf", "fused_mrf_bwd", "fused_tail", "fused_resstack", "fused_resstack_bwd",
-             "basis_decode")
+             "basis_decode", "grouped_conv")
     before = {n: _build._target(csrc / f"{n}.cu") for n in names}
     with open(csrc / "mma_common.cuh", "a") as f:
         f.write("// edited\n")
@@ -95,6 +98,8 @@ def test_both_mrf_libraries_are_rebuilt_when_the_tensor_core_header_changes(tmp_
     assert after["fused_resstack"] != before["fused_resstack"]
     assert after["fused_resstack_bwd"] != before["fused_resstack_bwd"]
     assert after["basis_decode"] != before["basis_decode"]
+    # the discriminators' grouped conv runs on the CUDA cores, without the core
+    assert after["grouped_conv"] == before["grouped_conv"]
 
 
 def test_the_tail_library_alone_is_rebuilt_when_the_mrf_header_changes(tmp_path):
@@ -118,7 +123,7 @@ def test_every_library_is_rebuilt_when_the_shared_memory_header_changes(tmp_path
     with open(csrc / "smem_attr.cuh", "a") as f:
         f.write("// edited\n")
     assert all(_build._target(src) != before[src.stem] for src in sources)
-    assert len(sources) == 6
+    assert len(sources) == 7
 
 
 def test_refuse_autograd_speaks_of_an_inference_only_kernel():

@@ -69,6 +69,15 @@ may cancel in the two runs, and the bounds stand in).
 Their autograd paths, the differentiable bf16 decode and a bf16 training
 step close the section.
 
+Kernel 7, the discriminators' grouped strided conv (`ops/grouped_conv.py`,
+its section before the last), is held against its plain version run in
+float64 at the 18 layer shapes of the GAN cell: the forward and the input
+gradient are float32 sums of 4 K = 164 and about 176 products an element,
+within 1e-5 of their peak; the weight and bias gradients are float32 sums
+of up to B T_out = 268,800 rows, in slices of about a thousand rows a
+thread whose partials are added in a fixed order, within 1e-4 of their
+peak.  No leaky-relu sits inside it, so nothing flips.
+
 Last, `--fused_train 0` (`make_trainer(fused_train=False)`: the generator's
 stages as the modules' cuDNN convs) against the kernels' path, one
 pre-adversarial step from the same weights at each family's release width:
@@ -101,6 +110,7 @@ from fastvocoder_tpu_torch.ops.fused_resstack import (
     fused_residual_stacks_vjp_plain,
 )
 from fastvocoder_tpu_torch.ops.fused_tail import fused_hifigan_tail_cuda, fused_hifigan_tail_plain
+from fastvocoder_tpu_torch.ops import grouped_conv as gc
 
 pytestmark = pytest.mark.cuda
 
@@ -1531,6 +1541,154 @@ def test_bf16_training_step_runs_the_bf16_forms_and_keeps_float32_state(cuda, fa
         assert all(p.dtype == torch.float32 for p in module.parameters())
         assert all(v.dtype == torch.float32 for st in opt.state.values() for v in st.values()
                    if isinstance(v, torch.Tensor) and v.dim() > 0)
+
+
+# ---- kernel 7: the discriminators' grouped strided conv ----
+
+GROUPED_FWD_TOL, GROUPED_WGRAD_TOL = 1e-5, 1e-4  # of each result's peak (module docstring)
+GROUPED_NAMES = (gc.NAME_FWD, gc.NAME_DGRAD, gc.NAME_WGRAD)
+
+
+@pytest.fixture(scope="module")
+def disc_shapes():
+    from fastvocoder_tpu_torch.bin.kernel_times import disc_layers
+
+    return disc_layers(torch)
+
+
+def _grouped_operands(x_shape, w_shape, stride, padding, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    K = w_shape[2]
+    T_out = gc.out_length(x_shape[1], K, stride, padding)
+    x = torch.randn(x_shape, generator=g)
+    w = torch.randn(w_shape, generator=g) / np.sqrt(4 * K)
+    b = 0.1 * torch.randn(w_shape[0], generator=g)
+    dy = torch.randn(x_shape[0], T_out, w_shape[0], generator=g)
+    return [t.to(device) for t in (x, w, b, dy)]
+
+
+def _check_grouped(x, w, b, dy, stride, padding):
+    """The three kernels against the plain versions in float64; each kernel
+    launched once; the weight gradient the same bits twice."""
+    K = w.shape[2]
+    before = dict(_build.launch_counts)
+    y = gc.grouped_conv1d_cuda(x, w, b, stride, padding)
+    dx = gc.grouped_conv1d_dx_cuda(dy, w, x.shape, stride, padding)
+    dw, db = gc.grouped_conv1d_dw_cuda(x, dy, K, stride, padding)
+    dw2, db2 = gc.grouped_conv1d_dw_cuda(x, dy, K, stride, padding)
+    torch.cuda.synchronize()
+    assert [_build.launch_counts[n] - before.get(n, 0) for n in GROUPED_NAMES] == [1, 1, 2]
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    x64, w64, b64, dy64 = (t.double() for t in (x, w, b, dy))
+    want = (gc.grouped_conv1d_plain(x64, w64, b64, stride, padding),
+            gc.grouped_conv1d_dx_plain(dy64, w64, x.shape, stride, padding),
+            *gc.grouped_conv1d_dw_plain(x64, dy64, K, stride, padding))
+    errs = []
+    for got, ref, tol in zip((y, dx, dw, db), want, (GROUPED_FWD_TOL, GROUPED_FWD_TOL,
+                                                      GROUPED_WGRAD_TOL, GROUPED_WGRAD_TOL)):
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        errs.append(((got.double() - ref).abs().max() / ref.abs().max()).item())
+        assert errs[-1] <= tol, errs
+    print(f"grouped conv {tuple(x.shape)} x {tuple(w.shape)}: y, dx, dw, db off by "
+          + ", ".join(f"{e:.2e}" for e in errs) + " of their peaks")
+
+
+@pytest.mark.parametrize("layer", range(18))
+def test_grouped_conv_kernels_match_plain_at_the_gan_cells_layers(cuda, disc_shapes, layer):
+    name, x_shape, w_shape, stride, padding = disc_shapes[layer]
+    _check_grouped(*_grouped_operands(x_shape, w_shape, stride, padding, cuda, layer),
+                   stride, padding)
+
+
+# output rows at the edges of the tiles: the forward's 128 (16 outputs a
+# group) or 256 rows, the input gradient's 128 or 256 strided input rows, the
+# weight gradient's 144; groups beyond a block's four; each output width
+@pytest.mark.parametrize("T_out", [1, 2, 127, 128, 129, 143, 144, 145, 257])
+@pytest.mark.parametrize("G,N,K", [(4, 16, 41), (5, 4, 41), (3, 4, 25), (16, 16, 25)])
+def test_grouped_conv_kernels_match_plain_at_tile_edges(cuda, T_out, G, N, K):
+    padding = (K - 1) // 2
+    T = 4 * T_out - (T_out % 3)  # lengths of every remainder mod the stride
+    assert gc.out_length(T, K, 4, padding) == T_out
+    _check_grouped(*_grouped_operands((3, T, 4 * G), (N * G, 4, K), 4, padding, cuda, T_out),
+                   4, padding)
+
+
+def test_grouped_conv_wrappers_refuse_other_types(cuda):
+    x, w, b, dy = _grouped_operands((2, 48, 16), (64, 4, 41), 4, 20, cuda, 0)
+    with pytest.raises(ValueError):
+        gc.grouped_conv1d_cuda(x.bfloat16(), w, b, 4, 20)
+    with pytest.raises(ValueError):
+        gc.grouped_conv1d(x.double(), w.double(), b.double(), 4, 20)
+    with pytest.raises(ValueError, match="do not take"):
+        gc.grouped_conv1d_cuda(x, w.repeat(2, 1, 1), b.repeat(2), 4, 20)  # 32 outputs a group
+    with pytest.raises(ValueError, match="do not take"):
+        gc.grouped_conv1d_cuda(x, w[:32], b[:32], 4, 20)  # 8 outputs a group
+    # admitted, but a group's weight-gradient threads outgrow a warp at K = 81
+    x, _, _, dy = _grouped_operands((2, 48, 16), (64, 4, 81), 4, 40, cuda, 0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        gc.grouped_conv1d_dw_cuda(x, dy, 81, 4, 40)
+
+
+def _hifigan_large_gan_step(device, remat, B=2):
+    """One `gan_step` of HiFiGAN large with the default discriminators on
+    B crops of 140 frames (the GAN cell's crop) from seed 0: -> the launch
+    counts of the grouped-conv kernels it made."""
+    from fastvocoder_tpu_torch import hparams as thp
+    from fastvocoder_tpu_torch.train.trainer import make_trainer
+
+    root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "conf")
+    cfg = thp.load_model_config("hifigan", os.path.join(root, "hifigan", "large.yaml"))
+    tr = make_trainer(cfg, hp=thp.HP, disc_cfg=thp.DISC, device=device, remat=remat)
+    state = tr.init_state(0)
+    rng = np.random.default_rng(5)
+    frames = thp.HP.fixed_length
+    mel = torch.from_numpy(rng.standard_normal((B, frames, 80)).astype(np.float32)).to(device)
+    wav = torch.from_numpy(0.1 * rng.standard_normal((B, frames * 240)).astype(np.float32))
+    before = dict(_build.launch_counts)
+    _, metrics = tr.gan_step(state, mel, wav.to(device))
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    return [_build.launch_counts[n] - before.get(n, 0) for n in GROUPED_NAMES]
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_gan_step_runs_every_grouped_layer_through_the_kernels(cuda, remat):
+    """A HiFiGAN large `gan_step`: the 18 grouped layers run forward 4 times
+    (the estimate and, without a graph, the real waveform for the
+    generator's losses; the real waveform and the estimate again for the
+    discriminator's), back to their input 3 times (the estimate in the
+    generator's backward, both in the discriminator's) and to their weights
+    twice (the discriminator's backward only); `--remat` adds the estimate's
+    forward once more, recomputed in the generator's backward."""
+    assert _hifigan_large_gan_step(cuda, remat) == [(5 if remat else 4) * 18, 3 * 18, 2 * 18]
+
+
+def test_discriminator_gradients_are_the_same_bits_twice(cuda):
+    """The discriminator's update (`train.disc_forward_loss` and
+    `train.disc_backward`) from the same weights on the same waveforms
+    twice: the same bits in every gradient, cuDNN's other convs held to its
+    deterministic algorithms for the test (the kernels sum in a fixed order
+    whatever cuDNN does)."""
+    from fastvocoder_tpu_torch.losses.gan import discriminator_loss
+    from fastvocoder_tpu_torch.models.factory import build_discriminator
+
+    torch.manual_seed(0)
+    disc = build_discriminator().to(cuda)
+    rng = np.random.default_rng(6)
+    real, fake = (torch.from_numpy(0.1 * rng.standard_normal((4, 33600)).astype(np.float32))
+                  .to(cuda) for _ in range(2))
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads = []
+        for _ in range(2):
+            before = _build.launch_counts[gc.NAME_WGRAD]
+            real_l, fake_l = discriminator_loss(disc(real), disc(fake))
+            grads.append(torch.autograd.grad(real_l + fake_l, list(disc.parameters())))
+            assert _build.launch_counts[gc.NAME_WGRAD] - before == 2 * 18
+    finally:
+        torch.backends.cudnn.deterministic = was
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 # ---- --fused_train 0 against 1: the modules' library convs against the kernels ----
