@@ -13,7 +13,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from fvbench import reference_of, trace, traffic, weights
+from fvbench import disc_reference_of, reference_of, trace, traffic, weights
 
 
 def sync(device) -> None:
@@ -64,8 +64,14 @@ class Context:
         return self.cell.config["hop_size"]
 
     @property
-    def family(self) -> str:
-        return self.cell.config["reference"]
+    def family(self):
+        """The generator's reference module."""
+        return reference_of(self.cell)
+
+    @property
+    def disc_family(self):
+        """The discriminator's reference module."""
+        return disc_reference_of(self.cell)
 
     def stderr(self, msg: str) -> None:
         print(msg, file=sys.stderr, flush=True)

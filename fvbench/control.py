@@ -42,8 +42,7 @@ def tf32_forward(cell, seed: int, device):
     from fvbench import reference_of, weights
 
     ref = reference_of(cell)
-    params = weights.make_params(cell.config["reference"], cell.config, seed, device,
-                                 weight_norm=False)
+    params = weights.make_params(ref, cell.config, seed, device, weight_norm=False)
 
     def forward(mel):
         with tf32():
@@ -81,12 +80,14 @@ def train_control(cell, seed: int, device) -> dict:
 
 
 def _trained_names(cell, net: str):
-    from fvbench import weights
+    from fvbench import disc_reference_of, reference_of, weights
     from fvbench.reference.train import FROZEN
 
-    kind = cell.config["reference"] if net == "generator" else "disc"
-    cfg = cell.config if net == "generator" else cell.config["discriminator"]
-    P = weights.meta_params(kind, cfg, weight_norm=True)
+    if net == "generator":
+        P = weights.meta_params(reference_of(cell), cell.config, weight_norm=True)
+    else:
+        P = weights.meta_params(disc_reference_of(cell), cell.config["discriminator"],
+                                weight_norm=True)
     return {k: None for k in P if not k.startswith(FROZEN)}
 
 

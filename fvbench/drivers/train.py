@@ -28,7 +28,7 @@ import torch
 
 from fastvocoder_tpu_torch.data.device_cache import DeviceCorpus
 from fastvocoder_tpu_torch.hparams import HP
-from fvbench import common, program, reference_of, traffic, weights
+from fvbench import common, program, traffic, weights
 from fvbench.reference.train import ReferenceTrainer
 
 BETA1 = 0.9
@@ -129,7 +129,7 @@ def _losses(metrics: dict, gan: bool):
 def run(ctx):
     mix, cfg = ctx.mix, ctx.cell.config
     gan = mix["step"] == "gan_step"
-    family = ctx.family
+    family, disc_family = ctx.family, ctx.disc_family
     items = corpus(ctx)
     dc = DeviceCorpus(items, hp=HP.replace(fixed_length=mix["frames"]), L=cfg.get("L"),
                       device=ctx.device, log=ctx.stderr)
@@ -138,7 +138,7 @@ def run(ctx):
     ctx.phase("corpus")
     trainer, state = program.trainer_and_state(
         ctx.cell, weights.make_params(family, cfg, ctx.seed, ctx.device),
-        weights.make_params("disc", cfg["discriminator"], ctx.seed, ctx.device), ctx.device)
+        weights.make_params(disc_family, cfg["discriminator"], ctx.seed, ctx.device), ctx.device)
     nets = {"generator": (state.generator, state.gen_opt)}
     if gan:
         nets["discriminator"] = (state.discriminator, state.disc_opt)
@@ -189,7 +189,7 @@ def run(ctx):
 
     start = {"generator": weights.make_params(family, cfg, ctx.seed, ctx.device)}
     if gan:
-        start["discriminator"] = weights.make_params("disc", cfg["discriminator"], ctx.seed,
+        start["discriminator"] = weights.make_params(disc_family, cfg["discriminator"], ctx.seed,
                                                      ctx.device)
     prog = {"losses": [[float(v) for v in ls] for ls in losses],
             "grads": {net: {k: float(v) for k, v in g.items()} for net, g in first.items()},
@@ -205,13 +205,13 @@ def run(ctx):
 def reference_run(ctx, items, checked, gan: bool, first) -> dict:
     """The reference's readings over the checked steps."""
     cfg, mix = ctx.cell.config, ctx.mix
-    family = ctx.family
+    family, disc_family = ctx.family, ctx.disc_family
     ref = ReferenceTrainer(
-        family=reference_of(ctx.cell), arch=cfg, disc_cfg=cfg["discriminator"],
+        family=family, disc_family=disc_family, arch=cfg, disc_cfg=cfg["discriminator"],
         lambda_stft=cfg["lamda_stft"], use_feature_map_loss=cfg["use_feature_map_loss"],
         gen=weights.make_params(family, cfg, ctx.seed, ctx.device, grad=True),
-        disc=(weights.make_params("disc", cfg["discriminator"], ctx.seed, ctx.device, grad=True)
-              if gan else {}))
+        disc=(weights.make_params(disc_family, cfg["discriminator"], ctx.seed, ctx.device,
+                                  grad=True) if gan else {}))
     start = {"generator": {k: v.detach().clone() for k, v in ref.gen.items()},
              "discriminator": {k: v.detach().clone() for k, v in ref.disc.items()}}
     losses = []

@@ -12,7 +12,7 @@ import json
 import os
 from typing import Optional
 
-from fvbench import peaks, reference_of
+from fvbench import disc_reference_of, peaks, reference_of
 from fvbench.reference import flops
 from fvbench.reference.train import ReferenceTrainer
 from fvbench.weights import meta_params
@@ -61,14 +61,14 @@ class Run:
     def step_flops(self) -> float:
         mix, cfg = self.cell.mix, self.cell.config
         return self._cached("step", lambda: flops.train_step_flops(
-            ReferenceTrainer, reference_of(self.cell), cfg, cfg["discriminator"], mix["step"],
-            mix["batch"], mix["frames"], cfg["hop_size"], cfg["lamda_stft"],
-            cfg["use_feature_map_loss"],
+            ReferenceTrainer, reference_of(self.cell), disc_reference_of(self.cell), cfg,
+            cfg["discriminator"], mix["step"], mix["batch"], mix["frames"], cfg["hop_size"],
+            cfg["lamda_stft"], cfg["use_feature_map_loss"],
             cfg["out_channels"] if mix.get("weight_target") else 0))
 
     @functools.cached_property
     def n_weights(self) -> int:
-        P = meta_params(self.cell.config["reference"], self.cell.config, weight_norm=False)
+        P = meta_params(reference_of(self.cell), self.cell.config, weight_norm=False)
         return sum(t.numel() for t in P.values())
 
     def forward_bytes(self, rows: int, frames: int) -> float:

@@ -41,6 +41,7 @@ def param_shapes(arch: dict) -> Dict[str, Tuple[int, ...]]:
 
 
 TRANSPOSED = re.compile(r"up_\d+$")
+STREAM = 2  # the seed stream of this network's draw (`fvbench/weights.py`)
 
 
 def trunk(P: Params, mel: torch.Tensor, arch: dict) -> torch.Tensor:

@@ -10,6 +10,12 @@ feature, the last is the score.  The MSD runs three such stacks (taps 10)
 on the waveform, average-pooled (4, 2, 1, not counting the pad) between
 scales; the MFD runs one (taps 6) per resolution on the magnitude STFT,
 its bins as channels.
+
+The discriminator's reference of a configuration that names none
+(`disc_reference`).  Another one offers what this module offers:
+`param_shapes(disc_cfg)`, `forward(P, wav, disc_cfg)` returning per
+sub-discriminator a tuple of its features with the score last,
+`TRANSPOSED` and `STREAM`.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ def param_shapes(disc: dict) -> Dict[str, Tuple[int, ...]]:
 
 
 TRANSPOSED = None
+STREAM = 3  # the seed stream of this network's draw (`fvbench/weights.py`)
 
 
 def stack(P: Params, prefix: str, x: torch.Tensor, downsample_scales: Sequence[int],

@@ -25,7 +25,7 @@ def _count(fn) -> int:
 
 def forward_flops(family, arch: dict, rows: int, frames: int) -> int:
     """FLOPs of the served forward over (rows, frames) mels."""
-    P = meta_params(family.__name__.rsplit(".", 1)[-1], arch, weight_norm=False)
+    P = meta_params(family, arch, weight_norm=False)
     mel = torch.empty(rows, frames, 80, device="meta")
     return _count(lambda: family.inference(P, mel, arch))
 
@@ -38,17 +38,18 @@ def per_frame(family, arch: dict):
     return a, f1 - 64 * a
 
 
-def train_step_flops(trainer_cls, family, arch: dict, disc_cfg: dict, step: str, rows: int,
-                     frames: int, hop: int, lambda_stft: float, use_fm: bool,
+def train_step_flops(trainer_cls, family, disc_family, arch: dict, disc_cfg: dict, step: str,
+                     rows: int, frames: int, hop: int, lambda_stft: float, use_fm: bool,
                      weight_channels: int = 0) -> int:
     """FLOPs of one reference training step (`step`: "gan_step" or
-    "pre_adv_step") over `rows` crops of `frames` frames, forward and
-    backward, on the meta device."""
-    name = family.__name__.rsplit(".", 1)[-1]
-    gen = meta_params(name, arch, weight_norm=True, grad=True)
-    disc = meta_params("disc", disc_cfg, weight_norm=True, grad=True) if step == "gan_step" else {}
-    tr = trainer_cls(family=family, arch=arch, disc_cfg=disc_cfg, lambda_stft=lambda_stft,
-                     use_feature_map_loss=use_fm, gen=gen, disc=disc)
+    "pre_adv_step") of generator `family` against discriminator
+    `disc_family` (reference modules) over `rows` crops of `frames` frames,
+    forward and backward, on the meta device."""
+    gen = meta_params(family, arch, weight_norm=True, grad=True)
+    disc = (meta_params(disc_family, disc_cfg, weight_norm=True, grad=True)
+            if step == "gan_step" else {})
+    tr = trainer_cls(family=family, disc_family=disc_family, arch=arch, disc_cfg=disc_cfg,
+                     lambda_stft=lambda_stft, use_feature_map_loss=use_fm, gen=gen, disc=disc)
     mel = torch.empty(rows, frames, 80, device="meta")
     wav = torch.empty(rows, frames * hop, device="meta")
     if step == "gan_step":

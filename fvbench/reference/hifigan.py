@@ -41,6 +41,7 @@ def param_shapes(arch: dict, in_channels: int = 80) -> Dict[str, Tuple[int, ...]
 
 
 TRANSPOSED = re.compile(r"up_\d+$")
+STREAM = 1  # the seed stream of this network's draw (`fvbench/weights.py`)
 
 
 def forward(P: Params, mel: torch.Tensor, arch: dict) -> torch.Tensor:

@@ -26,7 +26,7 @@ def effective_weight(P: Params, name: str, gain: str = "g") -> torch.Tensor:
     if g is None:
         return w
     norm = torch.sqrt(torch.sum(w * w, dim=tuple(range(1, w.dim()))))
-    return w * (g / norm)[:, None, None]
+    return w * (g / norm).view(-1, *[1] * (w.dim() - 1))
 
 
 def conv(x: torch.Tensor, P: Params, name: str, stride: int = 1, padding: int = 0,

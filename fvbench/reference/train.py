@@ -24,7 +24,6 @@ from typing import Dict, List, Optional
 
 import torch
 
-from fvbench.reference.discriminators import forward as disc_forward
 from fvbench.reference.nn import Params, stft_mag
 
 RESOLUTIONS = ((2048, 240, 1200), (1024, 120, 600), (512, 50, 240))
@@ -79,10 +78,12 @@ def clipped(grads: Dict[str, torch.Tensor], counted: List[torch.Tensor]) -> Dict
 @dataclass
 class ReferenceTrainer:
     """The reference's training state and its two steps.  `gen` and `disc`
-    hold leaf tensors; `first_grads` keeps each network's clipped gradient
-    of the first update, as its optimiser got it."""
+    hold leaf tensors; `disc_family.forward` gives, per sub-discriminator,
+    its features with the score last; `first_grads` keeps each network's
+    clipped gradient of the first update, as its optimiser got it."""
 
     family: object  # the generator's reference module
+    disc_family: object  # the discriminator's: `forward(P, wav, disc_cfg)`
     arch: dict
     disc_cfg: dict
     lambda_stft: float
@@ -122,11 +123,11 @@ class ReferenceTrainer:
     def gan_step(self, mel, wav) -> Dict[str, float]:
         est, _ = self.family.train_forward(self.gen, mel, self.arch)
         total = self.lambda_stft * mr_stft_loss(est, wav)
-        est_p = disc_forward(self.disc, est, self.disc_cfg)
+        est_p = self.disc_family.forward(self.disc, est, self.disc_cfg)
         total = total + sum(torch.mean((f[-1] - 1.0) ** 2) for f in est_p) / len(est_p)
         if self.use_feature_map_loss:
             with torch.no_grad():
-                real_p = disc_forward(self.disc, wav, self.disc_cfg)
+                real_p = self.disc_family.forward(self.disc, wav, self.disc_cfg)
             fm = sum(torch.mean(torch.abs(e - r)) for ef, rf in zip(est_p, real_p)
                      for e, r in zip(ef[:-1], rf[:-1]))
             total = total + fm / (len(est_p) * (len(est_p[0]) - 1))
@@ -134,8 +135,8 @@ class ReferenceTrainer:
         del est_p, est
         with torch.no_grad():
             fake, _ = self.family.train_forward(self.gen, mel, self.arch)
-        real_p = disc_forward(self.disc, wav, self.disc_cfg)
-        fake_p = disc_forward(self.disc, fake, self.disc_cfg)
+        real_p = self.disc_family.forward(self.disc, wav, self.disc_cfg)
+        fake_p = self.disc_family.forward(self.disc, fake, self.disc_cfg)
         d_loss = (sum(torch.mean((f[-1] - 1.0) ** 2) for f in real_p)
                   + sum(torch.mean(f[-1] ** 2) for f in fake_p)) / len(real_p)
         self._update("discriminator", self.disc, self.disc_opt, d_loss)

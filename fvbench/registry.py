@@ -9,9 +9,19 @@ benchmark's folder, found by that name:
   limits/<cell>.json       the limits of the numbers that decide `correct`
   metrics/<metric>.py      a per-layer metric's reader: `read(run)`
 
-So a later change adds a cell, a configuration, a mix or a metric by adding
-files and entries, and edits none.  `roots` lists the folders searched, the
-first that holds a file winning; the tests add a temporary one.
+A configuration names its plain reference networks, modules under
+`reference/`: its generator's by `reference`, its discriminator's by
+`disc_reference` (`discriminators`, the MSD and MFD, where it names none).
+Each reference module declares `param_shapes(cfg)`, `TRANSPOSED` and
+`STREAM`, the seed stream of its weights' draw (`weights.py`), which the
+generator's and the discriminator's of one configuration may not share; a
+generator's adds `inference` and `train_forward`, a discriminator's
+`forward(P, wav, disc_cfg)`.
+
+So a later change adds a cell, a configuration, a mix, a metric or a
+reference network by adding files and entries, and edits none.  `roots`
+lists the folders searched, the first that holds a file winning; the tests
+add a temporary one.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from fvbench import program, weights
-from fvbench.reference import basis_melgan, flops, hifigan
+from fvbench.reference import basis_melgan, discriminators, flops, hifigan
 from fvbench.reference.train import ReferenceTrainer
 from fvbench.registry import HERE, Cell
 from fvbench.tests.tiny import TINY_DISC
@@ -31,7 +31,7 @@ CASES = [("hifigan_large", hifigan, {"upsample_initial_channel": 32}),
 @pytest.mark.parametrize("name,ref,changes", CASES, ids=[c[0] for c in CASES])
 def test_served_forward_matches(tmp_path, name, ref, changes):
     cell = _cell(tmp_path, name, **changes)
-    P = weights.make_params(cell.config["reference"], cell.config, 11, "cpu", weight_norm=False)
+    P = weights.make_params(ref, cell.config, 11, "cpu", weight_norm=False)
     gen = program.serving_generator(cell, P, "cpu")
     mel = torch.rand(3, 21, 80, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
@@ -45,13 +45,13 @@ def test_training_steps_match(tmp_path, name, ref, changes):
     cell = _cell(tmp_path, name, **changes)
     cfg, kind = cell.config, cell.config["reference"]
     trainer, state = program.trainer_and_state(
-        cell, weights.make_params(kind, cfg, 4, "cpu"),
-        weights.make_params("disc", TINY_DISC, 4, "cpu"), "cpu")
+        cell, weights.make_params(ref, cfg, 4, "cpu"),
+        weights.make_params(discriminators, TINY_DISC, 4, "cpu"), "cpu")
     reference = ReferenceTrainer(
-        family=ref, arch=cfg, disc_cfg=TINY_DISC, lambda_stft=cfg["lamda_stft"],
-        use_feature_map_loss=cfg["use_feature_map_loss"],
-        gen=weights.make_params(kind, cfg, 4, "cpu", grad=True),
-        disc=weights.make_params("disc", TINY_DISC, 4, "cpu", grad=True))
+        family=ref, disc_family=discriminators, arch=cfg, disc_cfg=TINY_DISC,
+        lambda_stft=cfg["lamda_stft"], use_feature_map_loss=cfg["use_feature_map_loss"],
+        gen=weights.make_params(ref, cfg, 4, "cpu", grad=True),
+        disc=weights.make_params(discriminators, TINY_DISC, 4, "cpu", grad=True))
     g = torch.Generator().manual_seed(2)
     for _ in range(2):
         mel = torch.rand(2, 20, 80, generator=g)
@@ -68,7 +68,7 @@ def test_training_steps_match(tmp_path, name, ref, changes):
     # Adam moves a weight whose gradient is rounding's size by a whole step
     # of either sign, so the parameters are held by their change's norm a
     # leaf, as the benchmark's check holds them
-    start = weights.make_params(kind, cfg, 4, "cpu")
+    start = weights.make_params(ref, cfg, 4, "cpu")
     for n, p in state.generator.named_parameters():
         if n.startswith("basis_signal."):
             continue

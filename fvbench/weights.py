@@ -3,47 +3,46 @@
 Both sides get the same values: the program's modules by `load_state_dict`,
 the reference as a dict.  Names are the published checkpoints' (the
 program's `state_dict` keys and the reference's `Params` keys).  Every
-value comes from one `torch.rand` draw of a `torch.Generator` on the
-device, cut into leaves: a conv's weight and bias U(-b, b) with b =
-1 / sqrt(fan_in) (torch's conv init; fan_in = shape[1] * shape[2], for a
-transposed conv too, as torch counts it), Basis-MelGAN's basis U(-b, b)
-with b = 1 / sqrt(C).  The training form adds each conv's gain at the norm
-of its weight over every axis but the first (`g`, a transposed conv's
-`gt`), so that the effective weight starts at the weight, as the program's
-own init does.
+value of a network comes from one `torch.rand` draw of a `torch.Generator`
+on the device, seeded seed * 4 + `STREAM`, the stream that the network's
+reference module declares (the generator's and the discriminator's of a
+configuration differ), cut into leaves: a conv's weight and bias
+U(-b, b) with b = 1 / sqrt(fan_in) (torch's conv init; fan_in = the
+product of shape[1:], for a transposed conv too, as torch counts it),
+Basis-MelGAN's basis U(-b, b) with b = 1 / sqrt(C).  The training form
+adds each conv's gain at the norm of its weight over every axis but the
+first (`g`, a transposed conv's `gt`), so that the effective weight starts
+at the weight, as the program's own init does.
 """
 
 from __future__ import annotations
 
-import importlib
-from typing import Dict, Optional, Tuple
+import math
+from typing import Optional
 
 import torch
 
-Params = Dict[str, torch.Tensor]
-
-# seed offsets of the networks' draws
-STREAMS = {"hifigan": 1, "basis_melgan": 2, "disc": 3}
+from fvbench.reference.nn import Params
 
 
-def reference_module(name: str):
-    return importlib.import_module(f"fvbench.reference.{name}")
+def stream_of(module) -> int:
+    """The seed offset of a reference module's draw, as it declares it."""
+    stream = getattr(module, "STREAM", None)
+    if not isinstance(stream, int):
+        raise AttributeError(f"reference module {module.__name__} declares no integer STREAM: "
+                             f"each reference network's draw needs a seed stream of its own")
+    return stream
 
 
-def _shapes(kind: str, cfg: dict) -> Tuple[Dict[str, Tuple[int, ...]], object]:
-    mod = reference_module("discriminators" if kind == "disc" else kind)
-    return mod.param_shapes(cfg), mod.TRANSPOSED
-
-
-def _layout(kind: str, cfg: dict, weight_norm: bool):
+def _layout(module, cfg: dict, weight_norm: bool):
     """[(name, shape, fan_in or None for a gain)] in draw order."""
-    shapes, transposed = _shapes(kind, cfg)
+    transposed = module.TRANSPOSED
     out = []
-    for name, shape in shapes.items():
+    for name, shape in module.param_shapes(cfg).items():
         if name.endswith(".basis"):
             out.append((name, shape, shape[1]))
             continue
-        fan_in = shape[1] * shape[2]
+        fan_in = math.prod(shape[1:])
         is_t = transposed is not None and transposed.search(name) is not None
         out.append((name + ".weight", shape, fan_in))
         out.append((name + ".bias", (shape[1] if is_t else shape[0],), fan_in))
@@ -52,18 +51,20 @@ def _layout(kind: str, cfg: dict, weight_norm: bool):
     return out
 
 
-def make_params(kind: str, cfg: dict, seed: Optional[int], device="cuda",
+def make_params(module, cfg: dict, seed: Optional[int], device="cuda",
                 weight_norm: bool = True, grad: bool = False) -> Params:
-    """The leaves of network `kind` ("hifigan", "basis_melgan" or "disc")
-    of configuration `cfg`, from `seed` (None: uninitialised, as on the
-    meta device), as float32 tensors on `device`."""
-    layout = _layout(kind, cfg, weight_norm)
+    """The leaves of the network that reference `module` lays out
+    (`param_shapes(cfg)`, `TRANSPOSED`, `STREAM`) for configuration `cfg`,
+    from `seed` (None: uninitialised, as on the meta device), as float32
+    tensors on `device`."""
+    stream = stream_of(module)
+    layout = _layout(module, cfg, weight_norm)
     drawn = [(n, s, f) for n, s, f in layout if f is not None]
     total = sum(torch.Size(s).numel() for _, s, _ in drawn)
     if seed is None:
         flat = torch.empty(total, device=device)
     else:
-        gen = torch.Generator(device=device).manual_seed(int(seed) * 4 + STREAMS[kind])
+        gen = torch.Generator(device=device).manual_seed(int(seed) * 4 + stream)
         flat = torch.rand(total, generator=gen, device=device)
     P: Params = {}
     at = 0
@@ -75,7 +76,7 @@ def make_params(kind: str, cfg: dict, seed: Optional[int], device="cuda",
         for name, shape, fan_in in layout:
             if fan_in is None:
                 w = P[name.rsplit(".", 1)[0] + ".weight"]
-                P[name] = torch.sqrt(torch.sum(w * w, dim=(1, 2)))
+                P[name] = torch.sqrt(torch.sum(w * w, dim=tuple(range(1, w.dim()))))
     P = {n: P[n].clone() for n, _, _ in layout}  # own storage a leaf, in layout order
     if grad:
         for t in P.values():
@@ -83,6 +84,6 @@ def make_params(kind: str, cfg: dict, seed: Optional[int], device="cuda",
     return P
 
 
-def meta_params(kind: str, cfg: dict, weight_norm: bool, grad: bool = False) -> Params:
+def meta_params(module, cfg: dict, weight_norm: bool, grad: bool = False) -> Params:
     """The leaves' names and shapes, on the meta device."""
-    return make_params(kind, cfg, None, device="meta", weight_norm=weight_norm, grad=grad)
+    return make_params(module, cfg, None, device="meta", weight_norm=weight_norm, grad=grad)
